@@ -1,0 +1,167 @@
+"""Synthetic MMEarth data written straight to the mmpack layout.
+
+The same arrays, drawn in the same numpy order, as
+``mmearth_tpu/data/synthetic.py::generate`` (which writes an HDF5 file), put
+through the transforms of ``MMEarthDataset.get_rows`` (band selection, label
+remaps, no-data -> NaN, per-band z-norm with the per-tile l2a/l1c sentinel2
+statistics, categorical -> int with -1 for NaN, NHWC) and written as
+``mmearth_tpu/data/pack.py`` packs a split::
+
+    <out>/<split>/meta.json        {"count": N, "fields": {name: {shape, dtype}}}
+    <out>/<split>/<modality>.bin   .npy-format [N, *shape] array (labels int32)
+    <out>/<split>/ids.json         tile names
+
+So ``generate_packed`` gives, with no HDF5 in between, exactly what
+``generate`` + ``pack_mmearth`` give.
+
+    python -m mmearth_tpu_torch.data.synthetic --out <dir> --n 1170 --tile 64
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+from typing import Mapping, Sequence
+
+import numpy as np
+
+from ..configs import modalities as M
+
+_STATS = {
+    "sentinel2_l2a": (2000, 800, 13),
+    "sentinel2_l1c": (2100, 850, 13),
+    "sentinel1": (-10, 4, 8),
+    "aster": (500, 300, 2),
+    "canopy_height_eth": (10, 10, 2),
+    "era5": (280, 15, 12),
+    "lat": (0, 0.7, 2),
+    "lon": (0, 0.7, 2),
+    "month": (0, 0.7, 2),
+}
+_ESA_VALS = np.array([0, 10, 20, 30, 40, 50, 60, 70, 80, 90, 95, 100], dtype=np.uint8)
+
+
+def raw_arrays(n: int, tile: int, seed: int) -> dict[str, np.ndarray]:
+    """The raw (pre-transform, CHW) arrays, in the generator's draw order."""
+    rng = np.random.default_rng(seed)
+    raw = {
+        "sentinel2": rng.normal(2000, 800, size=(n, 13, tile, tile)).astype(np.uint16),
+        "sentinel1": rng.normal(-10, 4, size=(n, 8, tile, tile)).astype(np.float32),
+        "aster": rng.normal(500, 300, size=(n, 2, tile, tile)).astype(np.float32),
+    }
+    canopy = rng.integers(0, 60, size=(n, 2, tile, tile)).astype(np.uint8)
+    canopy[rng.random(canopy.shape) < 0.02] = 255
+    raw["canopy_height_eth"] = canopy
+    raw["dynamic_world"] = rng.integers(0, 10, size=(n, 1, tile, tile)).astype(np.uint8)
+    raw["esa_worldcover"] = _ESA_VALS[rng.integers(0, len(_ESA_VALS), size=(n, 1, tile, tile))]
+    era5 = rng.normal(280, 15, size=(n, 12)).astype(np.float32)
+    era5[rng.random(era5.shape) < 0.05] = np.nan
+    raw["era5"] = era5
+    raw["lat"] = rng.uniform(-1, 1, size=(n, 2)).astype(np.float32)
+    raw["lon"] = rng.uniform(-1, 1, size=(n, 2)).astype(np.float32)
+    raw["month"] = rng.uniform(-1, 1, size=(n, 2)).astype(np.float32)
+    raw["biome"] = np.eye(14, dtype=np.uint8)[rng.integers(0, 14, n)]
+    raw["eco_region"] = np.eye(846, dtype=np.uint8)[rng.integers(0, 846, n)]
+    return raw
+
+
+def transform(modality: str, raw: np.ndarray, sel: Sequence[int], l2a: np.ndarray) -> np.ndarray:
+    """``MMEarthDataset.get_rows``'s transform of one modality (rows of ``raw``
+    already selected; ``l2a`` marks the rows whose sentinel2 is l2a)."""
+    data = raw.astype(np.float64)
+    if modality not in ("biome", "eco_region"):
+        data = data[:, sel, ...]
+    no_data = M.NO_DATA_VAL[modality]
+    if modality == "dynamic_world":
+        data = np.where(data == no_data, np.nan, data)
+        data = np.where((data >= 1) & (data <= 9), data - 1.0, data)
+        data = np.where(data > 8, np.nan, data)
+    elif modality == "esa_worldcover":
+        data = np.where(data == no_data, np.nan, data)
+        remapped = np.where(data == 95, 9.0, np.where(data == 100, 10.0, data / 10.0 - 1.0))
+        data = np.where(np.isin(data, [10, 20, 30, 40, 50, 60, 70, 80, 90, 95, 100]), remapped, data)
+        data = np.where(data > 10, np.nan, data)
+    else:
+        data = np.where(data == no_data, np.nan, data)
+
+    if modality not in ("biome", "eco_region", "dynamic_world", "esa_worldcover"):
+        def stat(key, i):
+            mean, std, k = _STATS[key]
+            return np.array([float((mean, std)[i])] * k)[sel]
+
+        if modality == "sentinel2":
+            means = np.where(l2a[:, None], stat("sentinel2_l2a", 0)[None], stat("sentinel2_l1c", 0)[None])
+            stds = np.where(l2a[:, None], stat("sentinel2_l2a", 1)[None], stat("sentinel2_l1c", 1)[None])
+        else:
+            means = stat(modality, 0)[None]
+            stds = stat(modality, 1)[None]
+        if modality in ("era5", "lat", "lon", "month"):
+            data = (data - means) / stds
+        else:
+            data = (data - means[..., None, None]) / stds[..., None, None]
+
+    if M.MODALITY_TASK[modality] in ("classification", "segmentation"):
+        data = np.where(np.isnan(data), -1, data).astype(np.int64).astype(np.int32)
+    else:
+        data = data.astype(np.float32)
+    if data.ndim == 4:
+        data = np.ascontiguousarray(data.transpose(0, 2, 3, 1))
+    return data
+
+
+def splits_of(n: int) -> dict[str, list[int]]:
+    n_val = max(1, n // 8)
+    return {"train": list(range(n - n_val)), "val": list(range(n - n_val, n))}
+
+
+def transformed(raw: Mapping[str, np.ndarray], rows: Sequence[int]) -> dict[str, np.ndarray]:
+    """The packed (transformed, NHWC) arrays of ``rows``, in modality order
+    (the input modalities, then the output ones)."""
+    modalities = {**M.INP_MODALITIES, **M.OUT_MODALITIES}
+    rows = np.asarray(rows)
+    l2a = rows % 2 == 0  # the generator's tile_info: even tiles are l2a
+    band_idx = M.band_indices(modalities)
+    return {m: transform(m, raw[m][rows], band_idx[m], l2a) for m in modalities}
+
+
+def synthetic_batch(n: int, tile: int, seed: int = 0) -> dict[str, np.ndarray]:
+    """An in-memory batch of ``n`` transformed samples (default modalities)."""
+    return transformed(raw_arrays(n, tile, seed), range(n))
+
+
+def generate_packed(out_dir: Path | str, n: int = 64, tile: int = 64, seed: int = 0,
+                    splits: Sequence[str] = ("train", "val")) -> Path:
+    """Write the mmpack splits of a synthetic dataset under ``out_dir``."""
+    out_dir = Path(out_dir)
+    raw = raw_arrays(n, tile, seed)
+    names = [f"tile_{i:06d}" for i in range(n)]
+    split_rows = splits_of(n)
+    for split in splits:
+        rows = split_rows[split]
+        dest = out_dir / split
+        dest.mkdir(parents=True, exist_ok=True)
+        fields = {}
+        for name, arr in transformed(raw, rows).items():
+            fields[name] = {"shape": list(arr.shape[1:]), "dtype": arr.dtype.name}
+            w = np.lib.format.open_memmap(dest / f"{name}.bin", mode="w+", dtype=arr.dtype,
+                                          shape=arr.shape)
+            w[:] = arr
+            w.flush()
+            del w
+        (dest / "meta.json").write_text(json.dumps({"count": len(rows), "fields": fields}))
+        (dest / "ids.json").write_text(json.dumps([names[i] for i in rows]))
+    return out_dir
+
+
+def main():
+    ap = argparse.ArgumentParser(description="Write a synthetic MMEarth dataset as mmpack splits")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--n", type=int, default=64)
+    ap.add_argument("--tile", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    print(f"wrote {generate_packed(args.out, n=args.n, tile=args.tile, seed=args.seed)}")
+
+
+if __name__ == "__main__":
+    main()

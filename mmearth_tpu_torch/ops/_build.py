@@ -1,0 +1,112 @@
+"""Build and bind the hand-written CUDA kernels in ``mmearth_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by ``nvcc``
+into ``build/kernels/lib<name>_<hash>.so`` at the root of the checkout (the
+hash covers the source and the flags, so an edited source rebuilds) and loaded
+with ``ctypes``.  Nothing is built when the package is imported: the first
+launch builds its library, and :func:`build_all` builds every library at once,
+one ``nvcc`` per source, all started together.
+
+Every C entry returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("patch_select", "wholeblock")
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to build "
+                       "the mmearth_tpu_torch CUDA kernels")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (popen, tmp, out) or None if built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log.decode(errors='replace')}")
+    os.replace(tmp, out)
+
+
+def build_all() -> list[Path]:
+    """Compile every kernel source in parallel (no-op for up-to-date ones)."""
+    with _lock:
+        jobs = {name: _start(name) for name in SOURCES}
+        for name, job in jobs.items():
+            _finish(name, job)
+    return [_target(name) for name in SOURCES]
+
+
+def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use.
+    ``signatures`` maps each C entry to its ``argtypes``; every entry returns
+    an int (the CUDA error code)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
