@@ -15,14 +15,29 @@ Phases, each of which exits non-zero on failure:
    |k - p| <= 1e-3 * |p| + 1e-5 * max|p| (atomics reorder the sums).  Each is
    timed with CUDA events (median of 25 after warm-up) beside the plain
    version and one PyTorch call computing the same function (timed here
-   only; the port never calls it).
-3. slice: ~1,024 samples of synthetic 64-px mmpack data, then the port's
+   only; the port never calls it).  The six spill-g launches (phases A, B, the
+   row pass and the dW2 pass of C, the row pass and the dW1 pass of D) each
+   against their plain phase on the same inputs at the four stage shapes:
+   g, y, dt and the stored dv/u within one bf16 ulp plus 2e-3 of their scale
+   (an operand of a product -- u in A, h in B -- is rounded to bf16 from an
+   f32 value summed in another order, and where that rounding goes the other
+   way the product moves by up to one ulp of the operand times a weight; in
+   D, du also passes through LN's cancelling backward); every f32 sum (sum g^2, gx, nx, db1,
+   db2, dgamma, dbeta, dnx, dLN, dW1, dW2) within 1e-3 * |p| + 1e-4 * max|p|
+   (tensor-core tiles and atomics order the sums differently).  No single
+   PyTorch call computes the tail, so their ``library_ms`` is the port's
+   composed tail (LN -> F.linear -> GELU -> MaskedGRN -> F.linear +
+   residual): its forward on A and B, its autograd backward on the four
+   backward launches, labelled in ``library``.
+3. slices: ~1,024 samples of synthetic 64-px mmpack data, then the port's
    ``main_pretrain.main`` at convnextv2_atto 56/8, batch 256, bf16 for 12
-   steps over 3 epochs.  Every step's loss must be finite and the launch
-   counters must rise by exactly 2/2/12/12 (gather/scatter/dwconv fwd/bwd)
-   per step.
+   steps over 3 epochs, once with ``--block_impl dwg`` and once with
+   ``--block_impl wholeblock``.  Every step's loss must be finite and the
+   launch counters, set to 0 before each run, must rise by exactly 2/2/12/12
+   (gather/scatter/dwconv fwd/bwd) per step, plus 12 of each spill-g launch
+   under wholeblock and none under dwg.
 4. reference: a small f32 FCMAE step on the GPU against the same step on the
-   CPU (plain versions), loss and grads.
+   CPU (plain versions), loss and grads, for dwg and for wholeblock.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -222,29 +237,183 @@ def phase_kernels() -> dict:
     return rows_out
 
 
-def phase_slice(rows_out: dict, card: str) -> dict:
+SPILLG = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick)
+    ("spillg_fwd_a", "mmearth_tpu/ops/fused_block.py:381", "composed tail forward, covers A+B"),
+    ("spillg_fwd_b", "mmearth_tpu/ops/fused_block.py:411", "composed tail forward, covers A+B"),
+    ("spillg_bwd_c", "mmearth_tpu/ops/fused_block.py:423", "composed tail backward, covers C+D"),
+    ("spillg_bwd_c_dw2", "mmearth_tpu/ops/fused_block.py:423",
+     "composed tail backward, covers C+D"),
+    ("spillg_bwd_d", "mmearth_tpu/ops/fused_block.py:463", "composed tail backward, covers C+D"),
+    ("spillg_bwd_d_dw1", "mmearth_tpu/ops/fused_block.py:463",
+     "composed tail backward, covers C+D"),
+)
+
+
+def sum_bound(ref):
+    """f32 sums taken in another order: 1e-3 * |p| + 1e-4 * max|p|."""
+    a = ref.float().abs()
+    return 1e-3 * a + 1e-4 * a.max()
+
+
+def phase_spillg_kernels() -> dict:
+    """The spill-g launches against their plain phases at the four stage
+    shapes (one GRN group of the batch, as ``--grn_scope per_device`` gives on
+    one card); returns one row per launch."""
+    import torch
+
+    from mmearth_tpu_torch.models.convnextv2 import dense, gelu
+    from mmearth_tpu_torch.models.norm import LayerNorm, MaskedGRN
+    from mmearth_tpu_torch.ops import fused_block as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    rows_out = {key: {"name": key, "route": "cuda",
+                      "source": "mmearth_tpu_torch/csrc/fused_block.cu", "replaces": rep,
+                      "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "bound_ms": 0.0, "bound_by": "bytes", "library_ms": 0.0, "library": lib}
+                for key, rep, lib in SPILLG}
+
+    def rnd(*shape, s=1.0, mean=0.0):
+        return mean + s * torch.randn(*shape, generator=gen, device=dev)
+
+    largest = {}
+    for p, c, count in DW_GEOMS:
+        m, c4 = N * K * p * p, 4 * c
+        t, x, dy = rnd(m, c).to(bf), rnd(m, c).to(bf), rnd(m, c).to(bf)
+        lw, lb, b1, b2 = rnd(c, s=0.1, mean=1.0), rnd(c, s=0.1), rnd(c4, s=0.1), rnd(c, s=0.1)
+        w1, w2 = rnd(c4, c, s=c ** -0.5), rnd(c, c4, s=c4 ** -0.5)
+        gm, bt = rnd(c4, s=0.5), rnd(c4, s=0.1)
+        mm_flops = 2.0 * m * c * c4
+        errs, every = {}, {}
+
+        def check(key, name, got, ref, bound):
+            """Holds every output; a row's max_abs_err is that of its main outputs
+            (g, y, dt, dW1, dW2, C's sums), not of the sums it feeds."""
+            err = check_close(f"{key} {name} C={c}", got, ref, bound)
+            every[f"{key} {name}"] = err
+            if name not in ("gxsq", "gx", "nx", "db1", "dln_w", "dln_b", "dv", "u"):
+                errs[key] = max(errs.get(key, 0.0), err)
+
+        # each launch on the plain outputs of the phases before it
+        g, gxsq = fb._fwd_a_cuda(t, lw, lb, w1, b1, m)
+        rg, rgxsq = fb.fwd_a_plain(t, lw, lb, w1, b1, m)
+        check("spillg_fwd_a", "g", g, rg, ulp_bound(rg, 2e-3))
+        check("spillg_fwd_a", "gxsq", gxsq, rgxsq, sum_bound(rgxsq))
+        y, gx, nx = fb._fwd_b_cuda(rg, x, rgxsq, gm, bt, w2, b2, m)
+        ry, rgx, rnx = fb.fwd_b_plain(rg, x, rgxsq, gm, bt, w2, b2, m)
+        check("spillg_fwd_b", "y", y, ry, ulp_bound(ry, 2e-3))
+        for nm, a, r in (("gx", gx, rgx), ("nx", nx, rnx)):
+            check("spillg_fwd_b", nm, a, r, sum_bound(r))
+        rsums = fb.bwd_c_plain(dy, rg, rnx, gm, w2, m)
+        for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx"),
+                            fb._bwd_c_cuda(dy, rg, rnx, gm, w2, m), rsums):
+            check("spillg_bwd_c", nm, a, r, sum_bound(r))
+        h = fb.h_plain(rg, rnx, gm, bt, m)
+        dw2 = fb._atb_cuda(dy, rg, "spillg_bwd_c_dw2", (rnx, gm, bt, m))
+        rdw2 = fb.atb_plain(dy, h)
+        check("spillg_bwd_c_dw2", "dW2", dw2, rdw2, sum_bound(rdw2))
+        dgxg = fb.dgx_step(rsums[3], rgx)
+        d_args = (t, dy, rg, rnx, dgxg, lw, lb, w1, b1, gm, w2, m)
+        got, ref = fb._bwd_d_cuda(*d_args), fb.bwd_d_plain(*d_args)
+        check("spillg_bwd_d", "dt", got[0], ref[0], ulp_bound(ref[0], 2e-3))
+        for nm, a, r in zip(("db1", "dln_w", "dln_b"), got[1:4], ref[1:4]):
+            check("spillg_bwd_d", nm, a, r, sum_bound(r))
+        for nm, a, r in zip(("dv", "u"), got[4:], ref[4:]):
+            check("spillg_bwd_d", nm, a, r, ulp_bound(r, 2e-3))
+        dv, u = ref[4], ref[5]
+        dw1, rdw1 = fb._atb_cuda(dv, u, "spillg_bwd_d_dw1"), fb.atb_plain(dv, u)
+        check("spillg_bwd_d_dw1", "dW1", dw1, rdw1, sum_bound(rdw1))
+        emit({"check": "spillg", "C": c, "M": m, "max_abs_err": every})
+
+        # the port's composed tail (the yardstick; the port never calls it on this path)
+        norm = LayerNorm(c, dtype=bf).to(dev)
+        grn = MaskedGRN(c4, bf, group=N).to(dev)
+        with torch.no_grad():
+            norm.weight.copy_(lw)
+            norm.bias.copy_(lb)
+            grn.gamma.copy_(gm.reshape(grn.gamma.shape))
+            grn.beta.copy_(bt.reshape(grn.beta.shape))
+        prm = [w1.clone().requires_grad_(), b1.clone().requires_grad_(),
+               w2.clone().requires_grad_(), b2.clone().requires_grad_()]
+        t3 = t.reshape(N, K * p * p, c).clone().requires_grad_()
+        x3, dy3 = x.reshape(N, K * p * p, c), dy.reshape(N, K * p * p, c)
+
+        def composed():
+            u_ = gelu(dense(norm(t3), prm[0], prm[1], bf))
+            return x3 + dense(grn(u_), prm[2], prm[3], bf)
+
+        lib_fwd = time_ms(composed)
+        y3 = composed()
+        leaves = [t3, *prm, *norm.parameters(), *grn.parameters()]
+        lib_bwd = time_ms(lambda: torch.autograd.grad(y3, leaves, dy3, retain_graph=True))
+        del y3
+
+        rows_b, rows_4c = m * c * 2, m * c4 * 2
+        launches = (
+            ("spillg_fwd_a", lambda: fb._fwd_a_cuda(t, lw, lb, w1, b1, m),
+             lambda: fb.fwd_a_plain(t, lw, lb, w1, b1, m), lib_fwd,
+             rows_b + rows_4c, mm_flops),
+            ("spillg_fwd_b", lambda: fb._fwd_b_cuda(rg, x, rgxsq, gm, bt, w2, b2, m),
+             lambda: fb.fwd_b_plain(rg, x, rgxsq, gm, bt, w2, b2, m), lib_fwd,
+             rows_4c + 2 * rows_b, mm_flops),
+            ("spillg_bwd_c", lambda: fb._bwd_c_cuda(dy, rg, rnx, gm, w2, m),
+             lambda: fb.bwd_c_plain(dy, rg, rnx, gm, w2, m), lib_bwd,
+             rows_b + rows_4c, mm_flops),
+            ("spillg_bwd_c_dw2", lambda: fb._atb_cuda(dy, rg, "spillg_bwd_c_dw2", (rnx, gm, bt, m)),
+             lambda: fb.atb_plain(dy, fb.h_plain(rg, rnx, gm, bt, m)), lib_bwd,
+             rows_b + rows_4c + c * c4 * 4, mm_flops),
+            ("spillg_bwd_d", lambda: fb._bwd_d_cuda(*d_args), lambda: fb.bwd_d_plain(*d_args),
+             lib_bwd, 4 * rows_b + 2 * rows_4c, 3 * mm_flops),
+            ("spillg_bwd_d_dw1", lambda: fb._atb_cuda(dv, u, "spillg_bwd_d_dw1"),
+             lambda: fb.atb_plain(dv, u), lib_bwd, rows_b + rows_4c + c * c4 * 4, mm_flops),
+        )
+        for key, kern, plain, lib, nbytes, flops in launches:
+            r = rows_out[key]
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+            bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
+            r["max_abs_err"] = max(r["max_abs_err"], errs[key])
+            r["ms"] += count * ms
+            r["plain_ms"] += count * plain_ms
+            r["library_ms"] += count * lib
+            r["bound_ms"] += count * bnd
+            if count * bnd >= largest.get(key, 0.0):  # the stage that dominates the bound
+                largest[key], r["bound_by"] = count * bnd, by
+            emit({"kernel_shape": {"kernel": key, "shape": [m, c], "per_step": count, "ms": ms,
+                                   "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bnd,
+                                   "bound_by": by, "max_abs_err": errs[key]}})
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def phase_slice(rows_out: dict, card: str, block_impl: str) -> dict:
     import torch
 
     from mmearth_tpu_torch import main_pretrain
     from mmearth_tpu_torch.data.synthetic import generate_packed
+    from mmearth_tpu_torch.ops import fused_block as fb
     from mmearth_tpu_torch.ops import patch_select as ps
     from mmearth_tpu_torch.ops import wholeblock as wb
 
     data = ROOT / "build" / "smoke_data"
-    t0 = time.time()
-    generate_packed(data, n=1170, tile=64, seed=0)  # 1,024 train + 146 val samples
-    emit({"phase": "data", "seconds": round(time.time() - t0, 2), "path": str(data)})
+    if not (data / "train" / "meta.json").exists():
+        t0 = time.time()
+        generate_packed(data, n=1170, tile=64, seed=0)  # 1,024 train + 146 val samples
+        emit({"phase": "data", "seconds": round(time.time() - t0, 2), "path": str(data)})
 
     args = main_pretrain.get_args_parser().parse_args([
         "--model", "convnextv2_atto", "--input_size", "56", "--patch_size", "8",
         "--batch_size", "256", "--use_bf16", "True", "--device", "cuda",
         "--processed_dir", str(data), "--epochs", "3", "--warmup_epochs", "1",
-        "--seed", "0"])
-    for d in (ps.LAUNCHES, wb.LAUNCHES):
+        "--seed", "0", "--block_impl", block_impl])
+    counters = (ps.LAUNCHES, wb.LAUNCHES, fb.LAUNCHES)
+    for d in counters:
         for key in d:
             d[key] = 0
+    torch.cuda.reset_peak_memory_stats()
     _, history = main_pretrain.main(args)
-    launches = {**ps.LAUNCHES, **wb.LAUNCHES}
+    launches = {k: v for d in counters for k, v in d.items()}
     steps = sum(e["steps"] for e in history)
     losses = [x for e in history for x in e["step_losses"]]
     if steps < 10 or len(losses) != steps:
@@ -253,14 +422,18 @@ def phase_slice(rows_out: dict, card: str) -> dict:
         raise AssertionError(f"non-finite loss in {losses}")
     per_step = {"gather_patches": 2, "scatter_patches": 2,
                 "dwconv7_gathered_fwd": 12, "dwconv7_gathered_bwd": 12}
+    spillg = block_impl == "wholeblock"
+    per_step.update({k: 12 if spillg else 0 for k in fb.LAUNCHES})
     for name, k in per_step.items():
         if launches[name] != k * steps:
-            raise AssertionError(f"{name}: {launches[name]} launches in {steps} steps, "
-                                 f"expected {k} per step")
-        rows_out[name]["launches"] = launches[name]
+            raise AssertionError(f"{block_impl} slice, {name}: {launches[name]} launches in "
+                                 f"{steps} steps, expected {k} per step")
+        if spillg == (name in fb.LAUNCHES):  # each kernel's count from its own path
+            rows_out[name]["launches"] = launches[name]
     steady = history[1:]  # epoch 0 holds the first-call set-up
     ms = 1e3 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
-    result = {"phase": "slice", "steps": steps, "epochs": len(history),
+    result = {"phase": "slice", "block_impl": block_impl, "steps": steps,
+              "epochs": len(history), "launches": launches,
               "losses": losses, "epoch_loss": [e["loss"] for e in history],
               "ms_per_step": ms, "samples_per_s": 256 * 1e3 / ms,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}
@@ -268,7 +441,7 @@ def phase_slice(rows_out: dict, card: str) -> dict:
     return result
 
 
-def phase_reference() -> None:
+def phase_reference(block_impl: str) -> None:
     """A small f32 step on the GPU (kernels) against the CPU (plain versions)."""
     import numpy as np
     import torch
@@ -280,7 +453,8 @@ def phase_reference() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(img_size=56, patch_size=8, depths=(2, 2, 6, 2), dims=(40, 80, 160, 320),
-              grn_group=8, inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES)
+              grn_group=8, block_impl=block_impl, inp_modalities=M.INP_MODALITIES,
+              out_modalities=M.OUT_MODALITIES)
     cpu = FCMAE(**kw).init_weights(torch.Generator().manual_seed(1))
     gpu = FCMAE(**kw).cuda()
     gpu.load_state_dict(cpu.state_dict())
@@ -300,8 +474,10 @@ def phase_reference() -> None:
                 for k in g_cpu)
     # f32 on both sides; differences are summation order only
     if not (rel < 1e-4 and worst < 1e-3 and np.isfinite(l_gpu)):
-        raise AssertionError(f"GPU vs CPU step: loss rel {rel:.2e}, worst grad {worst:.2e}")
-    emit({"phase": "reference", "loss_cpu": l_cpu, "loss_gpu": l_gpu, "loss_rel": rel,
+        raise AssertionError(f"{block_impl} GPU vs CPU step: loss rel {rel:.2e}, "
+                             f"worst grad {worst:.2e}")
+    emit({"phase": "reference", "block_impl": block_impl, "loss_cpu": l_cpu, "loss_gpu": l_gpu,
+          "loss_rel": rel,
           "worst_grad_rel": worst})
 
 
@@ -317,8 +493,11 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     phase_build()
     rows_out = phase_kernels()
-    phase_slice(rows_out, card)
-    phase_reference()
+    rows_out.update(phase_spillg_kernels())
+    for impl in ("dwg", "wholeblock"):
+        phase_slice(rows_out, card, impl)
+    for impl in ("dwg", "wholeblock"):
+        phase_reference(impl)
     print(card, flush=True)
     emit({"kernels": list(rows_out.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

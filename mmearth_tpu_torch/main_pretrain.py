@@ -70,8 +70,10 @@ def get_args_parser():
     p.add_argument("--block_impl", default="auto",
                    choices=["auto", "xla", "fused", "spillg", "remat", "folded", "dwg",
                             "wholeblock"],
-                   help="auto, xla and dwg all run the gathered encoder with the "
-                        "dwconv7_gathered kernel; the others are not ported yet")
+                   help="every choice runs the gathered encoder with the dwconv7_gathered "
+                        "kernel; auto, xla and dwg compose the block tail from torch ops, "
+                        "spillg and wholeblock (the same code in this port) run it through "
+                        "the spill-g kernels; fused, remat and folded are not ported yet")
     p.add_argument("--sparse_impl", choices=["gathered", "masked_dense"], default="gathered")
     p.add_argument("--grn_scope", choices=["global", "per_device"], default="per_device")
     p.add_argument("--gelu_approx", type=str2bool, default=False)

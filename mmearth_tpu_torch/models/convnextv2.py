@@ -10,6 +10,13 @@ stage, p = 8/4/2/1 at 56/8) and its site-local tail (LN -> Linear -> erf GELU
 stride-2 downsamples on the rows, and stage 4 is scattered back to the dense
 grid with zeros at removed patches.  SAME padding, as the JAX package.
 
+``block_impl``: ``auto``, ``xla`` and ``dwg`` run the gathered block tail as
+composed torch ops; ``spillg`` and ``wholeblock`` run it through
+:func:`fused_block_mlp_spillg` (the spill-g kernels).  In JAX ``wholeblock``
+differs from ``spillg`` by also taking the Pallas dwconv; in the port every
+gathered block's dwconv already runs ``dwconv7_gathered``, so the two run the
+same code.  The param tree is the same for every ``block_impl``.
+
 Params are f32 in upstream's dense layout and key names (OIHW convs, (out,
 in) Linears, (1, 1, 1, C) GRN affines); each layer casts them to its compute
 ``dtype`` at use, as flax does.  No autocast.
@@ -17,20 +24,21 @@ in) Linears, (1, 1, 1, C) GRN affines); each layer casts them to its compute
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_block import fused_block_mlp_spillg
 from ..ops.patch_select import gather_patches, scatter_patches
 from ..ops.wholeblock import dwconv7_gathered
 from .norm import GRN, LayerNorm, MaskedGRN
 
-BLOCK_IMPLS = ("auto", "xla", "dwg")
+BLOCK_IMPLS = ("auto", "xla", "dwg", "spillg", "wholeblock")
+SPILLG_IMPLS = ("spillg", "wholeblock")
 _LATER_SLICE = {
     "fused": "the masked-dense fused tail kernel (fused_block_mlp)",
-    "spillg": "the spill-g tail kernels (fused_block_mlp_spillg)",
-    "wholeblock": "the spill-g tail kernels (fused_block_mlp_spillg)",
     "remat": "the rematerialized block tail",
     "folded": "the norm-folded block tail",
 }
@@ -117,10 +125,12 @@ def upsample_mask(mask: torch.Tensor, grid: int, size: int) -> torch.Tensor:
 class Block(nn.Module):
     """ConvNeXtV2 block.  Dense form on an NHWC map (the decoder), or gathered
     form on ``(N, K, p, p, C)`` visible rows when ``gather`` =
-    ``(kept_ids, inv_ids, grid)`` is given (the sparse encoder)."""
+    ``(kept_ids, inv_ids, grid)`` is given (the sparse encoder).  With
+    ``spillg`` the gathered tail runs through :func:`fused_block_mlp_spillg`."""
 
     def __init__(self, dim: int, sparse: bool = False, dw_init: str | None = None,
-                 pw_init: str | None = None, grn_group: int = 0, dtype=torch.float32):
+                 pw_init: str | None = None, grn_group: int = 0, dtype=torch.float32,
+                 spillg: bool = False):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = LayerNorm(dim, dtype=dtype)
@@ -128,6 +138,7 @@ class Block(nn.Module):
         self.grn = MaskedGRN(4 * dim, dtype, grn_group) if sparse else GRN(4 * dim, dtype)
         self.pwconv2 = nn.Linear(4 * dim, dim)
         self.dtype = dtype
+        self.spillg = spillg and sparse
         default = "trunc1" if sparse else "normal02"
         self.inits = {"dwconv.weight": dw_init or default, "pwconv1.weight": pw_init or default,
                       "pwconv2.weight": pw_init or default}
@@ -137,11 +148,30 @@ class Block(nn.Module):
             kept_ids, inv_ids, grid = gather
             t = dwconv7_gathered(x.to(self.dtype).contiguous(), kept_ids, inv_ids,
                                  self.dwconv.weight, self.dwconv.bias, grid)
+            if self.spillg:
+                return self._spillg_tail(x, t)
         else:
             t = conv_nhwc(x, self.dwconv, self.dtype)
         u = gelu(dense(self.norm(t), self.pwconv1.weight, self.pwconv1.bias, self.dtype))
         u = self.grn(u)  # gathered: every row visible, so keep = None
         return x + dense(u, self.pwconv2.weight, self.pwconv2.bias, self.dtype)
+
+    def _spillg_tail(self, x, t):
+        """The tail on the N*K*p*p rows, GRN grouped as ``MaskedGRN`` groups
+        them: ``grn_group`` samples a group, or the whole batch when it is 0 or
+        does not divide N (with MaskedGRN's warning)."""
+        n, c = t.shape[0], t.shape[-1]
+        group = self.grn.group
+        if group > 0 and n % group:
+            warnings.warn(f"MaskedGRN: batch {n} is not divisible by group {group}; "
+                          "falling back to global-batch statistics for this call", stacklevel=3)
+        g = n if group <= 0 or n % group else min(group, n)
+        rows = t.numel() // c
+        y = fused_block_mlp_spillg(
+            t.reshape(rows, c), x.reshape(rows, c), self.norm.weight, self.norm.bias,
+            self.pwconv1.weight, self.pwconv1.bias, self.grn.gamma, self.grn.beta,
+            self.pwconv2.weight, self.pwconv2.bias, group_rows=g * (rows // n))
+        return y.reshape(t.shape)
 
 
 class ConvNeXtV2(nn.Module):
@@ -168,7 +198,8 @@ class ConvNeXtV2(nn.Module):
                           nn.Conv2d(dims[i], dims[i + 1], 2, stride=2))
             for i in range(3))
         self.stages = nn.ModuleList(
-            nn.Sequential(*[Block(dims[i], sparse=True, grn_group=grn_group, dtype=dtype)
+            nn.Sequential(*[Block(dims[i], sparse=True, grn_group=grn_group, dtype=dtype,
+                                  spillg=block_impl in SPILLG_IMPLS)
                             for _ in range(depths[i])])
             for i in range(4))
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from mmearth_tpu_torch.models.convnextv2 import visible_ids
+from mmearth_tpu_torch.ops import fused_block as fb
 from mmearth_tpu_torch.ops import patch_select as ps
 from mmearth_tpu_torch.ops import wholeblock as wb
 
@@ -41,3 +42,69 @@ def test_kernels_match_plain_on_gpu():
         assert float((dx.float() - rdx.float()).abs().max()) <= 2 ** -6 * float(rdx.abs().max())
         torch.testing.assert_close(dk, rdk, rtol=1e-3, atol=1e-3 * float(rdk.abs().max()))
         torch.testing.assert_close(db, rdb, rtol=1e-3, atol=1e-3 * float(rdb.abs().max()))
+
+
+def _ulp_close(got, ref, scale_frac):
+    """Within one bf16 ulp of the plain value plus ``scale_frac`` of its scale."""
+    ref = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+    assert bool(((got.float() - ref).abs() <= ulp + scale_frac * ref.abs().max()).all())
+
+
+def _sum_close(got, ref):
+    """f32 sums in another order (tensor-core tiles, atomics across blocks)."""
+    torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c,group_rows,groups", [(40, 350, 1), (40, 350, 2), (80, 130, 2),
+                                                  (160, 300, 1), (320, 150, 2)])
+def test_spillg_kernels_match_plain_on_gpu(dtype, c, group_rows, groups):
+    """Each spill-g launch against its plain phase on the same inputs, forward
+    and backward, one and two GRN groups, ragged row tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(c + groups)
+    m, c4 = group_rows * groups, 4 * c
+
+    def rnd(*shape, s=1.0, mean=0.0):
+        return mean + s * torch.randn(*shape, generator=gen, device=dev)
+
+    t, x, dy = rnd(m, c).to(dt), rnd(m, c).to(dt), rnd(m, c).to(dt)
+    lw, lb, b1, b2 = rnd(c, s=0.1, mean=1.0), rnd(c, s=0.1), rnd(c4, s=0.1), rnd(c, s=0.1)
+    w1, w2 = rnd(c4, c, s=0.1), rnd(c, c4, s=0.1)
+    gm, bt = rnd(c4, s=0.5), rnd(c4, s=0.1)
+    scale = 1e-4 if dtype == "bfloat16" else 1e-5
+
+    g, gxsq = fb._fwd_a_cuda(t, lw, lb, w1, b1, group_rows)
+    rg, rgxsq = fb.fwd_a_plain(t, lw, lb, w1, b1, group_rows)
+    _ulp_close(g, rg, scale)
+    _sum_close(gxsq, rgxsq)
+
+    y, gx, nx = fb._fwd_b_cuda(rg, x, rgxsq, gm, bt, w2, b2, group_rows)
+    ry, rgx, rnx = fb.fwd_b_plain(rg, x, rgxsq, gm, bt, w2, b2, group_rows)
+    _ulp_close(y, ry, scale)
+    _sum_close(gx, rgx)
+    _sum_close(nx, rnx)
+
+    for got, ref in zip(fb._bwd_c_cuda(dy, rg, rnx, gm, w2, group_rows),
+                        fb.bwd_c_plain(dy, rg, rnx, gm, w2, group_rows)):
+        _sum_close(got, ref)
+    h = fb.h_plain(rg, rnx, gm, bt, group_rows)
+    _sum_close(fb._atb_cuda(dy, rg, "spillg_bwd_c_dw2", (rnx, gm, bt, group_rows)),
+               fb.atb_plain(dy, h))
+
+    dgxg = fb.dgx_step(fb.bwd_c_plain(dy, rg, rnx, gm, w2, group_rows)[3], rgx)
+    dt_k, db1, dlnw, dlnb, dv, u = fb._bwd_d_cuda(t, dy, rg, rnx, dgxg, lw, lb, w1, b1, gm, w2,
+                                                  group_rows)
+    rdt, rdb1, rdlnw, rdlnb, rdv, ru = fb.bwd_d_plain(t, dy, rg, rnx, dgxg, lw, lb, w1,
+                                                      b1, gm, w2, group_rows)
+    _ulp_close(dt_k, rdt, 1e-3 if dtype == "bfloat16" else 1e-5)
+    _ulp_close(dv, rdv, scale)
+    _ulp_close(u, ru, scale)
+    for got, ref in ((db1, rdb1), (dlnw, rdlnw), (dlnb, rdlnb)):
+        _sum_close(got, ref)
+    _sum_close(fb._atb_cuda(dv, u, "spillg_bwd_d_dw1"), fb.atb_plain(dv, u))

@@ -36,11 +36,15 @@ def _close(got, ref, what, rtol=RTOL):
 
 
 @pytest.mark.parametrize("img_size,patch_size", [(56, 8), (112, 16)])
-@pytest.mark.parametrize("jax_impl", ["xla", "dwg"])
+@pytest.mark.parametrize("jax_impl", ["xla", "dwg", "wholeblock"])
 def test_encoder_matches_jax(img_size, patch_size, jax_impl):
     """``encode(x, mask, K)`` against ConvNeXtV2.encode(x, mask, num_visible=K)
     (the JAX gathered path; dwg runs its Pallas dwconv kernel in interpret
-    mode at p = 8), output and every param grad."""
+    mode at p = 8), output and every param grad.  wholeblock: the port runs
+    its spill-g tail with one GRN group of the batch, and JAX runs with
+    grn_group=0 so that its spill-g Pallas kernels (interpret mode) really run
+    (they decline grn_group != 0); one group of all N samples is the same
+    statistic."""
     n, c_in, grid = 2, 12, img_size // patch_size
     k = int(grid * grid * 0.4)
     rng = np.random.default_rng(img_size)
@@ -48,8 +52,10 @@ def test_encoder_matches_jax(img_size, patch_size, jax_impl):
     mask = random_mask(rng, n, grid * grid, k)
     kw = dict(patch_size=patch_size, img_size=img_size, in_chans=c_in, depths=DEPTHS, dims=DIMS,
               grn_group=n)
-    jm = jcnx.ConvNeXtV2(**kw, num_classes=0, sparse=True, block_impl=jax_impl)
-    tm = tcnx.ConvNeXtV2(**kw)
+    port_impl = "wholeblock" if jax_impl == "wholeblock" else "auto"
+    jm = jcnx.ConvNeXtV2(**{**kw, "grn_group": 0 if jax_impl == "wholeblock" else n},
+                         num_classes=0, sparse=True, block_impl=jax_impl)
+    tm = tcnx.ConvNeXtV2(**kw, block_impl=port_impl)
     tm.init_weights(torch.Generator().manual_seed(0))
     sd = {k: v.numpy() for k, v in tm.state_dict().items()}
     params = randomize_grn(jax.tree_util.tree_map(
@@ -72,8 +78,8 @@ def test_encoder_matches_jax(img_size, patch_size, jax_impl):
 
 
 def test_block_impl_outside_the_slice_raises():
-    with pytest.raises(ValueError, match="spill-g"):
-        tcnx.ConvNeXtV2(block_impl="wholeblock")
+    with pytest.raises(ValueError, match="masked-dense"):
+        tcnx.ConvNeXtV2(block_impl="fused")
 
 
 @pytest.fixture(scope="module")
@@ -129,12 +135,15 @@ def test_crop_offsets_from_the_same_key(fcmae_case):
         np.testing.assert_array_equal(g[seen], r[seen], err_msg=k)
 
 
-def test_fcmae_forward_loss_and_grads_match_jax(fcmae_case):
+@pytest.mark.parametrize("block_impl", ["auto", "wholeblock"])
+def test_fcmae_forward_loss_and_grads_match_jax(fcmae_case, block_impl):
     """The port's FCMAE with the mask JAX's FCMAE.__call__ drew: every
-    prediction, every per-modality loss, the total, and every param grad."""
+    prediction, every per-modality loss, the total, and every param grad.
+    wholeblock runs the port's spill-g tail; the converter's param tree
+    strict-loads into it as into auto."""
     c = fcmae_case
     loss_ref, preds_ref, mask, ld_ref, _, _ = c["out"]
-    tm = tfc.FCMAE(**c["kw"])
+    tm = tfc.FCMAE(**c["kw"], block_impl=block_impl)
     tm.load_state_dict(from_jax_fcmae(np_tree(c["params"]), DEPTHS, JM.OUT_MODALITIES),
                        strict=True)
     batch = {k: torch.from_numpy(np.array(v)) for k, v in c["cropped"].items()}

@@ -13,7 +13,7 @@ import torch
 
 from mmearth_tpu_torch import main_pretrain
 from mmearth_tpu_torch.data.synthetic import generate_packed
-from mmearth_tpu_torch.ops import patch_select, wholeblock
+from mmearth_tpu_torch.ops import fused_block, patch_select, wholeblock
 from mmearth_tpu_torch.train import pretrain
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -50,11 +50,23 @@ def test_main_pretrain_runs_two_steps_on_cpu(data):
     (["--resume", "x.pth"], "resume"),
     (["--output_dir", "out"], "saving"),
     (["--sparse_impl", "masked_dense"], "masked-dense"),
-    (["--block_impl", "wholeblock"], "spill-g"),
+    (["--block_impl", "fused"], "masked-dense"),
 ])
 def test_not_ported_options_raise(data, extra, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):
         main_pretrain.main(_args(data, *extra))
+
+
+def test_main_pretrain_wholeblock_runs_two_steps_on_cpu(data):
+    """--block_impl wholeblock in bf16 on the CPU: the spill-g tail's plain
+    version, finite losses, no kernel launched."""
+    launches = lambda: {**patch_select.LAUNCHES, **wholeblock.LAUNCHES, **fused_block.LAUNCHES}
+    before = launches()
+    model, history = main_pretrain.main(_args(data, "--block_impl", "wholeblock"))
+    assert [e["steps"] for e in history] == [2]
+    assert all(math.isfinite(v) for v in history[0]["step_losses"])
+    assert launches() == before
+    assert model.encoder.stages[0][0].spillg
 
 
 def test_cuda_without_a_card_raises(data, monkeypatch):
