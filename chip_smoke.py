@@ -28,8 +28,13 @@ Phases, each of which exits non-zero on failure:
    PyTorch call computes the tail, so their ``library_ms`` is the port's
    composed tail (LN -> F.linear -> GELU -> MaskedGRN -> F.linear +
    residual): its forward on A and B, its autograd backward on the four
-   backward launches, labelled in ``library``.
-3. slices: ~1,024 samples of synthetic 64-px mmpack data, then the port's
+   backward launches, labelled in ``library``.  Each bound counts the bytes
+   and products of the Pallas kernel's own function; C and D are two launches
+   each here, so the row pass carries the kernel's bound, the weight-gradient
+   pass shows 0 with ``bound_in`` naming the row pass, and the traffic that
+   the split adds (the dW2 pass re-reads dy and g; D stores dv and u and the
+   dW1 pass reads them back) is given per launch as ``split_extra_bytes``.
+3. slices: 1,170 samples of synthetic 64-px mmpack data, then the port's
    ``main_pretrain.main`` at convnextv2_atto 56/8, batch 256, bf16 for 12
    steps over 3 epochs, once with ``--block_impl dwg`` and once with
    ``--block_impl wholeblock``.  Every step's loss must be finite and the
@@ -249,6 +254,10 @@ SPILLG = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick)
 )
 
 
+# the weight-gradient pass -> the row pass whose Pallas kernel's bound it shares
+SPILLG_PAIR = {"spillg_bwd_c_dw2": "spillg_bwd_c", "spillg_bwd_d_dw1": "spillg_bwd_d"}
+
+
 def sum_bound(ref):
     """f32 sums taken in another order: 1e-3 * |p| + 1e-4 * max|p|."""
     a = ref.float().abs()
@@ -272,7 +281,8 @@ def phase_spillg_kernels() -> dict:
     rows_out = {key: {"name": key, "route": "cuda",
                       "source": "mmearth_tpu_torch/csrc/fused_block.cu", "replaces": rep,
                       "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "bound_by": "bytes", "library_ms": 0.0, "library": lib}
+                      "bound_ms": 0.0, "bound_by": "bytes", "library_ms": 0.0, "library": lib,
+                      "split_extra_bytes": 0}
                 for key, rep, lib in SPILLG}
 
     def rnd(*shape, s=1.0, mean=0.0):
@@ -310,9 +320,7 @@ def phase_spillg_kernels() -> dict:
         for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx"),
                             fb._bwd_c_cuda(dy, rg, rnx, gm, w2, m), rsums):
             check("spillg_bwd_c", nm, a, r, sum_bound(r))
-        h = fb.h_plain(rg, rnx, gm, bt, m)
-        dw2 = fb._atb_cuda(dy, rg, "spillg_bwd_c_dw2", (rnx, gm, bt, m))
-        rdw2 = fb.atb_plain(dy, h)
+        dw2, rdw2 = fb._dw2_cuda(dy, rg, rnx, gm, bt, m), fb.dw2_plain(dy, rg, rnx, gm, bt, m)
         check("spillg_bwd_c_dw2", "dW2", dw2, rdw2, sum_bound(rdw2))
         dgxg = fb.dgx_step(rsums[3], rgx)
         d_args = (t, dy, rg, rnx, dgxg, lw, lb, w1, b1, gm, w2, m)
@@ -323,7 +331,7 @@ def phase_spillg_kernels() -> dict:
         for nm, a, r in zip(("dv", "u"), got[4:], ref[4:]):
             check("spillg_bwd_d", nm, a, r, ulp_bound(r, 2e-3))
         dv, u = ref[4], ref[5]
-        dw1, rdw1 = fb._atb_cuda(dv, u, "spillg_bwd_d_dw1"), fb.atb_plain(dv, u)
+        dw1, rdw1 = fb._dw1_cuda(dv, u), fb.atb_plain(dv, u)
         check("spillg_bwd_d_dw1", "dW1", dw1, rdw1, sum_bound(rdw1))
         emit({"check": "spillg", "C": c, "M": m, "max_abs_err": every})
 
@@ -350,57 +358,76 @@ def phase_spillg_kernels() -> dict:
         lib_bwd = time_ms(lambda: torch.autograd.grad(y3, leaves, dy3, retain_graph=True))
         del y3
 
-        rows_b, rows_4c = m * c * 2, m * c4 * 2
-        launches = (
+        # Bytes and products of each Pallas kernel's own function: A reads t
+        # and writes g; B reads g, x and writes y; C (kernel 9) reads dy, g and
+        # writes dW2 (products dh, dW2); D (kernel 10) reads t, dy, g and writes
+        # dt and dW1 (products v, dh, du, dW1).  The pair of launches that
+        # replaces C or D shares that bound, carried on the row pass.
+        rows_b, rows_4c, dw_b = m * c * 2, m * c4 * 2, c * c4 * 4
+        spill = rows_b + rows_4c  # one more pass over (M, C) and (M, 4C) rows
+        launches = (  # key, kernel, plain, library, bytes, products, split's extra bytes
             ("spillg_fwd_a", lambda: fb._fwd_a_cuda(t, lw, lb, w1, b1, m),
              lambda: fb.fwd_a_plain(t, lw, lb, w1, b1, m), lib_fwd,
-             rows_b + rows_4c, mm_flops),
+             rows_b + rows_4c, mm_flops, 0),
             ("spillg_fwd_b", lambda: fb._fwd_b_cuda(rg, x, rgxsq, gm, bt, w2, b2, m),
              lambda: fb.fwd_b_plain(rg, x, rgxsq, gm, bt, w2, b2, m), lib_fwd,
-             rows_4c + 2 * rows_b, mm_flops),
+             rows_4c + 2 * rows_b, mm_flops, 0),
             ("spillg_bwd_c", lambda: fb._bwd_c_cuda(dy, rg, rnx, gm, w2, m),
              lambda: fb.bwd_c_plain(dy, rg, rnx, gm, w2, m), lib_bwd,
-             rows_b + rows_4c, mm_flops),
-            ("spillg_bwd_c_dw2", lambda: fb._atb_cuda(dy, rg, "spillg_bwd_c_dw2", (rnx, gm, bt, m)),
-             lambda: fb.atb_plain(dy, fb.h_plain(rg, rnx, gm, bt, m)), lib_bwd,
-             rows_b + rows_4c + c * c4 * 4, mm_flops),
+             rows_b + rows_4c + dw_b, 2 * mm_flops, 0),
+            ("spillg_bwd_c_dw2", lambda: fb._dw2_cuda(dy, rg, rnx, gm, bt, m),
+             lambda: fb.dw2_plain(dy, rg, rnx, gm, bt, m), lib_bwd, None, None, spill),
             ("spillg_bwd_d", lambda: fb._bwd_d_cuda(*d_args), lambda: fb.bwd_d_plain(*d_args),
-             lib_bwd, 4 * rows_b + 2 * rows_4c, 3 * mm_flops),
-            ("spillg_bwd_d_dw1", lambda: fb._atb_cuda(dv, u, "spillg_bwd_d_dw1"),
-             lambda: fb.atb_plain(dv, u), lib_bwd, rows_b + rows_4c + c * c4 * 4, mm_flops),
+             lib_bwd, 3 * rows_b + rows_4c + dw_b, 4 * mm_flops, spill),
+            ("spillg_bwd_d_dw1", lambda: fb._dw1_cuda(dv, u), lambda: fb.atb_plain(dv, u),
+             lib_bwd, None, None, spill),
         )
-        for key, kern, plain, lib, nbytes, flops in launches:
+        for key, kern, plain, lib, nbytes, flops, extra in launches:
             r = rows_out[key]
             ms, plain_ms = time_ms(kern), time_ms(plain)
-            bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
+            if nbytes is None:  # shares the bound of the row pass before it
+                bnd, by, r["bound_in"] = 0.0, None, SPILLG_PAIR[key]
+            else:
+                bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
             r["max_abs_err"] = max(r["max_abs_err"], errs[key])
             r["ms"] += count * ms
             r["plain_ms"] += count * plain_ms
             r["library_ms"] += count * lib
             r["bound_ms"] += count * bnd
-            if count * bnd >= largest.get(key, 0.0):  # the stage that dominates the bound
+            r["split_extra_bytes"] += count * extra
+            if by and count * bnd >= largest.get(key, 0.0):  # the stage that dominates
                 largest[key], r["bound_by"] = count * bnd, by
             emit({"kernel_shape": {"kernel": key, "shape": [m, c], "per_step": count, "ms": ms,
                                    "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bnd,
-                                   "bound_by": by, "max_abs_err": errs[key]}})
+                                   "bound_by": by, "split_extra_bytes": extra,
+                                   "max_abs_err": errs[key]}})
         torch.cuda.empty_cache()
+    for key, pair in SPILLG_PAIR.items():
+        rows_out[key]["bound_by"] = rows_out[pair]["bound_by"]
     return rows_out
 
 
-def phase_slice(rows_out: dict, card: str, block_impl: str) -> dict:
+def phase_data() -> Path:
+    """Synthetic packed data for the slices, written anew on every run."""
+    import shutil
+
+    from mmearth_tpu_torch.data.synthetic import generate_packed
+
+    data = ROOT / "build" / "smoke_data"
+    shutil.rmtree(data, ignore_errors=True)
+    t0 = time.time()
+    generate_packed(data, n=1170, tile=64, seed=0)  # 1,024 train + 146 val samples
+    emit({"phase": "data", "seconds": round(time.time() - t0, 2), "path": str(data)})
+    return data
+
+
+def phase_slice(rows_out: dict, card: str, block_impl: str, data: Path) -> dict:
     import torch
 
     from mmearth_tpu_torch import main_pretrain
-    from mmearth_tpu_torch.data.synthetic import generate_packed
     from mmearth_tpu_torch.ops import fused_block as fb
     from mmearth_tpu_torch.ops import patch_select as ps
     from mmearth_tpu_torch.ops import wholeblock as wb
-
-    data = ROOT / "build" / "smoke_data"
-    if not (data / "train" / "meta.json").exists():
-        t0 = time.time()
-        generate_packed(data, n=1170, tile=64, seed=0)  # 1,024 train + 146 val samples
-        emit({"phase": "data", "seconds": round(time.time() - t0, 2), "path": str(data)})
 
     args = main_pretrain.get_args_parser().parse_args([
         "--model", "convnextv2_atto", "--input_size", "56", "--patch_size", "8",
@@ -494,8 +521,9 @@ def main() -> int:
     phase_build()
     rows_out = phase_kernels()
     rows_out.update(phase_spillg_kernels())
+    data = phase_data()
     for impl in ("dwg", "wholeblock"):
-        phase_slice(rows_out, card, impl)
+        phase_slice(rows_out, card, impl, data)
     for impl in ("dwg", "wholeblock"):
         phase_reference(impl)
     print(card, flush=True)

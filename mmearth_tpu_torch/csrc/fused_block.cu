@@ -35,6 +35,15 @@
 // write and read more than the Pallas kernel, whose dW1 accumulator stayed
 // in VMEM.
 //
+// Width: a block keeps its rows' C-wide operands (and, in D, the f32 du of
+// its rows) in shared memory, so that memory grows with C.  Each launch takes
+// the largest row tile (64 rows in bf16, 32 in f32, halved down to 16) whose
+// shared memory fits the card: at atto widths (C <= 320) every launch keeps
+// its full tile; in bf16 D takes 32 rows above C = 368 and 16 above C = 784
+// (f32: 16 above C = 384).  mm_spillg_max_c gives the widest C that fits at
+// 16 rows: 1616 in bf16 and 960 in f32 on the H100's 227 KB, so every stage
+// of atto to large runs in bf16; huge's C = 2816 does not.
+//
 // Cross-block sums: the TPU carried its accumulators from one grid step to
 // the next.  Blocks run in no order here, so every column sum (sum g^2 per
 // group, db1, db2, dgamma, dbeta, dnx, dLN) is reduced inside the block
@@ -51,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,6 +89,13 @@ __device__ __forceinline__ float gelu(float v) {
 __device__ __forceinline__ float gelu_grad(float v) {
   return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
          v * expf(-0.5f * v * v) * 0.39894228040143268f;
+}
+
+// h = gamma*(g*nx) + beta + g, rounded after each operation as the plain
+// version's elementwise ops round (no FMA contraction), so that h rounds to
+// the same product operand as there.
+__device__ __forceinline__ float grn_h(float g, float nx, float gamma, float beta) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(gamma, __fmul_rn(g, nx)), beta), g);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -272,13 +290,13 @@ __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size
 // ---------------------------------------------------------------------------
 // A: g = gelu(LN(t) W1^T + b1) stored in T; gxsq[grp] += sum over rows of g^2
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(Cfg<T>::BM * 2)
+template <typename T, int BM>
+__global__ void __launch_bounds__(BM * 2)
 spillg_fwd_a_kernel(const T* __restrict__ t, const float* __restrict__ lnw,
                     const float* __restrict__ lnb, const T* __restrict__ w1,
                     const float* __restrict__ b1, T* __restrict__ g, float* __restrict__ gxsq,
                     int C, int C4, int GR, int tpg) {
-  constexpr int BM = Cfg<T>::BM, NW = BM / 16;
+  constexpr int NW = BM / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int Cp = (C + 15) & ~15, lda = Cp + 8;
   T* sU = reinterpret_cast<T*>(smem);
@@ -370,7 +388,7 @@ spillg_fwd_b_kernel(const T* __restrict__ g, const T* __restrict__ x,
         float v = 0.f;
         if (r < rw.nvalid) {
           const float gv = to_f(g[(size_t)(rw.row0 + r) * C4 + j]);
-          v = gamma[j] * (gv * sNX[j]) + beta[j] + gv;
+          v = grn_h(gv, sNX[j], gamma[j], beta[j]);
         }
         sH[r * LDC + c] = from_f<T>(v);
       }
@@ -397,14 +415,14 @@ spillg_fwd_b_kernel(const T* __restrict__ g, const T* __restrict__ x,
 //    dgamma += sum dh*(g*nx), dbeta += sum dh, dnx[grp] += sum dh*gamma*g,
 //    db2 += sum dy.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(Cfg<T>::BM * 2)
+template <typename T, int BM>
+__global__ void __launch_bounds__(BM * 2)
 spillg_bwd_c_kernel(const T* __restrict__ dy, const T* __restrict__ g,
                     const float* __restrict__ nx, const float* __restrict__ gamma,
                     const T* __restrict__ w2t, float* __restrict__ db2,
                     float* __restrict__ dgamma, float* __restrict__ dbeta,
                     float* __restrict__ dnx, int C, int C4, int GR, int tpg) {
-  constexpr int BM = Cfg<T>::BM, NW = BM / 16;
+  constexpr int NW = BM / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int Cp = (C + 15) & ~15, lda = Cp + 8;
   T* sDY = reinterpret_cast<T*>(smem);
@@ -466,8 +484,8 @@ spillg_bwd_c_kernel(const T* __restrict__ dy, const T* __restrict__ g,
 //    other kernels (each of BM/16 row-warps split over two 32-column halves
 //    of a tile): the block holds the most shared memory, so few fit an SM.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(Cfg<T>::BM * 4)
+template <typename T, int BM>
+__global__ void __launch_bounds__(BM * 4)
 spillg_bwd_d_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* __restrict__ g,
                     const float* __restrict__ nx, const float* __restrict__ dgxg,
                     const float* __restrict__ lnw, const float* __restrict__ lnb,
@@ -476,7 +494,7 @@ spillg_bwd_d_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* 
                     const T* __restrict__ w1t, T* __restrict__ dt, T* __restrict__ dv_out,
                     T* __restrict__ u_out, float* __restrict__ db1, float* __restrict__ dlnw,
                     float* __restrict__ dlnb, int C, int C4, int GR, int tpg) {
-  constexpr int BM = Cfg<T>::BM, NW = BM / 16, NTH = 4;  // row-warps; n-tiles per warp
+  constexpr int NW = BM / 16, NTH = 4;  // row-warps; n-tiles per warp
   extern __shared__ __align__(16) unsigned char smem[];
   const int Cp = (C + 15) & ~15, lda = Cp + 8;
   unsigned char* p = smem;
@@ -609,7 +627,7 @@ spillg_atb_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float*
   float acc[8][4] = {};
   auto as_is = [](int, int, float v) { return v; };
   auto h_of_g = [=](int m, int j, float v) {
-    return nx == nullptr ? v : gamma[j] * (v * nx[(size_t)(m / GR) * J + j]) + beta[j] + v;
+    return nx == nullptr ? v : grn_h(v, nx[(size_t)(m / GR) * J + j], gamma[j], beta[j]);
   };
   for (int mb = m0; mb < m1; mb += KC) {
     __syncthreads();
@@ -631,19 +649,48 @@ spillg_atb_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float*
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-template <typename T> size_t rows_smem(int C) {
-  constexpr int BM = Cfg<T>::BM;
+// Shared memory of A and C (rows_smem), D (d_smem) and B (b_smem) at a row
+// tile of BM rows.
+template <typename T> size_t rows_smem(int C, int BM) {
   const int lda = ((C + 15) & ~15) + 8;
   return align16(sizeof(T) * BM * lda) + sizeof(T) * TN * LDC +
          align16(sizeof(T) * BM * LDC) + sizeof(float) * (BM / 16) * 64;
 }
 
-template <typename T> size_t d_smem(int C) {
-  constexpr int BM = Cfg<T>::BM;
+template <typename T> size_t d_smem(int C, int BM) {
   const int Cp = (C + 15) & ~15, lda = Cp + 8;
   return 2 * align16(sizeof(T) * BM * lda) + 2 * align16(sizeof(T) * TN * LDC) +
          2 * align16(sizeof(T) * BM * LDC) + align16(sizeof(float) * BM * Cp) +
          sizeof(float) * (2 * BM + (BM / 16) * 64);
+}
+
+template <typename T> size_t b_smem(int C) {
+  return align16(sizeof(float) * (4 * C + 32)) + sizeof(T) * (Cfg<T>::BM + TN) * LDC;
+}
+
+size_t smem_limit() {  // opt-in shared memory per block of the current device
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)v;
+}
+
+// The largest row tile (Cfg<T>::BM halved down to 16 rows) whose shared
+// memory fits, or 0 when none does.
+template <typename T> int pick_bm(size_t (*smem)(int, int), int C, size_t limit) {
+  for (int bm = Cfg<T>::BM; bm >= 16; bm /= 2)
+    if (smem(C, bm) <= limit) return bm;
+  return 0;
+}
+
+// f(std::integral_constant<int, bm>) for a picked row tile.
+template <typename T, typename F> int with_bm(int bm, F f) {
+  if constexpr (Cfg<T>::BM >= 64) {
+    if (bm == 64) return f(std::integral_constant<int, 64>{});
+  }
+  if (bm == 32) return f(std::integral_constant<int, 32>{});
+  if (bm == 16) return f(std::integral_constant<int, 16>{});
+  return (int)cudaErrorInvalidConfiguration;  // C too wide: see mm_spillg_max_c
 }
 
 template <typename K>
@@ -651,15 +698,13 @@ cudaError_t prepare(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T> int grid_rows(int M, int GR) {
-  return (M / GR) * ((GR + Cfg<T>::BM - 1) / Cfg<T>::BM);
-}
+int grid_rows(int M, int GR, int BM) { return (M / GR) * ((GR + BM - 1) / BM); }
 
 // Row blocks times a split of the ncols output columns over blockIdx.y, so
 // that the few-row stages (C = 160, 320) still fill the card.
 constexpr int TARGET_BLOCKS = 1056;  // 8 per SM on 132 SMs
-template <typename T> dim3 grid_2d(int M, int GR, int ncols) {
-  const int rows = grid_rows<T>(M, GR), tiles = (ncols + TN - 1) / TN;
+dim3 grid_2d(int M, int GR, int ncols, int BM) {
+  const int rows = grid_rows(M, GR, BM), tiles = (ncols + TN - 1) / TN;
   const int ny = max(1, min(tiles, (TARGET_BLOCKS + rows - 1) / rows));
   return dim3(rows, ny);
 }
@@ -667,28 +712,30 @@ template <typename T> dim3 grid_2d(int M, int GR, int ncols) {
 template <typename T>
 int fwd_a(const void* t, const void* lnw, const void* lnb, const void* w1, const void* b1,
           void* g, void* gxsq, int M, int C, int GR, cudaStream_t s) {
-  const size_t smem = rows_smem<T>(C);
-  cudaError_t e = prepare(spillg_fwd_a_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int tpg = (GR + Cfg<T>::BM - 1) / Cfg<T>::BM;
-  spillg_fwd_a_kernel<T><<<grid_2d<T>(M, GR, 4 * C), Cfg<T>::BM * 2, smem, s>>>(
-      (const T*)t, (const float*)lnw, (const float*)lnb, (const T*)w1, (const float*)b1,
-      (T*)g, (float*)gxsq, C, 4 * C, GR, tpg);
-  return (int)cudaGetLastError();
+  return with_bm<T>(pick_bm<T>(rows_smem<T>, C, smem_limit()), [&](auto bm) {
+    constexpr int BM = decltype(bm)::value;
+    const size_t smem = rows_smem<T>(C, BM);
+    cudaError_t e = prepare(spillg_fwd_a_kernel<T, BM>, smem);
+    if (e != cudaSuccess) return (int)e;
+    spillg_fwd_a_kernel<T, BM><<<grid_2d(M, GR, 4 * C, BM), BM * 2, smem, s>>>(
+        (const T*)t, (const float*)lnw, (const float*)lnb, (const T*)w1, (const float*)b1,
+        (T*)g, (float*)gxsq, C, 4 * C, GR, (GR + BM - 1) / BM);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T>
 int fwd_b(const void* g, const void* x, const void* gxsq, const void* gamma, const void* beta,
           const void* w2, const void* b2, void* y, void* gx, void* nx, int M, int C, int GR,
           cudaStream_t s) {
-  const size_t smem = align16(sizeof(float) * (4 * C + 32)) +
-                      sizeof(T) * (Cfg<T>::BM + TN) * LDC;
+  constexpr int BM = Cfg<T>::BM;
+  const size_t smem = b_smem<T>(C);
   cudaError_t e = prepare(spillg_fwd_b_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
-  const int tpg = (GR + Cfg<T>::BM - 1) / Cfg<T>::BM;
-  spillg_fwd_b_kernel<T><<<grid_2d<T>(M, GR, C), Cfg<T>::BM * 2, smem, s>>>(
+  spillg_fwd_b_kernel<T><<<grid_2d(M, GR, C, BM), BM * 2, smem, s>>>(
       (const T*)g, (const T*)x, (const float*)gxsq, (const float*)gamma, (const float*)beta,
-      (const T*)w2, (const float*)b2, (T*)y, (float*)gx, (float*)nx, C, 4 * C, GR, tpg);
+      (const T*)w2, (const float*)b2, (T*)y, (float*)gx, (float*)nx, C, 4 * C, GR,
+      (GR + BM - 1) / BM);
   return (int)cudaGetLastError();
 }
 
@@ -696,14 +743,17 @@ template <typename T>
 int bwd_c(const void* dy, const void* g, const void* nx, const void* gamma, const void* w2t,
           void* db2, void* dgamma, void* dbeta, void* dnx, int M, int C, int GR,
           cudaStream_t s) {
-  const size_t smem = rows_smem<T>(C);
-  cudaError_t e = prepare(spillg_bwd_c_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int tpg = (GR + Cfg<T>::BM - 1) / Cfg<T>::BM;
-  spillg_bwd_c_kernel<T><<<grid_2d<T>(M, GR, 4 * C), Cfg<T>::BM * 2, smem, s>>>(
-      (const T*)dy, (const T*)g, (const float*)nx, (const float*)gamma, (const T*)w2t,
-      (float*)db2, (float*)dgamma, (float*)dbeta, (float*)dnx, C, 4 * C, GR, tpg);
-  return (int)cudaGetLastError();
+  return with_bm<T>(pick_bm<T>(rows_smem<T>, C, smem_limit()), [&](auto bm) {
+    constexpr int BM = decltype(bm)::value;
+    const size_t smem = rows_smem<T>(C, BM);
+    cudaError_t e = prepare(spillg_bwd_c_kernel<T, BM>, smem);
+    if (e != cudaSuccess) return (int)e;
+    spillg_bwd_c_kernel<T, BM><<<grid_2d(M, GR, 4 * C, BM), BM * 2, smem, s>>>(
+        (const T*)dy, (const T*)g, (const float*)nx, (const float*)gamma, (const T*)w2t,
+        (float*)db2, (float*)dgamma, (float*)dbeta, (float*)dnx, C, 4 * C, GR,
+        (GR + BM - 1) / BM);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T>
@@ -711,16 +761,28 @@ int bwd_d(const void* t, const void* dy, const void* g, const void* nx, const vo
           const void* lnw, const void* lnb, const void* w1, const void* b1, const void* gamma,
           const void* w2t, const void* w1t, void* dt, void* dv, void* u, void* db1, void* dlnw,
           void* dlnb, int M, int C, int GR, cudaStream_t s) {
-  const size_t smem = d_smem<T>(C);
-  cudaError_t e = prepare(spillg_bwd_d_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int tpg = (GR + Cfg<T>::BM - 1) / Cfg<T>::BM;
-  spillg_bwd_d_kernel<T><<<grid_rows<T>(M, GR), Cfg<T>::BM * 4, smem, s>>>(
-      (const T*)t, (const T*)dy, (const T*)g, (const float*)nx, (const float*)dgxg,
-      (const float*)lnw, (const float*)lnb, (const T*)w1, (const float*)b1,
-      (const float*)gamma, (const T*)w2t, (const T*)w1t, (T*)dt, (T*)dv, (T*)u, (float*)db1,
-      (float*)dlnw, (float*)dlnb, C, 4 * C, GR, tpg);
-  return (int)cudaGetLastError();
+  return with_bm<T>(pick_bm<T>(d_smem<T>, C, smem_limit()), [&](auto bm) {
+    constexpr int BM = decltype(bm)::value;
+    const size_t smem = d_smem<T>(C, BM);
+    cudaError_t e = prepare(spillg_bwd_d_kernel<T, BM>, smem);
+    if (e != cudaSuccess) return (int)e;
+    spillg_bwd_d_kernel<T, BM><<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
+        (const T*)t, (const T*)dy, (const T*)g, (const float*)nx, (const float*)dgxg,
+        (const float*)lnw, (const float*)lnb, (const T*)w1, (const float*)b1,
+        (const float*)gamma, (const T*)w2t, (const T*)w1t, (T*)dt, (T*)dv, (T*)u, (float*)db1,
+        (float*)dlnw, (float*)dlnb, C, 4 * C, GR, (GR + BM - 1) / BM);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The widest C (a multiple of 8) for which every launch finds a row tile.
+template <typename T> int max_c() {
+  const size_t limit = smem_limit();
+  int c = 0;
+  while (c < 65536 && pick_bm<T>(rows_smem<T>, c + 8, limit) &&
+         pick_bm<T>(d_smem<T>, c + 8, limit) && b_smem<T>(c + 8) <= limit)
+    c += 8;
+  return c;
 }
 
 template <typename T>
@@ -790,6 +852,11 @@ extern "C" int mm_spillg_bwd_d(const void* t, const void* dy, const void* g, con
 
 // out (I, J) f32 += X^T Y; nx/gamma/beta null for plain Y, else Y is g and
 // is turned into h on the fly.  rows_per_split is a multiple of 64.
+// The widest C the row launches take on the current device (0: none).
+extern "C" int mm_spillg_max_c(int is_bf16) {
+  return is_bf16 ? max_c<__nv_bfloat16>() : max_c<float>();
+}
+
 extern "C" int mm_spillg_atb(const void* X, const void* Y, const void* nx, const void* gamma,
                              const void* beta, void* out, int M, int I, int J, int GR,
                              int rows_per_split, int splits, int is_bf16, void* stream) {

@@ -73,7 +73,8 @@ def get_args_parser():
                    help="every choice runs the gathered encoder with the dwconv7_gathered "
                         "kernel; auto, xla and dwg compose the block tail from torch ops, "
                         "spillg and wholeblock (the same code in this port) run it through "
-                        "the spill-g kernels; fused, remat and folded are not ported yet")
+                        "the spill-g kernels (on an H100, stage widths up to those of "
+                        "convnextv2_large); fused, remat and folded are not ported yet")
     p.add_argument("--sparse_impl", choices=["gathered", "masked_dense"], default="gathered")
     p.add_argument("--grn_scope", choices=["global", "per_device"], default="per_device")
     p.add_argument("--gelu_approx", type=str2bool, default=False)

@@ -24,7 +24,6 @@ in) Linears, (1, 1, 1, C) GRN affines); each layer casts them to its compute
 from __future__ import annotations
 
 import math
-import warnings
 
 import torch
 import torch.nn.functional as F
@@ -158,14 +157,9 @@ class Block(nn.Module):
 
     def _spillg_tail(self, x, t):
         """The tail on the N*K*p*p rows, GRN grouped as ``MaskedGRN`` groups
-        them: ``grn_group`` samples a group, or the whole batch when it is 0 or
-        does not divide N (with MaskedGRN's warning)."""
+        them (``MaskedGRN.group_size``)."""
         n, c = t.shape[0], t.shape[-1]
-        group = self.grn.group
-        if group > 0 and n % group:
-            warnings.warn(f"MaskedGRN: batch {n} is not divisible by group {group}; "
-                          "falling back to global-batch statistics for this call", stacklevel=3)
-        g = n if group <= 0 or n % group else min(group, n)
+        g = self.grn.group_size(n, stacklevel=4)
         rows = t.numel() // c
         y = fused_block_mlp_spillg(
             t.reshape(rows, c), x.reshape(rows, c), self.norm.weight, self.norm.bias,

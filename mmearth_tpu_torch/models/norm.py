@@ -74,17 +74,22 @@ class MaskedGRN(nn.Module):
         self.dtype = dtype
         self.group = group
 
-    def forward(self, x, keep=None):
-        xf = x.float()
-        masked = xf if keep is None else xf * keep.float()
-        n = xf.shape[0]
+    def group_size(self, n: int, stacklevel: int = 3) -> int:
+        """Samples per statistic for a batch of ``n``: ``group``, or ``n`` when
+        ``group`` is 0 or does not divide ``n`` (which warns)."""
         if self.group > 0 and n % self.group:
             warnings.warn(
                 f"MaskedGRN: batch {n} is not divisible by group {self.group}; "
                 "falling back to global-batch statistics for this call",
-                stacklevel=2,
+                stacklevel=stacklevel,
             )
-        g = n if self.group <= 0 or n % self.group else min(self.group, n)
+        return n if self.group <= 0 or n % self.group else min(self.group, n)
+
+    def forward(self, x, keep=None):
+        xf = x.float()
+        masked = xf if keep is None else xf * keep.float()
+        n = xf.shape[0]
+        g = self.group_size(n)
         xg = xf.reshape(n // g, g, *xf.shape[1:])
         mg = masked.reshape(n // g, g, *masked.shape[1:])
         axes = tuple(range(1, mg.ndim - 1))

@@ -38,6 +38,7 @@ tensor takes the plain version; a CUDA tensor launches the kernels or raises.
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "mm_spillg_bwd_c": [_P] * 9 + [_I] * 4 + [_P],
     "mm_spillg_bwd_d": [_P] * 18 + [_I] * 4 + [_P],
     "mm_spillg_atb": [_P] * 6 + [_I] * 7 + [_P],
+    "mm_spillg_max_c": [_I],
 }
 _ATB_BLOCKS = 528  # X^T Y blocks to aim for (4 per SM on 132 SMs)
 _ATB_CHUNK = 64    # rows staged per step of the X^T Y kernel
@@ -131,6 +133,11 @@ def bwd_c_plain(dy, g, nx, gamma, w2, group_rows):
 def atb_plain(x, y):
     """x^T y with operands rounded to their dtype's product type, f32 sums."""
     return _mm(x.t(), y, _cd(x.dtype))
+
+
+def dw2_plain(dy, g, nx, gamma, beta, group_rows):
+    """dW2 = h^T dy with h recomputed from g, (C, 4C) f32."""
+    return atb_plain(dy, h_plain(g, nx, gamma, beta, group_rows))
 
 
 def dgx_step(dnx, gx):
@@ -210,16 +217,30 @@ def _w(w, ref, shape):
     return w.to(ref.dtype).contiguous()
 
 
-def _check_groups(m, c, group_rows, name):
+_MAX_C: dict = {}
+
+
+def _check_groups(x, c, group_rows, name):
+    """C a multiple of 8 and no wider than the row launches take on x's card
+    (their shared memory grows with C); group_rows divides the rows."""
+    m = x.shape[0]
     if c % 8:
         raise ValueError(f"{name}: C = {c} must be a multiple of 8")
+    key = (x.device, x.dtype)
+    if key not in _MAX_C:
+        with torch.cuda.device(x.device):
+            _MAX_C[key] = _lib().mm_spillg_max_c(int(x.dtype == torch.bfloat16))
+    if c > _MAX_C[key]:
+        raise ValueError(f"{name}: C = {c} is wider than the spill-g kernels take on this card "
+                         f"({_MAX_C[key]} in {x.dtype}: a tile of 16 rows of C channels must fit "
+                         "in one block's shared memory)")
     if group_rows <= 0 or m % group_rows:
         raise ValueError(f"{name}: group_rows {group_rows} must divide M = {m}")
 
 
 def _fwd_a_cuda(t, ln_w, ln_b, w1, b1, group_rows):
     m, c = _rows(t, "spillg fwd A")
-    _check_groups(m, c, group_rows, "spillg fwd A")
+    _check_groups(t, c, group_rows, "spillg fwd A")
     dev, c4 = t.device, 4 * c
     g = torch.empty((m, c4), dtype=t.dtype, device=dev)
     gxsq = torch.zeros((m // group_rows, c4), dtype=torch.float32, device=dev)
@@ -234,7 +255,7 @@ def _fwd_a_cuda(t, ln_w, ln_b, w1, b1, group_rows):
 def _fwd_b_cuda(g, x_res, gxsq, gamma, beta, w2, b2, group_rows):
     m, c4 = _rows(g, "spillg fwd B")
     c = c4 // 4
-    _check_groups(m, c, group_rows, "spillg fwd B")
+    _check_groups(g, c, group_rows, "spillg fwd B")
     _like(x_res, g, (m, c), "spillg fwd B x_res")
     dev, n_g = g.device, m // group_rows
     if tuple(gxsq.shape) != (n_g, c4) or gxsq.dtype != torch.float32:
@@ -253,7 +274,7 @@ def _fwd_b_cuda(g, x_res, gxsq, gamma, beta, w2, b2, group_rows):
 
 def _bwd_c_cuda(dy, g, nx, gamma, w2, group_rows):
     m, c = _rows(dy, "spillg bwd C")
-    _check_groups(m, c, group_rows, "spillg bwd C")
+    _check_groups(dy, c, group_rows, "spillg bwd C")
     c4, dev = 4 * c, dy.device
     _like(g, dy, (m, c4), "spillg bwd C g")
     f32 = dict(dtype=torch.float32, device=dev)
@@ -296,7 +317,7 @@ def _atb_cuda(x, y, key, h_of=None):
 def _bwd_d_cuda(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
     """The row pass of D: -> dt, db1, dln_w, dln_b, and the stored dv, u."""
     m, c = _rows(t, "spillg bwd D")
-    _check_groups(m, c, group_rows, "spillg bwd D")
+    _check_groups(t, c, group_rows, "spillg bwd D")
     c4, dev = 4 * c, t.device
     _like(dy, t, (m, c), "spillg bwd D dy")
     _like(g, t, (m, c4), "spillg bwd D g")
@@ -318,55 +339,48 @@ def _bwd_d_cuda(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
     return dt, db1, dlnw, dlnb, dv, u
 
 
+def _dw2_cuda(dy, g, nx, gamma, beta, group_rows):
+    return _atb_cuda(dy, g, "spillg_bwd_c_dw2", (nx, gamma, beta, group_rows))
+
+
+def _dw1_cuda(dv, u):
+    return _atb_cuda(dv, u, "spillg_bwd_d_dw1")
+
+
 # ---------------------------------------------------------------------------
-# phases routed by device
+# the op
 # ---------------------------------------------------------------------------
-def _on_cpu(x, name):
+class Phases(NamedTuple):
+    """One device's phase functions, with the plain versions' signatures."""
+
+    fwd_a: Callable
+    fwd_b: Callable
+    bwd_c: Callable
+    dw2: Callable
+    bwd_d: Callable
+    dw1: Callable
+
+
+PLAIN = Phases(fwd_a_plain, fwd_b_plain, bwd_c_plain, dw2_plain, bwd_d_plain, atb_plain)
+CUDA = Phases(_fwd_a_cuda, _fwd_b_cuda, _bwd_c_cuda, _dw2_cuda, _bwd_d_cuda, _dw1_cuda)
+
+
+def phases(x) -> Phases:
+    """The plain versions for a CPU tensor, the kernels for a CUDA tensor."""
     if x.device.type == "cpu":
-        return True
+        return PLAIN
     if not x.is_cuda:
-        raise RuntimeError(f"{name}: no kernel for device {x.device}")
-    return False
-
-
-def fwd_a(t, ln_w, ln_b, w1, b1, group_rows):
-    if _on_cpu(t, "spillg fwd A"):
-        return fwd_a_plain(t, ln_w, ln_b, w1, b1, group_rows)
-    return _fwd_a_cuda(t, ln_w, ln_b, w1, b1, group_rows)
-
-
-def fwd_b(g, x_res, gxsq, gamma, beta, w2, b2, group_rows):
-    if _on_cpu(g, "spillg fwd B"):
-        return fwd_b_plain(g, x_res, gxsq, gamma, beta, w2, b2, group_rows)
-    return _fwd_b_cuda(g, x_res, gxsq, gamma, beta, w2, b2, group_rows)
-
-
-def bwd_c(dy, g, nx, gamma, beta, w2, group_rows):
-    """-> dw2 (C, 4C), db2, dgamma, dbeta, dnx."""
-    if _on_cpu(dy, "spillg bwd C"):
-        h = h_plain(g, nx, gamma, beta, group_rows)
-        return (atb_plain(dy, h), *bwd_c_plain(dy, g, nx, gamma, w2, group_rows))
-    sums = _bwd_c_cuda(dy, g, nx, gamma, w2, group_rows)
-    return (_atb_cuda(dy, g, "spillg_bwd_c_dw2", (nx, gamma, beta, group_rows)), *sums)
-
-
-def bwd_d(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
-    """-> dt, dw1 (4C, C), db1, dln_w, dln_b."""
-    if _on_cpu(t, "spillg bwd D"):
-        dt, db1, dlnw, dlnb, dv, u = bwd_d_plain(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma,
-                                                 w2, group_rows)
-        return dt, atb_plain(dv, u), db1, dlnw, dlnb
-    dt, db1, dlnw, dlnb, dv, u = _bwd_d_cuda(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2,
-                                             group_rows)
-    return dt, _atb_cuda(dv, u, "spillg_bwd_d_dw1"), db1, dlnw, dlnb
+        raise RuntimeError(f"fused_block_mlp_spillg: no kernel for device {x.device}")
+    return CUDA
 
 
 class _SpillG(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows):
+        ph = phases(t)
         gm, bt = gamma.reshape(-1), beta.reshape(-1)
-        g, gxsq = fwd_a(t, ln_w, ln_b, w1, b1, group_rows)
-        y, gx, nx = fwd_b(g, x_res, gxsq, gm, bt, w2, b2, group_rows)
+        g, gxsq = ph.fwd_a(t, ln_w, ln_b, w1, b1, group_rows)
+        y, gx, nx = ph.fwd_b(g, x_res, gxsq, gm, bt, w2, b2, group_rows)
         ctx.save_for_backward(t, g, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2)
         ctx.group_rows = group_rows
         return y
@@ -374,12 +388,14 @@ class _SpillG(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         t, g, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2 = ctx.saved_tensors
-        gr = ctx.group_rows
+        ph, gr = phases(t), ctx.group_rows
         gm, bt = gamma.reshape(-1), beta.reshape(-1)
         dy = dy.contiguous()
-        dw2, db2, dgamma, dbeta, dnx = bwd_c(dy, g, nx, gm, bt, w2, gr)
+        db2, dgamma, dbeta, dnx = ph.bwd_c(dy, g, nx, gm, w2, gr)
+        dw2 = ph.dw2(dy, g, nx, gm, bt, gr)
         dgxg = dgx_step(dnx, gx)
-        dt, dw1, db1, dlnw, dlnb = bwd_d(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gm, w2, gr)
+        dt, db1, dlnw, dlnb, dv, u = ph.bwd_d(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gm, w2, gr)
+        dw1 = ph.dw1(dv, u)
 
         def cast(a, like):
             return a.reshape(like.shape).to(like.dtype)
@@ -394,7 +410,9 @@ def fused_block_mlp_spillg(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, gr
     t, x_res: (M, C) rows in the activation dtype (bf16 or f32); ln_w, ln_b
     (C,); w1 (4C, C) and b1 (4C,) of ``pwconv1``; gamma, beta (1, 1, 1, 4C);
     w2 (C, 4C) and b2 (C,) of ``pwconv2``; params f32.  ``group_rows``: rows
-    per GRN group (it must divide M); None = one group of all rows."""
+    per GRN group (it must divide M); None = one group of all rows.  On the
+    card C must be a multiple of 8 and fit the kernels' shared memory (on an
+    H100 C <= 1616 in bf16 and 960 in f32); wider rows raise."""
     gr = t.shape[0] if group_rows is None else int(group_rows)
     if gr <= 0 or t.shape[0] % gr:
         raise ValueError(f"fused_block_mlp_spillg: group_rows {gr} must divide M = {t.shape[0]}")

@@ -10,6 +10,8 @@ Pallas kernel uses a polynomial with |error| <= 1.5e-7, the port torch.erf);
 bf16 2e-2, as ``tests/test_fused_block.py`` holds the Pallas kernel.  The
 CUDA kernels are held against the plain version on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
+import contextlib
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -180,9 +182,32 @@ def test_only_cpu_tensors_take_the_plain_path():
     """Only a CPU tensor takes the plain version; any other device goes to the
     kernel (CUDA) or raises, checked here with the meta device."""
     c = 8
+    assert fb.phases(torch.empty(64, c)) is fb.PLAIN
+    assert fb.PLAIN != fb.CUDA and all(p is not k for p, k in zip(fb.PLAIN, fb.CUDA))
     t = torch.empty(64, c, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
-        fb.fwd_a(t, torch.empty(c), torch.empty(c), torch.empty(4 * c, c), torch.empty(4 * c), 64)
+        fb.phases(t)
+    args = (torch.empty(c), torch.empty(c), torch.empty(4 * c, c), torch.empty(4 * c),
+            torch.empty(1, 1, 1, 4 * c), torch.empty(1, 1, 1, 4 * c), torch.empty(c, 4 * c),
+            torch.empty(c))
     with pytest.raises(RuntimeError, match="no kernel"):
-        fb.bwd_d(t, t, torch.empty(64, 4 * c, device="meta"), *(torch.empty(1) for _ in range(8)),
-                 64)
+        fb.fused_block_mlp_spillg(t, t, *args)
+
+
+@pytest.mark.parametrize("group,n,expect", [(0, 8, 8), (4, 8, 4), (16, 8, 8), (3, 8, 8)])
+def test_spillg_tail_groups_rows_as_masked_grn(group, n, expect, monkeypatch):
+    """The spill-g tail takes its GRN group from ``MaskedGRN.group_size``, the
+    rule the composed tail applies: ``group`` samples, or the whole batch when
+    it is 0 or does not divide the batch (which warns)."""
+    from mmearth_tpu_torch.models import convnextv2
+
+    blk = convnextv2.Block(8, sparse=True, grn_group=group, spillg=True)
+    warns = group > 0 and n % group
+    seen = []
+    monkeypatch.setattr(convnextv2, "fused_block_mlp_spillg",
+                        lambda t, x, *params, group_rows: seen.append(group_rows) or x)
+    x = torch.zeros(n, 2, 2, 2, 8)
+    with pytest.warns(UserWarning, match="not divisible") if warns else contextlib.nullcontext():
+        assert blk.grn.group_size(n) == expect
+        blk._spillg_tail(x, x)
+    assert seen == [expect * 2 * 2 * 2]
