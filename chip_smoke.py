@@ -34,15 +34,32 @@ Phases, each of which exits non-zero on failure:
    pass shows 0 with ``bound_in`` naming the row pass, and the traffic that
    the split adds (the dW2 pass re-reads dy and g; D stores dv and u and the
    dW1 pass reads them back) is given per launch as ``split_extra_bytes``.
+   The six masked-dense launches (the statistic and apply passes of the
+   forward; the statistic pass, its dW2 pass, the dv pass and its dW1 pass of
+   the backward) each against their plain phase at the four masked-dense
+   stage shapes (every site of the 56/28/14/7 grid of 256 samples, a real
+   mask of 19 visible patches out of 49 upsampled to each stage, one GRN
+   group), with the spill-g tolerances and their reasons, and y = x, dt = 0
+   exactly at masked sites; their yardstick is the port's composed masked
+   tail.  Row 5's pair carries its bound on the apply pass and row 6's four
+   launches on the dv pass; each bound counts what this run's mask needs
+   (the products and the t, dy reads of the kept sites only), with the
+   all-sites count beside it (``bound_ms_all_sites``), and each launch gives
+   the bytes it moves (``launch_bytes``).
 3. slices: 1,170 samples of synthetic 64-px mmpack data, then the port's
    ``main_pretrain.main`` at convnextv2_atto 56/8, batch 256, bf16 for 12
-   steps over 3 epochs, once with ``--block_impl dwg`` and once with
-   ``--block_impl wholeblock``.  Every step's loss must be finite and the
-   launch counters, set to 0 before each run, must rise by exactly 2/2/12/12
-   (gather/scatter/dwconv fwd/bwd) per step, plus 12 of each spill-g launch
-   under wholeblock and none under dwg.
+   steps over 3 epochs, four times: the gathered encoder with
+   ``--block_impl dwg`` and with ``wholeblock``, and ``--sparse_impl
+   masked_dense`` with ``--block_impl auto`` (composed tail) and with
+   ``fused``.  Every step's loss must be finite and the launch counters, set
+   to 0 before each run, must rise by exactly 2/2/12/12 (gather/scatter/
+   dwconv fwd/bwd) per step on the gathered slices and 0 on the masked-dense
+   ones, 12 of each spill-g launch a step under wholeblock and none
+   elsewhere, 12 of each masked-dense launch a step under masked_dense
+   fused and none elsewhere.
 4. reference: a small f32 FCMAE step on the GPU against the same step on the
-   CPU (plain versions), loss and grads, for dwg and for wholeblock.
+   CPU (plain versions), loss and grads, for dwg, wholeblock and
+   masked_dense fused.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -59,6 +76,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N, GRID, K = 256, 7, 19  # atto 56/8 at batch 256, mask ratio 0.6
 DW_GEOMS = ((8, 40, 2), (4, 80, 2), (2, 160, 6), (1, 320, 2))  # (p, C, blocks per step)
+DENSE_GEOMS = ((56, 40, 2), (28, 80, 2), (14, 160, 6), (7, 320, 2))  # (grid side, C, blocks)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -264,14 +282,48 @@ def sum_bound(ref):
     return 1e-3 * a + 1e-4 * a.max()
 
 
+def composed_tail_ms(t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2, keep=None):
+    """Forward and autograd-backward ms of the port's composed block tail in
+    bf16 on (N, S, C) rows (LN -> Linear -> GELU -> MaskedGRN over one group
+    of N -> Linear, times ``keep`` when given, + residual): the yardstick of
+    the fused tails, which the port never calls on their paths."""
+    import torch
+
+    from mmearth_tpu_torch.models.convnextv2 import dense, gelu
+    from mmearth_tpu_torch.models.norm import LayerNorm, MaskedGRN
+
+    bf, c = torch.bfloat16, t.shape[-1]
+    norm = LayerNorm(c, dtype=bf).to(t.device)
+    grn = MaskedGRN(4 * c, bf, group=N).to(t.device)
+    with torch.no_grad():
+        norm.weight.copy_(lw)
+        norm.bias.copy_(lb)
+        grn.gamma.copy_(gm.reshape(grn.gamma.shape))
+        grn.beta.copy_(bt.reshape(grn.beta.shape))
+    prm = [w1.clone().requires_grad_(), b1.clone().requires_grad_(),
+           w2.clone().requires_grad_(), b2.clone().requires_grad_()]
+    t3 = t.reshape(N, -1, c).clone().requires_grad_()
+    x3, dy3 = x.reshape(N, -1, c), dy.reshape(N, -1, c)
+    k3 = None if keep is None else keep.reshape(N, -1, 1)
+
+    def composed():
+        u_ = grn(gelu(dense(norm(t3), prm[0], prm[1], bf)), k3)
+        o = dense(u_, prm[2], prm[3], bf)
+        return x3 + (o if k3 is None else o * k3)
+
+    fwd = time_ms(composed)
+    y3 = composed()
+    leaves = [t3, *prm, *norm.parameters(), *grn.parameters()]
+    bwd = time_ms(lambda: torch.autograd.grad(y3, leaves, dy3, retain_graph=True))
+    return fwd, bwd
+
+
 def phase_spillg_kernels() -> dict:
     """The spill-g launches against their plain phases at the four stage
     shapes (one GRN group of the batch, as ``--grn_scope per_device`` gives on
     one card); returns one row per launch."""
     import torch
 
-    from mmearth_tpu_torch.models.convnextv2 import dense, gelu
-    from mmearth_tpu_torch.models.norm import LayerNorm, MaskedGRN
     from mmearth_tpu_torch.ops import fused_block as fb
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -335,28 +387,7 @@ def phase_spillg_kernels() -> dict:
         check("spillg_bwd_d_dw1", "dW1", dw1, rdw1, sum_bound(rdw1))
         emit({"check": "spillg", "C": c, "M": m, "max_abs_err": every})
 
-        # the port's composed tail (the yardstick; the port never calls it on this path)
-        norm = LayerNorm(c, dtype=bf).to(dev)
-        grn = MaskedGRN(c4, bf, group=N).to(dev)
-        with torch.no_grad():
-            norm.weight.copy_(lw)
-            norm.bias.copy_(lb)
-            grn.gamma.copy_(gm.reshape(grn.gamma.shape))
-            grn.beta.copy_(bt.reshape(grn.beta.shape))
-        prm = [w1.clone().requires_grad_(), b1.clone().requires_grad_(),
-               w2.clone().requires_grad_(), b2.clone().requires_grad_()]
-        t3 = t.reshape(N, K * p * p, c).clone().requires_grad_()
-        x3, dy3 = x.reshape(N, K * p * p, c), dy.reshape(N, K * p * p, c)
-
-        def composed():
-            u_ = gelu(dense(norm(t3), prm[0], prm[1], bf))
-            return x3 + dense(grn(u_), prm[2], prm[3], bf)
-
-        lib_fwd = time_ms(composed)
-        y3 = composed()
-        leaves = [t3, *prm, *norm.parameters(), *grn.parameters()]
-        lib_bwd = time_ms(lambda: torch.autograd.grad(y3, leaves, dy3, retain_graph=True))
-        del y3
+        lib_fwd, lib_bwd = composed_tail_ms(t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2)
 
         # Bytes and products of each Pallas kernel's own function: A reads t
         # and writes g; B reads g, x and writes y; C (kernel 9) reads dy, g and
@@ -407,6 +438,174 @@ def phase_spillg_kernels() -> dict:
     return rows_out
 
 
+MASKED = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick)
+    ("masked_fwd_stat", "mmearth_tpu/ops/fused_block.py:87",
+     "composed masked tail forward, covers both forward passes"),
+    ("masked_fwd_apply", "mmearth_tpu/ops/fused_block.py:87",
+     "composed masked tail forward, covers both forward passes"),
+    ("masked_bwd_stat", "mmearth_tpu/ops/fused_block.py:129",
+     "composed masked tail backward, covers the four backward launches"),
+    ("masked_bwd_stat_dw2", "mmearth_tpu/ops/fused_block.py:129",
+     "composed masked tail backward, covers the four backward launches"),
+    ("masked_bwd_dv", "mmearth_tpu/ops/fused_block.py:129",
+     "composed masked tail backward, covers the four backward launches"),
+    ("masked_bwd_dv_dw1", "mmearth_tpu/ops/fused_block.py:129",
+     "composed masked tail backward, covers the four backward launches"),
+)
+# the launch that carries the bound of the Pallas kernel it shares
+MASKED_CARRIER = {"masked_fwd_stat": "masked_fwd_apply", "masked_bwd_stat": "masked_bwd_dv",
+                  "masked_bwd_stat_dw2": "masked_bwd_dv", "masked_bwd_dv_dw1": "masked_bwd_dv"}
+
+
+def phase_masked_kernels() -> dict:
+    """The masked-dense launches against their plain phases at the four
+    masked-dense stage shapes (every site of each stage's grid, a mask of K
+    visible patches upsampled to it, one GRN group of the batch); returns one
+    row per launch."""
+    import torch
+
+    from mmearth_tpu_torch.models.convnextv2 import upsample_mask
+    from mmearth_tpu_torch.models.fcmae import gen_random_mask
+    from mmearth_tpu_torch.ops import fused_block as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    keep_flat = 1.0 - gen_random_mask(N, GRID * GRID, 0.6, gen, dev)
+    rows_out = {key: {"name": key, "route": "cuda",
+                      "source": "mmearth_tpu_torch/csrc/fused_block.cu", "replaces": rep,
+                      "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "bound_ms": 0.0, "bound_by": "bytes", "library_ms": 0.0, "library": lib,
+                      "bound_ms_all_sites": 0.0, "launch_bytes": 0, "max_err_over_scale": 0.0}
+                for key, rep, lib in MASKED}
+
+    def rnd(*shape, s=1.0, mean=0.0):
+        return mean + s * torch.randn(*shape, generator=gen, device=dev)
+
+    largest = {}
+    for h, c, count in DENSE_GEOMS:
+        m, c4 = N * h * h, 4 * c
+        keep = upsample_mask(keep_flat, GRID, h).reshape(m, 1).to(bf)
+        masked = keep[:, 0] == 0
+        kept = int(keep.float().sum())
+        t, x, dy = rnd(m, c).to(bf), rnd(m, c).to(bf), rnd(m, c).to(bf)
+        lw, lb, b1, b2 = rnd(c, s=0.1, mean=1.0), rnd(c, s=0.1), rnd(c4, s=0.1), rnd(c, s=0.1)
+        w1, w2 = rnd(c4, c, s=c ** -0.5), rnd(c, c4, s=c4 ** -0.5)
+        gm, bt = rnd(c4, s=0.5), rnd(c4, s=0.1)
+        errs, rel, every = {}, {}, {}
+
+        def check(key, name, got, ref, bound, main=True):
+            """Holds every output; a row's max_abs_err (and max_err_over_scale,
+            the error over the output's largest magnitude) is that of its main
+            outputs (y, dt, dW1, dW2, the statistic passes' sums), not of those
+            it feeds."""
+            err = check_close(f"{key} {name} C={c}", got, ref, bound)
+            every[f"{key} {name}"] = err
+            if main:
+                errs[key] = max(errs.get(key, 0.0), err)
+                rel[key] = max(rel.get(key, 0.0), err / float(ref.float().abs().max()))
+
+        # each launch on the plain outputs of the phases before it
+        gxsq = fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, m)
+        rgxsq = fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, m)
+        check("masked_fwd_stat", "gxsq", gxsq, rgxsq, sum_bound(rgxsq))
+        ap_args = (t, x, keep, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2, m)
+        y, gx, nx = fb._masked_fwd_apply_cuda(*ap_args)
+        ry, rgx, rnx = fb.masked_fwd_apply_plain(*ap_args)
+        check("masked_fwd_apply", "y", y, ry, ulp_bound(ry, 2e-3))
+        if not torch.equal(y[masked], x[masked]):
+            raise AssertionError(f"masked_fwd_apply C={c}: y != x at a masked site")
+        for nm, a, r in (("gx", gx, rgx), ("nx", nx, rnx)):
+            check("masked_fwd_apply", nm, a, r, sum_bound(r), main=False)
+        st_args = (t, dy, keep, rnx, lw, lb, w1, b1, gm, bt, w2, m)
+        got, ref = fb._masked_bwd_stat_cuda(*st_args), fb.masked_bwd_stat_plain(*st_args)
+        for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx"), got[:4], ref[:4]):
+            check("masked_bwd_stat", nm, a, r, sum_bound(r))
+        if not torch.equal(got[4], ref[4]):
+            raise AssertionError(f"masked_bwd_stat C={c}: do = dy * keep not bit-exact")
+        check("masked_bwd_stat", "h", got[5], ref[5], ulp_bound(ref[5], 2e-3), main=False)
+        do, hh = ref[4], ref[5]
+        dw2, rdw2 = fb._masked_dw2_cuda(do, hh), fb.atb_plain(do, hh)
+        check("masked_bwd_stat_dw2", "dW2", dw2, rdw2, sum_bound(rdw2))
+        dgxg = fb.dgx_step(ref[3], rgx)
+        dv_args = (t, do, keep, rnx, dgxg, lw, lb, w1, b1, gm, w2, m)
+        got, ref = fb._masked_bwd_dv_cuda(*dv_args), fb.masked_bwd_dv_plain(*dv_args)
+        check("masked_bwd_dv", "dt", got[0], ref[0], ulp_bound(ref[0], 2e-3))
+        if bool(got[0][masked].any()):
+            raise AssertionError(f"masked_bwd_dv C={c}: dt != 0 at a masked site")
+        for nm, a, r in zip(("db1", "dln_w", "dln_b"), got[1:4], ref[1:4]):
+            check("masked_bwd_dv", nm, a, r, sum_bound(r), main=False)
+        for nm, a, r in zip(("dv", "u"), got[4:], ref[4:]):
+            check("masked_bwd_dv", nm, a, r, ulp_bound(r, 2e-3), main=False)
+        dv, u = ref[4], ref[5]
+        dw1, rdw1 = fb._masked_dw1_cuda(dv, u), fb.atb_plain(dv, u)
+        check("masked_bwd_dv_dw1", "dW1", dw1, rdw1, sum_bound(rdw1))
+        del got, ref, y, gx, nx, ry, dw1, dw2
+        emit({"check": "masked", "C": c, "M": m, "kept_sites": kept, "max_abs_err": every})
+
+        lib_fwd, lib_bwd = composed_tail_ms(t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2, keep)
+
+        # Bytes and products of each Pallas kernel's own function, for this
+        # run's mask: the forward (kernel 5) reads keep, t at the kept sites
+        # (only they reach y), x, and writes y, with 2 products over the kept
+        # sites; the backward (kernel 6) reads keep, t and dy at the kept
+        # sites, writes dt, and the param grads, with 5 products (v, dh, dW2,
+        # du, dW1).  Params and their grads f32.  ``_all`` counts every site,
+        # as the Pallas kernel computes them.
+        rows_b, keep_b, par_b = m * c * 2, m * 2, (2 * c * c4 + 2 * c + 3 * c4 + c) * 4
+        mm = 2.0 * c * c4  # flops a site of one product
+        # (bytes, flops) for the kept sites, then for every site
+        fwd = [(keep_b + 2 * rows_b + s * c * 2 + par_b, 2 * mm * s) for s in (kept, m)]
+        bwd = [(keep_b + rows_b + 2 * s * c * 2 + 2 * par_b, 5 * mm * s) for s in (kept, m)]
+        dwb = c * c4 * 4
+        launches = (  # key, kernel, plain, library, bytes it moves, own bound (or None)
+            ("masked_fwd_stat", lambda: fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, m),
+             lambda: fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, m), lib_fwd,
+             rows_b + keep_b, None),
+            ("masked_fwd_apply", lambda: fb._masked_fwd_apply_cuda(*ap_args),
+             lambda: fb.masked_fwd_apply_plain(*ap_args), lib_fwd, 3 * rows_b + keep_b, fwd),
+            ("masked_bwd_stat", lambda: fb._masked_bwd_stat_cuda(*st_args),
+             lambda: fb.masked_bwd_stat_plain(*st_args), lib_bwd,
+             3 * rows_b + keep_b + m * c4 * 2, None),
+            ("masked_bwd_stat_dw2", lambda: fb._masked_dw2_cuda(do, hh),
+             lambda: fb.atb_plain(do, hh), lib_bwd, rows_b + m * c4 * 2 + dwb, None),
+            ("masked_bwd_dv", lambda: fb._masked_bwd_dv_cuda(*dv_args),
+             lambda: fb.masked_bwd_dv_plain(*dv_args), lib_bwd,
+             4 * rows_b + keep_b + m * c4 * 2, bwd),
+            ("masked_bwd_dv_dw1", lambda: fb._masked_dw1_cuda(dv, u),
+             lambda: fb.atb_plain(dv, u), lib_bwd, rows_b + m * c4 * 2 + dwb, None),
+        )
+        for key, kern, plain, lib, moved, bnd_of in launches:
+            r = rows_out[key]
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+            if bnd_of is None:  # shares the bound of the launch that carries it
+                bnd, by, bnd_all, r["bound_in"] = 0.0, None, 0.0, MASKED_CARRIER[key]
+            else:
+                bnd, by = bound_ms(*bnd_of[0], BF16_FLOPS)
+                bnd_all = bound_ms(*bnd_of[1], BF16_FLOPS)[0]
+            r["max_abs_err"] = max(r["max_abs_err"], errs[key])
+            r["max_err_over_scale"] = max(r["max_err_over_scale"], rel[key])
+            r["ms"] += count * ms
+            r["plain_ms"] += count * plain_ms
+            r["library_ms"] += count * lib
+            r["bound_ms"] += count * bnd
+            r["bound_ms_all_sites"] += count * bnd_all
+            r["launch_bytes"] += count * moved
+            if by and count * bnd >= largest.get(key, 0.0):  # the stage that dominates
+                largest[key], r["bound_by"] = count * bnd, by
+            emit({"kernel_shape": {"kernel": key, "shape": [m, c], "kept_sites": kept,
+                                   "per_step": count, "ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                                   "bound_ms_all_sites": bnd_all, "launch_bytes": moved,
+                                   "max_abs_err": errs[key],
+                                   "max_err_over_scale": rel[key]}})
+        torch.cuda.empty_cache()
+    for key, carrier in MASKED_CARRIER.items():
+        rows_out[key]["bound_by"] = rows_out[carrier]["bound_by"]
+    return rows_out
+
+
 def phase_data() -> Path:
     """Synthetic packed data for the slices, written anew on every run."""
     import shutil
@@ -421,7 +620,32 @@ def phase_data() -> Path:
     return data
 
 
-def phase_slice(rows_out: dict, card: str, block_impl: str, data: Path) -> dict:
+GATHERED_KERNELS = ("gather_patches", "scatter_patches", "dwconv7_gathered_fwd",
+                    "dwconv7_gathered_bwd")
+SLICES = (("gathered", "dwg"), ("gathered", "wholeblock"), ("masked_dense", "auto"),
+          ("masked_dense", "fused"))
+
+
+def expected_launches(sparse_impl: str, block_impl: str) -> tuple[dict, tuple]:
+    """Launches a step of every kernel on a slice, and the kernels whose row
+    of the kernels line takes its count from this slice (each from its own
+    path: rows 1-4 from dwg, 7-10 from wholeblock, 5-6 from masked_dense
+    fused)."""
+    from mmearth_tpu_torch.ops import fused_block as fb
+
+    gathered = sparse_impl == "gathered"
+    per_step = dict(zip(GATHERED_KERNELS, (2, 2, 12, 12) if gathered else (0, 0, 0, 0)))
+    spillg = gathered and block_impl == "wholeblock"
+    masked = not gathered and block_impl == "fused"
+    per_step.update(dict.fromkeys(fb.SPILLG_LAUNCHES, 12 if spillg else 0))
+    per_step.update(dict.fromkeys(fb.MASKED_LAUNCHES, 12 if masked else 0))
+    own = {"dwg": GATHERED_KERNELS, "wholeblock": fb.SPILLG_LAUNCHES,
+           "fused": fb.MASKED_LAUNCHES}.get(block_impl, ())
+    return per_step, own
+
+
+def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str,
+                data: Path) -> dict:
     import torch
 
     from mmearth_tpu_torch import main_pretrain
@@ -433,7 +657,7 @@ def phase_slice(rows_out: dict, card: str, block_impl: str, data: Path) -> dict:
         "--model", "convnextv2_atto", "--input_size", "56", "--patch_size", "8",
         "--batch_size", "256", "--use_bf16", "True", "--device", "cuda",
         "--processed_dir", str(data), "--epochs", "3", "--warmup_epochs", "1",
-        "--seed", "0", "--block_impl", block_impl])
+        "--seed", "0", "--sparse_impl", sparse_impl, "--block_impl", block_impl])
     counters = (ps.LAUNCHES, wb.LAUNCHES, fb.LAUNCHES)
     for d in counters:
         for key in d:
@@ -447,20 +671,17 @@ def phase_slice(rows_out: dict, card: str, block_impl: str, data: Path) -> dict:
         raise AssertionError(f"slice ran {steps} steps")
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         raise AssertionError(f"non-finite loss in {losses}")
-    per_step = {"gather_patches": 2, "scatter_patches": 2,
-                "dwconv7_gathered_fwd": 12, "dwconv7_gathered_bwd": 12}
-    spillg = block_impl == "wholeblock"
-    per_step.update({k: 12 if spillg else 0 for k in fb.LAUNCHES})
+    per_step, own = expected_launches(sparse_impl, block_impl)
     for name, k in per_step.items():
         if launches[name] != k * steps:
-            raise AssertionError(f"{block_impl} slice, {name}: {launches[name]} launches in "
-                                 f"{steps} steps, expected {k} per step")
-        if spillg == (name in fb.LAUNCHES):  # each kernel's count from its own path
-            rows_out[name]["launches"] = launches[name]
+            raise AssertionError(f"{sparse_impl} {block_impl} slice, {name}: {launches[name]} "
+                                 f"launches in {steps} steps, expected {k} per step")
+    for name in own:
+        rows_out[name]["launches"] = launches[name]
     steady = history[1:]  # epoch 0 holds the first-call set-up
     ms = 1e3 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
-    result = {"phase": "slice", "block_impl": block_impl, "steps": steps,
-              "epochs": len(history), "launches": launches,
+    result = {"phase": "slice", "sparse_impl": sparse_impl, "block_impl": block_impl,
+              "steps": steps, "epochs": len(history), "launches": launches,
               "losses": losses, "epoch_loss": [e["loss"] for e in history],
               "ms_per_step": ms, "samples_per_s": 256 * 1e3 / ms,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}
@@ -468,7 +689,7 @@ def phase_slice(rows_out: dict, card: str, block_impl: str, data: Path) -> dict:
     return result
 
 
-def phase_reference(block_impl: str) -> None:
+def phase_reference(sparse_impl: str, block_impl: str) -> None:
     """A small f32 step on the GPU (kernels) against the CPU (plain versions)."""
     import numpy as np
     import torch
@@ -480,8 +701,8 @@ def phase_reference(block_impl: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(img_size=56, patch_size=8, depths=(2, 2, 6, 2), dims=(40, 80, 160, 320),
-              grn_group=8, block_impl=block_impl, inp_modalities=M.INP_MODALITIES,
-              out_modalities=M.OUT_MODALITIES)
+              grn_group=8, block_impl=block_impl, sparse_impl=sparse_impl,
+              inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES)
     cpu = FCMAE(**kw).init_weights(torch.Generator().manual_seed(1))
     gpu = FCMAE(**kw).cuda()
     gpu.load_state_dict(cpu.state_dict())
@@ -501,11 +722,10 @@ def phase_reference(block_impl: str) -> None:
                 for k in g_cpu)
     # f32 on both sides; differences are summation order only
     if not (rel < 1e-4 and worst < 1e-3 and np.isfinite(l_gpu)):
-        raise AssertionError(f"{block_impl} GPU vs CPU step: loss rel {rel:.2e}, "
+        raise AssertionError(f"{sparse_impl} {block_impl} GPU vs CPU step: loss rel {rel:.2e}, "
                              f"worst grad {worst:.2e}")
-    emit({"phase": "reference", "block_impl": block_impl, "loss_cpu": l_cpu, "loss_gpu": l_gpu,
-          "loss_rel": rel,
-          "worst_grad_rel": worst})
+    emit({"phase": "reference", "sparse_impl": sparse_impl, "block_impl": block_impl,
+          "loss_cpu": l_cpu, "loss_gpu": l_gpu, "loss_rel": rel, "worst_grad_rel": worst})
 
 
 def main() -> int:
@@ -521,11 +741,13 @@ def main() -> int:
     phase_build()
     rows_out = phase_kernels()
     rows_out.update(phase_spillg_kernels())
+    rows_out.update(phase_masked_kernels())
     data = phase_data()
-    for impl in ("dwg", "wholeblock"):
-        phase_slice(rows_out, card, impl, data)
-    for impl in ("dwg", "wholeblock"):
-        phase_reference(impl)
+    for sparse_impl, block_impl in SLICES:
+        phase_slice(rows_out, card, sparse_impl, block_impl, data)
+    for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),
+                                    ("masked_dense", "fused")):
+        phase_reference(sparse_impl, block_impl)
     print(card, flush=True)
     emit({"kernels": list(rows_out.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,9 +47,15 @@ class ModelConfig:
     # reference's per-GPU DDP semantics), "global" = the whole batch.  Identical
     # on one device.
     grn_scope: str = "per_device"
-    # masked-block implementation; this port runs the gathered encoder with the
-    # dwconv7_gathered kernel for every accepted value (models/convnextv2.py)
+    # masked-block implementation of the block tail (models/convnextv2.py):
+    # "spillg"/"wholeblock" take the spill-g kernels on the gathered path,
+    # "fused" the masked-dense kernels on the masked-dense path; every other
+    # value, and every value on the other path, composes the tail
     block_impl: str = "auto"
+    # sparse-encoder strategy: "gathered" computes every site-local op on the
+    # visible patches only; "masked_dense" runs the full grid with re-masking.
+    # Both compute the same function.
+    sparse_impl: str = "gathered"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -57,6 +57,32 @@
 // are two launches and B takes sqrt and nx at its start.  The dgx step
 // between C and D is (G, 4C) elementwise work left to the caller, as JAX
 // leaves it to XLA.
+//
+// The masked-dense tail (fused_block_mlp: the same block tail on every site
+// of the dense grid, with y = x + keep * (...) and the GRN statistic over the
+// kept sites) replaces the two recompute-based Pallas kernels:
+//   masked_fwd_stat_kernel   <- phase 0 of _fwd_kernel (:87, called at :263):
+//                               A's body, summing (g * keep)^2 of the f32 g
+//   masked_fwd_apply_kernel  <- phase 1 of _fwd_kernel: recomputes v and g,
+//                               h in shared memory, o = h W2^T summed C-wide
+//                               in shared memory, y = x + (o + b2) * keep
+//   masked_bwd_stat_kernel   <- phase 0 of _bwd_kernel (:129, called at :302),
+//                               all but dW2: stores do = dy * keep and h
+//   spillg_atb_kernel        <- its dW2 sum (:175), h^T do
+//   masked_bwd_dv_kernel     <- phase 1 of _bwd_kernel, all but dW1: D's body
+//                               on do, with g = gelu(v) recomputed and the
+//                               dgx term g * keep^2 * dgx/gx (:192)
+//   spillg_atb_kernel        <- its dW1 sum (:194), dv^T u
+// As on the TPU, g is never stored: the statistic is taken over the f32 g
+// before any rounding, and each pass recomputes LN -> W1 -> GELU (one more
+// product per pass) instead of moving (M, 4C) values through device memory.
+// Bound: the forward reads t, x, keep and writes y (3 (M, C) passes in bf16,
+// 194 MB at stage 0 of atto at batch 256) against 2 products of 2*M*C*4C;
+// the backward reads t, dy, keep and writes dt against 5 products.  Stage 0
+// is bound by bytes, the later stages by products.  Masked rows cost as much
+// as kept ones (the Pallas kernel also computes them); their y is x exactly
+// and their dt and every sum they enter are exactly 0, since do = 0 and g *
+// keep = 0 there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -288,14 +314,17 @@ __device__ void layer_norm_rows(const T* __restrict__ t, const float* __restrict
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
 
 // ---------------------------------------------------------------------------
-// A: g = gelu(LN(t) W1^T + b1) stored in T; gxsq[grp] += sum over rows of g^2
+// A: g = gelu(LN(t) W1^T + b1) stored in T; gxsq[grp] += sum over rows of g^2.
+// MASKED (the first phase of the masked-dense forward): gxsq[grp] += sum of
+// (g * keep)^2 over the f32 g, and nothing is stored.
 // ---------------------------------------------------------------------------
-template <typename T, int BM>
-__global__ void __launch_bounds__(BM * 2)
-spillg_fwd_a_kernel(const T* __restrict__ t, const float* __restrict__ lnw,
-                    const float* __restrict__ lnb, const T* __restrict__ w1,
-                    const float* __restrict__ b1, T* __restrict__ g, float* __restrict__ gxsq,
-                    int C, int C4, int GR, int tpg) {
+template <typename T, int BM, bool MASKED>
+__device__ __forceinline__ void fwd_a_body(const T* __restrict__ t, const float* __restrict__ lnw,
+                                           const float* __restrict__ lnb,
+                                           const T* __restrict__ w1, const float* __restrict__ b1,
+                                           const T* __restrict__ keep, T* __restrict__ g,
+                                           float* __restrict__ gxsq, int C, int C4, int GR,
+                                           int tpg) {
   constexpr int NW = BM / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int Cp = (C + 15) & ~15, lda = Cp + 8;
@@ -324,17 +353,40 @@ spillg_fwd_a_kernel(const T* __restrict__ t, const float* __restrict__ lnw,
       for (int e = 0; e < 4; ++e) {
         const int r = w * 16 + frag_row(e), j = j0 + frag_col(nt, e);
         float gv = 0.f;
-        if (r < rw.nvalid && j < C4) gv = to_f(from_f<T>(gelu(acc[nt][e] + b1[j])));
-        sG[r * LDC + j - j0] = from_f<T>(gv);
+        if (r < rw.nvalid && j < C4) {
+          const float gf = gelu(acc[nt][e] + b1[j]);
+          if constexpr (MASKED) gv = gf * to_f(keep[rw.row0 + r]);
+          else gv = to_f(from_f<T>(gf));
+        }
+        if constexpr (!MASKED) sG[r * LDC + j - j0] = from_f<T>(gv);
         sq[nt][e] = gv * gv;
       }
     }
     col_sum<NW>(sq, red, gxsq + (size_t)rw.grp * C4 + j0, C4 - j0);  // also publishes sG
-    for (int i = threadIdx.x; i < BM * TN; i += blockDim.x) {  // coalesced store of g
-      const int r = i / TN, jc = i - r * TN;
-      if (r < rw.nvalid && j0 + jc < C4) g[(size_t)(rw.row0 + r) * C4 + j0 + jc] = sG[r * LDC + jc];
+    if constexpr (!MASKED) {
+      for (int i = threadIdx.x; i < BM * TN; i += blockDim.x) {  // coalesced store of g
+        const int r = i / TN, jc = i - r * TN;
+        if (r < rw.nvalid && j0 + jc < C4)
+          g[(size_t)(rw.row0 + r) * C4 + j0 + jc] = sG[r * LDC + jc];
+      }
     }
   }
+}
+
+// One signature for both, so that the host picks either by pointer.
+#define FWD_A_PARAMS                                                                      \
+  const T *__restrict__ t, const float *__restrict__ lnw, const float *__restrict__ lnb,   \
+      const T *__restrict__ w1, const float *__restrict__ b1, const T *__restrict__ keep, \
+      T *__restrict__ g, float *__restrict__ gxsq, int C, int C4, int GR, int tpg
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(BM * 2) spillg_fwd_a_kernel(FWD_A_PARAMS) {
+  fwd_a_body<T, BM, false>(t, lnw, lnb, w1, b1, keep, g, gxsq, C, C4, GR, tpg);
+}
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(BM * 2) masked_fwd_stat_kernel(FWD_A_PARAMS) {
+  fwd_a_body<T, BM, true>(t, lnw, lnb, w1, b1, keep, g, gxsq, C, C4, GR, tpg);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,17 +535,21 @@ spillg_bwd_c_kernel(const T* __restrict__ dy, const T* __restrict__ g,
 //    The rounded u is stored for the dW1 pass too.  Twice the warps of the
 //    other kernels (each of BM/16 row-warps split over two 32-column halves
 //    of a tile): the block holds the most shared memory, so few fit an SM.
+//    MASKED (the second phase of the masked-dense backward): dy is the
+//    stored do = dy * keep, and the g of the dgx term is g * keep^2 with g =
+//    gelu(v) recomputed in f32 (no g is read).
 // ---------------------------------------------------------------------------
-template <typename T, int BM>
-__global__ void __launch_bounds__(BM * 4)
-spillg_bwd_d_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* __restrict__ g,
-                    const float* __restrict__ nx, const float* __restrict__ dgxg,
-                    const float* __restrict__ lnw, const float* __restrict__ lnb,
-                    const T* __restrict__ w1, const float* __restrict__ b1,
-                    const float* __restrict__ gamma, const T* __restrict__ w2t,
-                    const T* __restrict__ w1t, T* __restrict__ dt, T* __restrict__ dv_out,
-                    T* __restrict__ u_out, float* __restrict__ db1, float* __restrict__ dlnw,
-                    float* __restrict__ dlnb, int C, int C4, int GR, int tpg) {
+#define BWD_D_PARAMS                                                                           \
+  const T *__restrict__ t, const T *__restrict__ dy, const T *__restrict__ g,                 \
+      const T *__restrict__ keep, const float *__restrict__ nx, const float *__restrict__ dgxg, \
+      const float *__restrict__ lnw, const float *__restrict__ lnb, const T *__restrict__ w1,  \
+      const float *__restrict__ b1, const float *__restrict__ gamma, const T *__restrict__ w2t, \
+      const T *__restrict__ w1t, T *__restrict__ dt, T *__restrict__ dv_out,                   \
+      T *__restrict__ u_out, float *__restrict__ db1, float *__restrict__ dlnw,               \
+      float *__restrict__ dlnb, int C, int C4, int GR, int tpg
+
+template <typename T, int BM, bool MASKED>
+__device__ __forceinline__ void bwd_d_body(BWD_D_PARAMS) {
   constexpr int NW = BM / 16, NTH = 4;  // row-warps; n-tiles per warp
   extern __shared__ __align__(16) unsigned char smem[];
   const int Cp = (C + 15) & ~15, lda = Cp + 8;
@@ -508,8 +564,8 @@ spillg_bwd_d_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* 
   p += align16(sizeof(T) * TN * LDC);
   T* sDV = reinterpret_cast<T*>(p);
   p += align16(sizeof(T) * BM * LDC);
-  T* sG = reinterpret_cast<T*>(p);
-  p += align16(sizeof(T) * BM * LDC);
+  T* sG = reinterpret_cast<T*>(p);  // spill-g only: MASKED recomputes g
+  if constexpr (!MASKED) p += align16(sizeof(T) * BM * LDC);
   float* sDU = reinterpret_cast<float*>(p);
   p += align16(sizeof(float) * BM * Cp);
   float* sMean = reinterpret_cast<float*>(p);
@@ -530,7 +586,8 @@ spillg_bwd_d_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* 
     for (int k0 = 0; k0 < Cp; k0 += KC) {
       const int kc = min(KC, Cp - k0);
       __syncthreads();
-      if (k0 == 0) stage(sG, LDC, g, C4, rw.row0, BM, rw.row0 + rw.nvalid, j0, TN, C4);
+      if constexpr (!MASKED)
+        if (k0 == 0) stage(sG, LDC, g, C4, rw.row0, BM, rw.row0 + rw.nvalid, j0, TN, C4);
       stage(sB1, LDC, w1, C, j0, TN, C4, k0, kc, C);
       stage(sB2, LDC, w2t, C, j0, TN, C4, k0, kc, C);
       __syncthreads();
@@ -546,7 +603,13 @@ spillg_bwd_d_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* 
         float dvv = 0.f;
         if (r < rw.nvalid && j < C4) {
           const float v = av[nt][e] + b1[j];
-          const float gv = to_f(sG[r * LDC + jc]);
+          float gv;  // the g of the dgx term
+          if constexpr (MASKED) {
+            const float k = to_f(keep[rw.row0 + r]);
+            gv = gelu(v) * k * k;
+          } else {
+            gv = to_f(sG[r * LDC + jc]);
+          }
           const float dg = ah[nt][e] * (gamma[j] * nxg[j] + 1.f) + gv * dgg[j];
           dvv = dg * gelu_grad(v);
         }
@@ -607,6 +670,223 @@ spillg_bwd_d_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* 
   }
 }
 
+template <typename T, int BM>
+__global__ void __launch_bounds__(BM * 4) spillg_bwd_d_kernel(BWD_D_PARAMS) {
+  bwd_d_body<T, BM, false>(t, dy, g, keep, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt,
+                           dv_out, u_out, db1, dlnw, dlnb, C, C4, GR, tpg);
+}
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(BM * 4) masked_bwd_dv_kernel(BWD_D_PARAMS) {
+  bwd_d_body<T, BM, true>(t, dy, g, keep, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt,
+                          dv_out, u_out, db1, dlnw, dlnb, C, C4, GR, tpg);
+}
+
+// ---------------------------------------------------------------------------
+// The masked-dense tail (rows 5-6 of the kernel table) runs on every site of
+// the dense grid with a keep mask.  Its statistic pass is A's body (MASKED)
+// and its dv pass is D's; the two kernels below are the rest.
+//
+// Masked apply (the second phase of _fwd_kernel): gx = sqrt(gxsq), nx; per
+// 64-column tile of 4C, v = LN(t) W1^T + b1 is recomputed, h = gamma*(g*nx) +
+// beta + g of the f32 g = gelu(v) is rounded to T in shared memory, and o +=
+// h W2^T is summed in f32 in shared memory (C wide, D's du pattern); then y =
+// x + (o + b2) * keep.  Tile 0 of each group writes gx and nx.
+// ---------------------------------------------------------------------------
+template <typename T, int BM>
+__global__ void __launch_bounds__(BM * 4)
+masked_fwd_apply_kernel(const T* __restrict__ t, const T* __restrict__ x, const T* __restrict__ keep,
+                        const float* __restrict__ gxsq, const float* __restrict__ lnw,
+                        const float* __restrict__ lnb, const T* __restrict__ w1,
+                        const float* __restrict__ b1, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, const T* __restrict__ w2,
+                        const float* __restrict__ b2, T* __restrict__ y, float* __restrict__ gx_out,
+                        float* __restrict__ nx_out, int C, int C4, int GR, int tpg) {
+  constexpr int NW = BM / 16, NTH = 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Cp = (C + 15) & ~15, lda = Cp + 8;
+  unsigned char* p = smem;
+  T* sU = reinterpret_cast<T*>(p);
+  p += align16(sizeof(T) * BM * lda);
+  T* sB = reinterpret_cast<T*>(p);
+  p += align16(sizeof(T) * TN * LDC);
+  T* sH = reinterpret_cast<T*>(p);
+  p += align16(sizeof(T) * BM * LDC);
+  float* sO = reinterpret_cast<float*>(p);
+  p += align16(sizeof(float) * BM * Cp);
+  float* sNX = reinterpret_cast<float*>(p);
+  p += align16(sizeof(float) * C4);
+  float* red = reinterpret_cast<float*>(p);
+
+  const int lane = threadIdx.x & 31, wt = threadIdx.x >> 5, nwt = blockDim.x >> 5;
+  const int w = wt % NW, col = (wt / NW) * NTH * 8;
+  const Rows rw = block_rows<BM>(GR, tpg);
+
+  float part = 0.f;
+  for (int j = threadIdx.x; j < C4; j += blockDim.x) {
+    const float v = sqrtf(gxsq[(size_t)rw.grp * C4 + j]);
+    sNX[j] = v;
+    part += v;
+  }
+  part = warp_sum(part);
+  if (lane == 0) red[wt] = part;
+  __syncthreads();
+  float total = 0.f;
+  for (int i = 0; i < nwt; ++i) total += red[i];
+  const float denom = total / C4 + GRN_EPS;
+  for (int j = threadIdx.x; j < C4; j += blockDim.x) {
+    const float gxv = sNX[j], nxv = gxv / denom;
+    if (rw.tile == 0) {
+      gx_out[(size_t)rw.grp * C4 + j] = gxv;
+      nx_out[(size_t)rw.grp * C4 + j] = nxv;
+    }
+    sNX[j] = nxv;
+  }
+  layer_norm_rows<T, BM>(t, lnw, lnb, sU, lda, C, Cp, rw, nullptr, nullptr, nullptr);
+  for (int i = threadIdx.x; i < BM * Cp; i += blockDim.x) sO[i] = 0.f;
+
+  for (int j0 = 0; j0 < C4; j0 += TN) {
+    float av[NTH][4] = {};
+    for (int k0 = 0; k0 < Cp; k0 += KC) {
+      const int kc = min(KC, Cp - k0);
+      __syncthreads();
+      stage(sB, LDC, w1, C, j0, TN, C4, k0, kc, C);
+      __syncthreads();
+      WarpMM<T>::run(sU + w * 16 * lda + k0, lda, sB + col * LDC, LDC, kc, av);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTH; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = w * 16 + frag_row(e), jc = col + frag_col(nt, e), j = j0 + jc;
+        float hv = 0.f;
+        if (r < rw.nvalid && j < C4) hv = grn_h(gelu(av[nt][e] + b1[j]), sNX[j], gamma[j], beta[j]);
+        sH[r * LDC + jc] = from_f<T>(hv);
+      }
+    }
+    const int kj = min(KC, C4 - j0);
+    for (int c0 = 0; c0 < C; c0 += TN) {
+      __syncthreads();  // publishes sH; frees sB
+      stage(sB, LDC, w2, C4, c0, TN, C, j0, kj, C4);
+      __syncthreads();
+      float acc[NTH][4] = {};
+      WarpMM<T>::run(sH + w * 16 * LDC, LDC, sB + col * LDC, LDC, kj, acc);
+#pragma unroll
+      for (int nt = 0; nt < NTH; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = w * 16 + frag_row(e), c = c0 + col + frag_col(nt, e);
+          if (c < C) sO[r * Cp + c] += acc[nt][e];  // each (r, c) has one owning warp
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rw.nvalid * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    const size_t o = (size_t)(rw.row0 + r) * C + c;
+    y[o] = from_f<T>(to_f(x[o]) + (sO[r * Cp + c] + b2[c]) * to_f(keep[rw.row0 + r]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Masked statistic pass of the backward (the first phase of _bwd_kernel):
+// do = dy * keep, stored rounded to T (the operand of the dh and dW2
+// products) with db2 += sum of the f32 do; per 64-column tile of 4C, v and
+// dh = do W2 are recomputed, g = gelu(v) in f32, h = gamma*(g*nx) + beta + g
+// is stored rounded to T for the dW2 pass, and dgamma += sum dh*(g*nx), dbeta
+// += sum dh, dnx[grp] += sum dh*gamma*g.  D's warp layout.
+// ---------------------------------------------------------------------------
+template <typename T, int BM>
+__global__ void __launch_bounds__(BM * 4)
+masked_bwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* __restrict__ keep,
+                       const float* __restrict__ nx, const float* __restrict__ lnw,
+                       const float* __restrict__ lnb, const T* __restrict__ w1,
+                       const float* __restrict__ b1, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, const T* __restrict__ w2t,
+                       T* __restrict__ do_out, T* __restrict__ h_out, float* __restrict__ db2,
+                       float* __restrict__ dgamma, float* __restrict__ dbeta,
+                       float* __restrict__ dnx, int C, int C4, int GR, int tpg) {
+  constexpr int NW = BM / 16, NTH = 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Cp = (C + 15) & ~15, lda = Cp + 8;
+  unsigned char* p = smem;
+  T* sU = reinterpret_cast<T*>(p);
+  p += align16(sizeof(T) * BM * lda);
+  T* sDO = reinterpret_cast<T*>(p);
+  p += align16(sizeof(T) * BM * lda);
+  T* sB1 = reinterpret_cast<T*>(p);
+  p += align16(sizeof(T) * TN * LDC);
+  T* sB2 = reinterpret_cast<T*>(p);
+  p += align16(sizeof(T) * TN * LDC);
+  T* sH = reinterpret_cast<T*>(p);
+  p += align16(sizeof(T) * BM * LDC);
+  float* red = reinterpret_cast<float*>(p);
+
+  const int wt = threadIdx.x >> 5;
+  const int w = wt % NW, col = (wt / NW) * NTH * 8;
+  const Rows rw = block_rows<BM>(GR, tpg);
+  layer_norm_rows<T, BM>(t, lnw, lnb, sU, lda, C, Cp, rw, nullptr, nullptr, nullptr);
+  for (int i = threadIdx.x; i < BM * Cp; i += blockDim.x) {
+    const int r = i / Cp, c = i - r * Cp;
+    T q = from_f<T>(0.f);
+    if (r < rw.nvalid && c < C) {
+      const size_t o = (size_t)(rw.row0 + r) * C + c;
+      q = from_f<T>(to_f(dy[o]) * to_f(keep[rw.row0 + r]));
+      do_out[o] = q;
+    }
+    sDO[r * lda + c] = q;
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < rw.nvalid; ++r)
+      s += to_f(dy[(size_t)(rw.row0 + r) * C + c]) * to_f(keep[rw.row0 + r]);
+    atomicAdd(db2 + c, s);
+  }
+  const float* nxg = nx + (size_t)rw.grp * C4;
+
+  for (int j0 = 0; j0 < C4; j0 += TN) {
+    float av[NTH][4] = {}, ah[NTH][4] = {};
+    for (int k0 = 0; k0 < Cp; k0 += KC) {
+      const int kc = min(KC, Cp - k0);
+      __syncthreads();
+      stage(sB1, LDC, w1, C, j0, TN, C4, k0, kc, C);
+      stage(sB2, LDC, w2t, C, j0, TN, C4, k0, kc, C);
+      __syncthreads();
+      WarpMM<T>::run(sU + w * 16 * lda + k0, lda, sB1 + col * LDC, LDC, kc, av);
+      WarpMM<T>::run(sDO + w * 16 * lda + k0, lda, sB2 + col * LDC, LDC, kc, ah);
+    }
+    float a[NTH][4], b[NTH][4], d[NTH][4];
+#pragma unroll
+    for (int nt = 0; nt < NTH; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = w * 16 + frag_row(e), jc = col + frag_col(nt, e), j = j0 + jc;
+        float gv = 0.f, nxv = 0.f, gm = 0.f, hv = 0.f;
+        if (r < rw.nvalid && j < C4) {
+          gv = gelu(av[nt][e] + b1[j]);
+          nxv = nxg[j];
+          gm = gamma[j];
+          hv = grn_h(gv, nxv, gm, beta[j]);
+        }
+        sH[r * LDC + jc] = from_f<T>(hv);
+        const float dh = ah[nt][e];
+        a[nt][e] = dh * (gv * nxv);
+        b[nt][e] = dh;
+        d[nt][e] = dh * gm * gv;
+      }
+    }
+    col_sum<NW, NTH>(a, red, dgamma + j0, C4 - j0, col);  // also publishes sH
+    col_sum<NW, NTH>(b, red, dbeta + j0, C4 - j0, col);
+    col_sum<NW, NTH>(d, red, dnx + (size_t)rw.grp * C4 + j0, C4 - j0, col);
+    for (int i = threadIdx.x; i < BM * TN; i += blockDim.x) {  // coalesced store of h
+      const int r = i / TN, jc = i - r * TN;
+      if (r < rw.nvalid && j0 + jc < C4)
+        h_out[(size_t)(rw.row0 + r) * C4 + j0 + jc] = sH[r * LDC + jc];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // out (I, J) += X^T Y over rows [s*rps, (s+1)*rps): X (M, I), Y (M, J).  With
 // nx given, Y is g and each element becomes h = gamma*(g*nx[grp]) + beta + g
@@ -649,23 +929,36 @@ spillg_atb_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float*
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-// Shared memory of A and C (rows_smem), D (d_smem) and B (b_smem) at a row
-// tile of BM rows.
+// Shared memory of A and C (rows_smem), D (d_smem; MASKED: the dv pass, which
+// holds no g tile) and B (b_smem) at a row tile of BM rows.
 template <typename T> size_t rows_smem(int C, int BM) {
   const int lda = ((C + 15) & ~15) + 8;
   return align16(sizeof(T) * BM * lda) + sizeof(T) * TN * LDC +
          align16(sizeof(T) * BM * LDC) + sizeof(float) * (BM / 16) * 64;
 }
 
-template <typename T> size_t d_smem(int C, int BM) {
+template <typename T, bool MASKED = false> size_t d_smem(int C, int BM) {
   const int Cp = (C + 15) & ~15, lda = Cp + 8;
   return 2 * align16(sizeof(T) * BM * lda) + 2 * align16(sizeof(T) * TN * LDC) +
-         2 * align16(sizeof(T) * BM * LDC) + align16(sizeof(float) * BM * Cp) +
+         (MASKED ? 1 : 2) * align16(sizeof(T) * BM * LDC) + align16(sizeof(float) * BM * Cp) +
          sizeof(float) * (2 * BM + (BM / 16) * 64);
 }
 
 template <typename T> size_t b_smem(int C) {
   return align16(sizeof(float) * (4 * C + 32)) + sizeof(T) * (Cfg<T>::BM + TN) * LDC;
+}
+
+template <typename T> size_t apply_smem(int C, int BM) {  // masked apply
+  const int Cp = (C + 15) & ~15, lda = Cp + 8;
+  return align16(sizeof(T) * BM * lda) + align16(sizeof(T) * TN * LDC) +
+         align16(sizeof(T) * BM * LDC) + align16(sizeof(float) * BM * Cp) +
+         align16(sizeof(float) * 4 * C) + sizeof(float) * 32;
+}
+
+template <typename T> size_t bstat_smem(int C, int BM) {  // masked backward statistic
+  const int lda = ((C + 15) & ~15) + 8;
+  return 2 * align16(sizeof(T) * BM * lda) + 2 * align16(sizeof(T) * TN * LDC) +
+         align16(sizeof(T) * BM * LDC) + sizeof(float) * (BM / 16) * 64;
 }
 
 size_t smem_limit() {  // opt-in shared memory per block of the current device
@@ -709,17 +1002,18 @@ dim3 grid_2d(int M, int GR, int ncols, int BM) {
   return dim3(rows, ny);
 }
 
-template <typename T>
+template <typename T, bool MASKED>
 int fwd_a(const void* t, const void* lnw, const void* lnb, const void* w1, const void* b1,
-          void* g, void* gxsq, int M, int C, int GR, cudaStream_t s) {
+          const void* keep, void* g, void* gxsq, int M, int C, int GR, cudaStream_t s) {
   return with_bm<T>(pick_bm<T>(rows_smem<T>, C, smem_limit()), [&](auto bm) {
     constexpr int BM = decltype(bm)::value;
     const size_t smem = rows_smem<T>(C, BM);
-    cudaError_t e = prepare(spillg_fwd_a_kernel<T, BM>, smem);
+    auto kernel = MASKED ? masked_fwd_stat_kernel<T, BM> : spillg_fwd_a_kernel<T, BM>;
+    cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return (int)e;
-    spillg_fwd_a_kernel<T, BM><<<grid_2d(M, GR, 4 * C, BM), BM * 2, smem, s>>>(
+    kernel<<<grid_2d(M, GR, 4 * C, BM), BM * 2, smem, s>>>(
         (const T*)t, (const float*)lnw, (const float*)lnb, (const T*)w1, (const float*)b1,
-        (T*)g, (float*)gxsq, C, 4 * C, GR, (GR + BM - 1) / BM);
+        (const T*)keep, (T*)g, (float*)gxsq, C, 4 * C, GR, (GR + BM - 1) / BM);
     return (int)cudaGetLastError();
   });
 }
@@ -756,32 +1050,77 @@ int bwd_c(const void* dy, const void* g, const void* nx, const void* gamma, cons
   });
 }
 
-template <typename T>
-int bwd_d(const void* t, const void* dy, const void* g, const void* nx, const void* dgxg,
-          const void* lnw, const void* lnb, const void* w1, const void* b1, const void* gamma,
-          const void* w2t, const void* w1t, void* dt, void* dv, void* u, void* db1, void* dlnw,
-          void* dlnb, int M, int C, int GR, cudaStream_t s) {
-  return with_bm<T>(pick_bm<T>(d_smem<T>, C, smem_limit()), [&](auto bm) {
+template <typename T, bool MASKED>
+int bwd_d(const void* t, const void* dy, const void* g, const void* keep, const void* nx,
+          const void* dgxg, const void* lnw, const void* lnb, const void* w1, const void* b1,
+          const void* gamma, const void* w2t, const void* w1t, void* dt, void* dv, void* u,
+          void* db1, void* dlnw, void* dlnb, int M, int C, int GR, cudaStream_t s) {
+  return with_bm<T>(pick_bm<T>(d_smem<T, MASKED>, C, smem_limit()), [&](auto bm) {
     constexpr int BM = decltype(bm)::value;
-    const size_t smem = d_smem<T>(C, BM);
-    cudaError_t e = prepare(spillg_bwd_d_kernel<T, BM>, smem);
+    const size_t smem = d_smem<T, MASKED>(C, BM);
+    auto kernel = MASKED ? masked_bwd_dv_kernel<T, BM> : spillg_bwd_d_kernel<T, BM>;
+    cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return (int)e;
-    spillg_bwd_d_kernel<T, BM><<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
-        (const T*)t, (const T*)dy, (const T*)g, (const float*)nx, (const float*)dgxg,
-        (const float*)lnw, (const float*)lnb, (const T*)w1, (const float*)b1,
-        (const float*)gamma, (const T*)w2t, (const T*)w1t, (T*)dt, (T*)dv, (T*)u, (float*)db1,
-        (float*)dlnw, (float*)dlnb, C, 4 * C, GR, (GR + BM - 1) / BM);
+    kernel<<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
+        (const T*)t, (const T*)dy, (const T*)g, (const T*)keep, (const float*)nx,
+        (const float*)dgxg, (const float*)lnw, (const float*)lnb, (const T*)w1,
+        (const float*)b1, (const float*)gamma, (const T*)w2t, (const T*)w1t, (T*)dt, (T*)dv,
+        (T*)u, (float*)db1, (float*)dlnw, (float*)dlnb, C, 4 * C, GR, (GR + BM - 1) / BM);
     return (int)cudaGetLastError();
   });
 }
 
-// The widest C (a multiple of 8) for which every launch finds a row tile.
-template <typename T> int max_c() {
+template <typename T>
+int masked_apply(const void* t, const void* x, const void* keep, const void* gxsq,
+                 const void* lnw, const void* lnb, const void* w1, const void* b1,
+                 const void* gamma, const void* beta, const void* w2, const void* b2, void* y,
+                 void* gx, void* nx, int M, int C, int GR, cudaStream_t s) {
+  return with_bm<T>(pick_bm<T>(apply_smem<T>, C, smem_limit()), [&](auto bm) {
+    constexpr int BM = decltype(bm)::value;
+    const size_t smem = apply_smem<T>(C, BM);
+    cudaError_t e = prepare(masked_fwd_apply_kernel<T, BM>, smem);
+    if (e != cudaSuccess) return (int)e;
+    masked_fwd_apply_kernel<T, BM><<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
+        (const T*)t, (const T*)x, (const T*)keep, (const float*)gxsq, (const float*)lnw,
+        (const float*)lnb, (const T*)w1, (const float*)b1, (const float*)gamma,
+        (const float*)beta, (const T*)w2, (const float*)b2, (T*)y, (float*)gx, (float*)nx, C,
+        4 * C, GR, (GR + BM - 1) / BM);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int masked_bstat(const void* t, const void* dy, const void* keep, const void* nx,
+                 const void* lnw, const void* lnb, const void* w1, const void* b1,
+                 const void* gamma, const void* beta, const void* w2t, void* do_out, void* h,
+                 void* db2, void* dgamma, void* dbeta, void* dnx, int M, int C, int GR,
+                 cudaStream_t s) {
+  return with_bm<T>(pick_bm<T>(bstat_smem<T>, C, smem_limit()), [&](auto bm) {
+    constexpr int BM = decltype(bm)::value;
+    const size_t smem = bstat_smem<T>(C, BM);
+    cudaError_t e = prepare(masked_bwd_stat_kernel<T, BM>, smem);
+    if (e != cudaSuccess) return (int)e;
+    masked_bwd_stat_kernel<T, BM><<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
+        (const T*)t, (const T*)dy, (const T*)keep, (const float*)nx, (const float*)lnw,
+        (const float*)lnb, (const T*)w1, (const float*)b1, (const float*)gamma,
+        (const float*)beta, (const T*)w2t, (T*)do_out, (T*)h, (float*)db2, (float*)dgamma,
+        (float*)dbeta, (float*)dnx, C, 4 * C, GR, (GR + BM - 1) / BM);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The widest C (a multiple of 8) for which every launch of the spill-g
+// (MASKED false) or the masked-dense tail finds a row tile.
+template <typename T, bool MASKED> int max_c() {
   const size_t limit = smem_limit();
+  auto fits = [&](int c) {
+    if (!pick_bm<T>(rows_smem<T>, c, limit) || !pick_bm<T>(d_smem<T, MASKED>, c, limit))
+      return false;
+    if (MASKED) return pick_bm<T>(apply_smem<T>, c, limit) && pick_bm<T>(bstat_smem<T>, c, limit);
+    return b_smem<T>(c) <= limit;
+  };
   int c = 0;
-  while (c < 65536 && pick_bm<T>(rows_smem<T>, c + 8, limit) &&
-         pick_bm<T>(d_smem<T>, c + 8, limit) && b_smem<T>(c + 8) <= limit)
-    c += 8;
+  while (c < 65536 && fits(c + 8)) c += 8;
   return c;
 }
 
@@ -810,8 +1149,9 @@ extern "C" int mm_spillg_fwd_a(const void* t, const void* lnw, const void* lnb, 
                                int is_bf16, void* stream) {
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) return fwd_a<__nv_bfloat16>(t, lnw, lnb, w1, b1, g, gxsq, M, C, GR, s);
-  return fwd_a<float>(t, lnw, lnb, w1, b1, g, gxsq, M, C, GR, s);
+  if (is_bf16)
+    return fwd_a<__nv_bfloat16, false>(t, lnw, lnb, w1, b1, nullptr, g, gxsq, M, C, GR, s);
+  return fwd_a<float, false>(t, lnw, lnb, w1, b1, nullptr, g, gxsq, M, C, GR, s);
 }
 
 extern "C" int mm_spillg_fwd_b(const void* g, const void* x, const void* gxsq, const void* gamma,
@@ -844,19 +1184,83 @@ extern "C" int mm_spillg_bwd_d(const void* t, const void* dy, const void* g, con
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return bwd_d<__nv_bfloat16>(t, dy, g, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt, dv,
-                                u, db1, dlnw, dlnb, M, C, GR, s);
-  return bwd_d<float>(t, dy, g, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt, dv, u, db1,
-                      dlnw, dlnb, M, C, GR, s);
+    return bwd_d<__nv_bfloat16, false>(t, dy, g, nullptr, nx, dgxg, lnw, lnb, w1, b1, gamma,
+                                       w2t, w1t, dt, dv, u, db1, dlnw, dlnb, M, C, GR, s);
+  return bwd_d<float, false>(t, dy, g, nullptr, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t,
+                             dt, dv, u, db1, dlnw, dlnb, M, C, GR, s);
+}
+
+// The widest C the spill-g row launches take on the current device (0: none).
+extern "C" int mm_spillg_max_c(int is_bf16) {
+  return is_bf16 ? max_c<__nv_bfloat16, false>() : max_c<float, false>();
+}
+
+// The masked-dense tail.  keep (M) in the activation dtype; gxsq, gx, nx,
+// dnx, dgxg (M / GR, 4C) f32; do_out (M, C) and h (M, 4C) in the activation
+// dtype are the dW2 pass's operands, and dv, u (as in D) the dW1 pass's;
+// both passes are mm_spillg_atb with null nx.
+extern "C" int mm_masked_fwd_stat(const void* t, const void* keep, const void* lnw,
+                                  const void* lnb, const void* w1, const void* b1, void* gxsq,
+                                  int M, int C, int GR, int is_bf16, void* stream) {
+  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return fwd_a<__nv_bfloat16, true>(t, lnw, lnb, w1, b1, keep, nullptr, gxsq, M, C, GR, s);
+  return fwd_a<float, true>(t, lnw, lnb, w1, b1, keep, nullptr, gxsq, M, C, GR, s);
+}
+
+extern "C" int mm_masked_fwd_apply(const void* t, const void* x, const void* keep,
+                                   const void* gxsq, const void* lnw, const void* lnb,
+                                   const void* w1, const void* b1, const void* gamma,
+                                   const void* beta, const void* w2, const void* b2, void* y,
+                                   void* gx, void* nx, int M, int C, int GR, int is_bf16,
+                                   void* stream) {
+  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return masked_apply<__nv_bfloat16>(t, x, keep, gxsq, lnw, lnb, w1, b1, gamma, beta, w2, b2,
+                                       y, gx, nx, M, C, GR, s);
+  return masked_apply<float>(t, x, keep, gxsq, lnw, lnb, w1, b1, gamma, beta, w2, b2, y, gx,
+                             nx, M, C, GR, s);
+}
+
+extern "C" int mm_masked_bwd_stat(const void* t, const void* dy, const void* keep,
+                                  const void* nx, const void* lnw, const void* lnb,
+                                  const void* w1, const void* b1, const void* gamma,
+                                  const void* beta, const void* w2t, void* do_out, void* h,
+                                  void* db2, void* dgamma, void* dbeta, void* dnx, int M, int C,
+                                  int GR, int is_bf16, void* stream) {
+  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return masked_bstat<__nv_bfloat16>(t, dy, keep, nx, lnw, lnb, w1, b1, gamma, beta, w2t,
+                                       do_out, h, db2, dgamma, dbeta, dnx, M, C, GR, s);
+  return masked_bstat<float>(t, dy, keep, nx, lnw, lnb, w1, b1, gamma, beta, w2t, do_out, h,
+                             db2, dgamma, dbeta, dnx, M, C, GR, s);
+}
+
+extern "C" int mm_masked_bwd_dv(const void* t, const void* do_in, const void* keep,
+                                const void* nx, const void* dgxg, const void* lnw,
+                                const void* lnb, const void* w1, const void* b1,
+                                const void* gamma, const void* w2t, const void* w1t, void* dt,
+                                void* dv, void* u, void* db1, void* dlnw, void* dlnb, int M,
+                                int C, int GR, int is_bf16, void* stream) {
+  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return bwd_d<__nv_bfloat16, true>(t, do_in, nullptr, keep, nx, dgxg, lnw, lnb, w1, b1,
+                                      gamma, w2t, w1t, dt, dv, u, db1, dlnw, dlnb, M, C, GR, s);
+  return bwd_d<float, true>(t, do_in, nullptr, keep, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t,
+                            w1t, dt, dv, u, db1, dlnw, dlnb, M, C, GR, s);
+}
+
+// The widest C the masked-dense row launches take on the current device.
+extern "C" int mm_masked_max_c(int is_bf16) {
+  return is_bf16 ? max_c<__nv_bfloat16, true>() : max_c<float, true>();
 }
 
 // out (I, J) f32 += X^T Y; nx/gamma/beta null for plain Y, else Y is g and
 // is turned into h on the fly.  rows_per_split is a multiple of 64.
-// The widest C the row launches take on the current device (0: none).
-extern "C" int mm_spillg_max_c(int is_bf16) {
-  return is_bf16 ? max_c<__nv_bfloat16>() : max_c<float>();
-}
-
 extern "C" int mm_spillg_atb(const void* X, const void* Y, const void* nx, const void* gamma,
                              const void* beta, void* out, int M, int I, int J, int GR,
                              int rows_per_split, int splits, int is_bf16, void* stream) {

@@ -70,12 +70,17 @@ def get_args_parser():
     p.add_argument("--block_impl", default="auto",
                    choices=["auto", "xla", "fused", "spillg", "remat", "folded", "dwg",
                             "wholeblock"],
-                   help="every choice runs the gathered encoder with the dwconv7_gathered "
-                        "kernel; auto, xla and dwg compose the block tail from torch ops, "
-                        "spillg and wholeblock (the same code in this port) run it through "
-                        "the spill-g kernels (on an H100, stage widths up to those of "
-                        "convnextv2_large); fused, remat and folded are not ported yet")
-    p.add_argument("--sparse_impl", choices=["gathered", "masked_dense"], default="gathered")
+                   help="the block tail: on the gathered encoder (every block's dwconv "
+                        "through the dwconv7_gathered kernel) spillg and wholeblock (the "
+                        "same code in this port) run it through the spill-g kernels (on an "
+                        "H100, stage widths up to those of convnextv2_large); on the "
+                        "masked-dense encoder fused runs it through the masked-dense "
+                        "kernels; every other choice, and every choice on the other "
+                        "encoder, composes it from torch ops; remat and folded are not "
+                        "ported yet")
+    p.add_argument("--sparse_impl", choices=["gathered", "masked_dense"], default="gathered",
+                   help="gathered: the encoder on the visible patches only; masked_dense: "
+                        "on the full grid with re-masking (the same function)")
     p.add_argument("--grn_scope", choices=["global", "per_device"], default="per_device")
     p.add_argument("--gelu_approx", type=str2bool, default=False)
     p.add_argument("--loader", choices=["mmpack", "grain", "hdf5"], default="mmpack")
@@ -95,7 +100,6 @@ def get_args_parser():
 
 # flag -> (value the port runs, what a different value would need)
 _NOT_PORTED = {
-    "sparse_impl": ("gathered", "the masked-dense encoder"),
     "gelu_approx": (False, "the tanh GELU"),
     "use_orig_stem": (False, "the original 4x4 stem"),
     "sparse": (True, "the dense (leaky) encoder path"),
@@ -118,6 +122,7 @@ def config_from_args(args) -> PretrainConfig:
             mask_ratio=args.mask_ratio, decoder_depth=args.decoder_depth,
             decoder_embed_dim=args.decoder_embed_dim, norm_pix_loss=args.norm_pix_loss,
             grn_scope=args.grn_scope, block_impl=args.block_impl,
+            sparse_impl=args.sparse_impl,
         ),
         optim=OptimConfig(
             blr=args.blr, lr=args.lr, min_lr=args.min_lr, weight_decay=args.weight_decay,

@@ -1,21 +1,32 @@
-"""NHWC ConvNeXtV2 with the gathered sparse encoder (port of
-``mmearth_tpu/models/convnextv2.py``, the pretraining path).
+"""NHWC ConvNeXtV2 with the sparse encoders of pretraining (port of
+``mmearth_tpu/models/convnextv2.py``).
 
-The masked encoder reproduces the MinkowskiEngine sparse encoder by computing
-on the visible patches only: the stem runs on the dense grid, its output is
-gathered onto the ``(N, K, p, p, C)`` rows of the K visible patches, every
-block's depthwise 7x7 conv runs through :func:`dwconv7_gathered` (at every
-stage, p = 8/4/2/1 at 56/8) and its site-local tail (LN -> Linear -> erf GELU
--> MaskedGRN over all rows -> Linear -> residual) on the rows, the 2x2
-stride-2 downsamples on the rows, and stage 4 is scattered back to the dense
-grid with zeros at removed patches.  SAME padding, as the JAX package.
+The masked encoder reproduces the MinkowskiEngine sparse encoder in one of two
+ways (``sparse_impl``), which compute the same function:
 
-``block_impl``: ``auto``, ``xla`` and ``dwg`` run the gathered block tail as
-composed torch ops; ``spillg`` and ``wholeblock`` run it through
-:func:`fused_block_mlp_spillg` (the spill-g kernels).  In JAX ``wholeblock``
-differs from ``spillg`` by also taking the Pallas dwconv; in the port every
-gathered block's dwconv already runs ``dwconv7_gathered``, so the two run the
-same code.  The param tree is the same for every ``block_impl``.
+* ``gathered``: on the visible patches only.  The stem runs on the dense
+  grid, its output is gathered onto the ``(N, K, p, p, C)`` rows of the K
+  visible patches, every block's depthwise 7x7 conv runs through
+  :func:`dwconv7_gathered` (at every stage, p = 8/4/2/1 at 56/8) and its
+  site-local tail (LN -> Linear -> erf GELU -> MaskedGRN over all rows ->
+  Linear -> residual) on the rows, the 2x2 stride-2 downsamples on the rows,
+  and stage 4 is scattered back to the dense grid with zeros at removed
+  patches.  It needs the same visible count K in every sample.
+* ``masked_dense``: every op on the full grid, re-masked with the upsampled
+  keep mask after the stem, each downsample and each block's tail (JAX
+  ``_stages``, :679-696); the MaskedGRN statistic is over the kept sites.
+  Any mask.
+
+SAME padding, as the JAX package.
+
+``block_impl``, as JAX routes it: on the gathered path ``auto``, ``xla``,
+``dwg`` and ``fused`` run the block tail as composed torch ops, and ``spillg``
+and ``wholeblock`` run it through :func:`fused_block_mlp_spillg` (the spill-g
+kernels; in JAX ``wholeblock`` differs from ``spillg`` by also taking the
+Pallas dwconv, which every gathered block of the port already runs).  On the
+masked-dense path ``fused`` runs the tail through :func:`fused_block_mlp`
+(the masked-dense kernels) and every other value composes it.  The param tree
+is the same for every ``block_impl`` and ``sparse_impl``.
 
 Params are f32 in upstream's dense layout and key names (OIHW convs, (out,
 in) Linears, (1, 1, 1, C) GRN affines); each layer casts them to its compute
@@ -29,15 +40,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_block import fused_block_mlp_spillg
+from ..ops.fused_block import fused_block_mlp, fused_block_mlp_spillg
 from ..ops.patch_select import gather_patches, scatter_patches
 from ..ops.wholeblock import dwconv7_gathered
 from .norm import GRN, LayerNorm, MaskedGRN
 
-BLOCK_IMPLS = ("auto", "xla", "dwg", "spillg", "wholeblock")
+BLOCK_IMPLS = ("auto", "xla", "dwg", "spillg", "wholeblock", "fused")
 SPILLG_IMPLS = ("spillg", "wholeblock")
+SPARSE_IMPLS = ("gathered", "masked_dense")
 _LATER_SLICE = {
-    "fused": "the masked-dense fused tail kernel (fused_block_mlp)",
     "remat": "the rematerialized block tail",
     "folded": "the norm-folded block tail",
 }
@@ -122,14 +133,18 @@ def upsample_mask(mask: torch.Tensor, grid: int, size: int) -> torch.Tensor:
 # modules
 # ---------------------------------------------------------------------------
 class Block(nn.Module):
-    """ConvNeXtV2 block.  Dense form on an NHWC map (the decoder), or gathered
+    """ConvNeXtV2 block.  Dense form on an NHWC map (the decoder); gathered
     form on ``(N, K, p, p, C)`` visible rows when ``gather`` =
-    ``(kept_ids, inv_ids, grid)`` is given (the sparse encoder).  With
-    ``spillg`` the gathered tail runs through :func:`fused_block_mlp_spillg`."""
+    ``(kept_ids, inv_ids, grid)`` is given; masked-dense form on an NHWC map
+    whose masked sites are zero when ``keep`` (N, H, W, 1), 1 = visible, is
+    given (JAX ``Block``, :506-543: the GRN statistic over the kept sites and
+    the tail re-masked before the residual).  With ``spillg`` the gathered
+    tail runs through :func:`fused_block_mlp_spillg`; with ``fused`` the
+    masked-dense tail runs through :func:`fused_block_mlp`."""
 
     def __init__(self, dim: int, sparse: bool = False, dw_init: str | None = None,
                  pw_init: str | None = None, grn_group: int = 0, dtype=torch.float32,
-                 spillg: bool = False):
+                 spillg: bool = False, fused: bool = False):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = LayerNorm(dim, dtype=dtype)
@@ -138,11 +153,12 @@ class Block(nn.Module):
         self.pwconv2 = nn.Linear(4 * dim, dim)
         self.dtype = dtype
         self.spillg = spillg and sparse
+        self.fused = fused and sparse
         default = "trunc1" if sparse else "normal02"
         self.inits = {"dwconv.weight": dw_init or default, "pwconv1.weight": pw_init or default,
                       "pwconv2.weight": pw_init or default}
 
-    def forward(self, x, gather=None):
+    def forward(self, x, gather=None, keep=None):
         if gather is not None:
             kept_ids, inv_ids, grid = gather
             t = dwconv7_gathered(x.to(self.dtype).contiguous(), kept_ids, inv_ids,
@@ -151,9 +167,24 @@ class Block(nn.Module):
                 return self._spillg_tail(x, t)
         else:
             t = conv_nhwc(x, self.dwconv, self.dtype)
+            if keep is not None and self.fused:
+                return self._fused_tail(x, t, keep)
         u = gelu(dense(self.norm(t), self.pwconv1.weight, self.pwconv1.bias, self.dtype))
-        u = self.grn(u)  # gathered: every row visible, so keep = None
-        return x + dense(u, self.pwconv2.weight, self.pwconv2.bias, self.dtype)
+        u = self.grn(u) if keep is None else self.grn(u, keep)  # gathered: every row visible
+        out = dense(u, self.pwconv2.weight, self.pwconv2.bias, self.dtype)
+        return x + (out if keep is None else out * keep.to(out.dtype))
+
+    def _fused_tail(self, x, t, keep):
+        """The masked tail on the N*H*W sites, GRN grouped as ``MaskedGRN``
+        groups them."""
+        n, h, w, c = t.shape
+        g = self.grn.group_size(n, stacklevel=4)
+        rows = n * h * w
+        y = fused_block_mlp(
+            t.reshape(rows, c), x.reshape(rows, c), keep.reshape(rows, 1), self.norm.weight,
+            self.norm.bias, self.pwconv1.weight, self.pwconv1.bias, self.grn.gamma, self.grn.beta,
+            self.pwconv2.weight, self.pwconv2.bias, group_rows=g * h * w)
+        return y.reshape(t.shape)
 
     def _spillg_tail(self, x, t):
         """The tail on the N*K*p*p rows, GRN grouped as ``MaskedGRN`` groups
@@ -173,12 +204,15 @@ class ConvNeXtV2(nn.Module):
 
     def __init__(self, patch_size: int = 8, img_size: int = 56, in_chans: int = 12,
                  depths=(2, 2, 6, 2), dims=(40, 80, 160, 320), grn_group: int = 0,
-                 block_impl: str = "auto", dtype=torch.float32):
+                 block_impl: str = "auto", sparse_impl: str = "gathered", dtype=torch.float32):
         super().__init__()
         if block_impl not in BLOCK_IMPLS:
             later = _LATER_SLICE.get(block_impl, "no slice")
             raise ValueError(f"block_impl={block_impl!r} is not in this port yet: it needs "
                              f"{later}, queued in ROADMAP.md; use one of {BLOCK_IMPLS}")
+        if sparse_impl not in SPARSE_IMPLS:
+            raise ValueError(f"sparse_impl={sparse_impl!r}: use one of {SPARSE_IMPLS}")
+        self.sparse_impl = sparse_impl
         self.patch_size, self.img_size = patch_size, img_size
         self.depths, self.dims = tuple(depths), tuple(dims)
         self.dtype = dtype
@@ -193,7 +227,8 @@ class ConvNeXtV2(nn.Module):
             for i in range(3))
         self.stages = nn.ModuleList(
             nn.Sequential(*[Block(dims[i], sparse=True, grn_group=grn_group, dtype=dtype,
-                                  spillg=block_impl in SPILLG_IMPLS)
+                                  spillg=block_impl in SPILLG_IMPLS,
+                                  fused=block_impl == "fused")
                             for _ in range(depths[i])])
             for i in range(4))
 
@@ -235,15 +270,32 @@ class ConvNeXtV2(nn.Module):
         w = conv.weight.permute(0, 2, 3, 1).reshape(conv.weight.shape[0], 4 * c)
         return dense(y, w, conv.bias, self.dtype)
 
-    def encode(self, x, mask, num_visible: int):
+    def _stages(self, x, keeps):
+        """The four stages on the masked dense grid; ``keeps`` holds each
+        stage's (N, H, W, 1) keep mask (JAX ``_stages``, :679-696)."""
+        for i, stage in enumerate(self.stages):
+            if i:
+                norm, conv = self.downsample_layers[i - 1]
+                x = conv_nhwc(norm(x), conv, self.dtype)
+                x = x * keeps[i].to(x.dtype)
+            for blk in stage:
+                x = blk(x, keep=keeps[i])
+        return x
+
+    def encode(self, x, mask, num_visible: int | None = None):
         """Masked encoding: ``x`` (N, H, W, in_chans), ``mask`` (N, L) with 1 =
-        removed and exactly ``num_visible`` zeros per row.  Returns the dense
-        stage-4 map (N, grid, grid, dims[-1]), zero at masked sites."""
+        removed.  Returns the dense stage-4 map (N, grid, grid, dims[-1]), zero
+        at masked sites.  ``num_visible``: the visible count of every row; the
+        gathered path needs it, and without it (or with ``sparse_impl =
+        "masked_dense"``) the masked-dense path runs, as in JAX (:808-815)."""
         grid = self.img_size // self.patch_size
         h = self.img_size // self.stem_stride
         keep_flat = 1.0 - mask.float()
         keep_pixel = upsample_mask(keep_flat, grid, self.img_size)
         x = x * keep_pixel.to(x.dtype)
+        if num_visible is None or self.sparse_impl == "masked_dense":
+            keeps = [upsample_mask(keep_flat, grid, h >> i) for i in range(len(self.stages))]
+            return self._stages(self._stem(x, keep_pixel, keeps[0]), keeps)
         kept_ids, inv_ids = visible_ids(mask, num_visible)
         ctx = (kept_ids, inv_ids, grid)
         y = self._stem(x, keep_pixel, upsample_mask(keep_flat, grid, h)).contiguous()

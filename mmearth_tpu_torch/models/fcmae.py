@@ -1,7 +1,10 @@
 """FCMAE, the multi-modal masked autoencoder of MP-MAE (port of
 ``mmearth_tpu/models/fcmae.py``).
 
-  * encoder: the gathered sparse ConvNeXtV2 (models/convnextv2.py);
+  * encoder: the sparse ConvNeXtV2 (models/convnextv2.py), gathered or
+    masked-dense (``sparse_impl``); an explicit mask whose rows do not all
+    keep the generated visible count takes the masked-dense path, as in JAX
+    (fcmae.py:214-226);
   * 1x1 projection to the decoder dim and a learnable mask token blended into
     the masked sites (reference fcmae.py:113-118, 252-255);
   * decoder: upstream registers one list of Blocks under every modality name
@@ -92,8 +95,9 @@ class FCMAE(nn.Module):
                  dims=(96, 192, 384, 768), decoder_depth: int = 1,
                  decoder_embed_dim: int = 512, mask_ratio: float = 0.6,
                  norm_pix_loss: bool = False, grn_group: int = 0, block_impl: str = "auto",
-                 loss_aggr: str = "uncertainty", loss_full: bool = False,
-                 inp_modalities=None, out_modalities=None, dtype=torch.float32):
+                 sparse_impl: str = "gathered", loss_aggr: str = "uncertainty",
+                 loss_full: bool = False, inp_modalities=None, out_modalities=None,
+                 dtype=torch.float32):
         super().__init__()
         inp_modalities = dict(inp_modalities or M.INP_MODALITIES)
         out_modalities = dict(out_modalities or M.OUT_MODALITIES)
@@ -105,7 +109,7 @@ class FCMAE(nn.Module):
         d = decoder_embed_dim
         self.encoder = ConvNeXtV2(patch_size, img_size,
                                   len(M.resolve_bands(inp_modalities)["sentinel2"]),
-                                  depths, dims, grn_group, block_impl, dtype)
+                                  depths, dims, grn_group, block_impl, sparse_impl, dtype)
         self.proj = nn.Conv2d(dims[-1], d, 1)
         self.mask_token = nn.Parameter(torch.zeros(1, d, 1, 1))
         decoder = nn.Sequential(*[Block(d, sparse=False, dw_init="trunc1", pw_init="normal02",
@@ -179,16 +183,18 @@ class FCMAE(nn.Module):
     def forward(self, imgs_dict: Mapping[str, torch.Tensor], mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         """imgs_dict: the cropped, NaN-zeroed NHWC modality dict.  ``mask``
-        (N, L), 1 = removed, must keep exactly ``num_visible`` patches per row;
-        otherwise one is drawn from ``generator``.  Returns (loss, preds, mask,
-        loss_dict, log_vars, weighted_losses)."""
+        (N, L), 1 = removed; when None one is drawn from ``generator``.  A mask
+        that keeps ``num_visible`` patches in every row runs the configured
+        ``sparse_impl``; any other runs the masked-dense encoder.  Returns
+        (loss, preds, mask, loss_dict, log_vars, weighted_losses)."""
         imgs = imgs_dict["sentinel2"].to(self.dtype)
+        k = self.num_visible
         if mask is None:
             mask = gen_random_mask(imgs.shape[0], self.num_patches, self.mask_ratio, generator,
                                    imgs.device)
-        elif not bool(((mask == 0).sum(1) == self.num_visible).all()):
-            raise ValueError(f"explicit mask must keep exactly {self.num_visible} patches per row")
-        x = self.encoder.encode(imgs, mask, self.num_visible)
+        elif not bool(((mask == 0).sum(1) == k).all()):
+            k = None
+        x = self.encoder.encode(imgs, mask, k)
         preds = self.forward_decoder(x, mask)
         loss, loss_dict, log_vars, weighted = self.forward_loss(imgs_dict, preds, mask)
         return loss, preds, mask, loss_dict, log_vars, weighted

@@ -1,7 +1,8 @@
-"""``fused_block_mlp_spillg``: the spill-g tail of a gathered encoder block.
+"""The fused tails of an encoder block: ``fused_block_mlp_spillg`` on the
+gathered rows and ``fused_block_mlp`` on the masked dense grid.
 
-Port of ``mmearth_tpu/ops/fused_block.py:355-657``.  On the (M, C) rows of
-the visible patches it computes
+**Spill-g** (port of ``mmearth_tpu/ops/fused_block.py:355-657``).  On the
+(M, C) rows of the visible patches it computes
 
     y = x_res + GRN(gelu(LN(t) W1^T + b1)) W2^T + b2
 
@@ -28,8 +29,28 @@ On the card C and D are two launches each: a row pass and a split-over-rows
 ``X^T Y`` pass for the weight gradient (``spillg_bwd_c_dw2`` from dy and h,
 ``spillg_bwd_d_dw1`` from the dv and u that the row pass of D stores).
 
+**Masked dense** (port of ``fused_block_mlp``, ``fused_block.py:87-354``, the
+tail of ``--sparse_impl masked_dense --block_impl fused``).  On the (M, C)
+sites of the dense grid, with ``keep`` (M, 1), 1 = visible:
+
+    y = x_res + keep * (GRN_keep(gelu(LN(t) W1^T + b1)) W2^T + b2)
+
+where the GRN sum of squares is over ``g * keep`` of the f32 ``g`` (never
+rounded for storage; ``fused_block_mlp_reference``, :663-675).  As in the
+Pallas kernel, g is recomputed in every pass instead of stored:
+
+  stat   LN -> W1 -> GELU, sum (g keep)^2 per group          (``_fwd_kernel``
+  apply  again, GRN apply -> W2 -> y = x + o keep              phases 0, 1)
+  bstat  do = dy keep; v, g, dh = do W2, h; dgamma, dbeta, dnx, db2; stores
+         do and h, and dW2 = do^T h is a second launch      (``_bwd_kernel``
+     -- the dgx step, shared with spill-g                     phase 0,
+  dv     D on do, with g keep^2 in the dgx term; dW1 = dv^T u  phase 1)
+
+Masked rows give y = x_res exactly, dt = 0, and add nothing to any sum.
+``d x_res = dy``; ``keep`` takes no gradient (:345-351).
+
 GELU is the exact erf form: ``erff`` on the card and ``torch.erf`` on the CPU,
-where the Pallas kernel uses a polynomial with an absolute error of 1.5e-7.
+where the Pallas kernels use a polynomial with an absolute error of 1.5e-7.
 
 Params are taken in the port's layout: ``nn.Linear`` weights (out, in), the
 GRN affines (1, 1, 1, 4C); the gradients come back in the same layout.  A CPU
@@ -50,8 +71,11 @@ _SQRT_HALF = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 # launches of each CUDA kernel (a plain count, read by chip_smoke.py)
-LAUNCHES = {"spillg_fwd_a": 0, "spillg_fwd_b": 0, "spillg_bwd_c": 0, "spillg_bwd_c_dw2": 0,
-            "spillg_bwd_d": 0, "spillg_bwd_d_dw1": 0}
+SPILLG_LAUNCHES = ("spillg_fwd_a", "spillg_fwd_b", "spillg_bwd_c", "spillg_bwd_c_dw2",
+                   "spillg_bwd_d", "spillg_bwd_d_dw1")
+MASKED_LAUNCHES = ("masked_fwd_stat", "masked_fwd_apply", "masked_bwd_stat",
+                   "masked_bwd_stat_dw2", "masked_bwd_dv", "masked_bwd_dv_dw1")
+LAUNCHES = dict.fromkeys(SPILLG_LAUNCHES + MASKED_LAUNCHES, 0)
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
@@ -61,6 +85,11 @@ _SIGNATURES = {
     "mm_spillg_bwd_d": [_P] * 18 + [_I] * 4 + [_P],
     "mm_spillg_atb": [_P] * 6 + [_I] * 7 + [_P],
     "mm_spillg_max_c": [_I],
+    "mm_masked_fwd_stat": [_P] * 7 + [_I] * 4 + [_P],
+    "mm_masked_fwd_apply": [_P] * 15 + [_I] * 4 + [_P],
+    "mm_masked_bwd_stat": [_P] * 17 + [_I] * 4 + [_P],
+    "mm_masked_bwd_dv": [_P] * 18 + [_I] * 4 + [_P],
+    "mm_masked_max_c": [_I],
 }
 _ATB_BLOCKS = 528  # X^T Y blocks to aim for (4 per SM on 132 SMs)
 _ATB_CHUNK = 64    # rows staged per step of the X^T Y kernel
@@ -149,20 +178,26 @@ def dgx_step(dnx, gx):
     return torch.where(pos, dgx / torch.where(pos, gx, torch.ones_like(gx)), torch.zeros_like(gx))
 
 
-def bwd_d_plain(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
-    """Phase D but dW1 -> dt (M, C) in t.dtype, db1 (4C,), dln_w, dln_b (C,),
-    and dv, u rounded to the product type (dW1 = ``atb_plain(dv, u)``)."""
+def _d_rows(t, dy, g_of_v, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
+    """D's row pass; ``g_of_v(v)`` is the f32 g of the dgx term."""
     cd = _cd(t.dtype)
     u, uhat, r = _ln(t.float(), ln_w, ln_b)
     v = _mm(u, w1.t(), cd) + b1.float()
     dh = _mm(dy, w2, cd)
     dg = (dh * (gamma.float() * _per_row(nx, group_rows) + 1.0)
-          + g.float() * _per_row(dgxg, group_rows))
+          + g_of_v(v) * _per_row(dgxg, group_rows))
     dv = dg * _gelu_grad(v)
     du = _mm(dv, w1, cd)
     da = du * ln_w.float()
     dt = r * (da - da.mean(-1, keepdim=True) - uhat * (da * uhat).mean(-1, keepdim=True))
     return dt.to(t.dtype), dv.sum(0), (du * uhat).sum(0), du.sum(0), dv.to(cd), u.to(cd)
+
+
+def bwd_d_plain(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
+    """Phase D but dW1 -> dt (M, C) in t.dtype, db1 (4C,), dln_w, dln_b (C,),
+    and dv, u rounded to the product type (dW1 = ``atb_plain(dv, u)``)."""
+    return _d_rows(t, dy, lambda v: g.float(), nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2,
+                   group_rows)
 
 
 def fused_block_mlp_spillg_plain(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
@@ -171,6 +206,62 @@ def fused_block_mlp_spillg_plain(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, 
     gr = t.shape[0] if group_rows is None else group_rows
     g, gxsq = fwd_a_plain(t, ln_w, ln_b, w1, b1, gr)
     return fwd_b_plain(g, x_res, gxsq, gamma.reshape(-1), beta.reshape(-1), w2, b2, gr)[0]
+
+
+# masked dense (follow fused_block_mlp_reference and _bwd_kernel step for step;
+# keep is (M, 1))
+def _g_plain(t, ln_w, ln_b, w1, b1):
+    """The f32 g = gelu(LN(t) W1^T + b1) of the rows."""
+    u, _, _ = _ln(t.float(), ln_w, ln_b)
+    return _gelu(_mm(u, w1.t(), _cd(t.dtype)) + b1.float())
+
+
+def masked_fwd_stat_plain(t, keep, ln_w, ln_b, w1, b1, group_rows):
+    """-> gxsq (G, 4C) f32, the sum of (g keep)^2 per group."""
+    gk = _g_plain(t, ln_w, ln_b, w1, b1) * keep.float()
+    return (gk * gk).reshape(-1, group_rows, gk.shape[-1]).sum(1)
+
+
+def masked_fwd_apply_plain(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
+                           group_rows):
+    """-> y (M, C) in t.dtype, gx and nx (G, 4C) f32."""
+    g = _g_plain(t, ln_w, ln_b, w1, b1)
+    gx = torch.sqrt(gxsq)
+    nx = gx / (gx.mean(-1, keepdim=True) + GRN_EPS)
+    o = _mm(h_plain(g, nx, gamma, beta, group_rows), w2.t(), _cd(t.dtype)) + b2.float()
+    return (x_res.float() + o * keep.float()).to(t.dtype), gx, nx
+
+
+def masked_bwd_stat_plain(t, dy, keep, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, group_rows):
+    """The backward's first phase but dW2 -> db2 (C,), dgamma, dbeta (4C,),
+    dnx (G, 4C), and do = dy keep and h rounded to the product type (dW2 =
+    ``atb_plain(do, h)``)."""
+    cd = _cd(t.dtype)
+    g = _g_plain(t, ln_w, ln_b, w1, b1)
+    do = dy.float() * keep.float()
+    dh = _mm(do, w2, cd)
+    dnx = (dh * gamma.float() * g).reshape(-1, group_rows, g.shape[-1]).sum(1)
+    h = h_plain(g, nx, gamma, beta, group_rows)
+    return (do.sum(0), (dh * (g * _per_row(nx, group_rows))).sum(0), dh.sum(0), dnx,
+            do.to(cd), h.to(cd))
+
+
+def masked_bwd_dv_plain(t, do, keep, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
+    """The second phase but dW1, on the stored do: D with g keep^2 in the dgx
+    term (``fused_block.py:192``) -> as ``bwd_d_plain``."""
+    k = keep.float()
+    return _d_rows(t, do, lambda v: _gelu(v) * k * k, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2,
+                   group_rows)
+
+
+def fused_block_mlp_plain(t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
+                          group_rows=None):
+    """The masked forward, composed of the plain phases; params in the port's layout."""
+    gr = t.shape[0] if group_rows is None else group_rows
+    gm, bt = gamma.reshape(-1), beta.reshape(-1)
+    gxsq = masked_fwd_stat_plain(t, keep, ln_w, ln_b, w1, b1, gr)
+    return masked_fwd_apply_plain(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gm, bt, w2, b2,
+                                  gr)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -218,22 +309,24 @@ def _w(w, ref, shape):
 
 
 _MAX_C: dict = {}
+_TAILS = {"spillg": "spill-g", "masked": "masked-dense"}
 
 
-def _check_groups(x, c, group_rows, name):
-    """C a multiple of 8 and no wider than the row launches take on x's card
-    (their shared memory grows with C); group_rows divides the rows."""
+def _check_groups(x, c, group_rows, name, tail="spillg"):
+    """C a multiple of 8 and no wider than the row launches of ``tail``
+    ("spillg" or "masked") take on x's card (their shared memory grows with
+    C); group_rows divides the rows."""
     m = x.shape[0]
     if c % 8:
         raise ValueError(f"{name}: C = {c} must be a multiple of 8")
-    key = (x.device, x.dtype)
+    key = (x.device, x.dtype, tail)
     if key not in _MAX_C:
         with torch.cuda.device(x.device):
-            _MAX_C[key] = _lib().mm_spillg_max_c(int(x.dtype == torch.bfloat16))
+            _MAX_C[key] = getattr(_lib(), f"mm_{tail}_max_c")(int(x.dtype == torch.bfloat16))
     if c > _MAX_C[key]:
-        raise ValueError(f"{name}: C = {c} is wider than the spill-g kernels take on this card "
-                         f"({_MAX_C[key]} in {x.dtype}: a tile of 16 rows of C channels must fit "
-                         "in one block's shared memory)")
+        raise ValueError(f"{name}: C = {c} is wider than the {_TAILS[tail]} kernels take on this "
+                         f"card ({_MAX_C[key]} in {x.dtype}: a tile of 16 rows of C channels "
+                         "must fit in one block's shared memory)")
     if group_rows <= 0 or m % group_rows:
         raise ValueError(f"{name}: group_rows {group_rows} must divide M = {m}")
 
@@ -347,6 +440,104 @@ def _dw1_cuda(dv, u):
     return _atb_cuda(dv, u, "spillg_bwd_d_dw1")
 
 
+def _keep_rows(keep, t, name):
+    """keep as M values in t's dtype, contiguous, on t's device."""
+    if keep.numel() != t.shape[0] or keep.device != t.device:
+        raise ValueError(f"{name}: keep must hold one value per row ({t.shape[0]}) on "
+                         f"{t.device}, got {tuple(keep.shape)} on {keep.device}")
+    return keep.reshape(-1).to(t.dtype).contiguous()
+
+
+def _masked_fwd_stat_cuda(t, keep, ln_w, ln_b, w1, b1, group_rows):
+    m, c = _rows(t, "masked fwd stat")
+    _check_groups(t, c, group_rows, "masked fwd stat", "masked")
+    dev, c4 = t.device, 4 * c
+    kp = _keep_rows(keep, t, "masked fwd stat")
+    gxsq = torch.zeros((m // group_rows, c4), dtype=torch.float32, device=dev)
+    lw, lb, bb = _vec(ln_w, c, dev), _vec(ln_b, c, dev), _vec(b1, c4, dev)
+    w = _w(w1, t, (c4, c))
+    _dev_call("mm_masked_fwd_stat", "masked_fwd_stat", dev, t.data_ptr(), kp.data_ptr(),
+              lw.data_ptr(), lb.data_ptr(), w.data_ptr(), bb.data_ptr(), gxsq.data_ptr(), m, c,
+              group_rows, int(t.dtype == torch.bfloat16))
+    return gxsq
+
+
+def _masked_fwd_apply_cuda(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
+                           group_rows):
+    m, c = _rows(t, "masked fwd apply")
+    _check_groups(t, c, group_rows, "masked fwd apply", "masked")
+    _like(x_res, t, (m, c), "masked fwd apply x_res")
+    dev, c4, n_g = t.device, 4 * c, m // group_rows
+    if tuple(gxsq.shape) != (n_g, c4) or gxsq.dtype != torch.float32:
+        raise ValueError("masked fwd apply: gxsq must be f32 (G, 4C)")
+    kp = _keep_rows(keep, t, "masked fwd apply")
+    y = torch.empty_like(t)
+    gx = torch.empty((n_g, c4), dtype=torch.float32, device=dev)
+    nx = torch.empty_like(gx)
+    w1c, w2c = _w(w1, t, (c4, c)), _w(w2, t, (c, c4))
+    _dev_call("mm_masked_fwd_apply", "masked_fwd_apply", dev, t.data_ptr(), x_res.data_ptr(),
+              kp.data_ptr(), gxsq.contiguous().data_ptr(), _vec(ln_w, c, dev).data_ptr(),
+              _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(), _vec(b1, c4, dev).data_ptr(),
+              _vec(gamma, c4, dev).data_ptr(), _vec(beta, c4, dev).data_ptr(), w2c.data_ptr(),
+              _vec(b2, c, dev).data_ptr(), y.data_ptr(), gx.data_ptr(), nx.data_ptr(), m, c,
+              group_rows, int(t.dtype == torch.bfloat16))
+    return y, gx, nx
+
+
+def _masked_bwd_stat_cuda(t, dy, keep, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, group_rows):
+    """-> db2, dgamma, dbeta, dnx and the stored do, h."""
+    m, c = _rows(t, "masked bwd stat")
+    _check_groups(t, c, group_rows, "masked bwd stat", "masked")
+    _like(dy, t, (m, c), "masked bwd stat dy")
+    dev, c4 = t.device, 4 * c
+    kp = _keep_rows(keep, t, "masked bwd stat")
+    f32 = dict(dtype=torch.float32, device=dev)
+    do, h = torch.empty_like(t), torch.empty((m, c4), dtype=t.dtype, device=dev)
+    db2, dgamma, dbeta = torch.zeros(c, **f32), torch.zeros(c4, **f32), torch.zeros(c4, **f32)
+    dnx = torch.zeros((m // group_rows, c4), **f32)
+    w2t = _w(w2, t, (c, c4)).t().contiguous()
+    _dev_call("mm_masked_bwd_stat", "masked_bwd_stat", dev, t.data_ptr(), dy.data_ptr(),
+              kp.data_ptr(), nx.contiguous().data_ptr(), _vec(ln_w, c, dev).data_ptr(),
+              _vec(ln_b, c, dev).data_ptr(), _w(w1, t, (c4, c)).data_ptr(),
+              _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(),
+              _vec(beta, c4, dev).data_ptr(), w2t.data_ptr(), do.data_ptr(), h.data_ptr(),
+              db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dnx.data_ptr(), m, c,
+              group_rows, int(t.dtype == torch.bfloat16))
+    return db2, dgamma, dbeta, dnx, do, h
+
+
+def _masked_bwd_dv_cuda(t, do, keep, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
+    """The dv pass on the stored do: -> dt, db1, dln_w, dln_b, and the stored dv, u."""
+    m, c = _rows(t, "masked bwd dv")
+    _check_groups(t, c, group_rows, "masked bwd dv", "masked")
+    _like(do, t, (m, c), "masked bwd dv do")
+    c4, dev = 4 * c, t.device
+    kp = _keep_rows(keep, t, "masked bwd dv")
+    f32 = dict(dtype=torch.float32, device=dev)
+    dt, u = torch.empty_like(t), torch.empty_like(t)
+    dv = torch.empty((m, c4), dtype=t.dtype, device=dev)
+    db1, dlnw, dlnb = torch.zeros(c4, **f32), torch.zeros(c, **f32), torch.zeros(c, **f32)
+    w1c = _w(w1, t, (c4, c))
+    w1t = w1c.t().contiguous()
+    w2t = _w(w2, t, (c, c4)).t().contiguous()
+    _dev_call("mm_masked_bwd_dv", "masked_bwd_dv", dev, t.data_ptr(), do.data_ptr(),
+              kp.data_ptr(), nx.contiguous().data_ptr(), dgxg.contiguous().data_ptr(),
+              _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(),
+              _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(), w2t.data_ptr(),
+              w1t.data_ptr(), dt.data_ptr(), dv.data_ptr(), u.data_ptr(), db1.data_ptr(),
+              dlnw.data_ptr(), dlnb.data_ptr(), m, c, group_rows,
+              int(t.dtype == torch.bfloat16))
+    return dt, db1, dlnw, dlnb, dv, u
+
+
+def _masked_dw2_cuda(do, h):
+    return _atb_cuda(do, h, "masked_bwd_stat_dw2")
+
+
+def _masked_dw1_cuda(dv, u):
+    return _atb_cuda(dv, u, "masked_bwd_dv_dw1")
+
+
 # ---------------------------------------------------------------------------
 # the op
 # ---------------------------------------------------------------------------
@@ -361,17 +552,34 @@ class Phases(NamedTuple):
     dw1: Callable
 
 
+class MaskedPhases(NamedTuple):
+    """The masked-dense tail's phase functions, with the plain versions' signatures."""
+
+    stat: Callable
+    apply: Callable
+    bstat: Callable
+    dw2: Callable
+    dv: Callable
+    dw1: Callable
+
+
 PLAIN = Phases(fwd_a_plain, fwd_b_plain, bwd_c_plain, dw2_plain, bwd_d_plain, atb_plain)
 CUDA = Phases(_fwd_a_cuda, _fwd_b_cuda, _bwd_c_cuda, _dw2_cuda, _bwd_d_cuda, _dw1_cuda)
+MASKED_PLAIN = MaskedPhases(masked_fwd_stat_plain, masked_fwd_apply_plain, masked_bwd_stat_plain,
+                            atb_plain, masked_bwd_dv_plain, atb_plain)
+MASKED_CUDA = MaskedPhases(_masked_fwd_stat_cuda, _masked_fwd_apply_cuda, _masked_bwd_stat_cuda,
+                           _masked_dw2_cuda, _masked_bwd_dv_cuda, _masked_dw1_cuda)
 
 
-def phases(x) -> Phases:
-    """The plain versions for a CPU tensor, the kernels for a CUDA tensor."""
+def phases(x, masked: bool = False):
+    """The plain versions for a CPU tensor, the kernels for a CUDA tensor
+    (of the masked-dense tail when ``masked``)."""
     if x.device.type == "cpu":
-        return PLAIN
+        return MASKED_PLAIN if masked else PLAIN
     if not x.is_cuda:
-        raise RuntimeError(f"fused_block_mlp_spillg: no kernel for device {x.device}")
-    return CUDA
+        op = "fused_block_mlp" if masked else "fused_block_mlp_spillg"
+        raise RuntimeError(f"{op}: no kernel for device {x.device}")
+    return MASKED_CUDA if masked else CUDA
 
 
 class _SpillG(torch.autograd.Function):
@@ -396,12 +604,64 @@ class _SpillG(torch.autograd.Function):
         dgxg = dgx_step(dnx, gx)
         dt, db1, dlnw, dlnb, dv, u = ph.bwd_d(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gm, w2, gr)
         dw1 = ph.dw1(dv, u)
+        return (dt, dy, *_param_grads((ln_w, ln_b, w1, b1, gamma, beta, w2, b2),
+                                      (dlnw, dlnb, dw1, db1, dgamma, dbeta, dw2, db2)), None)
 
-        def cast(a, like):
-            return a.reshape(like.shape).to(like.dtype)
 
-        return (dt, dy, cast(dlnw, ln_w), cast(dlnb, ln_b), cast(dw1, w1), cast(db1, b1),
-                cast(dgamma, gamma), cast(dbeta, beta), cast(dw2, w2), cast(db2, b2), None)
+def _param_grads(params, grads):
+    return [g.reshape(p.shape).to(p.dtype) for p, g in zip(params, grads)]
+
+
+def _group_rows(t, group_rows, op):
+    gr = t.shape[0] if group_rows is None else int(group_rows)
+    if gr <= 0 or t.shape[0] % gr:
+        raise ValueError(f"{op}: group_rows {gr} must divide M = {t.shape[0]}")
+    return gr
+
+
+class _Masked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows):
+        ph = phases(t, masked=True)
+        gm, bt = gamma.reshape(-1), beta.reshape(-1)
+        gxsq = ph.stat(t, keep, ln_w, ln_b, w1, b1, group_rows)
+        y, gx, nx = ph.apply(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gm, bt, w2, b2,
+                             group_rows)
+        ctx.save_for_backward(t, keep, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2)
+        ctx.group_rows = group_rows
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        t, keep, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2 = ctx.saved_tensors
+        ph, gr = phases(t, masked=True), ctx.group_rows
+        gm, bt = gamma.reshape(-1), beta.reshape(-1)
+        dy = dy.contiguous()
+        db2, dgamma, dbeta, dnx, do, h = ph.bstat(t, dy, keep, nx, ln_w, ln_b, w1, b1, gm, bt,
+                                                  w2, gr)
+        dw2 = ph.dw2(do, h)
+        dgxg = dgx_step(dnx, gx)
+        dt, db1, dlnw, dlnb, dv, u = ph.dv(t, do, keep, nx, dgxg, ln_w, ln_b, w1, b1, gm, w2, gr)
+        dw1 = ph.dw1(dv, u)
+        return (dt, dy, None, *_param_grads((ln_w, ln_b, w1, b1, gamma, beta, w2, b2),
+                                            (dlnw, dlnb, dw1, db1, dgamma, dbeta, dw2, db2)),
+                None)
+
+
+def fused_block_mlp(t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows=None):
+    """``x_res + keep * (GRN_keep(gelu(LN(t) W1^T + b1)) W2^T + b2)`` with its
+    full VJP, on the (M, C) sites of the masked dense grid.
+
+    t, x_res: (M, C) in the activation dtype (bf16 or f32); keep: M values,
+    1 = visible (its GRN statistic is over ``g * keep``; it takes no
+    gradient); params as in :func:`fused_block_mlp_spillg`.  ``group_rows``:
+    rows per GRN group (it must divide M); None = one group of all rows.  On
+    the card C must be a multiple of 8 and fit the kernels' shared memory;
+    wider rows raise."""
+    gr = _group_rows(t, group_rows, "fused_block_mlp")
+    keep = keep.detach().reshape(t.shape[0], 1).to(t.dtype).contiguous()
+    return _Masked.apply(t.contiguous(), x_res.to(t.dtype).contiguous(), keep, ln_w, ln_b, w1,
+                         b1, gamma, beta, w2, b2, gr)
 
 
 def fused_block_mlp_spillg(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows=None):
@@ -413,8 +673,6 @@ def fused_block_mlp_spillg(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, gr
     per GRN group (it must divide M); None = one group of all rows.  On the
     card C must be a multiple of 8 and fit the kernels' shared memory (on an
     H100 C <= 1616 in bf16 and 960 in f32); wider rows raise."""
-    gr = t.shape[0] if group_rows is None else int(group_rows)
-    if gr <= 0 or t.shape[0] % gr:
-        raise ValueError(f"fused_block_mlp_spillg: group_rows {gr} must divide M = {t.shape[0]}")
+    gr = _group_rows(t, group_rows, "fused_block_mlp_spillg")
     return _SpillG.apply(t.contiguous(), x_res.to(t.dtype).contiguous(), ln_w, ln_b, w1, b1,
                          gamma, beta, w2, b2, gr)

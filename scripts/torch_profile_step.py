@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of one pretraining step of the PyTorch port goes, on a GPU.
 
-    python3 scripts/torch_profile_step.py [--batch_size 256] [--steps 5] [--block_impl dwg]
+    python3 scripts/torch_profile_step.py [--batch_size 256] [--steps 5] \
+        [--sparse_impl gathered] [--block_impl dwg]
 
 Runs the atto-56/8 bf16 configuration of ``mmearth_tpu_torch.main_pretrain``
-with the given ``--block_impl`` (``dwg``: composed block tail; ``wholeblock``:
-the spill-g tail kernels)
+with the given encoder (``--sparse_impl gathered`` or ``masked_dense``) and
+block tail (``--block_impl``: ``dwg``/``auto``, composed; ``wholeblock``, the
+spill-g kernels on the gathered encoder; ``fused``, the masked-dense kernels)
 (synthetic 64-px mmpack data, written under ``build/profile_data``) for a few
 warm-up steps, then profiles ``--steps`` steps with ``torch.profiler`` and
 prints one JSON line: the wall ms/step (host clock around synchronised
@@ -30,7 +32,9 @@ ROOT = Path(__file__).resolve().parents[1]
 GROUPS = (
     ("spillg_fwd", "spill-g fwd A/B (port kernels)"),
     ("spillg_bwd", "spill-g bwd C/D row passes (port kernels)"),
-    ("spillg_atb", "spill-g dW1/dW2 (port kernel)"),
+    ("masked_fwd", "masked-dense fwd stat/apply (port kernels)"),
+    ("masked_bwd", "masked-dense bwd stat/dv row passes (port kernels)"),
+    ("spillg_atb", "dW1/dW2 X^T Y passes (port kernel)"),
     ("dw7_fwd", "dwconv7_gathered fwd (port kernel)"),
     ("dw7_bwd", "dwconv7_gathered bwd (port kernel)"),
     ("gather_kernel", "patch gather/scatter (port kernel)"),
@@ -65,8 +69,9 @@ def main() -> int:
     ap.add_argument("--batch_size", type=int, default=256)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--sparse_impl", default="gathered", choices=["gathered", "masked_dense"])
     ap.add_argument("--block_impl", default="dwg", choices=["auto", "xla", "dwg", "spillg",
-                                                            "wholeblock"])
+                                                            "wholeblock", "fused"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_step: needs a CUDA GPU", file=sys.stderr)
@@ -88,7 +93,8 @@ def main() -> int:
     cfg = main_pretrain.config_from_args(main_pretrain.get_args_parser().parse_args([
         "--model", "convnextv2_atto", "--input_size", "56", "--patch_size", "8",
         "--batch_size", str(args.batch_size), "--use_bf16", "True", "--processed_dir", str(data),
-        "--epochs", "1", "--warmup_epochs", "1", "--block_impl", args.block_impl]))
+        "--epochs", "1", "--warmup_epochs", "1", "--sparse_impl", args.sparse_impl,
+        "--block_impl", args.block_impl]))
     dev = torch.device("cuda")
     model = build_model(cfg, dev)
     _, loader = get_dataloader(cfg)
@@ -131,7 +137,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
-        "card": smi, "block_impl": args.block_impl, "batch_size": args.batch_size,
+        "card": smi, "sparse_impl": args.sparse_impl, "block_impl": args.block_impl,
+        "batch_size": args.batch_size,
         "steps": args.steps,
         "wall_ms_per_step": 1e3 * wall_s * per,
         "host_input_ms_per_step": 1e3 * host_s * per,

@@ -141,6 +141,124 @@ def test_spillg_refuses_rows_wider_than_shared_memory(dtype, c):
         fb._fwd_a_cuda(t, lw, lb, w1, b1, 32)
 
 
+_MASKED_CASES = ([(d, *case) for d in ("bfloat16", "float32") for case in _ATTO + _WIDE]
+                 + [("bfloat16", 1536, 20, 2)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c,group_rows,groups", _MASKED_CASES)
+def test_masked_kernels_match_plain_on_gpu(dtype, c, group_rows, groups):
+    """Each masked-dense launch against its plain phase on the same inputs
+    (about 40% of the rows kept), forward and backward, one and two GRN
+    groups, ragged row tiles; masked rows give y = x and dt = 0 exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(c + groups)
+    m, c4 = group_rows * groups, 4 * c
+
+    def rnd(*shape, s=1.0, mean=0.0):
+        return mean + s * torch.randn(*shape, generator=gen, device=dev)
+
+    t, x, dy = rnd(m, c).to(dt), rnd(m, c).to(dt), rnd(m, c).to(dt)
+    keep = (torch.rand(m, 1, generator=gen, device=dev) > 0.6).to(dt)
+    masked = keep[:, 0] == 0
+    lw, lb, b1, b2 = rnd(c, s=0.1, mean=1.0), rnd(c, s=0.1), rnd(c4, s=0.1), rnd(c, s=0.1)
+    w1, w2 = rnd(c4, c, s=0.1), rnd(c, c4, s=0.1)
+    gm, bt = rnd(c4, s=0.5), rnd(c4, s=0.1)
+    # chip_smoke.py's term in bf16: every pass recomputes v in its own order,
+    # so the product operands u and h may round the other way
+    scale = 2e-3 if dtype == "bfloat16" else 1e-5
+
+    gxsq = fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, group_rows)
+    rgxsq = fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, group_rows)
+    _sum_close(gxsq, rgxsq)
+    y, gx, nx = fb._masked_fwd_apply_cuda(t, x, keep, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2,
+                                          group_rows)
+    ry, rgx, rnx = fb.masked_fwd_apply_plain(t, x, keep, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2,
+                                             group_rows)
+    _ulp_close(y, ry, scale)
+    assert torch.equal(y[masked], x[masked])
+    _sum_close(gx, rgx)
+    _sum_close(nx, rnx)
+
+    got = fb._masked_bwd_stat_cuda(t, dy, keep, rnx, lw, lb, w1, b1, gm, bt, w2, group_rows)
+    ref = fb.masked_bwd_stat_plain(t, dy, keep, rnx, lw, lb, w1, b1, gm, bt, w2, group_rows)
+    for a, r in zip(got[:4], ref[:4]):
+        _sum_close(a, r)
+    assert torch.equal(got[4], ref[4])  # do = dy * keep, rounded once
+    _ulp_close(got[5], ref[5], scale)  # h
+    do, h = ref[4], ref[5]
+    _sum_close(fb._masked_dw2_cuda(do, h), fb.atb_plain(do, h))
+
+    dgxg = fb.dgx_step(ref[3], rgx)
+    dv_args = (t, do, keep, rnx, dgxg, lw, lb, w1, b1, gm, w2, group_rows)
+    dt_k, db1, dlnw, dlnb, dv, u = fb._masked_bwd_dv_cuda(*dv_args)
+    rdt, rdb1, rdlnw, rdlnb, rdv, ru = fb.masked_bwd_dv_plain(*dv_args)
+    _ulp_close(dt_k, rdt, 1e-3 if dtype == "bfloat16" else 1e-5)
+    assert not dt_k[masked].any()
+    _ulp_close(dv, rdv, scale)
+    _ulp_close(u, ru, scale)
+    for a, r in ((db1, rdb1), (dlnw, rdlnw), (dlnb, rdlnb)):
+        _sum_close(a, r)
+    _sum_close(fb._masked_dw1_cuda(dv, u), fb.atb_plain(dv, u))
+
+
+@pytest.mark.gpu
+def test_masked_refuses_rows_wider_than_shared_memory():
+    """Past the widest C the masked launches take, the wrappers raise before
+    launching, naming the limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    c, dev = 2816, torch.device("cuda")
+    t = torch.zeros(32, c, device=dev, dtype=torch.bfloat16)
+    lw, lb = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    w1, b1 = torch.zeros(4 * c, c, device=dev), torch.zeros(4 * c, device=dev)
+    with pytest.raises(ValueError, match="wider than the masked-dense kernels take"):
+        fb._masked_fwd_stat_cuda(t, t[:, :1], lw, lb, w1, b1, 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(40, 80, 160, 320), (96, 192, 384, 768)])
+def test_masked_dense_fused_encoder_matches_cpu(dims):
+    """The masked-dense encoder with ``--block_impl fused`` at atto and tiny
+    widths, one block a stage, two GRN groups, a ragged mask, in f32: the
+    kernels on the card against the plain versions on the CPU, output and
+    every param grad within 1e-3 of their scale (summation order only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import copy
+
+    from mmearth_tpu_torch.models.convnextv2 import ConvNeXtV2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = ConvNeXtV2(depths=(1, 1, 1, 1), dims=dims, grn_group=2, block_impl="fused",
+                     sparse_impl="masked_dense")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 56, 56, 12, generator=gen)
+    order = torch.argsort(torch.rand(4, GRID * GRID, generator=gen), dim=1)
+    mask = (order >= torch.tensor([[12], [19], [25], [31]])).float()  # ragged
+    ct = torch.randn(4, GRID, GRID, dims[-1], generator=gen)
+    fb_before = dict(fb.LAUNCHES)
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        y = model.encode(x.to(dev), mask.to(dev))
+        y.backward(ct.to(dev))
+        out[name] = (y.detach().cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()
+                                        if p.grad is not None})
+    assert fb.LAUNCHES["masked_bwd_dv"] == fb_before["masked_bwd_dv"] + 4
+    (y_cpu, g_cpu), (y_gpu, g_gpu) = out["cpu"], out["gpu"]
+    assert g_cpu.keys() == g_gpu.keys() and len(g_cpu) > 0
+    for name, got, ref in [("y", y_gpu, y_cpu)] + [(k, g_gpu[k], g_cpu[k]) for k in g_cpu]:
+        err = float((got - ref).abs().max() / (ref.abs().max() + 1e-12))
+        assert err < 1e-3, f"{name}: {err:.2e} of scale"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dims", [(48, 96, 192, 384), (96, 192, 384, 768)])
 def test_wholeblock_encoder_matches_cpu_at_femto_and_tiny_widths(dims):

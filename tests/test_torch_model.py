@@ -1,5 +1,6 @@
-"""The port's gathered encoder and FCMAE against the JAX package, in f32 on the
-CPU, with JAX's weights carried across by the port's converter.
+"""The port's gathered and masked-dense encoders and FCMAE against the JAX
+package, in f32 on the CPU, with JAX's weights carried across by the port's
+converter.
 
 Tolerances: outputs and grads within 1e-4 of their scale (atol = rtol *
 max|ref|).  Both sides compute the same f32 math; the sums (GRN statistics
@@ -77,9 +78,53 @@ def test_encoder_matches_jax(img_size, patch_size, jax_impl):
     assert_grads_close(tm, encoder_grads_as_sd(g_ref, DEPTHS), RTOL)
 
 
-def test_block_impl_outside_the_slice_raises():
-    with pytest.raises(ValueError, match="masked-dense"):
-        tcnx.ConvNeXtV2(block_impl="fused")
+@pytest.mark.parametrize("port_impl", ["auto", "fused"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_masked_dense_encoder_matches_jax(port_impl, ragged):
+    """``ConvNeXtV2(sparse_impl="masked_dense").encode`` against JAX's
+    masked-dense ``encode(x, mask)`` (the dense 7x7 dwconv, the keep-masked
+    stem, downsamples and block tails), output and every param grad.  fused:
+    the port runs ``fused_block_mlp`` with one GRN group of the batch, and
+    JAX runs with grn_group=0 so that its Pallas kernel (interpret mode)
+    really runs (``_fused_active`` declines grn_group != 0).  ragged: a mask
+    keeping 12/19/25/31 patches per sample, which only this path takes."""
+    n, c_in, img, grid = 4, 12, 56, 7
+    rng = np.random.default_rng(11 + ragged)
+    x = rng.normal(size=(n, img, img, c_in)).astype(np.float32)
+    ks = (12, 19, 25, 31) if ragged else (19,) * n
+    mask = np.concatenate([random_mask(rng, 1, grid * grid, k) for k in ks])
+    kw = dict(patch_size=8, img_size=img, in_chans=c_in, depths=DEPTHS, dims=DIMS, grn_group=n)
+    jm = jcnx.ConvNeXtV2(**{**kw, "grn_group": 0 if port_impl == "fused" else n},
+                         num_classes=0, sparse=True, sparse_impl="masked_dense",
+                         block_impl=port_impl)
+    tm = tcnx.ConvNeXtV2(**kw, block_impl=port_impl, sparse_impl="masked_dense")
+    tm.init_weights(torch.Generator().manual_seed(0))
+    assert all(blk.fused == (port_impl == "fused") for stage in tm.stages for blk in stage)
+    sd = {k: v.numpy() for k, v in tm.state_dict().items()}
+    params = randomize_grn(jax.tree_util.tree_map(
+        jnp.asarray, torch_encoder_to_flax(sd, DEPTHS, include_head=False)))
+    r = rng.normal(size=(n, grid, grid, DIMS[-1])).astype(np.float32)
+
+    @jax.jit
+    def loss(p):
+        y = jm.apply({"params": p}, jnp.asarray(x), jnp.asarray(mask),
+                     method=lambda mod, a, b: mod.encode(a, b))
+        return jnp.sum(y * r), y
+
+    (_, y_ref), g_ref = jax.value_and_grad(loss, has_aux=True)(params)
+
+    tm.load_state_dict(to_tensors(from_jax_encoder(np_tree(params), DEPTHS)), strict=True)
+    y = tm.encode(torch.from_numpy(x), torch.from_numpy(mask), None if ragged else 19)
+    (y * torch.from_numpy(r)).sum().backward()
+    _close(y.detach().numpy(), y_ref, "encode")
+    assert_grads_close(tm, encoder_grads_as_sd(g_ref, DEPTHS), RTOL)
+
+
+@pytest.mark.parametrize("block_impl,match", [("remat", "rematerialized"),
+                                              ("folded", "norm-folded")])
+def test_block_impl_outside_the_slice_raises(block_impl, match):
+    with pytest.raises(ValueError, match=match):
+        tcnx.ConvNeXtV2(block_impl=block_impl)
 
 
 @pytest.fixture(scope="module")
@@ -142,8 +187,16 @@ def test_fcmae_forward_loss_and_grads_match_jax(fcmae_case, block_impl):
     wholeblock runs the port's spill-g tail; the converter's param tree
     strict-loads into it as into auto."""
     c = fcmae_case
-    loss_ref, preds_ref, mask, ld_ref, _, _ = c["out"]
-    tm = tfc.FCMAE(**c["kw"], block_impl=block_impl)
+    _assert_fcmae_matches_jax(c, tfc.FCMAE(**c["kw"], block_impl=block_impl), c["out"])
+
+
+def _assert_fcmae_matches_jax(c, tm, out, mask=None):
+    """The port's FCMAE ``tm`` with JAX's params and ``out``'s mask (or
+    ``mask``) against JAX's ``out`` (predictions, per-modality losses, total)
+    and against the grads of JAX's FCMAE with that mask as an explicit mask
+    (its masked-dense encoder)."""
+    loss_ref, preds_ref, out_mask, ld_ref, _, _ = out
+    mask = out_mask if mask is None else mask
     tm.load_state_dict(from_jax_fcmae(np_tree(c["params"]), DEPTHS, JM.OUT_MODALITIES),
                        strict=True)
     batch = {k: torch.from_numpy(np.array(v)) for k, v in c["cropped"].items()}
@@ -162,11 +215,29 @@ def test_fcmae_forward_loss_and_grads_match_jax(fcmae_case, block_impl):
     assert_grads_close(tm, fcmae_grads_as_sd(g_ref, DEPTHS, JM.OUT_MODALITIES), 1e-3)
 
 
-def test_explicit_mask_must_keep_exactly_k(fcmae_case):
-    tm = tfc.FCMAE(**fcmae_case["kw"])
-    batch = {k: torch.from_numpy(np.array(v)) for k, v in fcmae_case["cropped"].items()}
-    with pytest.raises(ValueError, match="exactly 19"):
-        tm(batch, mask=torch.zeros(fcmae_case["n"], 49))
+@pytest.mark.parametrize("block_impl", ["auto", "fused"])
+def test_fcmae_masked_dense_matches_jax(fcmae_case, block_impl):
+    """``FCMAE(sparse_impl="masked_dense")`` with the mask JAX drew (K
+    visible in every row, so the configured encoder runs): predictions,
+    losses and every param grad; fused runs the plain ``fused_block_mlp``."""
+    c = fcmae_case
+    tm = tfc.FCMAE(**c["kw"], block_impl=block_impl, sparse_impl="masked_dense")
+    assert tm.encoder.sparse_impl == "masked_dense"
+    _assert_fcmae_matches_jax(c, tm, c["out"])
+
+
+@pytest.mark.parametrize("block_impl", ["auto", "wholeblock"])
+def test_ragged_explicit_mask_runs_masked_dense(fcmae_case, block_impl):
+    """A mask keeping 12/19/25/31 patches (not K = 19 in every row) takes the
+    masked-dense encoder whatever the configured path, as JAX's
+    ``forward_encoder`` sends every explicit mask there: the port against
+    JAX's ``FCMAE(..., mask=m)``, predictions, losses and grads."""
+    c = fcmae_case
+    rng = np.random.default_rng(21)
+    mask = jnp.asarray(np.concatenate([random_mask(rng, 1, 49, k) for k in (12, 19, 25, 31)]))
+    out = jax.jit(lambda p, b: c["jm"].apply({"params": p}, b, mask=mask))(
+        c["params"], c["cropped"])
+    _assert_fcmae_matches_jax(c, tfc.FCMAE(**c["kw"], block_impl=block_impl), out, mask)
 
 
 def test_converter_matches_flax_fcmae_to_torch(fcmae_case):

@@ -49,12 +49,28 @@ def test_main_pretrain_runs_two_steps_on_cpu(data):
 @pytest.mark.parametrize("extra,match", [
     (["--resume", "x.pth"], "resume"),
     (["--output_dir", "out"], "saving"),
-    (["--sparse_impl", "masked_dense"], "masked-dense"),
-    (["--block_impl", "fused"], "masked-dense"),
+    (["--gelu_approx", "True"], "tanh GELU"),
+    (["--block_impl", "remat"], "rematerialized"),
+    (["--block_impl", "folded"], "norm-folded"),
 ])
 def test_not_ported_options_raise(data, extra, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):
         main_pretrain.main(_args(data, *extra))
+
+
+def test_main_pretrain_masked_dense_fused_runs_two_steps_on_cpu(data):
+    """--sparse_impl masked_dense --block_impl fused in bf16 on the CPU: the
+    masked-dense encoder with the plain fused_block_mlp in every block,
+    finite losses, no kernel launched."""
+    launches = lambda: {**patch_select.LAUNCHES, **wholeblock.LAUNCHES, **fused_block.LAUNCHES}
+    before = launches()
+    model, history = main_pretrain.main(_args(data, "--sparse_impl", "masked_dense",
+                                              "--block_impl", "fused"))
+    assert [e["steps"] for e in history] == [2]
+    assert all(math.isfinite(v) for v in history[0]["step_losses"])
+    assert launches() == before
+    assert model.encoder.sparse_impl == "masked_dense"
+    assert all(blk.fused for stage in model.encoder.stages for blk in stage)
 
 
 def test_main_pretrain_wholeblock_runs_two_steps_on_cpu(data):
