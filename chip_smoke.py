@@ -45,7 +45,14 @@ Phases, each of which exits non-zero on failure:
    launches on the dv pass; each bound counts what this run's mask needs
    (the products and the t, dy reads of the kept sites only), with the
    all-sites count beside it (``bound_ms_all_sites``), and each launch gives
-   the bytes it moves (``launch_bytes``).
+   the bytes it moves (``launch_bytes``).  Row 11, the dense dwconv's weight
+   gradient, against its plain version in bf16 and f32 at the finetune
+   step's four stage shapes, the decoder's (256, 7, 7, 512) and the four
+   masked-dense stage shapes, within 1e-3 * |p| + 1e-4 * max|p| (atomics and
+   tiling reorder sums of up to 8e5 terms); its yardstick is cuDNN's dW
+   (``aten.convolution_backward``), its bound takes the bf16 rate for bf16
+   inputs, and each shape also gives the whole conv's cost per call, port
+   against PyTorch's autograd conv, on the card and on the host.
 3. slices: 1,170 samples of synthetic 64-px mmpack data, then the port's
    ``main_pretrain.main`` at convnextv2_atto 56/8, batch 256, bf16 for 12
    steps over 3 epochs, four times: the gathered encoder with
@@ -56,10 +63,17 @@ Phases, each of which exits non-zero on failure:
    dwconv fwd/bwd) per step on the gathered slices and 0 on the masked-dense
    ones, 12 of each spill-g launch a step under wholeblock and none
    elsewhere, 12 of each masked-dense launch a step under masked_dense
-   fused and none elsewhere.
+   fused and none elsewhere, and the dense dwconv's dW 1 a step on the
+   gathered slices (the decoder Block) and 13 on masked-dense.  The
+   ``wholeblock`` slice's FCMAE is saved as ``build/smoke_pretrain.pth``;
+   ``main_finetune.main`` runs the GEO-Bench classification recipe from it
+   (convnextv2_atto at patch 8, batch 32, bf16, 3 epochs of synthetic
+   m-eurosat 512/128/128), once finetuning (12 dW launches a step, no other
+   kernel) and once as the linear probe (no launch at all), with finite
+   losses and accuracies in [0, 1].
 4. reference: a small f32 FCMAE step on the GPU against the same step on the
    CPU (plain versions), loss and grads, for dwg, wholeblock and
-   masked_dense fused.
+   masked_dense fused, and a small f32 classifier step.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -77,6 +91,9 @@ ROOT = Path(__file__).resolve().parent
 N, GRID, K = 256, 7, 19  # atto 56/8 at batch 256, mask ratio 0.6
 DW_GEOMS = ((8, 40, 2), (4, 80, 2), (2, 160, 6), (1, 320, 2))  # (p, C, blocks per step)
 DENSE_GEOMS = ((56, 40, 2), (28, 80, 2), (14, 160, 6), (7, 320, 2))  # (grid side, C, blocks)
+FT_BATCH = 32  # the finetune recipe's batch
+FT_GEOMS = ((64, 40, 2), (32, 80, 2), (16, 160, 6), (8, 320, 2))  # 64-px tiles at stride 1
+DECODER_GEOM = (7, 512, 1)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -606,6 +623,119 @@ def phase_masked_kernels() -> dict:
     return rows_out
 
 
+def dwconv_call_ms(x, dy, iters: int = 40) -> dict:
+    """One whole dense dwconv, forward and backward, per call: the port's
+    ``dwconv7x7`` (dW from row 11) against the same conv through PyTorch's
+    autograd (cuDNN forward, dx and dW), run autograd, port, port, autograd.
+    For each, the CUDA-event ms per call and the host's ms per call to
+    enqueue it (the loop before its one sync, while the card runs behind)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmearth_tpu_torch.ops.dwconv import dwconv7x7
+
+    c, dt = x.shape[-1], x.dtype
+    xg = x.detach().requires_grad_()
+    w = (0.02 * torch.randn(c, 1, 7, 7, device=x.device)).requires_grad_()
+    b = torch.zeros(c, device=x.device, requires_grad=True)
+
+    def port():
+        dwconv7x7(xg, w, b).backward(dy)
+
+    def autograd():
+        F.conv2d(xg.permute(0, 3, 1, 2), w.to(dt), b.to(dt), padding=3,
+                 groups=c).permute(0, 2, 3, 1).backward(dy)
+
+    out = {}
+    for name, fn in (("autograd", autograd), ("port", port), ("port", port),
+                     ("autograd", autograd)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue = (time.perf_counter() - t0) * 1e3 / iters
+        end.record()
+        torch.cuda.synchronize()
+        out.setdefault(f"call_{name}_ms", []).append(start.elapsed_time(end) / iters)
+        out.setdefault(f"call_{name}_enqueue_ms", []).append(enqueue)
+    return out
+
+
+def phase_dwconv_kernel() -> dict:
+    """Row 11: the dense dwconv's weight-gradient kernel against its plain
+    version at the finetune, decoder and masked-dense shapes, in bf16 and
+    f32; times in bf16, with the whole conv's cost per call beside
+    (:func:`dwconv_call_ms`).  The row's numbers are the finetune step's;
+    ``masked_dense_step`` and ``decoder`` give the other paths' sums."""
+    import torch
+
+    from mmearth_tpu_torch.ops import dwconv
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    row = {"name": "dw_weight_grad", "route": "cuda", "source": "mmearth_tpu_torch/csrc/dwconv.cu",
+           "replaces": "mmearth_tpu/ops/dwconv.py:32", "launches": 0, "max_abs_err": 0.0,
+           "max_err_over_scale": 0.0, "library": "aten.convolution_backward, dW only (cuDNN)"}
+    paths = {"finetune": [(FT_BATCH, *g) for g in FT_GEOMS],
+             "masked_dense_step": [(N, *g) for g in DENSE_GEOMS] + [(N, *DECODER_GEOM)],
+             "decoder": [(N, *DECODER_GEOM)]}
+    sums = {}
+    for path, geoms in paths.items():
+        tot = sums.setdefault(path, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                     "bound_ms": 0.0, "bound_by": "bytes", "launches_per_step": 0})
+        largest = 0.0
+        for n, h, c, count in geoms:
+            for dt in (torch.float32, torch.bfloat16):  # timed in the working dtype, bf16
+                x = torch.randn(n, h, h, c, generator=gen, device=dev).to(dt)
+                dy = torch.randn(n, h, h, c, generator=gen, device=dev).to(dt)
+                ref = dwconv.dw_weight_grad_plain(x, dy)
+                err = check_close(f"dw_weight_grad {dt} N={n} H={h} C={c}",
+                                  dwconv._wgrad_cuda(x, dy), ref, sum_bound(ref))
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["max_err_over_scale"] = max(row["max_err_over_scale"],
+                                                err / float(ref.abs().max()))
+            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            w = torch.zeros(c, 1, 7, 7, dtype=dt, device=dev)
+
+            def lib():
+                return torch.ops.aten.convolution_backward(
+                    dyn, xn, w, None, [1, 1], [3, 3], [1, 1], False, [0, 0], c,
+                    [False, True, False])[1]
+
+            lib_err = float((lib().float().reshape(c, 49) - ref.reshape(c, 49)).abs().max())
+            ms = time_ms(lambda: dwconv._wgrad_cuda(x, dy))
+            plain = time_ms(lambda: dwconv.dw_weight_grad_plain(x, dy))
+            lib_ms = time_ms(lib)
+            elems = n * h * h * c
+            # bf16 products are exact in f32, so bf16 inputs take the bf16
+            # tensor-core rate; f32 inputs the f32 rate
+            bnd, by = bound_ms(2 * elems * x.element_size() + 49 * c * 4, 2 * 49 * elems,
+                               BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+            for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
+                           ("bound_ms", bnd)):
+                tot[key] += count * v
+            tot["launches_per_step"] += count
+            if count * bnd >= largest:
+                largest, tot["bound_by"] = count * bnd, by
+            calls = dwconv_call_ms(x, dy)
+            emit({"kernel_shape": {"kernel": "dw_weight_grad", "path": path, "shape": [n, h, h, c],
+                                   "per_step": count, "ms": ms, "plain_ms": plain,
+                                   "library_ms": lib_ms, "library_max_abs_err": lib_err,
+                                   "bound_ms": bnd, "bound_by": by, **calls}})
+            del x, dy, xn, dyn, ref
+            torch.cuda.empty_cache()
+    row.update({k: sums["finetune"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by")})
+    row["masked_dense_step"] = sums["masked_dense_step"]
+    row["decoder"] = sums["decoder"]
+    return {"dw_weight_grad": row}
+
+
 def phase_data() -> Path:
     """Synthetic packed data for the slices, written anew on every run."""
     import shutil
@@ -627,10 +757,12 @@ SLICES = (("gathered", "dwg"), ("gathered", "wholeblock"), ("masked_dense", "aut
 
 
 def expected_launches(sparse_impl: str, block_impl: str) -> tuple[dict, tuple]:
-    """Launches a step of every kernel on a slice, and the kernels whose row
-    of the kernels line takes its count from this slice (each from its own
-    path: rows 1-4 from dwg, 7-10 from wholeblock, 5-6 from masked_dense
-    fused)."""
+    """Launches a step of every kernel on a pretraining slice, and the kernels
+    whose row of the kernels line takes its count from this slice (each from
+    its own path: rows 1-4 from dwg, 7-10 from wholeblock, 5-6 from
+    masked_dense fused; row 11 from the finetune slice).  The dense dwconv's
+    dW runs in the decoder Block (1 a step) and, on masked-dense, in the 12
+    encoder blocks too."""
     from mmearth_tpu_torch.ops import fused_block as fb
 
     gathered = sparse_impl == "gathered"
@@ -639,32 +771,46 @@ def expected_launches(sparse_impl: str, block_impl: str) -> tuple[dict, tuple]:
     masked = not gathered and block_impl == "fused"
     per_step.update(dict.fromkeys(fb.SPILLG_LAUNCHES, 12 if spillg else 0))
     per_step.update(dict.fromkeys(fb.MASKED_LAUNCHES, 12 if masked else 0))
+    per_step["dw_weight_grad"] = 1 if gathered else 13
     own = {"dwg": GATHERED_KERNELS, "wholeblock": fb.SPILLG_LAUNCHES,
            "fused": fb.MASKED_LAUNCHES}.get(block_impl, ())
     return per_step, own
 
 
-def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str,
-                data: Path) -> dict:
-    import torch
-
-    from mmearth_tpu_torch import main_pretrain
+def launch_counters() -> tuple:
+    from mmearth_tpu_torch.ops import dwconv
     from mmearth_tpu_torch.ops import fused_block as fb
     from mmearth_tpu_torch.ops import patch_select as ps
     from mmearth_tpu_torch.ops import wholeblock as wb
+
+    return ps.LAUNCHES, wb.LAUNCHES, fb.LAUNCHES, dwconv.LAUNCHES
+
+
+def reset_launches() -> None:
+    for d in launch_counters():
+        for key in d:
+            d[key] = 0
+
+
+def read_launches() -> dict:
+    return {k: v for d in launch_counters() for k, v in d.items()}
+
+
+def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str, data: Path,
+                save_to: Path | None = None) -> dict:
+    import torch
+
+    from mmearth_tpu_torch import main_pretrain
 
     args = main_pretrain.get_args_parser().parse_args([
         "--model", "convnextv2_atto", "--input_size", "56", "--patch_size", "8",
         "--batch_size", "256", "--use_bf16", "True", "--device", "cuda",
         "--processed_dir", str(data), "--epochs", "3", "--warmup_epochs", "1",
         "--seed", "0", "--sparse_impl", sparse_impl, "--block_impl", block_impl])
-    counters = (ps.LAUNCHES, wb.LAUNCHES, fb.LAUNCHES)
-    for d in counters:
-        for key in d:
-            d[key] = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    _, history = main_pretrain.main(args)
-    launches = {k: v for d in counters for k, v in d.items()}
+    model, history = main_pretrain.main(args)
+    launches = read_launches()
     steps = sum(e["steps"] for e in history)
     losses = [x for e in history for x in e["step_losses"]]
     if steps < 10 or len(losses) != steps:
@@ -678,12 +824,79 @@ def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str,
                                  f"launches in {steps} steps, expected {k} per step")
     for name in own:
         rows_out[name]["launches"] = launches[name]
+    if save_to is not None:
+        torch.save({"model": model.state_dict()}, save_to)
     steady = history[1:]  # epoch 0 holds the first-call set-up
     ms = 1e3 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
     result = {"phase": "slice", "sparse_impl": sparse_impl, "block_impl": block_impl,
               "steps": steps, "epochs": len(history), "launches": launches,
               "losses": losses, "epoch_loss": [e["loss"] for e in history],
               "ms_per_step": ms, "samples_per_s": 256 * 1e3 / ms,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}
+    emit(result)
+    return result
+
+
+def phase_geobench_data() -> Path:
+    """Synthetic packed m-eurosat for the finetune slices, written anew."""
+    import shutil
+
+    from mmearth_tpu_torch.data.geobench import generate_synthetic_geobench
+
+    data = ROOT / "build" / "smoke_geobench"
+    shutil.rmtree(data, ignore_errors=True)
+    t0 = time.time()
+    generate_synthetic_geobench(data, "m-eurosat", (512, 128, 128), seed=0)
+    emit({"phase": "geobench_data", "seconds": round(time.time() - t0, 2), "path": str(data)})
+    return data
+
+
+def phase_finetune(rows_out: dict, card: str, data: Path, checkpoint: Path,
+                   probe: bool) -> dict:
+    """The GEO-Bench classification recipe (TRAINING.md) from the pretraining
+    checkpoint: finetune, or the linear probe.  Finite losses, accuracies in
+    [0, 1], 12 dW launches a step (none under the probe, whose trunk is
+    frozen) and no other launch."""
+    import math
+
+    import torch
+
+    from mmearth_tpu_torch import main_finetune
+
+    args = main_finetune.get_args_parser().parse_args([
+        "--model", "convnextv2_atto", "--input_size", "56", "--patch_size", "8",
+        "--data_set", "m-eurosat", "--finetune", str(checkpoint), "--processed_dir", str(data),
+        "--batch_size", str(FT_BATCH), "--epochs", "3", "--blr", "1e-2" if probe else "2e-4",
+        "--layer_decay", "0.9", "--weight_decay", "0.3", "--drop_path", "0.1",
+        "--smoothing", "0.2", "--use_bf16", "True", "--seed", "0", "--device", "cuda",
+        "--linear_probe", str(probe)])
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = main_finetune.main(args)
+    launches = read_launches()
+    history = out["history"]
+    steps = sum(e["steps"] for e in history)
+    losses = [x for e in history for x in e["step_losses"]]
+    if steps < 40 or len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"finetune (probe={probe}): {steps} steps, losses {losses}")
+    scores = [e["val_Accuracy"] for e in history] + [out["test_Accuracy"]]
+    if not all(isinstance(v, float) and 0.0 <= v <= 1.0 for v in scores):
+        raise AssertionError(f"finetune (probe={probe}): accuracies {scores}")
+    for name, n in launches.items():
+        want = 12 * steps if (name == "dw_weight_grad" and not probe) else 0
+        if n != want:
+            raise AssertionError(f"finetune (probe={probe}), {name}: {n} launches in {steps} "
+                                 f"steps, expected {want}")
+    if not probe:
+        rows_out["dw_weight_grad"]["launches"] = launches["dw_weight_grad"]
+    steady = history[1:]
+    ms = 1e3 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
+    result = {"phase": "finetune", "mode": "linear_probe" if probe else "finetune",
+              "steps": steps, "epochs": len(history), "launches": launches,
+              "epoch_loss": [e["loss"] for e in history], "val_accuracy": scores[:-1],
+              "test_accuracy": scores[-1], "ms_per_step": ms,
+              "samples_per_s": FT_BATCH * 1e3 / ms,
+              "eval_seconds": [e["eval_seconds"] for e in history],
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}
     emit(result)
     return result
@@ -728,6 +941,49 @@ def phase_reference(sparse_impl: str, block_impl: str) -> None:
           "loss_cpu": l_cpu, "loss_gpu": l_gpu, "loss_rel": rel, "worst_grad_rel": worst})
 
 
+def phase_reference_classifier() -> None:
+    """A small f32 classifier step (drop path 0) on the GPU (the dW kernel)
+    against the same step on the CPU (plain dW), loss and every grad."""
+    import numpy as np
+    import torch
+
+    from mmearth_tpu_torch.losses.finetune import smoothed_cross_entropy
+    from mmearth_tpu_torch.models.convnextv2 import ConvNeXtV2
+    from mmearth_tpu_torch.ops import dwconv
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(depths=(1, 1, 1, 1), dims=(16, 32, 48, 64), sparse=False, num_classes=10,
+              head_init_scale=1.0)
+    cpu = ConvNeXtV2(**kw)
+    cpu.init_weights(torch.Generator().manual_seed(1))
+    gpu = ConvNeXtV2(**kw).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 64, 64, 12, generator=gen)
+    y = torch.randint(0, 10, (4,), generator=gen)
+    reset_launches()
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        loss = smoothed_cross_entropy(model(x.to(dev)), y.to(dev), 0.2)
+        loss.backward()
+        out[name] = (float(loss.detach()), {k: p.grad.detach().cpu()
+                                            for k, p in model.named_parameters()})
+    if read_launches()["dw_weight_grad"] != 4:
+        raise AssertionError("classifier step: expected one dW launch per block on the GPU")
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["gpu"]
+    rel = abs(l_cpu - l_gpu) / abs(l_cpu)
+    worst = max(float((g_gpu[k] - g_cpu[k]).abs().max() / (g_cpu[k].abs().max() + 1e-12))
+                for k in g_cpu)
+    # f32 on both sides; differences are summation order only
+    if not (rel < 1e-4 and worst < 1e-3 and np.isfinite(l_gpu)):
+        raise AssertionError(f"classifier GPU vs CPU step: loss rel {rel:.2e}, "
+                             f"worst grad {worst:.2e}")
+    emit({"phase": "reference", "model": "classifier", "loss_cpu": l_cpu, "loss_gpu": l_gpu,
+          "loss_rel": rel, "worst_grad_rel": worst})
+
+
 def main() -> int:
     import torch
 
@@ -742,12 +998,19 @@ def main() -> int:
     rows_out = phase_kernels()
     rows_out.update(phase_spillg_kernels())
     rows_out.update(phase_masked_kernels())
+    rows_out.update(phase_dwconv_kernel())
     data = phase_data()
+    checkpoint = ROOT / "build" / "smoke_pretrain.pth"
     for sparse_impl, block_impl in SLICES:
-        phase_slice(rows_out, card, sparse_impl, block_impl, data)
+        phase_slice(rows_out, card, sparse_impl, block_impl, data,
+                    checkpoint if block_impl == "wholeblock" else None)
+    geobench = phase_geobench_data()
+    for probe in (False, True):
+        phase_finetune(rows_out, card, geobench, checkpoint, probe)
     for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),
                                     ("masked_dense", "fused")):
         phase_reference(sparse_impl, block_impl)
+    phase_reference_classifier()
     print(card, flush=True)
     emit({"kernels": list(rows_out.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Weights carried across: a JAX FCMAE param tree -> the port's state dict.
+"""Weights carried across: a JAX FCMAE or classifier param tree -> the port's
+state dict.
 
 ``from_jax_fcmae`` takes the flax param tree as nested dicts of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``) and returns upstream's dense
@@ -60,6 +61,18 @@ def from_jax_encoder(enc: Mapping, depths: Sequence[int], prefix: str = "") -> d
         for j in range(depth):
             _block(enc[f"stages_{i}_{j}"], f"{p}stages.{i}.{j}", sd)
     return sd
+
+
+def from_jax_classifier(tree: Mapping, depths: Sequence[int]) -> dict[str, torch.Tensor]:
+    """JAX dense ConvNeXtV2 classifier params -> state dict of the port's
+    ``ConvNeXtV2(sparse=False)``: the encoder trunk plus ``norm.*`` and
+    ``head.*``."""
+    sd = from_jax_encoder(tree, depths)
+    sd["norm.weight"] = tree["norm"]["scale"]
+    sd["norm.bias"] = tree["norm"]["bias"]
+    sd["head.weight"] = _t(tree["head"]["kernel"])
+    sd["head.bias"] = tree["head"]["bias"]
+    return to_tensors(sd)
 
 
 def to_tensors(sd: Mapping) -> dict[str, torch.Tensor]:

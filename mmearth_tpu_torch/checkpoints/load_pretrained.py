@@ -1,0 +1,154 @@
+"""Bootstrap a finetune model from a pretraining checkpoint (port of
+``mmearth_tpu/checkpoints/load_pretrained.py`` on torch state dicts; the
+reference's ``load_custom_checkpoint``, helpers.py:799-1002).
+
+Drop the decoder/mask_token/proj/pred/loss_fn weights, remap a raw
+Minkowski encoder to the dense layout, overlay the encoder trunk onto the
+model's state dict, re-init the head, and freeze per mode:
+
+  * classifier finetune: everything trainable;
+  * classifier linear probe: only the (new) head trains (helpers.py:984-1000);
+    the final LayerNorm stays at init, as the reference freezes it untrained.
+
+Sources: a ``.pth``/``.pt`` holding ``{"model": state_dict}`` or a bare state
+dict, with the encoder under ``encoder.*`` (an FCMAE checkpoint, dense or raw
+Minkowski) or stripped (hub style).
+"""
+from __future__ import annotations
+
+import math
+from collections import OrderedDict
+from pathlib import Path
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+_DECODER_SIDE = ("decoder", "mask_token", "proj", "pred", "loss_fn")
+_TRUNK = ("initial_conv.", "stem.", "downsample_layers.", "stages.")
+
+
+def load_pth(path) -> dict[str, np.ndarray]:
+    """The state dict of a ``.pth``: ``ckpt["model"]`` or the bare dict, as
+    numpy arrays.  The file is the user's own checkpoint; upstream's hold
+    more than tensors (args, optimizer state), so it is not read with
+    ``weights_only``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in sd.items()}
+
+
+def remap_minkowski_keys(sd: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """helpers.remap_checkpoint_keys (helpers.py:668-707), copied from JAX
+    ``checkpoints/torch_convert.py``: strips ``encoder.``, turns Minkowski
+    ``*.kernel`` tensors -- (K^2, in, out) convs and (K^2, C) depthwise --
+    into OIHW (the final swap accounts for Minkowski's x-fastest kernel
+    offsets), drops ``.ln.`` / ``.linear.`` path segments, flattens biases and
+    unsqueezes the GRN affines."""
+    new = OrderedDict()
+    for k, v in sd.items():
+        v = np.asarray(v)
+        if k.startswith("encoder"):
+            k = ".".join(k.split(".")[1:])
+        if k.endswith("kernel"):
+            base = ".".join(k.split(".")[:-1])
+            new_k = base + ".weight"
+            if v.ndim == 3:  # standard conv: (K^2, in, out)
+                kv, in_dim, out_dim = v.shape
+                ks = int(math.sqrt(kv))
+                new[new_k] = v.transpose(2, 1, 0).reshape(out_dim, in_dim, ks, ks).swapaxes(3, 2)
+            elif v.ndim == 2:  # depthwise: (K^2, C)
+                kv, dim = v.shape
+                ks = int(math.sqrt(kv))
+                new[new_k] = v.transpose(1, 0).reshape(dim, 1, ks, ks).swapaxes(3, 2)
+            else:  # K^2 == 1 kernels can arrive squeezed
+                new[new_k] = v
+            continue
+        elif ".ln." in f".{k}." or ".linear." in f".{k}.":
+            parts = k.split(".")
+            if parts[-2] in ("ln", "linear"):  # helpers.py:689-692
+                parts.pop(-2)
+            new_k = ".".join(parts)
+        else:
+            new_k = k
+        new[new_k] = v
+
+    for k in list(new.keys()):
+        v = new[k]
+        if k.endswith("bias") and v.ndim != 1:
+            new[k] = v.reshape(-1)
+        elif "grn" in k:
+            new[k] = np.expand_dims(np.expand_dims(v, 0), 1)
+    return dict(new)
+
+
+def encoder_state_from_checkpoint(path: str | Path,
+                                  depths: Sequence[int]) -> dict[str, torch.Tensor]:
+    """The encoder trunk of a pretraining checkpoint (stem, downsamples and
+    the blocks of ``depths``) as a dense state dict: GRN affines (1, 1, 1, C)
+    and a 1x1 depthwise stem (C, 1, 1, 1) whatever shape they were stored in,
+    as JAX ``encoder_tree_from_checkpoint`` + ``torch_encoder_to_flax`` read
+    them."""
+    path = Path(path)
+    if path.suffix not in (".pth", ".pt"):
+        raise NotImplementedError(f"--finetune {path}: only .pth/.pt checkpoints are read by "
+                                  "this port (Orbax checkpoints are the JAX package's)")
+    sd = load_pth(path)
+    enc = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    if not enc:  # an already stripped dense checkpoint (hub style)
+        enc = {k: v for k, v in sd.items() if not any(t in k for t in _DECODER_SIDE)}
+    if any(k.endswith("kernel") for k in enc):
+        enc = remap_minkowski_keys(enc)
+    blocks = {f"stages.{i}.{j}." for i, d in enumerate(depths) for j in range(d)}
+    out = {}
+    for k, v in enc.items():
+        if any(t in k for t in _DECODER_SIDE) or not k.startswith(_TRUNK):
+            continue
+        if k.startswith("stages.") and ".".join(k.split(".")[:3]) + "." not in blocks:
+            continue
+        if ".grn." in k:
+            v = v.reshape(1, 1, 1, -1)
+        elif k == "stem.0.weight" and v.ndim == 2:  # 1x1 depthwise stored squeezed
+            v = v.reshape(*v.shape, 1, 1)
+        out[k] = torch.from_numpy(np.array(v, dtype=np.float32))
+    return out
+
+
+def load_encoder_into(state: dict[str, torch.Tensor],
+                      encoder: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Overlay encoder weights onto a freshly initialised model's state dict
+    (the classifier shares the trunk's key names).  Every shape must match;
+    keys the model does not have are printed and skipped."""
+    state = dict(state)
+    for k, v in encoder.items():
+        if k not in state:
+            print(f"skipping unexpected checkpoint key {k}")
+            continue
+        if tuple(state[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: model {tuple(state[k].shape)} vs checkpoint {tuple(v.shape)}")
+        state[k] = v.to(state[k].dtype)
+    return state
+
+
+def reinit_head(state: dict[str, torch.Tensor], seed: int = 0) -> dict[str, torch.Tensor]:
+    """Head re-init for finetune/probe (helpers.py:857-867, 993-1000): normal
+    std 2e-5 (trunc-normal at this scale), zero bias.  Drawn with numpy in
+    the JAX (in, out) kernel shape and transposed, so the weights are
+    bit-identical to the JAX package's."""
+    state = dict(state)
+    out_dim, in_dim = state["head.weight"].shape
+    w = (np.random.default_rng(seed).standard_normal((in_dim, out_dim)) * 2e-5).astype(np.float32)
+    state["head.weight"] = torch.from_numpy(np.ascontiguousarray(w.T))
+    state["head.bias"] = torch.zeros_like(state["head.bias"])
+    return state
+
+
+# ---------------------------------------------------------------------------
+# trainable params (requires_grad), by name
+# ---------------------------------------------------------------------------
+def classifier_probe_trainable(name: str) -> bool:
+    return name.startswith("head")
+
+
+def all_trainable(name: str) -> bool:
+    return True

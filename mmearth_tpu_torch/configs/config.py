@@ -1,8 +1,9 @@
-"""Typed pretraining configuration (the port's copy of the pretrain side of
+"""Typed pretraining and finetuning configuration (the port's copy of
 ``mmearth_tpu/configs/config.py``).
 
-The CLI façade ``mmearth_tpu_torch/main_pretrain.py`` keeps the reference flag
-names and fills these dataclasses.
+The CLI façades ``mmearth_tpu_torch/main_pretrain.py`` and
+``mmearth_tpu_torch/main_finetune.py`` keep the reference flag names and fill
+these dataclasses.
 """
 from __future__ import annotations
 
@@ -56,6 +57,10 @@ class ModelConfig:
     # visible patches only; "masked_dense" runs the full grid with re-masking.
     # Both compute the same function.
     sparse_impl: str = "gathered"
+    use_orig_stem: bool = False
+    # the classifier's padding: "same" everywhere, or "reference" (upstream's
+    # dense model: VALID initial conv, stride//2-padded stem; dense only)
+    padding_mode: str = "same"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +72,14 @@ class OptimConfig:
     warmup_epochs: int = 40
     betas: tuple[float, float] = (0.9, 0.95)
     update_freq: int = 1  # gradient accumulation steps
+    layer_decay: float = 1.0
+    layer_decay_type: str = "single"  # or "group"
     clip_grad: float | None = None
+    # reference --opt family (optim_factory.py:149-252); finetune only, and
+    # only adamw in this port
+    opt: str = "adamw"
+    opt_eps: float = 1e-8
+    momentum: float = 0.9
 
     def absolute_lr(self, eff_batch_size: int) -> float:
         # reference main_pretrain.py:297-298
@@ -105,3 +117,36 @@ class PretrainConfig:
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     run: RunConfig = dataclasses.field(default_factory=RunConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class FinetuneConfig:
+    """GEO-Bench finetuning / linear probe (the recipe of TRAINING.md)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    optim: OptimConfig = dataclasses.field(
+        default_factory=lambda: OptimConfig(blr=2e-4, weight_decay=0.3, warmup_epochs=0,
+                                            betas=(0.9, 0.999), layer_decay=0.9))
+    run: RunConfig = dataclasses.field(
+        default_factory=lambda: RunConfig(epochs=100, loss_aggr="unweighted"))
+    data_set: str = "m-eurosat"
+    partition: str = "default"
+    geobench_bands_type: str = "full"
+    processed_dir: str | None = None
+    nb_classes: int = 10
+    in_channels: int = 12
+    finetune: str = ""  # path to the pretrain checkpoint
+    # imnet-pretrained baseline weights: swap bgr geobench bands to rgb in the
+    # step (reference --use_imnet_weights + engine_finetune.py:92-95)
+    use_imnet_weights: bool = False
+    linear_probe: bool = False
+    smoothing: float = 0.2
+    drop_path: float = 0.1
+    head_init_scale: float = 0.001
+    batch_size: int = 32
+    num_workers: int = 10
+    # model EMA (reference --model_ema / --model_ema_decay / --model_ema_eval,
+    # main_finetune.py:96-101; defined but unused by the published recipes)
+    model_ema: bool = False
+    model_ema_decay: float = 0.9999
+    model_ema_eval: bool = False

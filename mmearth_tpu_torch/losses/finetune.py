@@ -1,0 +1,49 @@
+"""Finetuning criteria (port of ``mmearth_tpu/losses/finetune.py``; reference
+main_finetune.py:40-57, custom_loss.py:33-63).
+
+  m-eurosat / m-so2sat / m-brick-kiln: label-smoothing cross-entropy (timm's
+    LabelSmoothingCrossEntropy: (1-s)*nll + s*mean(-logp)).
+  m-bigearthnet: label-smoothing binary cross-entropy (custom_loss.py:33-51).
+  m-cashew-plant / m-SA-crop-type: plain CE over pixels, logits reshaped
+    NHWC -> (N*H*W, C) (engine_finetune.py:104-119).
+
+Every loss is computed in f32 whatever the logits' dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def smoothed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           smoothing: float = 0.0) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    # a label outside [0, C) selects no class and adds nothing to the nll, as JAX's one-hot
+    onehot = labels.long()[..., None] == torch.arange(logits.shape[-1], device=logits.device)
+    nll = -torch.where(onehot, logp, torch.zeros_like(logp)).sum(-1)
+    smooth = -logp.mean(-1)
+    return ((1.0 - smoothing) * nll + smoothing * smooth).mean()
+
+
+def smoothed_binary_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                  smoothing: float = 0.0) -> torch.Tensor:
+    t = targets.float()
+    if smoothing > 0:
+        t = t * (1.0 - smoothing) + (1.0 - t) * smoothing
+    x = logits.float()
+    # numerically stable BCE with logits
+    return (x.clamp(min=0) - x * t + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def segmentation_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits: (N, H, W, C); labels: (N, H, W) or (N, 1, H, W) int."""
+    labels = labels.reshape(logits.shape[:3])
+    return smoothed_cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), 0.0)
+
+
+def criterion_fn(dataset: str, smoothing: float):
+    """Per-dataset criterion (main_finetune.py:40-57)."""
+    if dataset == "m-bigearthnet":
+        return lambda logits, target: smoothed_binary_cross_entropy(logits, target, smoothing)
+    if dataset in ("m-cashew-plant", "m-SA-crop-type"):
+        return segmentation_cross_entropy
+    return lambda logits, target: smoothed_cross_entropy(logits, target, smoothing)

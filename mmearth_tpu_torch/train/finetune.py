@@ -1,0 +1,214 @@
+"""GEO-Bench finetuning and linear probe (port of
+``mmearth_tpu/train/finetune.py``; reference main_finetune.py:427-806 +
+engine_finetune.py:56-300) on one device.
+
+The dense ConvNeXtV2 classifier, bootstrapped from a pretraining ``.pth``
+(encoder trunk overlaid, head re-initialised), trains with AdamW under
+layer-wise lr decay; the probe freezes all but the head.  Eval metrics are
+dataset-overall, from per-batch sufficient statistics summed on the device
+and read once per split.  Without an output directory the final test eval
+scores the in-memory params, the JAX package's documented path
+(train/finetune.py:360-372).
+
+Not ported yet (queued in ROADMAP.md): U-Net segmentation and its staged
+unfreeze, the ResNet baselines and their foreign checkpoints, checkpoint
+saving and resuming.
+"""
+from __future__ import annotations
+
+import copy
+import time
+from pathlib import Path
+
+import torch
+
+from ..checkpoints import load_pretrained as lp
+from ..configs.config import FinetuneConfig, model_size
+from ..data.geobench import NUM_CLASSES, TASK_CLASS, get_geobench_dataloaders
+from ..eval.metrics import batch_stats_fn, metric_for
+from ..losses.finetune import criterion_fn
+from ..models.convnextv2 import ConvNeXtV2
+from .ema import init_ema, update_ema
+from .optim import AdamW, finetune_wd_mask, layer_lr_scales
+from .pretrain import PRINT_FREQ, _check_finite, resolve_device
+from .schedule import warmup_cosine
+from .step import fold_in, to_device
+
+
+def build_finetune_model(cfg: FinetuneConfig, in_channels: int, nb_classes: int) -> ConvNeXtV2:
+    """The dense classifier for ``cfg``, initialised on the CPU from
+    ``cfg.run.seed``."""
+    name = cfg.model.model
+    if name.startswith("resnet"):
+        raise NotImplementedError(f"--model {name}: the ResNet baselines are not ported yet "
+                                  "(ROADMAP.md)")
+    if "unet" in name:
+        raise NotImplementedError(f"--model {name}: U-Net segmentation is not ported yet "
+                                  "(ROADMAP.md)")
+    depths, dims = model_size(name)
+    model = ConvNeXtV2(
+        patch_size=cfg.model.patch_size, img_size=cfg.model.img_size, in_chans=in_channels,
+        depths=depths, dims=dims, dtype=torch.bfloat16 if cfg.run.use_bf16 else torch.float32,
+        sparse=False, num_classes=nb_classes, drop_path_rate=cfg.drop_path,
+        head_init_scale=cfg.head_init_scale, padding_mode=cfg.model.padding_mode,
+        use_orig_stem=cfg.model.use_orig_stem)
+    model.init_weights(torch.Generator().manual_seed(cfg.run.seed))
+    return model
+
+
+def bootstrap(model: ConvNeXtV2, path: str | Path, seed: int) -> None:
+    """Overlay the encoder of the pretraining checkpoint at ``path`` onto
+    ``model`` and re-initialise its head (JAX run_finetune :181-199)."""
+    enc = lp.encoder_state_from_checkpoint(path, model.depths)
+    state = lp.reinit_head(lp.load_encoder_into(model.state_dict(), enc), seed)
+    model.load_state_dict(state)
+
+
+def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_train: int,
+                    device: torch.device) -> tuple[ConvNeXtV2, AdamW]:
+    """The classifier on ``device``, bootstrapped from ``cfg.finetune`` when
+    set, all but the head frozen under ``cfg.linear_probe``, and its AdamW
+    (layer-decayed lr scales, the finetune decay mask) over the trainable
+    params, scheduled for ``n_train`` samples an epoch."""
+    model = build_finetune_model(cfg, in_channels, nb_classes)
+    if cfg.finetune:
+        if cfg.model.padding_mode == "same":
+            print("note: finetuning a .pth with padding_mode='same'; upstream's dense model "
+                  "pads as --padding_mode reference does (VALID initial conv, stride//2 "
+                  "stem padding)")
+        bootstrap(model, cfg.finetune, cfg.run.seed)
+    model.to(device)
+    trainable = lp.classifier_probe_trainable if cfg.linear_probe else lp.all_trainable
+    for name, prm in model.named_parameters():
+        prm.requires_grad_(trainable(name))
+
+    eff_batch = cfg.batch_size * cfg.optim.update_freq
+    updates_per_epoch = max(n_train // eff_batch, 1)
+    schedule = warmup_cosine(cfg.optim.absolute_lr(eff_batch), cfg.optim.min_lr, cfg.run.epochs,
+                             cfg.optim.warmup_epochs, updates_per_epoch)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    scales = (layer_lr_scales(named, cfg.optim.layer_decay, model.depths,
+                              cfg.optim.layer_decay_type)
+              if cfg.optim.layer_decay != 1.0 else None)
+    opt = AdamW(named, schedule, cfg.optim.weight_decay, cfg.optim.betas, eps=cfg.optim.opt_eps,
+                update_freq=cfg.optim.update_freq, clip_grad=cfg.optim.clip_grad,
+                wd_mask=finetune_wd_mask(named), lr_scales=scales)
+    return model, opt
+
+
+def finetune_step(model: ConvNeXtV2, opt: AdamW, batch, criterion, generator: torch.Generator,
+                  bgr_to_rgb: bool = False, ema: dict | None = None,
+                  ema_decay: float = 0.9999) -> torch.Tensor:
+    """One training step (JAX make_finetune_step :73-119): forward with drop
+    path drawn from ``generator``, loss, backward, update, EMA (decay 1.0 on
+    an accumulation-only step).  Returns the detached loss, with no host
+    synchronisation."""
+    x = batch["input"]
+    if bgr_to_rgb:
+        # imnet-pretrained weights expect RGB (reference engine_finetune.py:92-95)
+        x = x[..., [2, 1, 0]]
+    opt.zero_grad()
+    loss = criterion(model(x, generator=generator), batch["label"])
+    loss.backward()
+    applied = opt.step()
+    if ema is not None:
+        update_ema(ema, model, ema_decay if applied else 1.0)
+    return loss.detach()
+
+
+@torch.no_grad()
+def evaluate(model: ConvNeXtV2, loader, stats_fn, metric, device, bgr_to_rgb: bool = False):
+    """The split's metric: each batch's statistics summed on the device, read
+    once at the end."""
+    metric.reset()
+    sums = {}
+    for host_batch in loader:
+        batch = to_device(host_batch, device)
+        x = batch["input"][..., [2, 1, 0]] if bgr_to_rgb else batch["input"]
+        for k, v in stats_fn(model(x).float(), batch["label"]).items():
+            sums[k] = sums[k] + v if k in sums else v
+    metric.update_stats({k: v.cpu().numpy() for k, v in sums.items()})
+    return metric.compute()
+
+
+def _with_params(model: ConvNeXtV2, params: dict) -> ConvNeXtV2:
+    """A copy of ``model`` holding ``params`` (the EMA weights)."""
+    out = copy.deepcopy(model)
+    out.load_state_dict({**out.state_dict(), **params})
+    return out
+
+
+def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda") -> dict:
+    """Finetune (or probe); returns the per-epoch ``history`` (loss, steps,
+    train and eval seconds, step losses, the val score), the best val score,
+    the final test score and the model."""
+    if cfg.run.resume:
+        raise NotImplementedError("--resume: checkpoint save/resume is not ported yet")
+    if cfg.run.output_dir:
+        raise NotImplementedError("--output_dir: checkpoint saving is not ported yet")
+    if cfg.optim.opt.lower() != "adamw":
+        raise NotImplementedError(f"--opt {cfg.optim.opt}: only adamw is ported; the other "
+                                  "optimizer families are queued in ROADMAP.md")
+    if TASK_CLASS[cfg.data_set] == "segmentation":
+        raise NotImplementedError(f"--data_set {cfg.data_set}: segmentation needs the U-Net, "
+                                  "which is not ported yet (ROADMAP.md)")
+    dev = resolve_device(device)
+    if loaders is None:
+        processed = (Path(cfg.processed_dir) if cfg.processed_dir
+                     else Path(cfg.finetune).parent / "geobench_proc")
+        loaders, task = get_geobench_dataloaders(
+            cfg.data_set, processed, cfg.batch_size, partition=cfg.partition,
+            geobench_bands_type=cfg.geobench_bands_type, seed=cfg.run.seed)
+    train_loader, val_loader, test_loader = loaders
+    in_channels = next(iter(train_loader))["input"].shape[-1]
+    nb_classes = task.num_classes if task is not None else NUM_CLASSES[cfg.data_set]
+
+    model, opt = build_trainable(cfg, in_channels, nb_classes, len(train_loader.dataset), dev)
+    eff_batch = cfg.batch_size * cfg.optim.update_freq
+    ema = init_ema(model) if cfg.model_ema else None
+    criterion = criterion_fn(cfg.data_set, cfg.smoothing)
+    stats_fn = batch_stats_fn(cfg.data_set, nb_classes)
+    metric_name, metric = metric_for(cfg.data_set, nb_classes)
+    bgr_to_rgb = cfg.use_imnet_weights and cfg.geobench_bands_type == "bgr"
+    n_trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"device {dev}  number of params (trainable): {n_trainable}  "
+          f"effective batch size: {eff_batch}  actual lr: {cfg.optim.absolute_lr(eff_batch):.2e}")
+
+    def eval_model():
+        return _with_params(model, ema) if (ema is not None and cfg.model_ema_eval) else model
+
+    gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
+    history, best_val = [], -float("inf")
+    step = cfg.run.start_epoch * len(train_loader)
+    for epoch in range(cfg.run.start_epoch, cfg.run.epochs):
+        t0 = time.time()
+        train_loader.set_epoch(epoch)
+        step_losses = []
+        for i, host_batch in enumerate(train_loader):
+            loss = finetune_step(model, opt, to_device(host_batch, dev), criterion,
+                                 fold_in(gen, step), bgr_to_rgb, ema, cfg.model_ema_decay)
+            step_losses.append(loss)
+            step += 1
+            if i % PRINT_FREQ == 0:
+                _check_finite(float(loss))
+        losses = torch.stack(step_losses).float().tolist() if step_losses else []
+        for v in losses:
+            _check_finite(v)
+        train_seconds = time.time() - t0
+        t1 = time.time()
+        val_score = (evaluate(eval_model(), val_loader, stats_fn, metric, dev, bgr_to_rgb)
+                     if val_loader is not None else float("nan"))
+        mean = sum(losses) / max(len(losses), 1)
+        history.append({"epoch": epoch, "loss": mean, "steps": len(losses),
+                        "seconds": train_seconds, "eval_seconds": time.time() - t1,
+                        "step_losses": losses, f"val_{metric_name}": val_score})
+        print(f"epoch {epoch}  loss {mean:.4f}  val {metric_name} {val_score:.4f}  "
+              f"~{len(losses) * cfg.batch_size / max(train_seconds, 1e-9):.0f} samples/s")
+        best_val = max(best_val, val_score)
+
+    test_score = (evaluate(eval_model(), test_loader, stats_fn, metric, dev, bgr_to_rgb)
+                  if test_loader is not None else None)
+    print(f"final test {metric_name}: {test_score}  (params from memory)")
+    print(f"best val {metric_name}: {best_val}")
+    return {"history": history, f"best_val_{metric_name}": best_val,
+            f"test_{metric_name}": test_score, "test_params_from": "memory", "model": model}

@@ -1,15 +1,19 @@
-"""Pretraining optimizer (port of the pretrain side of ``mmearth_tpu/train/optim.py``).
+"""AdamW for pretraining and finetuning (port of ``mmearth_tpu/train/optim.py``).
 
-AdamW in the order of the optax chain the JAX package builds
-(``optim.py:230-251``): optional clip of the raw gradients by global norm,
-Adam moments with bias correction, decoupled weight decay on the masked
-params, then the learning rate of the schedule at the update count.  With
-``update_freq = k`` the gradients of k micro-steps are averaged (a running
-mean, as ``optax.MultiSteps``) and the update is applied on the k-th.
+AdamW in the order of the optax chains the JAX package builds
+(``optim.py:230-251,254-306``): optional clip of the raw gradients by global
+norm, Adam moments with bias correction, decoupled weight decay on the
+masked params, the learning rate of the schedule at the update count, then
+each param's layer-decay lr scale, which multiplies the whole update (Adam
+step and decay alike).  With ``update_freq = k`` the gradients of k
+micro-steps are averaged (a running mean, as ``optax.MultiSteps``) and the
+update is applied on the k-th.  Frozen params (``requires_grad`` off, the
+linear probe's trunk) are left out: no update and no decay, as JAX's
+``mask_updates`` with the decay mask cut by the trainable mask.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Mapping, Sequence
 
 import torch
 
@@ -22,14 +26,81 @@ def pretrain_wd_mask(named_params: Iterable[tuple[str, torch.Tensor]]) -> dict[s
     return {name: p.ndim > 1 for name, p in named_params}
 
 
+def finetune_wd_mask(named_params: Iterable[tuple[str, torch.Tensor]]) -> dict[str, bool]:
+    """No decay for 1-dim params, biases and the GRN gamma/beta, which are
+    (1, 1, 1, C) here and so are excluded by name (optim.py:48-58,
+    optim_factory.py:108-119)."""
+    return {name: not (p.ndim <= 1 or name.endswith(("bias", "gamma", "beta")))
+            for name, p in named_params}
+
+
+def _stage_block(name: str) -> tuple[str, int, int]:
+    """(kind, i, j) of a param name in upstream's layout: ``stages.i.j.*``,
+    ``downsample_layers.i.*``, or "other" (the stem modules ``initial_conv``
+    and ``stem``, ``norm``, ``head``), as JAX ``_parse_stage_block``
+    (optim.py:64-86).  The stem matches neither prefix of the reference's
+    layer-id functions and so takes the top layer id, as the head does."""
+    parts = name.split(".")
+    if parts[0] == "encoder":
+        parts = parts[1:]
+    if parts[0] == "stages":
+        return "stages", int(parts[1]), int(parts[2])
+    if parts[0] == "downsample_layers":
+        return "downsample_layers", int(parts[1]), 0
+    return "other", -1, -1
+
+
+def layer_id_single(name: str, depths: Sequence[int]) -> int:
+    """optim_factory.get_num_layer_for_convnext_single (JAX optim.py:89-96)."""
+    kind, i, j = _stage_block(name)
+    if kind == "downsample_layers":
+        return sum(depths[:i]) + 1
+    if kind == "stages":
+        return sum(depths[:i]) + j + 1
+    return sum(depths) + 1
+
+
+def layer_id_group(name: str) -> int:
+    """optim_factory.get_num_layer_for_convnext, the 12-group scheme (JAX
+    optim.py:99-110)."""
+    kind, i, j = _stage_block(name)
+    if kind == "downsample_layers":
+        return {0: 0, 1: 2, 2: 3, 3: 12}[i]
+    if kind == "stages":
+        if i in (0, 1):
+            return i + 1
+        if i == 2:
+            return 3 + j // 3
+        return 12
+    return 13
+
+
+def layer_lr_scales(named_params: Iterable[tuple[str, torch.Tensor]], layer_decay: float,
+                    depths: Sequence[int], kind: str = "single") -> dict[str, float]:
+    """Per-param lr multipliers: decay ** (num_layers + 1 - layer_id)
+    (main_finetune.py:530-544, JAX optim.py:113-122)."""
+    num_layers = 12 if kind == "group" else sum(depths)
+
+    def lid(name: str) -> int:
+        return layer_id_group(name) if kind == "group" else layer_id_single(name, depths)
+
+    return {name: layer_decay ** (num_layers + 1 - lid(name)) for name, _ in named_params}
+
+
 class AdamW:
+    """``wd_mask`` (name -> decay?) defaults to :func:`pretrain_wd_mask`;
+    ``lr_scales`` (name -> factor), when given, scales each param's update."""
+
     def __init__(self, named_params, lr_schedule: Callable[[int], float],
                  weight_decay: float = 0.05, betas: tuple[float, float] = (0.9, 0.95),
-                 eps: float = 1e-8, update_freq: int = 1, clip_grad: float | None = None):
+                 eps: float = 1e-8, update_freq: int = 1, clip_grad: float | None = None,
+                 wd_mask: Mapping[str, bool] | None = None,
+                 lr_scales: Mapping[str, float] | None = None):
         named = [(n, p) for n, p in named_params if p.requires_grad]
-        decay = pretrain_wd_mask(named)
+        decay = pretrain_wd_mask(named) if wd_mask is None else wd_mask
         self.params = [p for _, p in named]
         self.decay = [decay[n] for n, _ in named]
+        self.scales = None if lr_scales is None else [lr_scales[n] for n, _ in named]
         self.lr_schedule = lr_schedule
         self.weight_decay, self.betas, self.eps = weight_decay, betas, eps
         self.update_freq, self.clip_grad = update_freq, clip_grad
@@ -81,6 +152,8 @@ class AdamW:
         if dec and self.weight_decay:
             torch._foreach_add_([upd[i] for i in dec], [self.params[i] for i in dec],
                                 alpha=self.weight_decay)
+        if self.scales is not None:
+            torch._foreach_mul_(upd, self.scales)
         torch._foreach_add_(self.params, upd, alpha=-lr)
         return True
 

@@ -294,3 +294,100 @@ def test_wholeblock_encoder_matches_cpu_at_femto_and_tiny_widths(dims):
     for name, got, ref in [("y", y_gpu, y_cpu)] + [(k, g_gpu[k], g_cpu[k]) for k in g_cpu]:
         err = float((got - ref).abs().max() / (ref.abs().max() + 1e-12))
         assert err < 1e-3, f"{name}: {err:.2e} of scale"
+
+
+# (N, H, C): the finetune slice's four stages at batch 32, the decoder's
+# 7x7x512 and the masked-dense stages at a cut batch, huge's widest stage,
+# odd N and odd C
+_DW_CASES = [(32, 64, 40), (32, 32, 80), (32, 16, 160), (32, 8, 320), (64, 7, 512),
+             (16, 56, 40), (16, 28, 80), (16, 14, 160), (16, 7, 320), (8, 14, 768),
+             (3, 7, 2816), (5, 9, 37)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,h,c", _DW_CASES)
+def test_dw_weight_grad_matches_plain_on_gpu(dtype, n, h, c):
+    """The dense dwconv's weight-gradient kernel against its plain version on
+    the same inputs: f32 sums in another order (per-thread partials, shared
+    and global atomics), within 1e-3 of each value plus 1e-4 of the largest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from mmearth_tpu_torch.ops import dwconv
+
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(n + h + c)
+    x = torch.randn(n, h, h, c, generator=gen, device=dev).to(dt)
+    dy = torch.randn(n, h, h, c, generator=gen, device=dev).to(dt)
+    before = dwconv.LAUNCHES["dw_weight_grad"]
+    got = dwconv.dw_weight_grad(x, dy)
+    torch.cuda.synchronize()
+    assert dwconv.LAUNCHES["dw_weight_grad"] == before + 1
+    ref = dwconv.dw_weight_grad_plain(x, dy)
+    assert got.shape == ref.shape == (c, 1, 7, 7)
+    _sum_close(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,c", [(64, 7, 512), (16, 56, 40), (16, 14, 160)])
+def test_dwconv7x7_grads_match_cpu(n, h, c):
+    """``dwconv7x7`` on the card (cuDNN forward and dx, the dW kernel) against
+    the CPU (plain dW) at the decoder's and the masked-dense stages' shapes,
+    in f32 with TF32 off: output and all three grads within 1e-4 of their
+    scale (summation order only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from mmearth_tpu_torch.ops import dwconv
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(c)
+    x, dy = torch.randn(n, h, h, c, generator=gen), torch.randn(n, h, h, c, generator=gen)
+    w, b = 0.1 * torch.randn(c, 1, 7, 7, generator=gen), torch.randn(c, generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, w, b)]
+        y = dwconv.dwconv7x7(*leaves)
+        y.backward(dy.to(dev))
+        out[dev] = [y.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for name, got, ref in zip(("y", "dx", "dW", "db"), out["cuda"], out["cpu"]):
+        err = float((got - ref).abs().max() / ref.abs().max())
+        assert err < 1e-4, f"{name}: {err:.2e} of scale"
+
+
+@pytest.mark.gpu
+def test_classifier_step_matches_cpu():
+    """A finetune step of the dense classifier (two blocks a stage at atto
+    widths, drop path 0, f32, TF32 off) on the card against the CPU: loss
+    within 1e-4 relative, every grad within 1e-3 of its scale (summation
+    order only, as the FCMAE steps of chip_smoke.py); the backward launches
+    the dW kernel once per block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import copy
+
+    from mmearth_tpu_torch.losses.finetune import smoothed_cross_entropy
+    from mmearth_tpu_torch.models.convnextv2 import ConvNeXtV2
+    from mmearth_tpu_torch.ops import dwconv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = ConvNeXtV2(depths=(2, 2, 2, 2), dims=(40, 80, 160, 320), sparse=False,
+                     num_classes=10, head_init_scale=1.0)
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 64, 64, 12, generator=gen)
+    y = torch.randint(0, 10, (8,), generator=gen)
+    before = dwconv.LAUNCHES["dw_weight_grad"]
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        loss = smoothed_cross_entropy(model(x.to(dev)), y.to(dev), 0.2)
+        loss.backward()
+        out[name] = (float(loss.detach()), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    assert dwconv.LAUNCHES["dw_weight_grad"] == before + 8
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["gpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k in g_cpu:
+        err = float((g_gpu[k] - g_cpu[k]).abs().max() / (g_cpu[k].abs().max() + 1e-12))
+        assert err < 1e-3, f"{k}: {err:.2e} of scale"

@@ -72,7 +72,7 @@ def test_three_update_trajectory_matches_jax(update_freq):
 
     model = FCMAE(**KW).init_weights(torch.Generator().manual_seed(0))
     params = jax.tree_util.tree_map(jnp.asarray, torch_fcmae_to_flax(
-        {k: v.detach().numpy() for k, v in model.state_dict().items()}, DEPTHS,
+        {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}, DEPTHS,
         JM.OUT_MODALITIES))
 
     sched_args = (BASE_LR, 1e-5, 4, 1, 2)  # 1 warmup epoch of 2 updates
