@@ -12,7 +12,9 @@ Phases, each of which exits non-zero on failure:
    gather/scatter bit-exact; dwconv7_gathered forward and dx within one bf16
    ulp (|k - p| <= 2^(floor(log2|p|) - 7) + 1e-4 * max|p|, the second term
    covering f32 summation-order noise on values near 0); dK and db within
-   |k - p| <= 1e-3 * |p| + 1e-5 * max|p| (atomics reorder the sums).  Each is
+   |k - p| <= 1e-3 * |p| + 1e-5 * max|p| (atomics reorder the sums); each
+   stage's line gives the tile plan of both launches (tile in patches,
+   channel chunk, threads, shared memory, 16-byte staging).  Each is
    timed with CUDA events (median of 25 after warm-up) beside the plain
    version and one PyTorch call computing the same function (timed here
    only; the port never calls it).  The six spill-g launches (phases A, B, the
@@ -182,7 +184,7 @@ def phase_kernels() -> dict:
             "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
             "bound_ms": 0.0, "bound_by": "bytes", "library_ms": 0.0})
 
-    def add(r, count, err, ms, plain, lib, bnd, by, shape):
+    def add(r, count, err, ms, plain, lib, bnd, by, shape, **extra):
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += count * ms
         r["plain_ms"] += count * plain
@@ -191,7 +193,7 @@ def phase_kernels() -> dict:
         r["bound_by"] = by
         detail.append({"kernel": r["name"], "shape": shape, "per_step": count, "ms": ms,
                        "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-                       "max_abs_err": err})
+                       "max_abs_err": err, **extra})
 
     # gather: stem gather (56x56x40 -> p=8) and the final scatter's VJP (7x7x320 -> p=1)
     g_row = row("gather_patches", "mmearth_tpu_torch/csrc/patch_select.cu",
@@ -250,7 +252,7 @@ def phase_kernels() -> dict:
             time_ms(lambda: wb.dwconv7_gathered_plain(xg, kept, w, b, GRID)),
             time_ms(lambda: F.conv2d(dense, w_bf, b_bf, padding=3, groups=c)),
             *bound_ms(2 * elems * 2 + 49 * c * 4 + c * 4, 98 * elems, BF16_FLOPS),
-            [N, K, p, p, c])
+            [N, K, p, p, c], plan=wb.launch_plan(xg, GRID, False)._asdict())
 
         dx, dk, db = wb._bwd_cuda(dt, xg, kept, inv, w, GRID)
         rdx, rdk, rdb = wb.dwconv7_gathered_bwd_plain(dt, xg, kept, w, GRID)
@@ -271,7 +273,7 @@ def phase_kernels() -> dict:
             time_ms(lambda: wb.dwconv7_gathered_bwd_plain(dt, xg, kept, w, GRID)),
             time_ms(lib_bwd),
             *bound_ms(3 * elems * 2 + 2 * (49 * c + c) * 4, 197 * elems, BF16_FLOPS),
-            [N, K, p, p, c])
+            [N, K, p, p, c], plan=wb.launch_plan(xg, GRID, True)._asdict())
     for d in detail:
         emit({"kernel_shape": d})
     return rows_out

@@ -103,9 +103,12 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The handle of PyTorch's current stream on ``device``, read without
+    making a ``torch.cuda.Stream`` object on every launch."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 P = ctypes.c_void_p

@@ -11,11 +11,18 @@ correlation of the scattered cotangent, gathered), ``dK`` (taps summed over
 the batch, f32) and ``db`` (f32).
 
 On a CUDA tensor both directions go to the kernels in ``csrc/wholeblock.cu``
-at every patch side p = 8/4/2/1 (the TPU kernel ran only at p = 8); on a CPU
-tensor to the plain versions below: scatter -> ``F.conv2d(groups=C,
-padding=3)`` -> gather, in f32.
+at every patch side p = 8/4/2/1 (the TPU kernel ran only at p = 8), one
+launch each; on a CPU tensor to the plain versions below: scatter ->
+``F.conv2d(groups=C, padding=3)`` -> gather, in f32.  A kernel block owns a
+tile of patches of one image and a chunk of channels; :func:`tile_plan`
+picks the tile, the chunk, the threads and the shared memory from the shape
+and the card, and the wrapper hands them to the C entry.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -28,12 +35,17 @@ KS = 7
 LAUNCHES = {"dwconv7_gathered_fwd": 0, "dwconv7_gathered_bwd": 0}
 
 _SIGNATURES = {
-    "mm_dwconv7_fwd": [_build.P] * 6 + [_build.I] * 7 + [_build.P],
-    "mm_dwconv7_bwd": [_build.P] * 8 + [_build.I] * 8 + [_build.P],
+    "mm_dwconv7_fwd": [_build.P] * 6 + [_build.I, _build.P],
+    "mm_dwconv7_bwd": [_build.P] * 7 + [_build.I, _build.P],
+    "mm_dwconv7_smem_optin": [],
 }
-_SMEM_FWD = 48 * 1024  # bytes of the forward block's halo + taps
-_MAX_CHUNK = 80  # the backward keeps 49 * chunk dK partials in 256 x 16 registers
-_BWD_BLOCKS = 1056  # backward blocks to aim for (8 per SM on 132 SMs)
+_MAX_CHUNK = 64  # channels a block (the kernel's MAX_CHUNK)
+_MAX_THREADS = 256  # threads a block (the kernel's MAX_THREADS)
+_RED_PITCH = KS * KS + 2  # f32 words of one channel's dK and db sums in shared memory
+_ROWS = {1: 1, 2: 2, 4: 4, 8: 2}  # rows of a patch one work item computes (the kernel's Side<P>::R)
+_BLOCKS_PER_SM = 3  # blocks a launch should give each SM
+_CARDS: dict[int, tuple[int, int]] = {}  # device index -> (opt-in shared memory, SMs)
+_CONFIGS: dict = {}  # (shape, dtype, grid, bwd, device) -> the C entry's int arguments
 
 
 # ---------------------------------------------------------------------------
@@ -76,70 +88,181 @@ def dwconv7_gathered_bwd_plain(dt, x_g, kept_ids, weight, grid: int):
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
-def channel_chunk(p: int, c: int) -> int:
-    """Channels per block: the largest divisor of C that keeps the forward's
-    (p+6)^2 halo plus the 49 taps (f32) within 48 KB and the backward's dK
-    partials within its registers."""
-    per_ch = ((p + 6) ** 2 + KS * KS) * 4
-    limit = min(_MAX_CHUNK, _SMEM_FWD // per_ch)
-    return max(d for d in range(1, limit + 1) if c % d == 0)
+class TilePlan(NamedTuple):
+    """One launch's shape: a block owns ``tpy x tpx`` patches of one image and
+    ``cc`` channels, runs ``threads`` threads on ``smem`` bytes of shared
+    memory, and stages with 16-byte copies if ``vec``."""
+    tpy: int
+    tpx: int
+    cc: int
+    threads: int
+    smem: int
+    vec: bool
 
 
-def _check(x_g, kept_ids, inv_ids, grid: int, name: str):
+def _border(p: int) -> tuple[int, int]:
+    """Patches a tile's halo reaches before the tile (LO) and in all beyond
+    the tile's own (E): the 3-site border spans ceil(3/p) patches before and
+    ends 2 // p patches past the tile (``Side<P>`` in the kernel)."""
+    lo = -(-3 // p)
+    return lo, lo + 2 // p + 1
+
+
+def smem_bytes(p: int, tpy: int, tpx: int, cc: int, elem_bytes: int, bwd: bool) -> int:
+    """Shared memory of one block, as ``smem_layout`` in the kernel lays it
+    out: the halo in the activation dtype (16-byte aligned), the f32 taps,
+    the backward's (C, 51) f32 sums, the patch lookup and the visible list."""
+    _, e = _border(p)
+    halo = -(-(tpy * p + KS - 1) * (tpx * p + KS - 1) * cc * elem_bytes // 16) * 16
+    red = _RED_PITCH * cc * 4 if bwd else 0
+    return halo + KS * KS * cc * 4 + red + (tpy + e) * (tpx + e) * 4 + 2 * tpy * tpx * 4
+
+
+def tile_window(p: int, grid: int, tpy: int, tpx: int, tile: int) -> dict:
+    """Where tile ``tile`` (row-major over the image's tiles of tpy x tpx
+    patches) lies, as the kernel's ``setup_tile`` and ``stage_halo`` find
+    it: its patches, clipped at the image's edge; its halo's sites (the
+    tile's sites and a 3-site border, which may lie outside the image); and
+    the patches the halo reaches, whose ``inv_ids`` the block looks up.
+    Each is a pair of half-open ranges (rows, columns)."""
+    tiles_x = -(-grid // tpx)
+    ty, tx = divmod(tile, tiles_x)
+    py0, px0 = ty * tpy, tx * tpx
+    py1, px1 = min(py0 + tpy, grid), min(px0 + tpx, grid)
+    lo, e = _border(p)
+    return {"patches": ((py0, py1), (px0, px1)),
+            "halo": ((py0 * p - 3, py1 * p + 3), (px0 * p - 3, px1 * p + 3)),
+            "reach": ((py0 - lo, py1 - lo + e), (px0 - lo, px1 - lo + e))}
+
+
+def _chunks(c: int, elem_bytes: int) -> list[int]:
+    """Candidate channel chunks, best first: divisors of C up to
+    ``_MAX_CHUNK``, largest first, those a 16-byte copy can stage first."""
+    divs = [d for d in range(min(c, _MAX_CHUNK), 0, -1) if c % d == 0]
+    return sorted(divs, key=lambda d: (c * elem_bytes % 16 != 0 or d * elem_bytes % 16 != 0))
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(p: int, grid: int, c: int, elem_bytes: int, n: int, bwd: bool,
+              smem_optin: int, sms: int) -> TilePlan:
+    """The launch shape of one direction at patch side p on a grid x grid
+    image of C channels and batch N, on a card whose blocks may opt in to
+    ``smem_optin`` bytes of shared memory and that has ``sms`` SMs.
+
+    The chunk is the largest divisor of C up to 64 channels (one a 16-byte
+    copy can stage where C allows).  The tile is the one whose halos, summed
+    over the image, stage the fewest sites, among those that leave room for
+    two blocks an SM and give the launch at least ``_BLOCKS_PER_SM`` blocks
+    an SM (else as many as any does): larger tiles ran faster on an H100
+    than smaller ones at more blocks an SM.  The threads cover the tile's
+    work items, 64 to 256."""
+    limit = smem_optin // 2 - 1024  # two blocks an SM, 1 KB each reserved
+    for cc in _chunks(c, elem_bytes):
+        best = None
+        for tpy in range(1, grid + 1):
+            for tpx in range(1, grid + 1):
+                smem = smem_bytes(p, tpy, tpx, cc, elem_bytes, bwd)
+                if smem > limit:
+                    continue
+                tiles = -(-grid // tpy) * -(-grid // tpx)
+                halos = (tile_window(p, grid, tpy, tpx, t)["halo"] for t in range(tiles))
+                staged = sum((y1 - y0) * (x1 - x0) for (y0, y1), (x0, x1) in halos)
+                blocks = n * tiles * (c // cc)
+                key = (blocks < _BLOCKS_PER_SM * sms, staged, -blocks)
+                if best is None or key < best[0]:
+                    best = (key, tpy, tpx, smem)
+        if best is not None:
+            _, tpy, tpx, smem = best
+            per_thread = 2 if elem_bytes == 2 and cc % 2 == 0 else 1
+            items = tpy * tpx * (p // _ROWS[p]) * (cc // per_thread)
+            threads = min(_MAX_THREADS, max(64, -(-items // 32) * 32))
+            vec = c * elem_bytes % 16 == 0 and cc * elem_bytes % 16 == 0
+            return TilePlan(tpy, tpx, cc, threads, smem, vec)
+    raise ValueError(f"dwconv7_gathered: no tile of p = {p}, C = {c} fits {smem_optin} bytes")
+
+
+def _card(device) -> tuple[int, int]:
+    """(opt-in shared memory per block, SMs) of the card, once per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _CARDS:
+        with torch.cuda.device(idx):
+            optin = _lib().mm_dwconv7_smem_optin()
+        _CARDS[idx] = (optin, torch.cuda.get_device_properties(idx).multi_processor_count)
+    return _CARDS[idx]
+
+
+def _lib():
+    return _build.library("wholeblock", _SIGNATURES)
+
+
+def _check(x_g, kept_ids, inv_ids, weight, bias, grid: int, name: str):
+    """x_g contiguous (N, K, p, p, C) bf16 or f32 with p in 1/2/4/8; the ids
+    contiguous int32 (N, K) and (N, grid^2); the params, which the kernels
+    read as they are, contiguous f32 (C, 1, 7, 7) and (C,) (no bias in the
+    backward); all on x_g's device."""
     if x_g.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: dtype {x_g.dtype} not supported (bfloat16, float32)")
-    n, k, p, p2, _ = x_g.shape
-    if p != p2 or not x_g.is_contiguous():
-        raise ValueError(f"{name}: x_g must be contiguous (N, K, p, p, C), got {tuple(x_g.shape)}")
-    for ids, shape in ((kept_ids, (n, k)), (inv_ids, (n, grid * grid))):
-        if (ids.dtype != torch.int32 or tuple(ids.shape) != shape or not ids.is_contiguous()
-                or ids.device != x_g.device):
-            raise ValueError(f"{name}: ids must be contiguous int32 {shape} on {x_g.device}")
+    n, k, p, p2, c = x_g.shape
+    if p != p2 or p not in (1, 2, 4, 8) or not x_g.is_contiguous():
+        raise ValueError(f"{name}: x_g must be contiguous (N, K, p, p, C) with p in 1, 2, 4, "
+                         f"8, got {tuple(x_g.shape)}")
+    dev = x_g.device
+    for t, dtype, shape in ((kept_ids, torch.int32, (n, k)),
+                            (inv_ids, torch.int32, (n, grid * grid)),
+                            (weight, torch.float32, (c, 1, KS, KS)), (bias, torch.float32, (c,))):
+        if t is not None and (t.dtype != dtype or t.shape != shape or not t.is_contiguous()
+                              or t.device != dev):
+            raise ValueError(f"{name}: ids and params must be contiguous {dtype} {shape} on "
+                             f"{dev}")
 
 
-def _taps49(weight, dtype):
-    c = weight.shape[0]
-    return _taps(weight, dtype).reshape(c, KS * KS).t().contiguous()
+def launch_plan(x_g, grid: int, bwd: bool) -> TilePlan:
+    """The tile plan of one direction for x_g's shape and dtype on its card."""
+    n, _, p, _, c = x_g.shape
+    return tile_plan(p, grid, c, x_g.element_size(), n, bwd, *_card(x_g.device))
+
+
+def _config(x_g, grid: int, bwd: bool) -> int:
+    """Address of the C entry's int arguments for x_g's shape on its card (N,
+    K, p, grid, C, the plan's cc, tpy, tpx, threads, smem and vec, is_bf16),
+    made once per shape: one pointer crosses ctypes in place of twelve ints."""
+    key = (x_g.shape, x_g.dtype, grid, bwd, x_g.get_device())
+    cfg = _CONFIGS.get(key)
+    if cfg is None:
+        n, k, p, _, c = x_g.shape
+        plan = launch_plan(x_g, grid, bwd)
+        cfg = (ctypes.c_int * 12)(n, k, p, grid, c, plan.cc, plan.tpy, plan.tpx, plan.threads,
+                                  plan.smem, int(plan.vec), int(x_g.dtype == torch.bfloat16))
+        _CONFIGS[key] = cfg
+    return ctypes.addressof(cfg)
 
 
 def _fwd_cuda(x_g, kept_ids, inv_ids, weight, bias, grid: int):
-    _check(x_g, kept_ids, inv_ids, grid, "dwconv7_gathered")
-    n, k, p, _, c = x_g.shape
-    taps = _taps49(weight, x_g.dtype)
-    bias32 = bias.float().contiguous()
+    _check(x_g, kept_ids, inv_ids, weight, bias, grid, "dwconv7_gathered")
     out = torch.empty_like(x_g)
-    lib = _build.library("wholeblock", _SIGNATURES)
-    with torch.cuda.device(x_g.device):
-        err = lib.mm_dwconv7_fwd(x_g.data_ptr(), kept_ids.data_ptr(), inv_ids.data_ptr(),
-                                 taps.data_ptr(), bias32.data_ptr(), out.data_ptr(), n, k, p,
-                                 grid, c, channel_chunk(p, c), int(x_g.dtype == torch.bfloat16),
-                                 _build.stream_ptr(x_g.device))
+    err = _lib().mm_dwconv7_fwd(x_g.data_ptr(), inv_ids.data_ptr(), weight.data_ptr(),
+                                bias.data_ptr(), out.data_ptr(), _config(x_g, grid, False),
+                                x_g.get_device(), _build.stream_ptr(x_g.device))
     _build.check(err, "mm_dwconv7_fwd")
     LAUNCHES["dwconv7_gathered_fwd"] += 1
     return out
 
 
 def _bwd_cuda(dt, x_g, kept_ids, inv_ids, weight, grid: int):
-    _check(x_g, kept_ids, inv_ids, grid, "dwconv7_gathered backward")
-    if dt.shape != x_g.shape or dt.dtype != x_g.dtype or not dt.is_contiguous():
+    _check(x_g, kept_ids, inv_ids, weight, None, grid, "dwconv7_gathered backward")
+    if (dt.shape != x_g.shape or dt.dtype != x_g.dtype or not dt.is_contiguous()
+            or dt.device != x_g.device):
         raise ValueError("dwconv7_gathered backward: dt must match x_g")
-    n, k, p, _, c = x_g.shape
-    cc = channel_chunk(p, c)
-    rows_per_block = max(1, -(-n * k * (c // cc) // _BWD_BLOCKS))
-    taps = _taps49(weight, x_g.dtype)
+    c = x_g.shape[-1]
     dx = torch.empty_like(x_g)
-    dk = torch.zeros((KS * KS, c), dtype=torch.float32, device=x_g.device)
-    db = torch.zeros((c,), dtype=torch.float32, device=x_g.device)
-    lib = _build.library("wholeblock", _SIGNATURES)
-    with torch.cuda.device(x_g.device):
-        err = lib.mm_dwconv7_bwd(dt.data_ptr(), x_g.data_ptr(), kept_ids.data_ptr(),
-                                 inv_ids.data_ptr(), taps.data_ptr(), dx.data_ptr(),
-                                 dk.data_ptr(), db.data_ptr(), n, k, p, grid, c, cc,
-                                 rows_per_block, int(x_g.dtype == torch.bfloat16),
-                                 _build.stream_ptr(x_g.device))
+    dkdb = torch.empty(c * (KS * KS + 1), dtype=torch.float32, device=x_g.device)
+    err = _lib().mm_dwconv7_bwd(dt.data_ptr(), x_g.data_ptr(), inv_ids.data_ptr(),
+                                weight.data_ptr(), dx.data_ptr(), dkdb.data_ptr(),
+                                _config(x_g, grid, True), x_g.get_device(),
+                                _build.stream_ptr(x_g.device))
     _build.check(err, "mm_dwconv7_bwd")
     LAUNCHES["dwconv7_gathered_bwd"] += 1
-    return dx, dk.t().reshape(c, 1, KS, KS), db
+    return dx, dkdb[:c * KS * KS].view(c, 1, KS, KS), dkdb[c * KS * KS:]
 
 
 def _device_kind(t, name):

@@ -44,6 +44,59 @@ def test_kernels_match_plain_on_gpu():
         torch.testing.assert_close(db, rdb, rtol=1e-3, atol=1e-3 * float(rdb.abs().max()))
 
 
+# (p, C): every patch side at C = 37 (staged with scalar loads), 24 and the
+# atto to tiny widths (16-byte copies), and C = 1536 at p <= 2
+_DWG_CASES = ([(p, c) for p in (8, 4, 2, 1) for c in (37, 24, 40, 80, 160, 320, 768)]
+              + [(2, 1536), (1, 1536)])
+# (grid, K): one visible patch (fully masked neighbourhoods, border patches),
+# 19 of 49 (the pretraining mask), no masked patch, and a 14-patch grid
+_DWG_MASKS = [(7, 1), (7, 19), (7, 49), (14, 1), (14, 77), (14, 196)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("p,c", _DWG_CASES)
+def test_dwconv7_gathered_tiles_match_plain_on_gpu(dtype, p, c):
+    """The tiled dwconv7_gathered kernels against the plain versions on the
+    same inputs at odd N = 3, for each mask of ``_DWG_MASKS``: one launch
+    per direction; the output and dx in bf16 within one bf16 ulp plus 1e-4
+    of their scale (as chip_smoke.py phase 2), in f32 within 1e-5 of each
+    value plus 1e-5 of the scale (f32 sums in another order, TF32 off); dK
+    and db (f32 sums reordered by atomics) within 1e-3 of each value plus
+    1e-5 of the largest; dK in the param's (C, 1, 7, 7) layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    rng = np.random.default_rng(100 * p + c)
+    gen = torch.Generator(device=dev).manual_seed(100 * p + c)
+    for grid, k in _DWG_MASKS:
+        order = np.argsort(rng.random((3, grid * grid)), axis=1)
+        kept, inv = visible_ids(torch.from_numpy((order >= k).astype(np.float32)).to(dev), k)
+        xg = torch.randn(3, k, p, p, c, generator=gen, device=dev).to(dt)
+        dy = torch.randn(3, k, p, p, c, generator=gen, device=dev).to(dt)
+        w = torch.randn(c, 1, 7, 7, generator=gen, device=dev)
+        b = torch.randn(c, generator=gen, device=dev)
+        before = dict(wb.LAUNCHES)
+        got = wb.dwconv7_gathered_fwd(xg, kept, inv, w, b, grid)
+        dx, dk, db = wb.dwconv7_gathered_bwd(dy, xg, kept, inv, w, grid)
+        torch.cuda.synchronize()
+        assert {n: wb.LAUNCHES[n] - before[n] for n in before} == {
+            "dwconv7_gathered_fwd": 1, "dwconv7_gathered_bwd": 1}
+        ref = wb.dwconv7_gathered_plain(xg, kept, w, b, grid)
+        rdx, rdk, rdb = wb.dwconv7_gathered_bwd_plain(dy, xg, kept, w, grid)
+        assert dk.shape == (c, 1, 7, 7) and db.shape == (c,) and float(rdx.abs().max()) > 0
+        for name, a, r in (("out", got, ref), ("dx", dx, rdx)):
+            if dt == torch.bfloat16:
+                _ulp_close(a, r, 1e-4)
+            else:
+                torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5 * float(r.abs().max()),
+                                           msg=f"{name} grid={grid} K={k}")
+        for name, a, r in (("dK", dk, rdk), ("db", db, rdb)):
+            bad = (a - r).abs() > 1e-3 * r.abs() + 1e-5 * r.abs().max()
+            assert not bool(bad.any()), f"{name} grid={grid} K={k}: {int(bad.sum())} off"
+
+
 def _ulp_close(got, ref, scale_frac):
     """Within one bf16 ulp of the plain value plus ``scale_frac`` of its scale."""
     ref = ref.float()
