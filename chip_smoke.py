@@ -14,7 +14,9 @@ Phases, each of which exits non-zero on failure:
    covering f32 summation-order noise on values near 0); dK and db within
    |k - p| <= 1e-3 * |p| + 1e-5 * max|p| (atomics reorder the sums); each
    stage's line gives the tile plan of both launches (tile in patches,
-   channel chunk, threads, shared memory, 16-byte staging).  Each is
+   channel chunk, threads, shared memory, 16-byte staging); p = 16 is held
+   the same way at stage 0 of pico-112/16 (batch 64, C = 64), reported in
+   the rows' ``pico112_stage0`` and not added to the atto step.  Each is
    timed with CUDA events (median of 25 after warm-up) beside the plain
    version and one PyTorch call computing the same function (timed here
    only; the port never calls it).  The six spill-g launches (phases A, B, the
@@ -43,8 +45,16 @@ Phases, each of which exits non-zero on failure:
    mask of 19 visible patches out of 49 upsampled to each stage, one GRN
    group), with the spill-g tolerances and their reasons, and y = x, dt = 0
    exactly at masked sites; their yardstick is the port's composed masked
-   tail.  Row 5's pair carries its bound on the apply pass and row 6's four
-   launches on the dv pass; each bound counts what this run's mask needs
+   tail.  Both tails are also held at huge's last width, C = 2816 in bf16
+   (the launches whose resident layout does not fit take their wide plans),
+   at 64 rows in two GRN groups and at the 4,864 rows of a batch-256 step,
+   with the same tolerances, except that the dLN sums of D and of the
+   masked dv pass are held against those of the launch's own stored dv,
+   which must equal the plain dv in all but 5% of its elements (and A's sum
+   of squares against its own stored g, as the GPU tests hold it); at
+   4,864 rows each launch is timed beside its plain phase and the composed
+   tail (``c2816_*`` per launch).  Row 5's pair carries its bound on the
+   apply pass and row 6's four launches on the dv pass; each bound counts what this run's mask needs
    (the products and the t, dy reads of the kept sites only), with the
    all-sites count beside it (``bound_ms_all_sites``), and each launch gives
    the bytes it moves (``launch_bytes``).  Row 11, the dense dwconv's weight
@@ -54,7 +64,8 @@ Phases, each of which exits non-zero on failure:
    tiling reorder sums of up to 8e5 terms); its yardstick is cuDNN's dW
    (``aten.convolution_backward``), its bound takes the bf16 rate for bf16
    inputs, and each shape also gives the whole conv's cost per call, port
-   against PyTorch's autograd conv, on the card and on the host.
+   against PyTorch's autograd conv, on the card and on the host, and the
+   kernel's launch plan.
 3. slices: 1,170 samples of synthetic 64-px mmpack data, then the port's
    ``main_pretrain.main`` at convnextv2_atto 56/8, batch 256, bf16 for 12
    steps over 3 epochs, four times: the gathered encoder with
@@ -66,7 +77,11 @@ Phases, each of which exits non-zero on failure:
    ones, 12 of each spill-g launch a step under wholeblock and none
    elsewhere, 12 of each masked-dense launch a step under masked_dense
    fused and none elsewhere, and the dense dwconv's dW 1 a step on the
-   gathered slices (the decoder Block) and 13 on masked-dense.  The
+   gathered slices (the decoder Block) and 13 on masked-dense.  Then
+   292 synthetic 128-px samples and ``main_pretrain.main`` at the CLI's
+   defaults, convnextv2_pico 112/16 (dwconv7_gathered at p = 16/8/4/2),
+   batch 64 as bench.py's tiny112, ``--block_impl wholeblock``, 12 steps
+   with the same per-step counts.  The
    ``wholeblock`` slice's FCMAE is saved as ``build/smoke_pretrain.pth``;
    ``main_finetune.main`` runs the GEO-Bench classification recipe from it
    (convnextv2_atto at patch 8, batch 32, bf16, 3 epochs of synthetic
@@ -75,7 +90,8 @@ Phases, each of which exits non-zero on failure:
    losses and accuracies in [0, 1].
 4. reference: a small f32 FCMAE step on the GPU against the same step on the
    CPU (plain versions), loss and grads, for dwg, wholeblock and
-   masked_dense fused, and a small f32 classifier step.
+   masked_dense fused, wholeblock at pico widths 112/16 (one block a
+   stage), and a small f32 classifier step.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -96,6 +112,8 @@ DENSE_GEOMS = ((56, 40, 2), (28, 80, 2), (14, 160, 6), (7, 320, 2))  # (grid sid
 FT_BATCH = 32  # the finetune recipe's batch
 FT_GEOMS = ((64, 40, 2), (32, 80, 2), (16, 160, 6), (8, 320, 2))  # 64-px tiles at stride 1
 DECODER_GEOM = (7, 512, 1)
+PICO_N, PICO_P16 = 64, (16, 64, 2)  # pico 112/16 at batch 64: stage 0's (p, C, blocks)
+WIDE_C, WIDE_ROWS = 2816, 64  # huge's last stage; 64 rows in two GRN groups
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -158,12 +176,10 @@ def phase_build() -> None:
 def phase_kernels() -> dict:
     """Kernels against their plain versions; returns one row per kernel."""
     import torch
-    import torch.nn.functional as F
 
     from mmearth_tpu_torch.models.convnextv2 import visible_ids
     from mmearth_tpu_torch.models.fcmae import gen_random_mask
     from mmearth_tpu_torch.ops import patch_select as ps
-    from mmearth_tpu_torch.ops import wholeblock as wb
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -175,7 +191,6 @@ def phase_kernels() -> dict:
     kept_l = kept.long()
     rows = torch.arange(N, device=dev)[:, None]
     gy, gx = kept_l // GRID, kept_l % GRID
-    detail = []
     rows_out = {}
 
     def row(name, source, replaces):
@@ -184,16 +199,12 @@ def phase_kernels() -> dict:
             "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
             "bound_ms": 0.0, "bound_by": "bytes", "library_ms": 0.0})
 
-    def add(r, count, err, ms, plain, lib, bnd, by, shape, **extra):
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += count * ms
-        r["plain_ms"] += count * plain
-        r["library_ms"] += count * lib
-        r["bound_ms"] += count * bnd
-        r["bound_by"] = by
-        detail.append({"kernel": r["name"], "shape": shape, "per_step": count, "ms": ms,
-                       "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-                       "max_abs_err": err, **extra})
+    def add(r, count, s):
+        r["max_abs_err"] = max(r["max_abs_err"], s["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            r[key] += count * s[key]
+        r["bound_by"] = s["bound_by"]
+        emit({"kernel_shape": {"kernel": r["name"], "per_step": count, **s}})
 
     # gather: stem gather (56x56x40 -> p=8) and the final scatter's VJP (7x7x320 -> p=1)
     g_row = row("gather_patches", "mmearth_tpu_torch/csrc/patch_select.cu",
@@ -208,11 +219,10 @@ def phase_kernels() -> dict:
         if not torch.equal(got, ref):
             raise AssertionError(f"gather_patches p={p} C={c}: not bit-exact")
         x6 = x.view(N, GRID, p, GRID, p, c)
-        nbytes = 2 * N * K * p * p * c * 2 + kept.numel() * 4
-        add(g_row, 1, 0.0, time_ms(lambda: ps._gather(x, kept, p, GRID)),
-            time_ms(lambda: ps.gather_patches_plain(x, kept, p, GRID)),
-            time_ms(lambda: x6[rows, gy, :, gx]), *bound_ms(nbytes, 0, BF16_FLOPS),
-            [N, h, h, c])
+        add(g_row, 1, launch_summary(
+            [N, h, h, c], 0.0, lambda: ps._gather(x, kept, p, GRID),
+            lambda: ps.gather_patches_plain(x, kept, p, GRID), lambda: x6[rows, gy, :, gx],
+            2 * N * K * p * p * c * 2 + kept.numel() * 4, 0))
 
         xg = torch.randn(N, K, p, p, c, generator=gen, device=dev).to(bf)
         got = ps._scatter(xg, kept, inv, p, GRID, h)
@@ -227,56 +237,83 @@ def phase_kernels() -> dict:
 
         if not torch.equal(lib_scatter(), ref):
             raise AssertionError("scatter library call disagrees")
-        nbytes = (N * K + N * h * h // (p * p)) * p * p * c * 2 + inv.numel() * 4
-        add(s_row, 1, 0.0, time_ms(lambda: ps._scatter(xg, kept, inv, p, GRID, h)),
-            time_ms(lambda: ps.scatter_patches_plain(xg, kept, p, GRID, h)),
-            time_ms(lib_scatter), *bound_ms(nbytes, 0, BF16_FLOPS), [N, K, p, p, c])
+        add(s_row, 1, launch_summary(
+            [N, K, p, p, c], 0.0, lambda: ps._scatter(xg, kept, inv, p, GRID, h),
+            lambda: ps.scatter_patches_plain(xg, kept, p, GRID, h), lib_scatter,
+            (N * K + N * h * h // (p * p)) * p * p * c * 2 + inv.numel() * 4, 0))
 
     f_row = row("dwconv7_gathered_fwd", "mmearth_tpu_torch/csrc/wholeblock.cu",
                 "mmearth_tpu/ops/wholeblock.py:127")
     b_row = row("dwconv7_gathered_bwd", "mmearth_tpu_torch/csrc/wholeblock.cu",
                 "mmearth_tpu/ops/wholeblock.py:150")
     for p, c, count in DW_GEOMS:
-        h = GRID * p
-        xg = torch.randn(N, K, p, p, c, generator=gen, device=dev).to(bf)
-        dt = torch.randn(N, K, p, p, c, generator=gen, device=dev).to(bf)
-        w = torch.randn(c, 1, 7, 7, generator=gen, device=dev)
-        b = 0.1 * torch.randn(c, generator=gen, device=dev)
-        got = wb._fwd_cuda(xg, kept, inv, w, b, GRID)
-        ref = wb.dwconv7_gathered_plain(xg, kept, w, b, GRID)
-        err = check_close(f"dwconv fwd p={p}", got, ref, ulp_bound(ref))
-        dense = ps.scatter_patches_plain(xg, kept, p, GRID, h).permute(0, 3, 1, 2)
-        w_bf, b_bf = w.to(bf), b.to(bf)
-        elems = N * K * p * p * c
-        add(f_row, count, err, time_ms(lambda: wb._fwd_cuda(xg, kept, inv, w, b, GRID)),
-            time_ms(lambda: wb.dwconv7_gathered_plain(xg, kept, w, b, GRID)),
-            time_ms(lambda: F.conv2d(dense, w_bf, b_bf, padding=3, groups=c)),
-            *bound_ms(2 * elems * 2 + 49 * c * 4 + c * 4, 98 * elems, BF16_FLOPS),
-            [N, K, p, p, c], plan=wb.launch_plan(xg, GRID, False)._asdict())
-
-        dx, dk, db = wb._bwd_cuda(dt, xg, kept, inv, w, GRID)
-        rdx, rdk, rdb = wb.dwconv7_gathered_bwd_plain(dt, xg, kept, w, GRID)
-        err = check_close(f"dwconv dx p={p}", dx, rdx, ulp_bound(rdx))
-        for nm, a, r in (("dK", dk, rdk), ("db", db, rdb)):
-            rel = float(((a - r).abs() / r.abs().max()).max())
-            check_close(f"dwconv {nm} p={p}", a, r, 1e-3 * r.abs() + 1e-5 * r.abs().max())
-            emit({"check": f"dwconv7_gathered_bwd {nm}", "p": p, "C": c,
-                  "max_err_over_max_abs": rel})
-        dense_dt = ps.scatter_patches_plain(dt, kept, p, GRID, h).permute(0, 3, 1, 2)
-
-        def lib_bwd():
-            return torch.ops.aten.convolution_backward(
-                dense_dt, dense, w_bf, [c], [1, 1], [3, 3], [1, 1], False, [0, 0], c,
-                [True, True, True])
-
-        add(b_row, count, err, time_ms(lambda: wb._bwd_cuda(dt, xg, kept, inv, w, GRID)),
-            time_ms(lambda: wb.dwconv7_gathered_bwd_plain(dt, xg, kept, w, GRID)),
-            time_ms(lib_bwd),
-            *bound_ms(3 * elems * 2 + 2 * (49 * c + c) * 4, 197 * elems, BF16_FLOPS),
-            [N, K, p, p, c], plan=wb.launch_plan(xg, GRID, True)._asdict())
-    for d in detail:
-        emit({"kernel_shape": d})
+        for r, s in zip((f_row, b_row), gathered_dwconv_stage(gen, p, c, kept, inv)):
+            add(r, count, s)
+    # p = 16: stage 0 of pico 112/16 at its own batch and mask, reported in
+    # the rows' pico112_stage0 and not added to the atto step
+    (p, c, count), pico = PICO_P16, visible_ids(
+        gen_random_mask(PICO_N, GRID * GRID, 0.6, gen, dev), K)
+    for r, s in zip((f_row, b_row), gathered_dwconv_stage(gen, p, c, *pico)):
+        r["pico112_stage0"] = {"per_step": count, **s}
+        emit({"kernel_shape": {"kernel": r["name"], "path": "pico112", "per_step": count, **s}})
     return rows_out
+
+
+def launch_summary(shape, err, kern, plain, lib, nbytes, flops) -> dict:
+    """One launch at one shape: its largest error, its CUDA-event ms beside
+    its plain version's and one PyTorch call's, and its bound at the bf16
+    rate."""
+    bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    return {"shape": shape, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lib), "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+
+
+def gathered_dwconv_stage(gen, p, c, kept, inv) -> tuple[dict, dict]:
+    """Rows 3-4 at one stage: bf16 (N, K, p, p, C) patches of the visible
+    ids ``kept`` (``inv`` their inverse) against the plain versions with
+    phase 2's tolerances, timed beside the plain versions and cuDNN's conv
+    on the scattered grid; returns the (fwd, bwd) summaries with each
+    launch's tile plan."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmearth_tpu_torch.ops import patch_select as ps
+    from mmearth_tpu_torch.ops import wholeblock as wb
+
+    dev, bf, n, h = kept.device, torch.bfloat16, kept.shape[0], GRID * p
+    xg = torch.randn(n, K, p, p, c, generator=gen, device=dev).to(bf)
+    dt = torch.randn(n, K, p, p, c, generator=gen, device=dev).to(bf)
+    w = torch.randn(c, 1, 7, 7, generator=gen, device=dev)
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    ref = wb.dwconv7_gathered_plain(xg, kept, w, b, GRID)
+    fwd_err = check_close(f"dwconv fwd p={p}", wb._fwd_cuda(xg, kept, inv, w, b, GRID), ref,
+                          ulp_bound(ref))
+    dx, dk, db = wb._bwd_cuda(dt, xg, kept, inv, w, GRID)
+    rdx, rdk, rdb = wb.dwconv7_gathered_bwd_plain(dt, xg, kept, w, GRID)
+    bwd_err = check_close(f"dwconv dx p={p}", dx, rdx, ulp_bound(rdx))
+    for nm, a, r in (("dK", dk, rdk), ("db", db, rdb)):
+        check_close(f"dwconv {nm} p={p}", a, r, 1e-3 * r.abs() + 1e-5 * r.abs().max())
+        emit({"check": f"dwconv7_gathered_bwd {nm}", "p": p, "C": c,
+              "max_err_over_max_abs": float(((a - r).abs() / r.abs().max()).max())})
+    dense = ps.scatter_patches_plain(xg, kept, p, GRID, h).permute(0, 3, 1, 2)
+    dense_dt = ps.scatter_patches_plain(dt, kept, p, GRID, h).permute(0, 3, 1, 2)
+    w_bf, b_bf = w.to(bf), b.to(bf)
+    elems = n * K * p * p * c
+    fwd = launch_summary(
+        [n, K, p, p, c], fwd_err, lambda: wb._fwd_cuda(xg, kept, inv, w, b, GRID),
+        lambda: wb.dwconv7_gathered_plain(xg, kept, w, b, GRID),
+        lambda: F.conv2d(dense, w_bf, b_bf, padding=3, groups=c),
+        2 * elems * 2 + 50 * c * 4, 98 * elems)
+    bwd = launch_summary(
+        [n, K, p, p, c], bwd_err, lambda: wb._bwd_cuda(dt, xg, kept, inv, w, GRID),
+        lambda: wb.dwconv7_gathered_bwd_plain(dt, xg, kept, w, GRID),
+        lambda: torch.ops.aten.convolution_backward(
+            dense_dt, dense, w_bf, [c], [1, 1], [3, 3], [1, 1], False, [0, 0], c,
+            [True, True, True]),
+        3 * elems * 2 + 2 * 50 * c * 4, 197 * elems)
+    fwd["plan"] = wb.launch_plan(xg, GRID, False)._asdict()
+    bwd["plan"] = wb.launch_plan(xg, GRID, True)._asdict()
+    return fwd, bwd
 
 
 SPILLG = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick)
@@ -337,76 +374,138 @@ def composed_tail_ms(t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2, keep=None):
     return fwd, bwd
 
 
+def tail_inputs(gen, m, c) -> tuple:
+    """bf16 rows t, x, dy of (m, C) and a block tail's f32 params at their
+    init scale: (t, x, dy, ln_w, ln_b, w1, b1, gamma, beta, w2, b2)."""
+    import torch
+
+    dev, bf, c4 = gen.device, torch.bfloat16, 4 * c
+
+    def rnd(*shape, s=1.0, mean=0.0):
+        return mean + s * torch.randn(*shape, generator=gen, device=dev)
+
+    t, x, dy = rnd(m, c).to(bf), rnd(m, c).to(bf), rnd(m, c).to(bf)
+    lw, lb, b1, b2 = rnd(c, s=0.1, mean=1.0), rnd(c, s=0.1), rnd(c4, s=0.1), rnd(c, s=0.1)
+    w1, w2 = rnd(c4, c, s=c ** -0.5), rnd(c, c4, s=c4 ** -0.5)
+    gm, bt = rnd(c4, s=0.5), rnd(c4, s=0.1)
+    return t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2
+
+
+def spillg_parity(check, inputs, gr, wide=False) -> dict:
+    """Each spill-g launch on ``inputs`` (:func:`tail_inputs`) in GRN groups
+    of ``gr`` rows, on the plain outputs of the phases before it, held by
+    ``check(key, name, got, ref, bound)`` against its plain phase: g, y, dt,
+    dv, u within one bf16 ulp plus 2e-3 of their scale, every f32 sum within
+    :func:`sum_bound`.  ``wide`` (huge's C = 2816, where D takes its wide
+    plan): A's sum of squares is held against that of its own stored g, and
+    dLN's two sums as :func:`dln_reference` says.  Returns {launch: (kernel,
+    plain)} to time."""
+    from mmearth_tpu_torch.ops import fused_block as fb
+
+    t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2 = inputs
+    c, c4 = t.shape[1], w1.shape[0]
+    g, gxsq = fb._fwd_a_cuda(t, lw, lb, w1, b1, gr)
+    rg, rgxsq = fb.fwd_a_plain(t, lw, lb, w1, b1, gr)
+    check("spillg_fwd_a", "g", g, rg, ulp_bound(rg, 2e-3))
+    own = (g.float() ** 2).reshape(-1, gr, c4).sum(1) if wide else rgxsq
+    check("spillg_fwd_a", "gxsq", gxsq, own, sum_bound(own))
+    b_args = (rg, x, rgxsq, gm, bt, w2, b2, gr)
+    got, (ry, rgx, rnx) = fb._fwd_b_cuda(*b_args), fb.fwd_b_plain(*b_args)
+    check("spillg_fwd_b", "y", got[0], ry, ulp_bound(ry, 2e-3))
+    for nm, a, r in zip(("gx", "nx"), got[1:], (rgx, rnx)):
+        check("spillg_fwd_b", nm, a, r, sum_bound(r))
+    rsums = fb.bwd_c_plain(dy, rg, rnx, gm, w2, gr)
+    for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx"),
+                        fb._bwd_c_cuda(dy, rg, rnx, gm, w2, gr), rsums):
+        check("spillg_bwd_c", nm, a, r, sum_bound(r))
+    rdw2 = fb.dw2_plain(dy, rg, rnx, gm, bt, gr)
+    check("spillg_bwd_c_dw2", "dW2", fb._dw2_cuda(dy, rg, rnx, gm, bt, gr), rdw2,
+          sum_bound(rdw2))
+    d_args = (t, dy, rg, rnx, fb.dgx_step(rsums[3], rgx), lw, lb, w1, b1, gm, w2, gr)
+    got, ref = fb._bwd_d_cuda(*d_args), fb.bwd_d_plain(*d_args)
+    check("spillg_bwd_d", "dt", got[0], ref[0], ulp_bound(ref[0], 2e-3))
+    dln = dln_reference("spillg_bwd_d", t, got, ref, w1, lw, lb, wide)
+    for nm, a, r in zip(("db1", "dln_w", "dln_b"), got[1:4], (ref[1], *dln)):
+        check("spillg_bwd_d", nm, a, r, sum_bound(r))
+    for nm, a, r in zip(("dv", "u"), got[4:], ref[4:]):
+        check("spillg_bwd_d", nm, a, r, ulp_bound(r, 2e-3))
+    dv, u = ref[4], ref[5]
+    rdw1 = fb.atb_plain(dv, u)
+    check("spillg_bwd_d_dw1", "dW1", fb._dw1_cuda(dv, u), rdw1, sum_bound(rdw1))
+    return {
+        "spillg_fwd_a": (lambda: fb._fwd_a_cuda(t, lw, lb, w1, b1, gr),
+                         lambda: fb.fwd_a_plain(t, lw, lb, w1, b1, gr)),
+        "spillg_fwd_b": (lambda: fb._fwd_b_cuda(*b_args), lambda: fb.fwd_b_plain(*b_args)),
+        "spillg_bwd_c": (lambda: fb._bwd_c_cuda(dy, rg, rnx, gm, w2, gr),
+                         lambda: fb.bwd_c_plain(dy, rg, rnx, gm, w2, gr)),
+        "spillg_bwd_c_dw2": (lambda: fb._dw2_cuda(dy, rg, rnx, gm, bt, gr),
+                             lambda: fb.dw2_plain(dy, rg, rnx, gm, bt, gr)),
+        "spillg_bwd_d": (lambda: fb._bwd_d_cuda(*d_args), lambda: fb.bwd_d_plain(*d_args)),
+        "spillg_bwd_d_dw1": (lambda: fb._dw1_cuda(dv, u), lambda: fb.atb_plain(dv, u)),
+    }
+
+
+def dln_reference(key, t, got, ref, w1, ln_w, ln_b, wide):
+    """The reference of a dv pass's two dLN sums (``got``/``ref``: the
+    launch's and the plain phase's outputs): the plain phase's sums, or where
+    ``wide`` (C = 2816) those of the launch's own stored dv through the plain
+    du = dv W1, with that dv equal to the plain dv in all but 5% of its
+    elements (a dv rounding one ulp the other way moves an 11,264-term du
+    past the f32 bound).  Emits the flipped share and the plain sums' worst
+    error over their bound, which is not held."""
+    from mmearth_tpu_torch.ops import fused_block as fb
+
+    if not wide:
+        return ref[2:4]
+    (m, c), dv = t.shape, got[4]
+    flips = float((dv != ref[4]).float().mean())
+    if flips >= 0.05:
+        raise AssertionError(f"{key} C={c}: dv differs from the plain dv in {flips:.1%} of its "
+                             "elements")
+    _, uhat, _ = fb._ln(t.float(), ln_w, ln_b)
+    du = dv.float() @ w1.to(dv.dtype).float()
+    own = (du * uhat).sum(0), du.sum(0)
+    vs_plain = max(float(((a - r).abs() / sum_bound(r)).max()) for a, r in zip(got[2:4], ref[2:4]))
+    emit({"check": f"{key} dLN", "C": c, "M": m, "dv_flipped_fraction": flips,
+          "plain_err_over_bound": vs_plain})
+    return own
+
+
 def phase_spillg_kernels() -> dict:
     """The spill-g launches against their plain phases at the four stage
     shapes (one GRN group of the batch, as ``--grn_scope per_device`` gives on
-    one card); returns one row per launch."""
+    one card), then at C = 2816 (:func:`wide_tail_check`); returns one row
+    per launch."""
     import torch
-
-    from mmearth_tpu_torch.ops import fused_block as fb
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    bf = torch.bfloat16
     rows_out = {key: {"name": key, "route": "cuda",
                       "source": "mmearth_tpu_torch/csrc/fused_block.cu", "replaces": rep,
                       "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "bound_ms": 0.0, "bound_by": "bytes", "library_ms": 0.0, "library": lib,
                       "split_extra_bytes": 0}
                 for key, rep, lib in SPILLG}
-
-    def rnd(*shape, s=1.0, mean=0.0):
-        return mean + s * torch.randn(*shape, generator=gen, device=dev)
+    # a row's max_abs_err is that of its main outputs (g, y, dt, dW1, dW2, C's
+    # sums), not of the sums it feeds
+    side = ("gxsq", "gx", "nx", "db1", "dln_w", "dln_b", "dv", "u")
 
     largest = {}
     for p, c, count in DW_GEOMS:
         m, c4 = N * K * p * p, 4 * c
-        t, x, dy = rnd(m, c).to(bf), rnd(m, c).to(bf), rnd(m, c).to(bf)
-        lw, lb, b1, b2 = rnd(c, s=0.1, mean=1.0), rnd(c, s=0.1), rnd(c4, s=0.1), rnd(c, s=0.1)
-        w1, w2 = rnd(c4, c, s=c ** -0.5), rnd(c, c4, s=c4 ** -0.5)
-        gm, bt = rnd(c4, s=0.5), rnd(c4, s=0.1)
-        mm_flops = 2.0 * m * c * c4
+        inputs = tail_inputs(gen, m, c)
         errs, every = {}, {}
 
         def check(key, name, got, ref, bound):
-            """Holds every output; a row's max_abs_err is that of its main outputs
-            (g, y, dt, dW1, dW2, C's sums), not of the sums it feeds."""
             err = check_close(f"{key} {name} C={c}", got, ref, bound)
             every[f"{key} {name}"] = err
-            if name not in ("gxsq", "gx", "nx", "db1", "dln_w", "dln_b", "dv", "u"):
+            if name not in side:
                 errs[key] = max(errs.get(key, 0.0), err)
 
-        # each launch on the plain outputs of the phases before it
-        g, gxsq = fb._fwd_a_cuda(t, lw, lb, w1, b1, m)
-        rg, rgxsq = fb.fwd_a_plain(t, lw, lb, w1, b1, m)
-        check("spillg_fwd_a", "g", g, rg, ulp_bound(rg, 2e-3))
-        check("spillg_fwd_a", "gxsq", gxsq, rgxsq, sum_bound(rgxsq))
-        y, gx, nx = fb._fwd_b_cuda(rg, x, rgxsq, gm, bt, w2, b2, m)
-        ry, rgx, rnx = fb.fwd_b_plain(rg, x, rgxsq, gm, bt, w2, b2, m)
-        check("spillg_fwd_b", "y", y, ry, ulp_bound(ry, 2e-3))
-        for nm, a, r in (("gx", gx, rgx), ("nx", nx, rnx)):
-            check("spillg_fwd_b", nm, a, r, sum_bound(r))
-        rsums = fb.bwd_c_plain(dy, rg, rnx, gm, w2, m)
-        for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx"),
-                            fb._bwd_c_cuda(dy, rg, rnx, gm, w2, m), rsums):
-            check("spillg_bwd_c", nm, a, r, sum_bound(r))
-        dw2, rdw2 = fb._dw2_cuda(dy, rg, rnx, gm, bt, m), fb.dw2_plain(dy, rg, rnx, gm, bt, m)
-        check("spillg_bwd_c_dw2", "dW2", dw2, rdw2, sum_bound(rdw2))
-        dgxg = fb.dgx_step(rsums[3], rgx)
-        d_args = (t, dy, rg, rnx, dgxg, lw, lb, w1, b1, gm, w2, m)
-        got, ref = fb._bwd_d_cuda(*d_args), fb.bwd_d_plain(*d_args)
-        check("spillg_bwd_d", "dt", got[0], ref[0], ulp_bound(ref[0], 2e-3))
-        for nm, a, r in zip(("db1", "dln_w", "dln_b"), got[1:4], ref[1:4]):
-            check("spillg_bwd_d", nm, a, r, sum_bound(r))
-        for nm, a, r in zip(("dv", "u"), got[4:], ref[4:]):
-            check("spillg_bwd_d", nm, a, r, ulp_bound(r, 2e-3))
-        dv, u = ref[4], ref[5]
-        dw1, rdw1 = fb._dw1_cuda(dv, u), fb.atb_plain(dv, u)
-        check("spillg_bwd_d_dw1", "dW1", dw1, rdw1, sum_bound(rdw1))
+        launches = spillg_parity(check, inputs, m)
         emit({"check": "spillg", "C": c, "M": m, "max_abs_err": every})
-
-        lib_fwd, lib_bwd = composed_tail_ms(t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2)
+        lib_fwd, lib_bwd = composed_tail_ms(*inputs)
 
         # Bytes and products of each Pallas kernel's own function: A reads t
         # and writes g; B reads g, x and writes y; C (kernel 9) reads dy, g and
@@ -414,25 +513,18 @@ def phase_spillg_kernels() -> dict:
         # dt and dW1 (products v, dh, du, dW1).  The pair of launches that
         # replaces C or D shares that bound, carried on the row pass.
         rows_b, rows_4c, dw_b = m * c * 2, m * c4 * 2, c * c4 * 4
+        mm_flops = 2.0 * m * c * c4
         spill = rows_b + rows_4c  # one more pass over (M, C) and (M, 4C) rows
-        launches = (  # key, kernel, plain, library, bytes, products, split's extra bytes
-            ("spillg_fwd_a", lambda: fb._fwd_a_cuda(t, lw, lb, w1, b1, m),
-             lambda: fb.fwd_a_plain(t, lw, lb, w1, b1, m), lib_fwd,
-             rows_b + rows_4c, mm_flops, 0),
-            ("spillg_fwd_b", lambda: fb._fwd_b_cuda(rg, x, rgxsq, gm, bt, w2, b2, m),
-             lambda: fb.fwd_b_plain(rg, x, rgxsq, gm, bt, w2, b2, m), lib_fwd,
-             rows_4c + 2 * rows_b, mm_flops, 0),
-            ("spillg_bwd_c", lambda: fb._bwd_c_cuda(dy, rg, rnx, gm, w2, m),
-             lambda: fb.bwd_c_plain(dy, rg, rnx, gm, w2, m), lib_bwd,
-             rows_b + rows_4c + dw_b, 2 * mm_flops, 0),
-            ("spillg_bwd_c_dw2", lambda: fb._dw2_cuda(dy, rg, rnx, gm, bt, m),
-             lambda: fb.dw2_plain(dy, rg, rnx, gm, bt, m), lib_bwd, None, None, spill),
-            ("spillg_bwd_d", lambda: fb._bwd_d_cuda(*d_args), lambda: fb.bwd_d_plain(*d_args),
-             lib_bwd, 3 * rows_b + rows_4c + dw_b, 4 * mm_flops, spill),
-            ("spillg_bwd_d_dw1", lambda: fb._dw1_cuda(dv, u), lambda: fb.atb_plain(dv, u),
-             lib_bwd, None, None, spill),
-        )
-        for key, kern, plain, lib, nbytes, flops, extra in launches:
+        bounds = {  # library, bytes, products, the split's extra bytes
+            "spillg_fwd_a": (lib_fwd, rows_b + rows_4c, mm_flops, 0),
+            "spillg_fwd_b": (lib_fwd, rows_4c + 2 * rows_b, mm_flops, 0),
+            "spillg_bwd_c": (lib_bwd, rows_b + rows_4c + dw_b, 2 * mm_flops, 0),
+            "spillg_bwd_c_dw2": (lib_bwd, None, None, spill),
+            "spillg_bwd_d": (lib_bwd, 3 * rows_b + rows_4c + dw_b, 4 * mm_flops, spill),
+            "spillg_bwd_d_dw1": (lib_bwd, None, None, spill),
+        }
+        for key, (kern, plain) in launches.items():
+            lib, nbytes, flops, extra = bounds[key]
             r = rows_out[key]
             ms, plain_ms = time_ms(kern), time_ms(plain)
             if nbytes is None:  # shares the bound of the row pass before it
@@ -451,10 +543,49 @@ def phase_spillg_kernels() -> dict:
                                    "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bnd,
                                    "bound_by": by, "split_extra_bytes": extra,
                                    "max_abs_err": errs[key]}})
+        del launches, inputs
         torch.cuda.empty_cache()
     for key, pair in SPILLG_PAIR.items():
         rows_out[key]["bound_by"] = rows_out[pair]["bound_by"]
+    wide_tail_check(rows_out, gen, spillg_parity)
     return rows_out
+
+
+def wide_tail_check(rows_out, gen, parity) -> None:
+    """Every launch of a tail (``parity``: :func:`spillg_parity` or
+    :func:`masked_parity`, about 40% of the rows kept) at huge's last width,
+    C = 2816 in bf16, where the launches whose resident layout does not fit
+    take their wide plans, against its plain phase: at WIDE_ROWS rows in two
+    GRN groups, then at huge's last stage of a batch-256 step at 56/8 or
+    112/16 (N x K rows, one group), where each launch is also timed beside
+    its plain phase and the composed tail.  Each launch's row gets
+    ``c2816_max_abs_err`` (over both), ``c2816_ms``, ``c2816_plain_ms`` and
+    ``c2816_library_ms`` (the composed tail's forward or backward)."""
+    import torch
+
+    errs = {}
+
+    def check(key, name, got, ref, bound):
+        err = check_close(f"{key} {name} C={WIDE_C}", got, ref, bound)
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    for m, gr in ((WIDE_ROWS, WIDE_ROWS // 2), (N * K, N * K)):
+        inputs = tail_inputs(gen, m, WIDE_C)
+        extra = {}
+        if parity is masked_parity:
+            extra["keep"] = (torch.rand(m, 1, generator=gen, device=gen.device) > 0.6).to(
+                torch.bfloat16)
+        launches = parity(check, inputs, gr, wide=True, **extra)
+    lib_fwd, lib_bwd = composed_tail_ms(*inputs, extra.get("keep"))
+    for key, (kern, plain) in launches.items():
+        rows_out[key].update({"c2816_max_abs_err": errs[key], "c2816_ms": time_ms(kern),
+                              "c2816_plain_ms": time_ms(plain),
+                              "c2816_library_ms": lib_fwd if "_fwd_" in key else lib_bwd})
+    emit({"check": "wide_tail", "C": WIDE_C, "M": [WIDE_ROWS, N * K],
+          "launches": {key: {k[6:]: v for k, v in rows_out[key].items() if k.startswith("c2816_")}
+                       for key in launches}})
+    del launches, inputs
+    torch.cuda.empty_cache()
 
 
 MASKED = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick)
@@ -476,21 +607,84 @@ MASKED_CARRIER = {"masked_fwd_stat": "masked_fwd_apply", "masked_bwd_stat": "mas
                   "masked_bwd_stat_dw2": "masked_bwd_dv", "masked_bwd_dv_dw1": "masked_bwd_dv"}
 
 
+def masked_parity(check, inputs, gr, keep, wide=False) -> dict:
+    """Each masked-dense launch on ``inputs`` (:func:`tail_inputs`) with the
+    sites ``keep`` (M, 1) kept, in GRN groups of ``gr`` rows, on the plain
+    outputs of the phases before it, held by ``check`` against its plain
+    phase with the spill-g tolerances (``wide``: dLN's two sums as
+    :func:`dln_reference` says), and y = x, dt = 0 exactly at masked sites
+    and do = dy * keep bit-exact.  Returns {launch: (kernel, plain)} to
+    time."""
+    import torch
+
+    from mmearth_tpu_torch.ops import fused_block as fb
+
+    t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2 = inputs
+    c = t.shape[1]
+    masked = keep[:, 0] == 0
+    gxsq = fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, gr)
+    rgxsq = fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, gr)
+    check("masked_fwd_stat", "gxsq", gxsq, rgxsq, sum_bound(rgxsq))
+    ap_args = (t, x, keep, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2, gr)
+    y, gx, nx = fb._masked_fwd_apply_cuda(*ap_args)
+    ry, rgx, rnx = fb.masked_fwd_apply_plain(*ap_args)
+    check("masked_fwd_apply", "y", y, ry, ulp_bound(ry, 2e-3))
+    if not torch.equal(y[masked], x[masked]):
+        raise AssertionError(f"masked_fwd_apply C={c}: y != x at a masked site")
+    for nm, a, r in (("gx", gx, rgx), ("nx", nx, rnx)):
+        check("masked_fwd_apply", nm, a, r, sum_bound(r))
+    st_args = (t, dy, keep, rnx, lw, lb, w1, b1, gm, bt, w2, gr)
+    got, ref = fb._masked_bwd_stat_cuda(*st_args), fb.masked_bwd_stat_plain(*st_args)
+    for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx"), got[:4], ref[:4]):
+        check("masked_bwd_stat", nm, a, r, sum_bound(r))
+    if not torch.equal(got[4], ref[4]):
+        raise AssertionError(f"masked_bwd_stat C={c}: do = dy * keep not bit-exact")
+    check("masked_bwd_stat", "h", got[5], ref[5], ulp_bound(ref[5], 2e-3))
+    do, hh = ref[4], ref[5]
+    rdw2 = fb.atb_plain(do, hh)
+    check("masked_bwd_stat_dw2", "dW2", fb._masked_dw2_cuda(do, hh), rdw2, sum_bound(rdw2))
+    dv_args = (t, do, keep, rnx, fb.dgx_step(ref[3], rgx), lw, lb, w1, b1, gm, w2, gr)
+    got, ref = fb._masked_bwd_dv_cuda(*dv_args), fb.masked_bwd_dv_plain(*dv_args)
+    check("masked_bwd_dv", "dt", got[0], ref[0], ulp_bound(ref[0], 2e-3))
+    if bool(got[0][masked].any()):
+        raise AssertionError(f"masked_bwd_dv C={c}: dt != 0 at a masked site")
+    dln = dln_reference("masked_bwd_dv", t, got, ref, w1, lw, lb, wide)
+    for nm, a, r in zip(("db1", "dln_w", "dln_b"), got[1:4], (ref[1], *dln)):
+        check("masked_bwd_dv", nm, a, r, sum_bound(r))
+    for nm, a, r in zip(("dv", "u"), got[4:], ref[4:]):
+        check("masked_bwd_dv", nm, a, r, ulp_bound(r, 2e-3))
+    dv, u = ref[4], ref[5]
+    rdw1 = fb.atb_plain(dv, u)
+    check("masked_bwd_dv_dw1", "dW1", fb._masked_dw1_cuda(dv, u), rdw1, sum_bound(rdw1))
+    return {
+        "masked_fwd_stat": (lambda: fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, gr),
+                            lambda: fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, gr)),
+        "masked_fwd_apply": (lambda: fb._masked_fwd_apply_cuda(*ap_args),
+                             lambda: fb.masked_fwd_apply_plain(*ap_args)),
+        "masked_bwd_stat": (lambda: fb._masked_bwd_stat_cuda(*st_args),
+                            lambda: fb.masked_bwd_stat_plain(*st_args)),
+        "masked_bwd_stat_dw2": (lambda: fb._masked_dw2_cuda(do, hh),
+                                lambda: fb.atb_plain(do, hh)),
+        "masked_bwd_dv": (lambda: fb._masked_bwd_dv_cuda(*dv_args),
+                          lambda: fb.masked_bwd_dv_plain(*dv_args)),
+        "masked_bwd_dv_dw1": (lambda: fb._masked_dw1_cuda(dv, u), lambda: fb.atb_plain(dv, u)),
+    }
+
+
 def phase_masked_kernels() -> dict:
     """The masked-dense launches against their plain phases at the four
     masked-dense stage shapes (every site of each stage's grid, a mask of K
-    visible patches upsampled to it, one GRN group of the batch); returns one
-    row per launch."""
+    visible patches upsampled to it, one GRN group of the batch), then at C
+    = 2816 with about 40% of the rows kept (:func:`wide_tail_check`);
+    returns one row per launch."""
     import torch
 
     from mmearth_tpu_torch.models.convnextv2 import upsample_mask
     from mmearth_tpu_torch.models.fcmae import gen_random_mask
-    from mmearth_tpu_torch.ops import fused_block as fb
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(2)
-    bf = torch.bfloat16
     keep_flat = 1.0 - gen_random_mask(N, GRID * GRID, 0.6, gen, dev)
     rows_out = {key: {"name": key, "route": "cuda",
                       "source": "mmearth_tpu_torch/csrc/fused_block.cu", "replaces": rep,
@@ -498,72 +692,29 @@ def phase_masked_kernels() -> dict:
                       "bound_ms": 0.0, "bound_by": "bytes", "library_ms": 0.0, "library": lib,
                       "bound_ms_all_sites": 0.0, "launch_bytes": 0, "max_err_over_scale": 0.0}
                 for key, rep, lib in MASKED}
-
-    def rnd(*shape, s=1.0, mean=0.0):
-        return mean + s * torch.randn(*shape, generator=gen, device=dev)
+    # a row's max_abs_err (and max_err_over_scale, the error over the
+    # output's largest magnitude) is that of its main outputs (y, dt, dW1,
+    # dW2, the statistic passes' sums), not of those it feeds
+    side = ("gx", "nx", "h", "db1", "dln_w", "dln_b", "dv", "u")
 
     largest = {}
     for h, c, count in DENSE_GEOMS:
         m, c4 = N * h * h, 4 * c
         keep = upsample_mask(keep_flat, GRID, h).reshape(m, 1).to(bf)
-        masked = keep[:, 0] == 0
         kept = int(keep.float().sum())
-        t, x, dy = rnd(m, c).to(bf), rnd(m, c).to(bf), rnd(m, c).to(bf)
-        lw, lb, b1, b2 = rnd(c, s=0.1, mean=1.0), rnd(c, s=0.1), rnd(c4, s=0.1), rnd(c, s=0.1)
-        w1, w2 = rnd(c4, c, s=c ** -0.5), rnd(c, c4, s=c4 ** -0.5)
-        gm, bt = rnd(c4, s=0.5), rnd(c4, s=0.1)
+        inputs = tail_inputs(gen, m, c)
         errs, rel, every = {}, {}, {}
 
-        def check(key, name, got, ref, bound, main=True):
-            """Holds every output; a row's max_abs_err (and max_err_over_scale,
-            the error over the output's largest magnitude) is that of its main
-            outputs (y, dt, dW1, dW2, the statistic passes' sums), not of those
-            it feeds."""
+        def check(key, name, got, ref, bound):
             err = check_close(f"{key} {name} C={c}", got, ref, bound)
             every[f"{key} {name}"] = err
-            if main:
+            if name not in side:
                 errs[key] = max(errs.get(key, 0.0), err)
                 rel[key] = max(rel.get(key, 0.0), err / float(ref.float().abs().max()))
 
-        # each launch on the plain outputs of the phases before it
-        gxsq = fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, m)
-        rgxsq = fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, m)
-        check("masked_fwd_stat", "gxsq", gxsq, rgxsq, sum_bound(rgxsq))
-        ap_args = (t, x, keep, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2, m)
-        y, gx, nx = fb._masked_fwd_apply_cuda(*ap_args)
-        ry, rgx, rnx = fb.masked_fwd_apply_plain(*ap_args)
-        check("masked_fwd_apply", "y", y, ry, ulp_bound(ry, 2e-3))
-        if not torch.equal(y[masked], x[masked]):
-            raise AssertionError(f"masked_fwd_apply C={c}: y != x at a masked site")
-        for nm, a, r in (("gx", gx, rgx), ("nx", nx, rnx)):
-            check("masked_fwd_apply", nm, a, r, sum_bound(r), main=False)
-        st_args = (t, dy, keep, rnx, lw, lb, w1, b1, gm, bt, w2, m)
-        got, ref = fb._masked_bwd_stat_cuda(*st_args), fb.masked_bwd_stat_plain(*st_args)
-        for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx"), got[:4], ref[:4]):
-            check("masked_bwd_stat", nm, a, r, sum_bound(r))
-        if not torch.equal(got[4], ref[4]):
-            raise AssertionError(f"masked_bwd_stat C={c}: do = dy * keep not bit-exact")
-        check("masked_bwd_stat", "h", got[5], ref[5], ulp_bound(ref[5], 2e-3), main=False)
-        do, hh = ref[4], ref[5]
-        dw2, rdw2 = fb._masked_dw2_cuda(do, hh), fb.atb_plain(do, hh)
-        check("masked_bwd_stat_dw2", "dW2", dw2, rdw2, sum_bound(rdw2))
-        dgxg = fb.dgx_step(ref[3], rgx)
-        dv_args = (t, do, keep, rnx, dgxg, lw, lb, w1, b1, gm, w2, m)
-        got, ref = fb._masked_bwd_dv_cuda(*dv_args), fb.masked_bwd_dv_plain(*dv_args)
-        check("masked_bwd_dv", "dt", got[0], ref[0], ulp_bound(ref[0], 2e-3))
-        if bool(got[0][masked].any()):
-            raise AssertionError(f"masked_bwd_dv C={c}: dt != 0 at a masked site")
-        for nm, a, r in zip(("db1", "dln_w", "dln_b"), got[1:4], ref[1:4]):
-            check("masked_bwd_dv", nm, a, r, sum_bound(r), main=False)
-        for nm, a, r in zip(("dv", "u"), got[4:], ref[4:]):
-            check("masked_bwd_dv", nm, a, r, ulp_bound(r, 2e-3), main=False)
-        dv, u = ref[4], ref[5]
-        dw1, rdw1 = fb._masked_dw1_cuda(dv, u), fb.atb_plain(dv, u)
-        check("masked_bwd_dv_dw1", "dW1", dw1, rdw1, sum_bound(rdw1))
-        del got, ref, y, gx, nx, ry, dw1, dw2
+        launches = masked_parity(check, inputs, m, keep)
         emit({"check": "masked", "C": c, "M": m, "kept_sites": kept, "max_abs_err": every})
-
-        lib_fwd, lib_bwd = composed_tail_ms(t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2, keep)
+        lib_fwd, lib_bwd = composed_tail_ms(*inputs, keep)
 
         # Bytes and products of each Pallas kernel's own function, for this
         # run's mask: the forward (kernel 5) reads keep, t at the kept sites
@@ -578,24 +729,16 @@ def phase_masked_kernels() -> dict:
         fwd = [(keep_b + 2 * rows_b + s * c * 2 + par_b, 2 * mm * s) for s in (kept, m)]
         bwd = [(keep_b + rows_b + 2 * s * c * 2 + 2 * par_b, 5 * mm * s) for s in (kept, m)]
         dwb = c * c4 * 4
-        launches = (  # key, kernel, plain, library, bytes it moves, own bound (or None)
-            ("masked_fwd_stat", lambda: fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, m),
-             lambda: fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, m), lib_fwd,
-             rows_b + keep_b, None),
-            ("masked_fwd_apply", lambda: fb._masked_fwd_apply_cuda(*ap_args),
-             lambda: fb.masked_fwd_apply_plain(*ap_args), lib_fwd, 3 * rows_b + keep_b, fwd),
-            ("masked_bwd_stat", lambda: fb._masked_bwd_stat_cuda(*st_args),
-             lambda: fb.masked_bwd_stat_plain(*st_args), lib_bwd,
-             3 * rows_b + keep_b + m * c4 * 2, None),
-            ("masked_bwd_stat_dw2", lambda: fb._masked_dw2_cuda(do, hh),
-             lambda: fb.atb_plain(do, hh), lib_bwd, rows_b + m * c4 * 2 + dwb, None),
-            ("masked_bwd_dv", lambda: fb._masked_bwd_dv_cuda(*dv_args),
-             lambda: fb.masked_bwd_dv_plain(*dv_args), lib_bwd,
-             4 * rows_b + keep_b + m * c4 * 2, bwd),
-            ("masked_bwd_dv_dw1", lambda: fb._masked_dw1_cuda(dv, u),
-             lambda: fb.atb_plain(dv, u), lib_bwd, rows_b + m * c4 * 2 + dwb, None),
-        )
-        for key, kern, plain, lib, moved, bnd_of in launches:
+        bounds = {  # library, bytes it moves, own bound (or None)
+            "masked_fwd_stat": (lib_fwd, rows_b + keep_b, None),
+            "masked_fwd_apply": (lib_fwd, 3 * rows_b + keep_b, fwd),
+            "masked_bwd_stat": (lib_bwd, 3 * rows_b + keep_b + m * c4 * 2, None),
+            "masked_bwd_stat_dw2": (lib_bwd, rows_b + m * c4 * 2 + dwb, None),
+            "masked_bwd_dv": (lib_bwd, 4 * rows_b + keep_b + m * c4 * 2, bwd),
+            "masked_bwd_dv_dw1": (lib_bwd, rows_b + m * c4 * 2 + dwb, None),
+        }
+        for key, (kern, plain) in launches.items():
+            lib, moved, bnd_of = bounds[key]
             r = rows_out[key]
             ms, plain_ms = time_ms(kern), time_ms(plain)
             if bnd_of is None:  # shares the bound of the launch that carries it
@@ -619,9 +762,11 @@ def phase_masked_kernels() -> dict:
                                    "bound_ms_all_sites": bnd_all, "launch_bytes": moved,
                                    "max_abs_err": errs[key],
                                    "max_err_over_scale": rel[key]}})
+        del launches, inputs
         torch.cuda.empty_cache()
     for key, carrier in MASKED_CARRIER.items():
         rows_out[key]["bound_by"] = rows_out[carrier]["bound_by"]
+    wide_tail_check(rows_out, gen, masked_parity)
     return rows_out
 
 
@@ -728,7 +873,8 @@ def phase_dwconv_kernel() -> dict:
             emit({"kernel_shape": {"kernel": "dw_weight_grad", "path": path, "shape": [n, h, h, c],
                                    "per_step": count, "ms": ms, "plain_ms": plain,
                                    "library_ms": lib_ms, "library_max_abs_err": lib_err,
-                                   "bound_ms": bnd, "bound_by": by, **calls}})
+                                   "bound_ms": bnd, "bound_by": by,
+                                   "plan": dwconv.launch_plan(x)._asdict(), **calls}})
             del x, dy, xn, dyn, ref
             torch.cuda.empty_cache()
     row.update({k: sums["finetune"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -738,16 +884,18 @@ def phase_dwconv_kernel() -> dict:
     return {"dw_weight_grad": row}
 
 
-def phase_data() -> Path:
-    """Synthetic packed data for the slices, written anew on every run."""
+def phase_data(name: str = "smoke_data", n: int = 1170, tile: int = 64) -> Path:
+    """Synthetic packed data for the slices, written anew on every run: 1,170
+    64-px samples (1,024 train + 146 val) for the atto slices, 292 128-px
+    ones (256 + 36) for the pico 112/16 slice."""
     import shutil
 
     from mmearth_tpu_torch.data.synthetic import generate_packed
 
-    data = ROOT / "build" / "smoke_data"
+    data = ROOT / "build" / name
     shutil.rmtree(data, ignore_errors=True)
     t0 = time.time()
-    generate_packed(data, n=1170, tile=64, seed=0)  # 1,024 train + 146 val samples
+    generate_packed(data, n=n, tile=tile, seed=0)
     emit({"phase": "data", "seconds": round(time.time() - t0, 2), "path": str(data)})
     return data
 
@@ -798,15 +946,24 @@ def read_launches() -> dict:
     return {k: v for d in launch_counters() for k, v in d.items()}
 
 
+# (model, input size, patch size, batch) of the pretraining slices: atto 56/8
+# (the main path) and pico 112/16 (the CLI's defaults, bench.py's tiny112)
+ATTO56 = ("convnextv2_atto", 56, 8, 256)
+PICO112 = ("convnextv2_pico", 112, 16, PICO_N)
+
+
 def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str, data: Path,
-                save_to: Path | None = None) -> dict:
+                save_to: Path | None = None, config: tuple = ATTO56) -> dict:
+    """A pretraining slice through ``main_pretrain.main``; its launches set the
+    rows' counts only on the atto configuration."""
     import torch
 
     from mmearth_tpu_torch import main_pretrain
 
+    model_name, size, patch, batch = config
     args = main_pretrain.get_args_parser().parse_args([
-        "--model", "convnextv2_atto", "--input_size", "56", "--patch_size", "8",
-        "--batch_size", "256", "--use_bf16", "True", "--device", "cuda",
+        "--model", model_name, "--input_size", str(size), "--patch_size", str(patch),
+        "--batch_size", str(batch), "--use_bf16", "True", "--device", "cuda",
         "--processed_dir", str(data), "--epochs", "3", "--warmup_epochs", "1",
         "--seed", "0", "--sparse_impl", sparse_impl, "--block_impl", block_impl])
     reset_launches()
@@ -822,18 +979,20 @@ def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str, da
     per_step, own = expected_launches(sparse_impl, block_impl)
     for name, k in per_step.items():
         if launches[name] != k * steps:
-            raise AssertionError(f"{sparse_impl} {block_impl} slice, {name}: {launches[name]} "
-                                 f"launches in {steps} steps, expected {k} per step")
-    for name in own:
+            raise AssertionError(f"{model_name} {sparse_impl} {block_impl} slice, {name}: "
+                                 f"{launches[name]} launches in {steps} steps, expected {k} "
+                                 "per step")
+    for name in own if config == ATTO56 else ():
         rows_out[name]["launches"] = launches[name]
     if save_to is not None:
         torch.save({"model": model.state_dict()}, save_to)
     steady = history[1:]  # epoch 0 holds the first-call set-up
     ms = 1e3 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
-    result = {"phase": "slice", "sparse_impl": sparse_impl, "block_impl": block_impl,
+    result = {"phase": "slice", "model": model_name, "input_size": size, "patch_size": patch,
+              "sparse_impl": sparse_impl, "block_impl": block_impl,
               "steps": steps, "epochs": len(history), "launches": launches,
               "losses": losses, "epoch_loss": [e["loss"] for e in history],
-              "ms_per_step": ms, "samples_per_s": 256 * 1e3 / ms,
+              "ms_per_step": ms, "samples_per_s": batch * 1e3 / ms,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}
     emit(result)
     return result
@@ -904,7 +1063,8 @@ def phase_finetune(rows_out: dict, card: str, data: Path, checkpoint: Path,
     return result
 
 
-def phase_reference(sparse_impl: str, block_impl: str) -> None:
+def phase_reference(sparse_impl: str, block_impl: str, size: int = 56, patch: int = 8,
+                    dims=(40, 80, 160, 320), depths=(2, 2, 6, 2)) -> None:
     """A small f32 step on the GPU (kernels) against the CPU (plain versions)."""
     import numpy as np
     import torch
@@ -915,14 +1075,14 @@ def phase_reference(sparse_impl: str, block_impl: str) -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    kw = dict(img_size=56, patch_size=8, depths=(2, 2, 6, 2), dims=(40, 80, 160, 320),
+    kw = dict(img_size=size, patch_size=patch, depths=depths, dims=dims,
               grn_group=8, block_impl=block_impl, sparse_impl=sparse_impl,
               inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES)
     cpu = FCMAE(**kw).init_weights(torch.Generator().manual_seed(1))
     gpu = FCMAE(**kw).cuda()
     gpu.load_state_dict(cpu.state_dict())
     batch = zero_nan_inputs({k: torch.from_numpy(v) for k, v in
-                             synthetic_batch(8, 56, seed=1).items()})
+                             synthetic_batch(8, size, seed=1).items()})
     mask = gen_random_mask(8, 49, 0.6, torch.Generator().manual_seed(2))
     out = {}
     for name, model in (("cpu", cpu), ("gpu", gpu)):
@@ -940,7 +1100,8 @@ def phase_reference(sparse_impl: str, block_impl: str) -> None:
         raise AssertionError(f"{sparse_impl} {block_impl} GPU vs CPU step: loss rel {rel:.2e}, "
                              f"worst grad {worst:.2e}")
     emit({"phase": "reference", "sparse_impl": sparse_impl, "block_impl": block_impl,
-          "loss_cpu": l_cpu, "loss_gpu": l_gpu, "loss_rel": rel, "worst_grad_rel": worst})
+          "input_size": size, "patch_size": patch, "dims": list(dims), "loss_cpu": l_cpu,
+          "loss_gpu": l_gpu, "loss_rel": rel, "worst_grad_rel": worst})
 
 
 def phase_reference_classifier() -> None:
@@ -1006,12 +1167,15 @@ def main() -> int:
     for sparse_impl, block_impl in SLICES:
         phase_slice(rows_out, card, sparse_impl, block_impl, data,
                     checkpoint if block_impl == "wholeblock" else None)
+    phase_slice(rows_out, card, "gathered", "wholeblock",
+                phase_data("smoke_data128", n=292, tile=128), config=PICO112)
     geobench = phase_geobench_data()
     for probe in (False, True):
         phase_finetune(rows_out, card, geobench, checkpoint, probe)
     for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),
                                     ("masked_dense", "fused")):
         phase_reference(sparse_impl, block_impl)
+    phase_reference("gathered", "wholeblock", 112, 16, (64, 128, 256, 512), (1, 1, 1, 1))
     phase_reference_classifier()
     print(card, flush=True)
     emit({"kernels": list(rows_out.values())})

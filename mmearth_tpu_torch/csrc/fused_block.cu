@@ -40,10 +40,18 @@
 // the largest row tile (64 rows in bf16, 32 in f32, halved down to 16) whose
 // shared memory fits the card: at atto widths (C <= 320) every launch keeps
 // its full tile; in bf16 D takes 32 rows above C = 368 and 16 above C = 784
-// (f32: 16 above C = 384).  mm_spillg_max_c gives the widest C that fits at
-// 16 rows: 1616 in bf16 and 960 in f32 on the H100's 227 KB, so every stage
-// of atto to large runs in bf16; huge's C = 2816 does not.
-//
+// (f32: 16 above C = 384).  Where no tile of this resident layout fits (on
+// the H100's 227 KB: D above C = 1616 in bf16 and 960 in f32, the masked dv
+// pass above 1632 / 976, the masked apply above 1968 / 1440, the masked
+// backward statistic above 3296 / 1472), the launch takes a wide plan at the
+// full row tile (47-82 KB): the C-wide operands are staged one 64-column
+// chunk at a time (u from where LN wrote it in device memory, dy and do from
+// their arrays) and the f32 du (o in the masked apply) is summed in the
+// block's own slice of a device-memory scratch (64 x 2816 f32, 721 KB, at
+// huge's widest bf16 stage), read and written once per 64-column tile of
+// 4C, through L2.  A (C <= 5992 bf16, 3248 f32), B and C fit every width JAX
+// runs, so with the wide plans every stage up to huge's C = 2816 has a plan.
+
 // Cross-block sums: the TPU carried its accumulators from one grid step to
 // the next.  Blocks run in no order here, so every column sum (sum g^2 per
 // group, db1, db2, dgamma, dbeta, dnx, dLN) is reduced inside the block
@@ -222,8 +230,10 @@ __device__ __forceinline__ void col_sum(const float (&v)[NT][4], float* red, flo
 constexpr int VEC_BYTES = 16;
 
 // s[r][c] = src[r0 + r][c0 + c] for r < nr, c < kc; zero where r0 + r >= rmax
-// or c0 + c >= cmax.  src is row-major with row length ld.
-template <typename T>
+// or c0 + c >= cmax.  src is row-major with row length ld.  CG: src was
+// written earlier in this launch by the same block, so it is read through L2
+// (ld.global.cg), never through the read-only path.
+template <typename T, bool CG = false>
 __device__ __forceinline__ void stage(T* s, int lds, const T* __restrict__ src, int ld, int r0,
                                       int nr, int rmax, int c0, int kc, int cmax) {
   constexpr int V = VEC_BYTES / sizeof(T);
@@ -231,8 +241,11 @@ __device__ __forceinline__ void stage(T* s, int lds, const T* __restrict__ src, 
   for (int i = threadIdx.x; i < nr * kv; i += blockDim.x) {
     const int r = i / kv, c = (i - r * kv) * V;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rmax && c0 + c < cmax)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c0 + c);
+    if (r0 + r < rmax && c0 + c < cmax) {
+      const uint4* q = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c0 + c);
+      if constexpr (CG) v = __ldcg(q);
+      else v = *q;
+    }
     *reinterpret_cast<uint4*>(s + r * lds + c) = v;
   }
 }
@@ -273,9 +286,9 @@ __device__ __forceinline__ Rows block_rows(int GR, int tpg) {
   return r;
 }
 
-// LN of the block's rows into sU (activation dtype, zero in the padding);
-// keeps each row's mean and 1/std when the pointers are given and writes the
-// rounded u to u_out when given.
+// LN of the block's rows into sU (activation dtype, zero in the padding)
+// unless sU is null; keeps each row's mean and 1/std when the pointers are
+// given and writes the rounded u to u_out when given.
 template <typename T, int BM>
 __device__ void layer_norm_rows(const T* __restrict__ t, const float* __restrict__ lnw,
                                 const float* __restrict__ lnb, T* sU, int lda, int C, int Cp,
@@ -283,7 +296,8 @@ __device__ void layer_norm_rows(const T* __restrict__ t, const float* __restrict
   const int NW = blockDim.x >> 5, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   for (int r = w; r < BM; r += NW) {
     if (r >= rw.nvalid) {
-      for (int c = lane; c < Cp; c += 32) sU[r * lda + c] = from_f<T>(0.f);
+      if (sU != nullptr)
+        for (int c = lane; c < Cp; c += 32) sU[r * lda + c] = from_f<T>(0.f);
       continue;
     }
     const T* tr = t + (size_t)(rw.row0 + r) * C;
@@ -306,7 +320,7 @@ __device__ void layer_norm_rows(const T* __restrict__ t, const float* __restrict
         u = from_f<T>((to_f(tr[c]) - mean) * rs * lnw[c] + lnb[c]);
         if (u_out != nullptr) u_out[(size_t)(rw.row0 + r) * C + c] = u;
       }
-      sU[r * lda + c] = u;
+      if (sU != nullptr) sU[r * lda + c] = u;
     }
   }
 }
@@ -538,6 +552,10 @@ spillg_bwd_c_kernel(const T* __restrict__ dy, const T* __restrict__ g,
 //    MASKED (the second phase of the masked-dense backward): dy is the
 //    stored do = dy * keep, and the g of the dgx term is g * keep^2 with g =
 //    gelu(v) recomputed in f32 (no g is read).
+//    WIDE (rows too wide for the resident layout): u and dy are staged one
+//    64-column chunk at a time (u from u_out, which LN writes first) and du
+//    is summed in the block's slice of wide_acc (BM x Cp f32 in device
+//    memory, mostly held in L2) in place of shared memory.
 // ---------------------------------------------------------------------------
 #define BWD_D_PARAMS                                                                           \
   const T *__restrict__ t, const T *__restrict__ dy, const T *__restrict__ g,                 \
@@ -546,13 +564,13 @@ spillg_bwd_c_kernel(const T* __restrict__ dy, const T* __restrict__ g,
       const float *__restrict__ b1, const float *__restrict__ gamma, const T *__restrict__ w2t, \
       const T *__restrict__ w1t, T *__restrict__ dt, T *__restrict__ dv_out,                   \
       T *__restrict__ u_out, float *__restrict__ db1, float *__restrict__ dlnw,               \
-      float *__restrict__ dlnb, int C, int C4, int GR, int tpg
+      float *__restrict__ dlnb, float *wide_acc, int C, int C4, int GR, int tpg
 
-template <typename T, int BM, bool MASKED>
+template <typename T, int BM, bool MASKED, bool WIDE>
 __device__ __forceinline__ void bwd_d_body(BWD_D_PARAMS) {
   constexpr int NW = BM / 16, NTH = 4;  // row-warps; n-tiles per warp
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Cp = (C + 15) & ~15, lda = Cp + 8;
+  const int Cp = (C + 15) & ~15, lda = WIDE ? LDC : Cp + 8;
   unsigned char* p = smem;
   T* sU = reinterpret_cast<T*>(p);
   p += align16(sizeof(T) * BM * lda);
@@ -566,8 +584,9 @@ __device__ __forceinline__ void bwd_d_body(BWD_D_PARAMS) {
   p += align16(sizeof(T) * BM * LDC);
   T* sG = reinterpret_cast<T*>(p);  // spill-g only: MASKED recomputes g
   if constexpr (!MASKED) p += align16(sizeof(T) * BM * LDC);
-  float* sDU = reinterpret_cast<float*>(p);
-  p += align16(sizeof(float) * BM * Cp);
+  float* sDU = reinterpret_cast<float*>(p);  // du of the block's rows
+  if constexpr (WIDE) sDU = wide_acc + (size_t)blockIdx.x * BM * Cp;
+  else p += align16(sizeof(float) * BM * Cp);
   float* sMean = reinterpret_cast<float*>(p);
   float* sRs = sMean + BM;
   float* red = sRs + BM;
@@ -575,8 +594,8 @@ __device__ __forceinline__ void bwd_d_body(BWD_D_PARAMS) {
   const int lane = threadIdx.x & 31, wt = threadIdx.x >> 5, nwt = blockDim.x >> 5;
   const int w = wt % NW, col = (wt / NW) * NTH * 8;  // row-warp; first column of the warp
   const Rows rw = block_rows<BM>(GR, tpg);
-  layer_norm_rows<T, BM>(t, lnw, lnb, sU, lda, C, Cp, rw, sMean, sRs, u_out);
-  stage(sDY, lda, dy, C, rw.row0, BM, rw.row0 + rw.nvalid, 0, Cp, C);
+  layer_norm_rows<T, BM>(t, lnw, lnb, WIDE ? nullptr : sU, lda, C, Cp, rw, sMean, sRs, u_out);
+  if constexpr (!WIDE) stage(sDY, lda, dy, C, rw.row0, BM, rw.row0 + rw.nvalid, 0, Cp, C);
   for (int i = threadIdx.x; i < BM * Cp; i += blockDim.x) sDU[i] = 0.f;
   const float* nxg = nx + (size_t)rw.grp * C4;
   const float* dgg = dgxg + (size_t)rw.grp * C4;
@@ -584,15 +603,19 @@ __device__ __forceinline__ void bwd_d_body(BWD_D_PARAMS) {
   for (int j0 = 0; j0 < C4; j0 += TN) {
     float av[NTH][4] = {}, ah[NTH][4] = {};
     for (int k0 = 0; k0 < Cp; k0 += KC) {
-      const int kc = min(KC, Cp - k0);
+      const int kc = min(KC, Cp - k0), ka = WIDE ? 0 : k0;
       __syncthreads();
       if constexpr (!MASKED)
         if (k0 == 0) stage(sG, LDC, g, C4, rw.row0, BM, rw.row0 + rw.nvalid, j0, TN, C4);
+      if constexpr (WIDE) {
+        stage<T, true>(sU, LDC, u_out, C, rw.row0, BM, rw.row0 + rw.nvalid, k0, kc, C);
+        stage(sDY, LDC, dy, C, rw.row0, BM, rw.row0 + rw.nvalid, k0, kc, C);
+      }
       stage(sB1, LDC, w1, C, j0, TN, C4, k0, kc, C);
       stage(sB2, LDC, w2t, C, j0, TN, C4, k0, kc, C);
       __syncthreads();
-      WarpMM<T>::run(sU + w * 16 * lda + k0, lda, sB1 + col * LDC, LDC, kc, av);
-      WarpMM<T>::run(sDY + w * 16 * lda + k0, lda, sB2 + col * LDC, LDC, kc, ah);
+      WarpMM<T>::run(sU + w * 16 * lda + ka, lda, sB1 + col * LDC, LDC, kc, av);
+      WarpMM<T>::run(sDY + w * 16 * lda + ka, lda, sB2 + col * LDC, LDC, kc, ah);
     }
     float dvs[NTH][4];
 #pragma unroll
@@ -670,16 +693,16 @@ __device__ __forceinline__ void bwd_d_body(BWD_D_PARAMS) {
   }
 }
 
-template <typename T, int BM>
+template <typename T, int BM, bool WIDE>
 __global__ void __launch_bounds__(BM * 4) spillg_bwd_d_kernel(BWD_D_PARAMS) {
-  bwd_d_body<T, BM, false>(t, dy, g, keep, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt,
-                           dv_out, u_out, db1, dlnw, dlnb, C, C4, GR, tpg);
+  bwd_d_body<T, BM, false, WIDE>(t, dy, g, keep, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t,
+                                 dt, dv_out, u_out, db1, dlnw, dlnb, wide_acc, C, C4, GR, tpg);
 }
 
-template <typename T, int BM>
+template <typename T, int BM, bool WIDE>
 __global__ void __launch_bounds__(BM * 4) masked_bwd_dv_kernel(BWD_D_PARAMS) {
-  bwd_d_body<T, BM, true>(t, dy, g, keep, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt,
-                          dv_out, u_out, db1, dlnw, dlnb, C, C4, GR, tpg);
+  bwd_d_body<T, BM, true, WIDE>(t, dy, g, keep, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t,
+                                dt, dv_out, u_out, db1, dlnw, dlnb, wide_acc, C, C4, GR, tpg);
 }
 
 // ---------------------------------------------------------------------------
@@ -691,9 +714,11 @@ __global__ void __launch_bounds__(BM * 4) masked_bwd_dv_kernel(BWD_D_PARAMS) {
 // 64-column tile of 4C, v = LN(t) W1^T + b1 is recomputed, h = gamma*(g*nx) +
 // beta + g of the f32 g = gelu(v) is rounded to T in shared memory, and o +=
 // h W2^T is summed in f32 in shared memory (C wide, D's du pattern); then y =
-// x + (o + b2) * keep.  Tile 0 of each group writes gx and nx.
+// x + (o + b2) * keep.  Tile 0 of each group writes gx and nx.  WIDE: as D's
+// (u written to wide_u by LN and staged by chunk, o summed in the block's
+// slice of wide_acc).
 // ---------------------------------------------------------------------------
-template <typename T, int BM>
+template <typename T, int BM, bool WIDE>
 __global__ void __launch_bounds__(BM * 4)
 masked_fwd_apply_kernel(const T* __restrict__ t, const T* __restrict__ x, const T* __restrict__ keep,
                         const float* __restrict__ gxsq, const float* __restrict__ lnw,
@@ -701,10 +726,11 @@ masked_fwd_apply_kernel(const T* __restrict__ t, const T* __restrict__ x, const 
                         const float* __restrict__ b1, const float* __restrict__ gamma,
                         const float* __restrict__ beta, const T* __restrict__ w2,
                         const float* __restrict__ b2, T* __restrict__ y, float* __restrict__ gx_out,
-                        float* __restrict__ nx_out, int C, int C4, int GR, int tpg) {
+                        float* __restrict__ nx_out, float* wide_acc, T* wide_u, int C, int C4,
+                        int GR, int tpg) {
   constexpr int NW = BM / 16, NTH = 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Cp = (C + 15) & ~15, lda = Cp + 8;
+  const int Cp = (C + 15) & ~15, lda = WIDE ? LDC : Cp + 8;
   unsigned char* p = smem;
   T* sU = reinterpret_cast<T*>(p);
   p += align16(sizeof(T) * BM * lda);
@@ -712,8 +738,9 @@ masked_fwd_apply_kernel(const T* __restrict__ t, const T* __restrict__ x, const 
   p += align16(sizeof(T) * TN * LDC);
   T* sH = reinterpret_cast<T*>(p);
   p += align16(sizeof(T) * BM * LDC);
-  float* sO = reinterpret_cast<float*>(p);
-  p += align16(sizeof(float) * BM * Cp);
+  float* sO = reinterpret_cast<float*>(p);  // o of the block's rows
+  if constexpr (WIDE) sO = wide_acc + (size_t)blockIdx.x * BM * Cp;
+  else p += align16(sizeof(float) * BM * Cp);
   float* sNX = reinterpret_cast<float*>(p);
   p += align16(sizeof(float) * C4);
   float* red = reinterpret_cast<float*>(p);
@@ -742,7 +769,8 @@ masked_fwd_apply_kernel(const T* __restrict__ t, const T* __restrict__ x, const 
     }
     sNX[j] = nxv;
   }
-  layer_norm_rows<T, BM>(t, lnw, lnb, sU, lda, C, Cp, rw, nullptr, nullptr, nullptr);
+  layer_norm_rows<T, BM>(t, lnw, lnb, WIDE ? nullptr : sU, lda, C, Cp, rw, nullptr, nullptr,
+                         WIDE ? wide_u : nullptr);
   for (int i = threadIdx.x; i < BM * Cp; i += blockDim.x) sO[i] = 0.f;
 
   for (int j0 = 0; j0 < C4; j0 += TN) {
@@ -750,9 +778,11 @@ masked_fwd_apply_kernel(const T* __restrict__ t, const T* __restrict__ x, const 
     for (int k0 = 0; k0 < Cp; k0 += KC) {
       const int kc = min(KC, Cp - k0);
       __syncthreads();
+      if constexpr (WIDE)
+        stage<T, true>(sU, LDC, wide_u, C, rw.row0, BM, rw.row0 + rw.nvalid, k0, kc, C);
       stage(sB, LDC, w1, C, j0, TN, C4, k0, kc, C);
       __syncthreads();
-      WarpMM<T>::run(sU + w * 16 * lda + k0, lda, sB + col * LDC, LDC, kc, av);
+      WarpMM<T>::run(sU + w * 16 * lda + (WIDE ? 0 : k0), lda, sB + col * LDC, LDC, kc, av);
     }
 #pragma unroll
     for (int nt = 0; nt < NTH; ++nt) {
@@ -795,9 +825,10 @@ masked_fwd_apply_kernel(const T* __restrict__ t, const T* __restrict__ x, const 
 // products) with db2 += sum of the f32 do; per 64-column tile of 4C, v and
 // dh = do W2 are recomputed, g = gelu(v) in f32, h = gamma*(g*nx) + beta + g
 // is stored rounded to T for the dW2 pass, and dgamma += sum dh*(g*nx), dbeta
-// += sum dh, dnx[grp] += sum dh*gamma*g.  D's warp layout.
+// += sum dh, dnx[grp] += sum dh*gamma*g.  D's warp layout.  WIDE: u (written
+// to wide_u by LN) and do (from do_out) are staged one chunk at a time.
 // ---------------------------------------------------------------------------
-template <typename T, int BM>
+template <typename T, int BM, bool WIDE>
 __global__ void __launch_bounds__(BM * 4)
 masked_bwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* __restrict__ keep,
                        const float* __restrict__ nx, const float* __restrict__ lnw,
@@ -806,10 +837,10 @@ masked_bwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ dy, const 
                        const float* __restrict__ beta, const T* __restrict__ w2t,
                        T* __restrict__ do_out, T* __restrict__ h_out, float* __restrict__ db2,
                        float* __restrict__ dgamma, float* __restrict__ dbeta,
-                       float* __restrict__ dnx, int C, int C4, int GR, int tpg) {
+                       float* __restrict__ dnx, T* wide_u, int C, int C4, int GR, int tpg) {
   constexpr int NW = BM / 16, NTH = 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Cp = (C + 15) & ~15, lda = Cp + 8;
+  const int Cp = (C + 15) & ~15, lda = WIDE ? LDC : Cp + 8;
   unsigned char* p = smem;
   T* sU = reinterpret_cast<T*>(p);
   p += align16(sizeof(T) * BM * lda);
@@ -826,7 +857,8 @@ masked_bwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ dy, const 
   const int wt = threadIdx.x >> 5;
   const int w = wt % NW, col = (wt / NW) * NTH * 8;
   const Rows rw = block_rows<BM>(GR, tpg);
-  layer_norm_rows<T, BM>(t, lnw, lnb, sU, lda, C, Cp, rw, nullptr, nullptr, nullptr);
+  layer_norm_rows<T, BM>(t, lnw, lnb, WIDE ? nullptr : sU, lda, C, Cp, rw, nullptr, nullptr,
+                         WIDE ? wide_u : nullptr);
   for (int i = threadIdx.x; i < BM * Cp; i += blockDim.x) {
     const int r = i / Cp, c = i - r * Cp;
     T q = from_f<T>(0.f);
@@ -835,7 +867,7 @@ masked_bwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ dy, const 
       q = from_f<T>(to_f(dy[o]) * to_f(keep[rw.row0 + r]));
       do_out[o] = q;
     }
-    sDO[r * lda + c] = q;
+    if constexpr (!WIDE) sDO[r * lda + c] = q;
   }
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     float s = 0.f;
@@ -848,13 +880,17 @@ masked_bwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ dy, const 
   for (int j0 = 0; j0 < C4; j0 += TN) {
     float av[NTH][4] = {}, ah[NTH][4] = {};
     for (int k0 = 0; k0 < Cp; k0 += KC) {
-      const int kc = min(KC, Cp - k0);
+      const int kc = min(KC, Cp - k0), ka = WIDE ? 0 : k0;
       __syncthreads();
+      if constexpr (WIDE) {
+        stage<T, true>(sU, LDC, wide_u, C, rw.row0, BM, rw.row0 + rw.nvalid, k0, kc, C);
+        stage<T, true>(sDO, LDC, do_out, C, rw.row0, BM, rw.row0 + rw.nvalid, k0, kc, C);
+      }
       stage(sB1, LDC, w1, C, j0, TN, C4, k0, kc, C);
       stage(sB2, LDC, w2t, C, j0, TN, C4, k0, kc, C);
       __syncthreads();
-      WarpMM<T>::run(sU + w * 16 * lda + k0, lda, sB1 + col * LDC, LDC, kc, av);
-      WarpMM<T>::run(sDO + w * 16 * lda + k0, lda, sB2 + col * LDC, LDC, kc, ah);
+      WarpMM<T>::run(sU + w * 16 * lda + ka, lda, sB1 + col * LDC, LDC, kc, av);
+      WarpMM<T>::run(sDO + w * 16 * lda + ka, lda, sB2 + col * LDC, LDC, kc, ah);
     }
     float a[NTH][4], b[NTH][4], d[NTH][4];
 #pragma unroll
@@ -930,33 +966,34 @@ spillg_atb_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float*
 // host side
 // ---------------------------------------------------------------------------
 // Shared memory of A and C (rows_smem), D (d_smem; MASKED: the dv pass, which
-// holds no g tile) and B (b_smem) at a row tile of BM rows.
+// holds no g tile) and B (b_smem) at a row tile of BM rows; WIDE: the plan
+// that stages the C-wide operands by chunk and keeps du (o) in device memory.
 template <typename T> size_t rows_smem(int C, int BM) {
   const int lda = ((C + 15) & ~15) + 8;
   return align16(sizeof(T) * BM * lda) + sizeof(T) * TN * LDC +
          align16(sizeof(T) * BM * LDC) + sizeof(float) * (BM / 16) * 64;
 }
 
-template <typename T, bool MASKED = false> size_t d_smem(int C, int BM) {
-  const int Cp = (C + 15) & ~15, lda = Cp + 8;
+template <typename T, bool MASKED, bool WIDE> size_t d_smem(int C, int BM) {
+  const int Cp = (C + 15) & ~15, lda = WIDE ? LDC : Cp + 8;
   return 2 * align16(sizeof(T) * BM * lda) + 2 * align16(sizeof(T) * TN * LDC) +
-         (MASKED ? 1 : 2) * align16(sizeof(T) * BM * LDC) + align16(sizeof(float) * BM * Cp) +
-         sizeof(float) * (2 * BM + (BM / 16) * 64);
+         (MASKED ? 1 : 2) * align16(sizeof(T) * BM * LDC) +
+         (WIDE ? 0 : align16(sizeof(float) * BM * Cp)) + sizeof(float) * (2 * BM + (BM / 16) * 64);
 }
 
 template <typename T> size_t b_smem(int C) {
   return align16(sizeof(float) * (4 * C + 32)) + sizeof(T) * (Cfg<T>::BM + TN) * LDC;
 }
 
-template <typename T> size_t apply_smem(int C, int BM) {  // masked apply
-  const int Cp = (C + 15) & ~15, lda = Cp + 8;
+template <typename T, bool WIDE> size_t apply_smem(int C, int BM) {  // masked apply
+  const int Cp = (C + 15) & ~15, lda = WIDE ? LDC : Cp + 8;
   return align16(sizeof(T) * BM * lda) + align16(sizeof(T) * TN * LDC) +
-         align16(sizeof(T) * BM * LDC) + align16(sizeof(float) * BM * Cp) +
+         align16(sizeof(T) * BM * LDC) + (WIDE ? 0 : align16(sizeof(float) * BM * Cp)) +
          align16(sizeof(float) * 4 * C) + sizeof(float) * 32;
 }
 
-template <typename T> size_t bstat_smem(int C, int BM) {  // masked backward statistic
-  const int lda = ((C + 15) & ~15) + 8;
+template <typename T, bool WIDE> size_t bstat_smem(int C, int BM) {  // masked backward statistic
+  const int lda = WIDE ? LDC : ((C + 15) & ~15) + 8;
   return 2 * align16(sizeof(T) * BM * lda) + 2 * align16(sizeof(T) * TN * LDC) +
          align16(sizeof(T) * BM * LDC) + sizeof(float) * (BM / 16) * 64;
 }
@@ -983,7 +1020,27 @@ template <typename T, typename F> int with_bm(int bm, F f) {
   }
   if (bm == 32) return f(std::integral_constant<int, 32>{});
   if (bm == 16) return f(std::integral_constant<int, 16>{});
-  return (int)cudaErrorInvalidConfiguration;  // C too wide: see mm_spillg_max_c
+  return (int)cudaErrorInvalidConfiguration;  // no row tile fits: a bug for C <= 2816
+}
+
+// The row plan of a launch with a wide form (D, the masked dv, apply and
+// statistic passes): the largest row tile of the resident layout that fits
+// (today's plan wherever it fits), else the largest tile of the wide layout.
+struct RowPlan {
+  int bm;
+  bool wide;
+};
+template <typename T> RowPlan row_plan(size_t (*resident)(int, int), size_t (*wide)(int, int),
+                                       int C, size_t limit) {
+  const int bm = pick_bm<T>(resident, C, limit);
+  if (bm) return {bm, false};
+  return {pick_bm<T>(wide, C, limit), true};
+}
+
+// f(bm, std::bool_constant<wide>) for a row plan.
+template <typename T, typename F> int with_plan(RowPlan plan, F f) {
+  if (plan.wide) return with_bm<T>(plan.bm, [&](auto bm) { return f(bm, std::true_type{}); });
+  return with_bm<T>(plan.bm, [&](auto bm) { return f(bm, std::false_type{}); });
 }
 
 template <typename K>
@@ -1050,78 +1107,95 @@ int bwd_c(const void* dy, const void* g, const void* nx, const void* gamma, cons
   });
 }
 
+template <typename T, bool MASKED> RowPlan d_plan(int C) {
+  return row_plan<T>(d_smem<T, MASKED, false>, d_smem<T, MASKED, true>, C, smem_limit());
+}
+
 template <typename T, bool MASKED>
 int bwd_d(const void* t, const void* dy, const void* g, const void* keep, const void* nx,
           const void* dgxg, const void* lnw, const void* lnb, const void* w1, const void* b1,
           const void* gamma, const void* w2t, const void* w1t, void* dt, void* dv, void* u,
-          void* db1, void* dlnw, void* dlnb, int M, int C, int GR, cudaStream_t s) {
-  return with_bm<T>(pick_bm<T>(d_smem<T, MASKED>, C, smem_limit()), [&](auto bm) {
+          void* db1, void* dlnw, void* dlnb, void* wide_acc, int M, int C, int GR,
+          cudaStream_t s) {
+  const RowPlan plan = d_plan<T, MASKED>(C);
+  if (plan.wide && wide_acc == nullptr) return (int)cudaErrorInvalidValue;
+  return with_plan<T>(plan, [&](auto bm, auto wide) {
     constexpr int BM = decltype(bm)::value;
-    const size_t smem = d_smem<T, MASKED>(C, BM);
-    auto kernel = MASKED ? masked_bwd_dv_kernel<T, BM> : spillg_bwd_d_kernel<T, BM>;
+    constexpr bool WIDE = decltype(wide)::value;
+    const size_t smem = d_smem<T, MASKED, WIDE>(C, BM);
+    auto kernel = MASKED ? masked_bwd_dv_kernel<T, BM, WIDE> : spillg_bwd_d_kernel<T, BM, WIDE>;
     cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return (int)e;
     kernel<<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
         (const T*)t, (const T*)dy, (const T*)g, (const T*)keep, (const float*)nx,
         (const float*)dgxg, (const float*)lnw, (const float*)lnb, (const T*)w1,
         (const float*)b1, (const float*)gamma, (const T*)w2t, (const T*)w1t, (T*)dt, (T*)dv,
-        (T*)u, (float*)db1, (float*)dlnw, (float*)dlnb, C, 4 * C, GR, (GR + BM - 1) / BM);
+        (T*)u, (float*)db1, (float*)dlnw, (float*)dlnb, (float*)wide_acc, C, 4 * C, GR,
+        (GR + BM - 1) / BM);
     return (int)cudaGetLastError();
   });
+}
+
+template <typename T> RowPlan apply_plan(int C) {
+  return row_plan<T>(apply_smem<T, false>, apply_smem<T, true>, C, smem_limit());
 }
 
 template <typename T>
 int masked_apply(const void* t, const void* x, const void* keep, const void* gxsq,
                  const void* lnw, const void* lnb, const void* w1, const void* b1,
                  const void* gamma, const void* beta, const void* w2, const void* b2, void* y,
-                 void* gx, void* nx, int M, int C, int GR, cudaStream_t s) {
-  return with_bm<T>(pick_bm<T>(apply_smem<T>, C, smem_limit()), [&](auto bm) {
+                 void* gx, void* nx, void* wide_acc, void* wide_u, int M, int C, int GR,
+                 cudaStream_t s) {
+  const RowPlan plan = apply_plan<T>(C);
+  if (plan.wide && (wide_acc == nullptr || wide_u == nullptr)) return (int)cudaErrorInvalidValue;
+  return with_plan<T>(plan, [&](auto bm, auto wide) {
     constexpr int BM = decltype(bm)::value;
-    const size_t smem = apply_smem<T>(C, BM);
-    cudaError_t e = prepare(masked_fwd_apply_kernel<T, BM>, smem);
+    constexpr bool WIDE = decltype(wide)::value;
+    const size_t smem = apply_smem<T, WIDE>(C, BM);
+    cudaError_t e = prepare(masked_fwd_apply_kernel<T, BM, WIDE>, smem);
     if (e != cudaSuccess) return (int)e;
-    masked_fwd_apply_kernel<T, BM><<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
+    masked_fwd_apply_kernel<T, BM, WIDE><<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
         (const T*)t, (const T*)x, (const T*)keep, (const float*)gxsq, (const float*)lnw,
         (const float*)lnb, (const T*)w1, (const float*)b1, (const float*)gamma,
-        (const float*)beta, (const T*)w2, (const float*)b2, (T*)y, (float*)gx, (float*)nx, C,
-        4 * C, GR, (GR + BM - 1) / BM);
+        (const float*)beta, (const T*)w2, (const float*)b2, (T*)y, (float*)gx, (float*)nx,
+        (float*)wide_acc, (T*)wide_u, C, 4 * C, GR, (GR + BM - 1) / BM);
     return (int)cudaGetLastError();
   });
+}
+
+template <typename T> RowPlan bstat_plan(int C) {
+  return row_plan<T>(bstat_smem<T, false>, bstat_smem<T, true>, C, smem_limit());
 }
 
 template <typename T>
 int masked_bstat(const void* t, const void* dy, const void* keep, const void* nx,
                  const void* lnw, const void* lnb, const void* w1, const void* b1,
                  const void* gamma, const void* beta, const void* w2t, void* do_out, void* h,
-                 void* db2, void* dgamma, void* dbeta, void* dnx, int M, int C, int GR,
-                 cudaStream_t s) {
-  return with_bm<T>(pick_bm<T>(bstat_smem<T>, C, smem_limit()), [&](auto bm) {
+                 void* db2, void* dgamma, void* dbeta, void* dnx, void* wide_u, int M, int C,
+                 int GR, cudaStream_t s) {
+  const RowPlan plan = bstat_plan<T>(C);
+  if (plan.wide && wide_u == nullptr) return (int)cudaErrorInvalidValue;
+  return with_plan<T>(plan, [&](auto bm, auto wide) {
     constexpr int BM = decltype(bm)::value;
-    const size_t smem = bstat_smem<T>(C, BM);
-    cudaError_t e = prepare(masked_bwd_stat_kernel<T, BM>, smem);
+    constexpr bool WIDE = decltype(wide)::value;
+    const size_t smem = bstat_smem<T, WIDE>(C, BM);
+    cudaError_t e = prepare(masked_bwd_stat_kernel<T, BM, WIDE>, smem);
     if (e != cudaSuccess) return (int)e;
-    masked_bwd_stat_kernel<T, BM><<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
+    masked_bwd_stat_kernel<T, BM, WIDE><<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
         (const T*)t, (const T*)dy, (const T*)keep, (const float*)nx, (const float*)lnw,
         (const float*)lnb, (const T*)w1, (const float*)b1, (const float*)gamma,
         (const float*)beta, (const T*)w2t, (T*)do_out, (T*)h, (float*)db2, (float*)dgamma,
-        (float*)dbeta, (float*)dnx, C, 4 * C, GR, (GR + BM - 1) / BM);
+        (float*)dbeta, (float*)dnx, (T*)wide_u, C, 4 * C, GR, (GR + BM - 1) / BM);
     return (int)cudaGetLastError();
   });
 }
 
-// The widest C (a multiple of 8) for which every launch of the spill-g
-// (MASKED false) or the masked-dense tail finds a row tile.
-template <typename T, bool MASKED> int max_c() {
-  const size_t limit = smem_limit();
-  auto fits = [&](int c) {
-    if (!pick_bm<T>(rows_smem<T>, c, limit) || !pick_bm<T>(d_smem<T, MASKED>, c, limit))
-      return false;
-    if (MASKED) return pick_bm<T>(apply_smem<T>, c, limit) && pick_bm<T>(bstat_smem<T>, c, limit);
-    return b_smem<T>(c) <= limit;
-  };
-  int c = 0;
-  while (c < 65536 && fits(c + 8)) c += 8;
-  return c;
+template <typename T> int wide_bm(int kind, int C) {
+  const RowPlan plan = kind == 0   ? d_plan<T, false>(C)
+                       : kind == 1 ? d_plan<T, true>(C)
+                       : kind == 2 ? apply_plan<T>(C)
+                                   : bstat_plan<T>(C);
+  return plan.wide ? plan.bm : 0;
 }
 
 template <typename T>
@@ -1143,7 +1217,10 @@ int atb(const void* X, const void* Y, const void* nx, const void* gamma, const v
 // w1t = w1^T, w2t = w2^T, contiguous; every vector f32.  GR (rows per GRN
 // group) divides M; C is a multiple of 8; every array is 16-byte aligned.
 // Outputs taken by atomicAdd (gxsq, db*, dgamma, dbeta, dnx, dln*, out) must
-// be zeroed by the caller.
+// be zeroed by the caller.  Where mm_fused_wide_bm gives a launch a wide plan
+// of BM rows, it takes scratch from the caller: wide_acc, (M / GR) * ceil(GR
+// / BM) * BM rows of Cp = C rounded up to 16 f32 values; wide_u, (M, C) in
+// the activation dtype.  Elsewhere they may be null.
 extern "C" int mm_spillg_fwd_a(const void* t, const void* lnw, const void* lnb, const void* w1,
                                const void* b1, void* g, void* gxsq, int M, int C, int GR,
                                int is_bf16, void* stream) {
@@ -1179,20 +1256,24 @@ extern "C" int mm_spillg_bwd_d(const void* t, const void* dy, const void* g, con
                                const void* dgxg, const void* lnw, const void* lnb,
                                const void* w1, const void* b1, const void* gamma,
                                const void* w2t, const void* w1t, void* dt, void* dv, void* u,
-                               void* db1, void* dlnw, void* dlnb, int M, int C, int GR,
-                               int is_bf16, void* stream) {
+                               void* db1, void* dlnw, void* dlnb, void* wide_acc, int M, int C,
+                               int GR, int is_bf16, void* stream) {
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return bwd_d<__nv_bfloat16, false>(t, dy, g, nullptr, nx, dgxg, lnw, lnb, w1, b1, gamma,
-                                       w2t, w1t, dt, dv, u, db1, dlnw, dlnb, M, C, GR, s);
+                                       w2t, w1t, dt, dv, u, db1, dlnw, dlnb, wide_acc, M, C, GR,
+                                       s);
   return bwd_d<float, false>(t, dy, g, nullptr, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t,
-                             dt, dv, u, db1, dlnw, dlnb, M, C, GR, s);
+                             dt, dv, u, db1, dlnw, dlnb, wide_acc, M, C, GR, s);
 }
 
-// The widest C the spill-g row launches take on the current device (0: none).
-extern "C" int mm_spillg_max_c(int is_bf16) {
-  return is_bf16 ? max_c<__nv_bfloat16, false>() : max_c<float, false>();
+// The row tile of the wide plan a launch takes at width C on the current
+// device, or 0 where its resident plan fits (and it takes no scratch).  kind:
+// 0 the spill-g D row pass, 1 the masked dv pass, 2 the masked apply pass,
+// 3 the masked statistic pass of the backward.
+extern "C" int mm_fused_wide_bm(int kind, int C, int is_bf16) {
+  return is_bf16 ? wide_bm<__nv_bfloat16>(kind, C) : wide_bm<float>(kind, C);
 }
 
 // The masked-dense tail.  keep (M) in the activation dtype; gxsq, gx, nx,
@@ -1213,50 +1294,46 @@ extern "C" int mm_masked_fwd_apply(const void* t, const void* x, const void* kee
                                    const void* gxsq, const void* lnw, const void* lnb,
                                    const void* w1, const void* b1, const void* gamma,
                                    const void* beta, const void* w2, const void* b2, void* y,
-                                   void* gx, void* nx, int M, int C, int GR, int is_bf16,
-                                   void* stream) {
+                                   void* gx, void* nx, void* wide_acc, void* wide_u, int M,
+                                   int C, int GR, int is_bf16, void* stream) {
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return masked_apply<__nv_bfloat16>(t, x, keep, gxsq, lnw, lnb, w1, b1, gamma, beta, w2, b2,
-                                       y, gx, nx, M, C, GR, s);
+                                       y, gx, nx, wide_acc, wide_u, M, C, GR, s);
   return masked_apply<float>(t, x, keep, gxsq, lnw, lnb, w1, b1, gamma, beta, w2, b2, y, gx,
-                             nx, M, C, GR, s);
+                             nx, wide_acc, wide_u, M, C, GR, s);
 }
 
 extern "C" int mm_masked_bwd_stat(const void* t, const void* dy, const void* keep,
                                   const void* nx, const void* lnw, const void* lnb,
                                   const void* w1, const void* b1, const void* gamma,
                                   const void* beta, const void* w2t, void* do_out, void* h,
-                                  void* db2, void* dgamma, void* dbeta, void* dnx, int M, int C,
-                                  int GR, int is_bf16, void* stream) {
+                                  void* db2, void* dgamma, void* dbeta, void* dnx, void* wide_u,
+                                  int M, int C, int GR, int is_bf16, void* stream) {
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return masked_bstat<__nv_bfloat16>(t, dy, keep, nx, lnw, lnb, w1, b1, gamma, beta, w2t,
-                                       do_out, h, db2, dgamma, dbeta, dnx, M, C, GR, s);
+                                       do_out, h, db2, dgamma, dbeta, dnx, wide_u, M, C, GR, s);
   return masked_bstat<float>(t, dy, keep, nx, lnw, lnb, w1, b1, gamma, beta, w2t, do_out, h,
-                             db2, dgamma, dbeta, dnx, M, C, GR, s);
+                             db2, dgamma, dbeta, dnx, wide_u, M, C, GR, s);
 }
 
 extern "C" int mm_masked_bwd_dv(const void* t, const void* do_in, const void* keep,
                                 const void* nx, const void* dgxg, const void* lnw,
                                 const void* lnb, const void* w1, const void* b1,
                                 const void* gamma, const void* w2t, const void* w1t, void* dt,
-                                void* dv, void* u, void* db1, void* dlnw, void* dlnb, int M,
-                                int C, int GR, int is_bf16, void* stream) {
+                                void* dv, void* u, void* db1, void* dlnw, void* dlnb,
+                                void* wide_acc, int M, int C, int GR, int is_bf16, void* stream) {
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return bwd_d<__nv_bfloat16, true>(t, do_in, nullptr, keep, nx, dgxg, lnw, lnb, w1, b1,
-                                      gamma, w2t, w1t, dt, dv, u, db1, dlnw, dlnb, M, C, GR, s);
+                                      gamma, w2t, w1t, dt, dv, u, db1, dlnw, dlnb, wide_acc, M,
+                                      C, GR, s);
   return bwd_d<float, true>(t, do_in, nullptr, keep, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t,
-                            w1t, dt, dv, u, db1, dlnw, dlnb, M, C, GR, s);
-}
-
-// The widest C the masked-dense row launches take on the current device.
-extern "C" int mm_masked_max_c(int is_bf16) {
-  return is_bf16 ? max_c<__nv_bfloat16, true>() : max_c<float, true>();
+                            w1t, dt, dv, u, db1, dlnw, dlnb, wide_acc, M, C, GR, s);
 }
 
 // out (I, J) f32 += X^T Y; nx/gamma/beta null for plain Y, else Y is g and

@@ -72,12 +72,14 @@ struct Geo {
 };
 
 // Patch side P: log2, rows of a work item (a whole patch at P = 4, two rows
-// at P = 8 to keep its sums in registers, the fastest on an H100), and the
-// border patches a tile's halo reaches: LO before it, E in all (LO + 2/P + 1:
-// the 3-site border ends 2/P patches past the tile).
+// at P = 8 to keep its sums in registers, the fastest on an H100; one row at
+// P = 16, where a row is already 16 sites and a dK item then holds 49 sums,
+// 16 dt values and a 22-site window), and the border patches a tile's halo
+// reaches: LO before it, E in all (LO + 2/P + 1: the 3-site border ends 2/P
+// patches past the tile).
 template <int P> struct Side {
-  static constexpr int LOG = P == 1 ? 0 : P == 2 ? 1 : P == 4 ? 2 : 3;
-  static constexpr int R = P == 4 ? 4 : P == 1 ? 1 : 2;
+  static constexpr int LOG = P == 1 ? 0 : P == 2 ? 1 : P == 4 ? 2 : P == 8 ? 3 : 4;
+  static constexpr int R = P == 4 ? 4 : P == 1 ? 1 : P == 16 ? 1 : 2;
   static constexpr int LO = (HALF + P - 1) / P;
   static constexpr int E = LO + (HALF - 1) / P + 1;
 };
@@ -439,7 +441,7 @@ bool aligned16(const void* const* ptrs, int n) {
 
 // The plan from the caller, checked against what the kernel assumes.
 bool plan_ok(int p, const Geo& g, int threads, int smem, int es, bool bwd) {
-  if (p != 1 && p != 2 && p != 4 && p != 8) return false;
+  if (p != 1 && p != 2 && p != 4 && p != 8 && p != 16) return false;
   if (g.cc < 1 || g.cc > MAX_CHUNK || g.C % g.cc != 0 || g.K < 1 || g.G < 1) return false;
   if (g.tpy < 1 || g.tpx < 1 || g.tpy > g.G || g.tpx > g.G) return false;
   if (threads < 64 || threads > MAX_THREADS || threads % 32 != 0) return false;
@@ -493,6 +495,7 @@ int fwd_p(int p, const void* xg, const void* inv, const void* w, const void* bia
     case 2: return fwd<T, 2, CPT>(xg, inv, w, bias, out, N, g, threads, smem, s);
     case 4: return fwd<T, 4, CPT>(xg, inv, w, bias, out, N, g, threads, smem, s);
     case 8: return fwd<T, 8, CPT>(xg, inv, w, bias, out, N, g, threads, smem, s);
+    case 16: return fwd<T, 16, CPT>(xg, inv, w, bias, out, N, g, threads, smem, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -505,6 +508,7 @@ int bwd_p(int p, const void* dt, const void* xg, const void* inv, const void* w,
     case 2: return bwd<T, 2, CPT>(dt, xg, inv, w, dx, dkdb, N, g, threads, smem, s);
     case 4: return bwd<T, 4, CPT>(dt, xg, inv, w, dx, dkdb, N, g, threads, smem, s);
     case 8: return bwd<T, 8, CPT>(dt, xg, inv, w, dx, dkdb, N, g, threads, smem, s);
+    case 16: return bwd<T, 16, CPT>(dt, xg, inv, w, dx, dkdb, N, g, threads, smem, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -72,8 +72,8 @@ def get_args_parser():
                             "wholeblock"],
                    help="the block tail: on the gathered encoder (every block's dwconv "
                         "through the dwconv7_gathered kernel) spillg and wholeblock (the "
-                        "same code in this port) run it through the spill-g kernels (on an "
-                        "H100, stage widths up to those of convnextv2_large); on the "
+                        "same code in this port) run it through the spill-g kernels (every "
+                        "stage width, convnextv2_huge's included); on the "
                         "masked-dense encoder fused runs it through the masked-dense "
                         "kernels; every other choice, and every choice on the other "
                         "encoder, composes it from torch ops; remat and folded are not "

@@ -11,7 +11,8 @@ ways (``sparse_impl``), which compute the same function:
 * ``gathered``: on the visible patches only.  The stem runs on the dense
   grid, its output is gathered onto the ``(N, K, p, p, C)`` rows of the K
   visible patches, every block's depthwise 7x7 conv runs through
-  :func:`dwconv7_gathered` (at every stage, p = 8/4/2/1 at 56/8) and its
+  :func:`dwconv7_gathered` (at every stage: p = 8/4/2/1 at 56/8, 16/8/4/2 at
+  112/16) and its
   site-local tail (LN -> Linear -> erf GELU -> MaskedGRN over all rows ->
   Linear -> residual) on the rows, the 2x2 stride-2 downsamples on the rows,
   and stage 4 is scattered back to the dense grid with zeros at removed

@@ -82,14 +82,13 @@ _SIGNATURES = {
     "mm_spillg_fwd_a": [_P] * 7 + [_I] * 4 + [_P],
     "mm_spillg_fwd_b": [_P] * 10 + [_I] * 4 + [_P],
     "mm_spillg_bwd_c": [_P] * 9 + [_I] * 4 + [_P],
-    "mm_spillg_bwd_d": [_P] * 18 + [_I] * 4 + [_P],
+    "mm_spillg_bwd_d": [_P] * 19 + [_I] * 4 + [_P],
     "mm_spillg_atb": [_P] * 6 + [_I] * 7 + [_P],
-    "mm_spillg_max_c": [_I],
     "mm_masked_fwd_stat": [_P] * 7 + [_I] * 4 + [_P],
-    "mm_masked_fwd_apply": [_P] * 15 + [_I] * 4 + [_P],
-    "mm_masked_bwd_stat": [_P] * 17 + [_I] * 4 + [_P],
-    "mm_masked_bwd_dv": [_P] * 18 + [_I] * 4 + [_P],
-    "mm_masked_max_c": [_I],
+    "mm_masked_fwd_apply": [_P] * 17 + [_I] * 4 + [_P],
+    "mm_masked_bwd_stat": [_P] * 18 + [_I] * 4 + [_P],
+    "mm_masked_bwd_dv": [_P] * 19 + [_I] * 4 + [_P],
+    "mm_fused_wide_bm": [_I] * 3,
 }
 _ATB_BLOCKS = 528  # X^T Y blocks to aim for (4 per SM on 132 SMs)
 _ATB_CHUNK = 64    # rows staged per step of the X^T Y kernel
@@ -308,27 +307,44 @@ def _w(w, ref, shape):
     return w.to(ref.dtype).contiguous()
 
 
-_MAX_C: dict = {}
-_TAILS = {"spillg": "spill-g", "masked": "masked-dense"}
-
-
-def _check_groups(x, c, group_rows, name, tail="spillg"):
-    """C a multiple of 8 and no wider than the row launches of ``tail``
-    ("spillg" or "masked") take on x's card (their shared memory grows with
-    C); group_rows divides the rows."""
+def _check_groups(x, c, group_rows, name):
+    """C a multiple of 8; group_rows divides the rows."""
     m = x.shape[0]
     if c % 8:
         raise ValueError(f"{name}: C = {c} must be a multiple of 8")
-    key = (x.device, x.dtype, tail)
-    if key not in _MAX_C:
-        with torch.cuda.device(x.device):
-            _MAX_C[key] = getattr(_lib(), f"mm_{tail}_max_c")(int(x.dtype == torch.bfloat16))
-    if c > _MAX_C[key]:
-        raise ValueError(f"{name}: C = {c} is wider than the {_TAILS[tail]} kernels take on this "
-                         f"card ({_MAX_C[key]} in {x.dtype}: a tile of 16 rows of C channels "
-                         "must fit in one block's shared memory)")
     if group_rows <= 0 or m % group_rows:
         raise ValueError(f"{name}: group_rows {group_rows} must divide M = {m}")
+
+
+# the launches that have a wide plan (the kernel's mm_fused_wide_bm kinds)
+_WIDE_KINDS = {"spillg_bwd_d": 0, "masked_bwd_dv": 1, "masked_fwd_apply": 2,
+               "masked_bwd_stat": 3}
+_WIDE_BM: dict = {}  # (device, dtype, launch, C) -> the wide plan's row tile, 0 if resident
+
+
+def _wide_scratch(t, key, group_rows, acc=True, u=True):
+    """The device-memory scratch of a launch whose resident layout does not
+    fit its card at t's width (``mm_fused_wide_bm``): its f32 accumulator,
+    one slice of BM x C (rounded up to 16) per row block, and the (M, C) u
+    in t's dtype, each where asked for; (None, None) where the resident plan
+    fits."""
+    m, c = t.shape
+    cache = (t.device, t.dtype, key, c)
+    bm = _WIDE_BM.get(cache)
+    if bm is None:
+        with torch.cuda.device(t.device):
+            bm = _lib().mm_fused_wide_bm(_WIDE_KINDS[key], c, int(t.dtype == torch.bfloat16))
+        _WIDE_BM[cache] = bm
+    if bm == 0:
+        return None, None
+    rows = (m // group_rows) * -(-group_rows // bm) * bm
+    acc_t = torch.empty((rows, -(-c // 16) * 16), dtype=torch.float32, device=t.device) \
+        if acc else None
+    return acc_t, torch.empty_like(t) if u else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _fwd_a_cuda(t, ln_w, ln_b, w1, b1, group_rows):
@@ -422,12 +438,13 @@ def _bwd_d_cuda(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
     w1c = _w(w1, t, (c4, c))
     w1t = w1c.t().contiguous()
     w2t = _w(w2, t, (c, c4)).t().contiguous()
+    acc, _ = _wide_scratch(t, "spillg_bwd_d", group_rows, u=False)
     _dev_call("mm_spillg_bwd_d", "spillg_bwd_d", dev, t.data_ptr(), dy.data_ptr(), g.data_ptr(),
               nx.contiguous().data_ptr(), dgxg.contiguous().data_ptr(),
               _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(),
               _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(), w2t.data_ptr(),
               w1t.data_ptr(), dt.data_ptr(), dv.data_ptr(), u.data_ptr(), db1.data_ptr(),
-              dlnw.data_ptr(), dlnb.data_ptr(), m, c, group_rows,
+              dlnw.data_ptr(), dlnb.data_ptr(), _ptr(acc), m, c, group_rows,
               int(t.dtype == torch.bfloat16))
     return dt, db1, dlnw, dlnb, dv, u
 
@@ -450,7 +467,7 @@ def _keep_rows(keep, t, name):
 
 def _masked_fwd_stat_cuda(t, keep, ln_w, ln_b, w1, b1, group_rows):
     m, c = _rows(t, "masked fwd stat")
-    _check_groups(t, c, group_rows, "masked fwd stat", "masked")
+    _check_groups(t, c, group_rows, "masked fwd stat")
     dev, c4 = t.device, 4 * c
     kp = _keep_rows(keep, t, "masked fwd stat")
     gxsq = torch.zeros((m // group_rows, c4), dtype=torch.float32, device=dev)
@@ -465,7 +482,7 @@ def _masked_fwd_stat_cuda(t, keep, ln_w, ln_b, w1, b1, group_rows):
 def _masked_fwd_apply_cuda(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
                            group_rows):
     m, c = _rows(t, "masked fwd apply")
-    _check_groups(t, c, group_rows, "masked fwd apply", "masked")
+    _check_groups(t, c, group_rows, "masked fwd apply")
     _like(x_res, t, (m, c), "masked fwd apply x_res")
     dev, c4, n_g = t.device, 4 * c, m // group_rows
     if tuple(gxsq.shape) != (n_g, c4) or gxsq.dtype != torch.float32:
@@ -475,19 +492,20 @@ def _masked_fwd_apply_cuda(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gamma, beta
     gx = torch.empty((n_g, c4), dtype=torch.float32, device=dev)
     nx = torch.empty_like(gx)
     w1c, w2c = _w(w1, t, (c4, c)), _w(w2, t, (c, c4))
+    acc, u = _wide_scratch(t, "masked_fwd_apply", group_rows)
     _dev_call("mm_masked_fwd_apply", "masked_fwd_apply", dev, t.data_ptr(), x_res.data_ptr(),
               kp.data_ptr(), gxsq.contiguous().data_ptr(), _vec(ln_w, c, dev).data_ptr(),
               _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(), _vec(b1, c4, dev).data_ptr(),
               _vec(gamma, c4, dev).data_ptr(), _vec(beta, c4, dev).data_ptr(), w2c.data_ptr(),
-              _vec(b2, c, dev).data_ptr(), y.data_ptr(), gx.data_ptr(), nx.data_ptr(), m, c,
-              group_rows, int(t.dtype == torch.bfloat16))
+              _vec(b2, c, dev).data_ptr(), y.data_ptr(), gx.data_ptr(), nx.data_ptr(),
+              _ptr(acc), _ptr(u), m, c, group_rows, int(t.dtype == torch.bfloat16))
     return y, gx, nx
 
 
 def _masked_bwd_stat_cuda(t, dy, keep, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, group_rows):
     """-> db2, dgamma, dbeta, dnx and the stored do, h."""
     m, c = _rows(t, "masked bwd stat")
-    _check_groups(t, c, group_rows, "masked bwd stat", "masked")
+    _check_groups(t, c, group_rows, "masked bwd stat")
     _like(dy, t, (m, c), "masked bwd stat dy")
     dev, c4 = t.device, 4 * c
     kp = _keep_rows(keep, t, "masked bwd stat")
@@ -496,20 +514,21 @@ def _masked_bwd_stat_cuda(t, dy, keep, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, 
     db2, dgamma, dbeta = torch.zeros(c, **f32), torch.zeros(c4, **f32), torch.zeros(c4, **f32)
     dnx = torch.zeros((m // group_rows, c4), **f32)
     w2t = _w(w2, t, (c, c4)).t().contiguous()
+    _, u = _wide_scratch(t, "masked_bwd_stat", group_rows, acc=False)
     _dev_call("mm_masked_bwd_stat", "masked_bwd_stat", dev, t.data_ptr(), dy.data_ptr(),
               kp.data_ptr(), nx.contiguous().data_ptr(), _vec(ln_w, c, dev).data_ptr(),
               _vec(ln_b, c, dev).data_ptr(), _w(w1, t, (c4, c)).data_ptr(),
               _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(),
               _vec(beta, c4, dev).data_ptr(), w2t.data_ptr(), do.data_ptr(), h.data_ptr(),
-              db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dnx.data_ptr(), m, c,
-              group_rows, int(t.dtype == torch.bfloat16))
+              db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dnx.data_ptr(), _ptr(u), m,
+              c, group_rows, int(t.dtype == torch.bfloat16))
     return db2, dgamma, dbeta, dnx, do, h
 
 
 def _masked_bwd_dv_cuda(t, do, keep, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
     """The dv pass on the stored do: -> dt, db1, dln_w, dln_b, and the stored dv, u."""
     m, c = _rows(t, "masked bwd dv")
-    _check_groups(t, c, group_rows, "masked bwd dv", "masked")
+    _check_groups(t, c, group_rows, "masked bwd dv")
     _like(do, t, (m, c), "masked bwd dv do")
     c4, dev = 4 * c, t.device
     kp = _keep_rows(keep, t, "masked bwd dv")
@@ -520,12 +539,13 @@ def _masked_bwd_dv_cuda(t, do, keep, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, gr
     w1c = _w(w1, t, (c4, c))
     w1t = w1c.t().contiguous()
     w2t = _w(w2, t, (c, c4)).t().contiguous()
+    acc, _ = _wide_scratch(t, "masked_bwd_dv", group_rows, u=False)
     _dev_call("mm_masked_bwd_dv", "masked_bwd_dv", dev, t.data_ptr(), do.data_ptr(),
               kp.data_ptr(), nx.contiguous().data_ptr(), dgxg.contiguous().data_ptr(),
               _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(),
               _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(), w2t.data_ptr(),
               w1t.data_ptr(), dt.data_ptr(), dv.data_ptr(), u.data_ptr(), db1.data_ptr(),
-              dlnw.data_ptr(), dlnb.data_ptr(), m, c, group_rows,
+              dlnw.data_ptr(), dlnb.data_ptr(), _ptr(acc), m, c, group_rows,
               int(t.dtype == torch.bfloat16))
     return dt, db1, dlnw, dlnb, dv, u
 
@@ -656,8 +676,7 @@ def fused_block_mlp(t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, gro
     1 = visible (its GRN statistic is over ``g * keep``; it takes no
     gradient); params as in :func:`fused_block_mlp_spillg`.  ``group_rows``:
     rows per GRN group (it must divide M); None = one group of all rows.  On
-    the card C must be a multiple of 8 and fit the kernels' shared memory;
-    wider rows raise."""
+    the card C must be a multiple of 8."""
     gr = _group_rows(t, group_rows, "fused_block_mlp")
     keep = keep.detach().reshape(t.shape[0], 1).to(t.dtype).contiguous()
     return _Masked.apply(t.contiguous(), x_res.to(t.dtype).contiguous(), keep, ln_w, ln_b, w1,
@@ -671,8 +690,8 @@ def fused_block_mlp_spillg(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, gr
     (C,); w1 (4C, C) and b1 (4C,) of ``pwconv1``; gamma, beta (1, 1, 1, 4C);
     w2 (C, 4C) and b2 (C,) of ``pwconv2``; params f32.  ``group_rows``: rows
     per GRN group (it must divide M); None = one group of all rows.  On the
-    card C must be a multiple of 8 and fit the kernels' shared memory (on an
-    H100 C <= 1616 in bf16 and 960 in f32); wider rows raise."""
+    card C must be a multiple of 8; rows too wide for a launch's resident
+    shared-memory layout take its wide plan (``csrc/fused_block.cu``)."""
     gr = _group_rows(t, group_rows, "fused_block_mlp_spillg")
     return _SpillG.apply(t.contiguous(), x_res.to(t.dtype).contiguous(), ln_w, ln_b, w1, b1,
                          gamma, beta, w2, b2, gr)

@@ -11,7 +11,7 @@ correlation of the scattered cotangent, gathered), ``dK`` (taps summed over
 the batch, f32) and ``db`` (f32).
 
 On a CUDA tensor both directions go to the kernels in ``csrc/wholeblock.cu``
-at every patch side p = 8/4/2/1 (the TPU kernel ran only at p = 8), one
+at every patch side p = 16/8/4/2/1 (the TPU kernel ran at p >= 8), one
 launch each; on a CPU tensor to the plain versions below: scatter ->
 ``F.conv2d(groups=C, padding=3)`` -> gather, in f32.  A kernel block owns a
 tile of patches of one image and a chunk of channels; :func:`tile_plan`
@@ -42,7 +42,8 @@ _SIGNATURES = {
 _MAX_CHUNK = 64  # channels a block (the kernel's MAX_CHUNK)
 _MAX_THREADS = 256  # threads a block (the kernel's MAX_THREADS)
 _RED_PITCH = KS * KS + 2  # f32 words of one channel's dK and db sums in shared memory
-_ROWS = {1: 1, 2: 2, 4: 4, 8: 2}  # rows of a patch one work item computes (the kernel's Side<P>::R)
+# rows of a patch one work item computes, by patch side (the kernel's Side<P>::R)
+_ROWS = {1: 1, 2: 2, 4: 4, 8: 2, 16: 1}
 _BLOCKS_PER_SM = 3  # blocks a launch should give each SM
 _CARDS: dict[int, tuple[int, int]] = {}  # device index -> (opt-in shared memory, SMs)
 _CONFIGS: dict = {}  # (shape, dtype, grid, bwd, device) -> the C entry's int arguments
@@ -196,16 +197,16 @@ def _lib():
 
 
 def _check(x_g, kept_ids, inv_ids, weight, bias, grid: int, name: str):
-    """x_g contiguous (N, K, p, p, C) bf16 or f32 with p in 1/2/4/8; the ids
+    """x_g contiguous (N, K, p, p, C) bf16 or f32 with p in 1/2/4/8/16; the ids
     contiguous int32 (N, K) and (N, grid^2); the params, which the kernels
     read as they are, contiguous f32 (C, 1, 7, 7) and (C,) (no bias in the
     backward); all on x_g's device."""
     if x_g.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: dtype {x_g.dtype} not supported (bfloat16, float32)")
     n, k, p, p2, c = x_g.shape
-    if p != p2 or p not in (1, 2, 4, 8) or not x_g.is_contiguous():
+    if p != p2 or p not in _ROWS or not x_g.is_contiguous():
         raise ValueError(f"{name}: x_g must be contiguous (N, K, p, p, C) with p in 1, 2, 4, "
-                         f"8, got {tuple(x_g.shape)}")
+                         f"8, 16, got {tuple(x_g.shape)}")
     dev = x_g.device
     for t, dtype, shape in ((kept_ids, torch.int32, (n, k)),
                             (inv_ids, torch.int32, (n, grid * grid)),

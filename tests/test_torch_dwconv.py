@@ -162,3 +162,80 @@ def test_drop_path_per_sample_mask_and_scale():
     # the same generator state draws the same mask
     y2 = DropPath(rate)(x, torch.Generator().manual_seed(1))
     assert torch.equal(y, y2)
+
+
+H100_OPTIN = 232448  # shared memory a block may opt in to on an H100 (227 KB)
+H100_SMS = 132
+# (N, H, C) of every launch of the weight-gradient kernel on the port's paths:
+# the finetune step's four stages (batch 32), the masked-dense step's four and
+# the decoder's (batch 256), huge's widest stage, ragged maps and an odd C
+_PLAN_SHAPES = [(32, 64, 40), (32, 32, 80), (32, 16, 160), (32, 8, 320),
+                (256, 56, 40), (256, 28, 80), (256, 14, 160), (256, 7, 320), (256, 7, 512),
+                (3, 7, 2816), (5, 9, 37), (8, 14, 768)]
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("n,h,c", _PLAN_SHAPES)
+def test_wgrad_plan_fits_the_card(n, h, c, elem_bytes):
+    """The row-11 launch plan on an H100: a tile of whole strips (rows a
+    multiple of 4, columns of 8) no larger than the map rounded up; shared
+    memory what two staging buffers take and room for two blocks an SM; a
+    chunk dividing C, 16-byte staging exactly where C and the chunk allow
+    it; threads the chunk times at most one slot per strip, at most 256;
+    workers (gridDim.x) within CUDA's limits, none without a unit, and one
+    wave of them: no more than the card holds at once."""
+    plan = dw.wgrad_plan(n, h, h, c, elem_bytes, H100_OPTIN, H100_SMS)
+    assert plan.th % 4 == 0 and plan.tw % 8 == 0
+    assert plan.th <= -(-h // 4) * 4 and plan.tw <= -(-h // 8) * 8
+    sites = (plan.th + 6) * (plan.tw + 6) + plan.th * plan.tw
+    assert plan.smem == max(2 * sites * plan.cc * elem_bytes, 49 * plan.cc * 4)
+    assert 2 * (plan.smem + 1024) <= H100_OPTIN
+    assert c % plan.cc == 0 and plan.cc <= 64
+    assert plan.vec == (c * elem_bytes % 16 == 0 and plan.cc * elem_bytes % 16 == 0)
+    strips = (plan.th // 4) * (plan.tw // 8)
+    assert plan.threads % plan.cc == 0 and plan.threads <= 256
+    assert 1 <= plan.threads // plan.cc <= strips
+    units = n * -(-h // plan.th) * -(-h // plan.tw)
+    assert 1 <= plan.workers <= min(units, 65535) and c // plan.cc <= 65535
+    resident = min(H100_OPTIN // plan.smem, 65536 // (128 * plan.threads))
+    assert plan.workers * (c // plan.cc) <= max(resident * H100_SMS, c // plan.cc)
+
+
+def test_wgrad_plan_fills_the_card_on_the_main_paths():
+    """At the finetune and masked-dense stage shapes in bf16 every launch
+    gives the H100 at least two blocks an SM with one unit a block, and at
+    least one block an SM as workers; a block's threads divide its tile's
+    strips evenly (no slot walks one strip more than another)."""
+    for n, h, c in _PLAN_SHAPES[:9]:
+        plan = dw.wgrad_plan(n, h, h, c, 2, H100_OPTIN, H100_SMS)
+        tiles = -(-h // plan.th) * -(-h // plan.tw)
+        assert n * tiles * (c // plan.cc) >= 2 * H100_SMS
+        assert plan.workers * (c // plan.cc) >= H100_SMS
+        strips, slots = (plan.th // 4) * (plan.tw // 8), plan.threads // plan.cc
+        assert strips % slots == 0, (n, h, c, plan)
+
+
+@pytest.mark.parametrize("n,h,c", [(3, 9, 40), (2, 14, 37)])
+def test_wgrad_tiles_cover_the_map(n, h, c):
+    """The kernel's tiling done in numpy on the plan: each tile's (th+6) x
+    (tw+6) halo with zeros outside the map and its dy tile with zeros beyond
+    it, summed strip by strip, gives the plain weight gradient."""
+    rng = np.random.default_rng(h + c)
+    x = rng.normal(size=(n, h, h, c)).astype(np.float32)
+    dy = rng.normal(size=(n, h, h, c)).astype(np.float32)
+    plan = dw.wgrad_plan(n, h, h, c, 4, H100_OPTIN, H100_SMS)
+    xp = np.zeros((n, h + plan.th + 6, h + plan.tw + 6, c), np.float32)
+    xp[:, 3:3 + h, 3:3 + h] = x
+    dyp = np.zeros((n, h + plan.th, h + plan.tw, c), np.float32)
+    dyp[:, :h, :h] = dy
+    got = np.zeros((c, 49), np.float64)
+    for y0 in range(0, h, plan.th):
+        for x0 in range(0, h, plan.tw):
+            halo = xp[:, y0:y0 + plan.th + 6, x0:x0 + plan.tw + 6]
+            dt = dyp[:, y0:y0 + plan.th, x0:x0 + plan.tw]
+            for t in range(49):
+                a, b = divmod(t, 7)
+                got[:, t] += np.einsum("nyxc,nyxc->c", halo[:, a:a + plan.th, b:b + plan.tw],
+                                       dt)
+    ref = dw.dw_weight_grad_plain(torch.from_numpy(x), torch.from_numpy(dy))
+    _close(got.reshape(c, 1, 7, 7), ref.numpy(), 1e-5, "tiled sums")

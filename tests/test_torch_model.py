@@ -133,8 +133,11 @@ def fcmae_case():
     init and carried into flax by mmearth_tpu's converter, a 64-px
     synthetic batch cropped to 56 by JAX from a key, and JAX's own forward
     with a random mask drawn from a key."""
-    n, tile, img = 4, 64, 56
-    kw = dict(img_size=img, patch_size=8, depths=DEPTHS, dims=DIMS, decoder_embed_dim=32,
+    return _fcmae_case(4, 64, 56, 8, DIMS)
+
+
+def _fcmae_case(n, tile, img, patch, dims):
+    kw = dict(img_size=img, patch_size=patch, depths=DEPTHS, dims=dims, decoder_embed_dim=32,
               grn_group=n, inp_modalities=JM.INP_MODALITIES, out_modalities=JM.OUT_MODALITIES)
     jm = jfc.FCMAE(**kw)
     raw = synthetic_batch(n, tile, seed=3)
@@ -213,6 +216,17 @@ def _assert_fcmae_matches_jax(c, tm, out, mask=None):
 
     g_ref = jax.jit(jax.grad(loss_fn))(c["params"])
     assert_grads_close(tm, fcmae_grads_as_sd(g_ref, DEPTHS, JM.OUT_MODALITIES), 1e-3)
+
+
+@pytest.mark.parametrize("block_impl", ["auto", "wholeblock"])
+def test_fcmae_step_at_112_16_matches_jax(block_impl):
+    """The f32 FCMAE step at 112 px / patch 16 (the port's CLI default
+    geometry, a 7 x 7 grid of 16-px patches: the gathered dwconv runs at
+    p = 16/8/4/2) at pico widths 64/128/256/512, one block a stage, batch 2
+    from 128-px tiles: predictions, losses and every param grad against
+    JAX, as at 56/8."""
+    c = _fcmae_case(2, 128, 112, 16, (64, 128, 256, 512))
+    _assert_fcmae_matches_jax(c, tfc.FCMAE(**c["kw"], block_impl=block_impl), c["out"])
 
 
 @pytest.mark.parametrize("block_impl", ["auto", "fused"])

@@ -123,3 +123,20 @@ def test_chip_smoke_refuses_without_a_gpu_and_outside_the_repo(tmp_path):
                            text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+def test_main_pretrain_defaults_run_two_steps_on_cpu(tmp_path):
+    """The CLI's own model and geometry (convnextv2_pico, 112 px, patch 16:
+    the gathered dwconv's p = 16 stage) from 128-px tiles, two steps at batch
+    4 in bf16 on the CPU: finite losses, no kernel launched."""
+    data = generate_packed(tmp_path / "mmpack", n=11, tile=128, seed=0)
+    args = main_pretrain.get_args_parser().parse_args([
+        "--batch_size", "4", "--device", "cpu", "--processed_dir", str(data), "--epochs", "1",
+        "--warmup_epochs", "1"])
+    assert (args.model, args.input_size, args.patch_size) == ("convnextv2_pico", 112, 16)
+    before = {**patch_select.LAUNCHES, **wholeblock.LAUNCHES}
+    model, history = main_pretrain.main(args)
+    assert [e["steps"] for e in history] == [2]
+    assert all(math.isfinite(v) for v in history[0]["step_losses"])
+    assert {**patch_select.LAUNCHES, **wholeblock.LAUNCHES} == before
+    assert model.encoder.dims == (64, 128, 256, 512) and model.encoder.patch_size == 16

@@ -50,7 +50,7 @@ def test_chunks_cover_c(c, cc, vec):
 
 
 @pytest.mark.parametrize("grid", [7, 14])
-@pytest.mark.parametrize("p", [8, 4, 2, 1])
+@pytest.mark.parametrize("p", [16, 8, 4, 2, 1])
 def test_tile_windows_clip_at_the_image_edge(p, grid):
     """For tiles of 1 to 4 patches a side, ragged at the image's edge: the
     tiles' patches cover the grid once; a tile's halo is its sites and a
@@ -76,3 +76,48 @@ def test_tile_windows_clip_at_the_image_edge(p, grid):
             if py1 == grid:  # a bottom tile: its halo ends 3 sites past the image
                 assert win["halo"][0][1] == grid * p + 3
         assert len(seen) == grid * grid
+
+
+# stage 0 of 112 px / patch 16 (a 7 x 7 grid of 16 x 16 patches)
+STAGE0_112 = {"pico": 64, "tiny": 96}
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("model", sorted(STAGE0_112))
+def test_plan_at_patch_side_16_fits_two_blocks_an_sm(model, elem_bytes, bwd):
+    """At p = 16 (stage 0 of pico and tiny at 112/16, batch 64 as bench.py's
+    tiny112 and 256), bf16 and f32, forward and backward: a plan within the
+    two-blocks-an-SM limit of an H100's shared memory, its bytes what the
+    kernel lays out (a one-patch tile's bf16 halo is 22 x 22 sites), the
+    chunk dividing C, whole warps of threads, and enough blocks."""
+    c = STAGE0_112[model]
+    for n in (64, 256):
+        plan = wb.tile_plan(16, 7, c, elem_bytes, n, bwd, H100_OPTIN, H100_SMS)
+        assert plan.smem == wb.smem_bytes(16, plan.tpy, plan.tpx, plan.cc, elem_bytes, bwd)
+        assert 2 * (plan.smem + 1024) <= H100_OPTIN
+        assert c % plan.cc == 0 and plan.cc <= 64 and plan.vec
+        assert 1 <= plan.tpy <= 7 and 1 <= plan.tpx <= 7
+        assert plan.threads % 32 == 0 and 64 <= plan.threads <= 256
+        tiles = -(-7 // plan.tpy) * -(-7 // plan.tpx)
+        assert n * tiles * (c // plan.cc) >= 3 * H100_SMS
+    # a one-patch tile of 64 bf16 channels: the 62 KB halo fits (cc = 64)
+    assert wb.tile_plan(16, 7, 64, 2, 64, True, H100_OPTIN, H100_SMS).cc == 64
+    assert wb.smem_bytes(16, 1, 1, 64, 2, False) >= 22 * 22 * 64 * 2
+
+
+def test_patch_side_16_is_accepted():
+    """p = 16 has its rows a work item (one) and passes the wrapper's check,
+    whose border is ceil(3/16) = 1 patch before the tile and 2 in all; a
+    side the kernel has no case for (32) is still refused."""
+    import torch
+
+    assert wb._ROWS[16] == 1 and wb._border(16) == (1, 2)
+    n, k, c, grid = 2, 3, 64, 7
+    ids = torch.zeros(n, k, dtype=torch.int32)
+    inv = torch.zeros(n, grid * grid, dtype=torch.int32)
+    w, b = torch.zeros(c, 1, 7, 7), torch.zeros(c)
+    wb._check(torch.zeros(n, k, 16, 16, c), ids, inv, w, b, grid, "dwconv7_gathered")
+    with pytest.raises(ValueError, match="p in 1, 2, 4, 8, 16"):
+        wb._check(torch.zeros(n, k, 32, 32, c), ids, inv, w, b, grid, "dwconv7_gathered")
+
