@@ -38,14 +38,17 @@ Phases, each of which exits non-zero on failure:
    pass shows 0 with ``bound_in`` naming the row pass, and the traffic that
    the split adds (the dW2 pass re-reads dy and g; D stores dv and u and the
    dW1 pass reads them back) is given per launch as ``split_extra_bytes``.
-   The six masked-dense launches (the statistic and apply passes of the
-   forward; the statistic pass, its dW2 pass, the dv pass and its dW1 pass of
-   the backward) each against their plain phase at the four masked-dense
-   stage shapes (every site of the 56/28/14/7 grid of 256 samples, a real
-   mask of 19 visible patches out of 49 upsampled to each stage, one GRN
-   group), with the spill-g tolerances and their reasons, and y = x, dt = 0
-   exactly at masked sites; their yardstick is the port's composed masked
-   tail.  Both tails are also held at huge's last width, C = 2816 in bf16
+   The seven masked-dense launches (the kept-row list; the statistic and
+   apply passes of the forward; the statistic pass, its dW2 pass, the dv
+   pass and its dW1 pass of the backward) each against their plain phase at
+   the four masked-dense stage shapes (every site of the 56/28/14/7 grid of
+   256 samples, a real mask of 19 visible patches out of 49 upsampled to
+   each stage, one GRN group): the list bit-exact, the rest with the
+   spill-g tolerances and their reasons, y = x and dt = 0 exactly at masked
+   sites, the stored do, h, dv and u at the kept slots of the list; each
+   stage's line gives the launch's plan (mode, row tile, threads, shared
+   bytes, persistent blocks, column split); their yardstick is the port's
+   composed masked tail.  Both tails are also held at huge's last width, C = 2816 in bf16
    (the launches whose resident layout does not fit take their wide plans),
    at 64 rows in two GRN groups and at the 4,864 rows of a batch-256 step,
    with the same tolerances, except that the dLN sums of D and of the
@@ -53,11 +56,11 @@ Phases, each of which exits non-zero on failure:
    which must equal the plain dv in all but 5% of its elements (and A's sum
    of squares against its own stored g, as the GPU tests hold it); at
    4,864 rows each launch is timed beside its plain phase and the composed
-   tail (``c2816_*`` per launch).  Row 5's pair carries its bound on the
-   apply pass and row 6's four launches on the dv pass; each bound counts what this run's mask needs
-   (the products and the t, dy reads of the kept sites only), with the
-   all-sites count beside it (``bound_ms_all_sites``), and each launch gives
-   the bytes it moves (``launch_bytes``).  Row 11, the dense dwconv's weight
+   tail (``c2816_*`` per launch).  Row 5's three launches carry its bound on
+   the apply pass and row 6's four on the dv pass; each bound counts what
+   this run's mask needs (the products and the t, dy reads of the kept sites
+   only), with the all-sites count beside it (``bound_ms_all_sites``), and
+   each launch gives the bytes it moves once (``launch_bytes``).  Row 11, the dense dwconv's weight
    gradient, against its plain version in bf16 and f32 at the finetune
    step's four stage shapes, the decoder's (256, 7, 7, 512) and the four
    masked-dense stage shapes, within 1e-3 * |p| + 1e-4 * max|p| (atomics and
@@ -76,7 +79,8 @@ Phases, each of which exits non-zero on failure:
    dwconv fwd/bwd) per step on the gathered slices and 0 on the masked-dense
    ones, 12 of each spill-g launch a step under wholeblock and none
    elsewhere, 12 of each masked-dense launch a step under masked_dense
-   fused and none elsewhere, and the dense dwconv's dW 1 a step on the
+   fused (the kept-row list included) and none elsewhere, and the dense
+   dwconv's dW 1 a step on the
    gathered slices (the decoder Block) and 13 on masked-dense.  Then
    292 synthetic 128-px samples and ``main_pretrain.main`` at the CLI's
    defaults, convnextv2_pico 112/16 (dwconv7_gathered at p = 16/8/4/2),
@@ -424,7 +428,7 @@ def spillg_parity(check, inputs, gr, wide=False) -> dict:
     d_args = (t, dy, rg, rnx, fb.dgx_step(rsums[3], rgx), lw, lb, w1, b1, gm, w2, gr)
     got, ref = fb._bwd_d_cuda(*d_args), fb.bwd_d_plain(*d_args)
     check("spillg_bwd_d", "dt", got[0], ref[0], ulp_bound(ref[0], 2e-3))
-    dln = dln_reference("spillg_bwd_d", t, got, ref, w1, lw, lb, wide)
+    dln = dln_reference("spillg_bwd_d", t, got[4], ref[4], got[2:4], ref[2:4], w1, lw, lb, wide)
     for nm, a, r in zip(("db1", "dln_w", "dln_b"), got[1:4], (ref[1], *dln)):
         check("spillg_bwd_d", nm, a, r, sum_bound(r))
     for nm, a, r in zip(("dv", "u"), got[4:], ref[4:]):
@@ -445,27 +449,28 @@ def spillg_parity(check, inputs, gr, wide=False) -> dict:
     }
 
 
-def dln_reference(key, t, got, ref, w1, ln_w, ln_b, wide):
+def dln_reference(key, t, dv, ref_dv, got, ref, w1, ln_w, ln_b, wide):
     """The reference of a dv pass's two dLN sums (``got``/``ref``: the
-    launch's and the plain phase's outputs): the plain phase's sums, or where
-    ``wide`` (C = 2816) those of the launch's own stored dv through the plain
-    du = dv W1, with that dv equal to the plain dv in all but 5% of its
-    elements (a dv rounding one ulp the other way moves an 11,264-term du
-    past the f32 bound).  Emits the flipped share and the plain sums' worst
-    error over their bound, which is not held."""
+    launch's and the plain phase's sums; ``dv``/``ref_dv``: their stored dv,
+    row for row with ``t``): the plain phase's sums, or where ``wide`` (C =
+    2816) those of the launch's own stored dv through the plain du = dv W1,
+    with that dv equal to the plain dv in all but 5% of its elements (a dv
+    rounding one ulp the other way moves an 11,264-term du past the f32
+    bound).  Emits the flipped share and the plain sums' worst error over
+    their bound, which is not held."""
     from mmearth_tpu_torch.ops import fused_block as fb
 
     if not wide:
-        return ref[2:4]
-    (m, c), dv = t.shape, got[4]
-    flips = float((dv != ref[4]).float().mean())
+        return ref
+    m, c = t.shape
+    flips = float((dv != ref_dv).float().mean())
     if flips >= 0.05:
         raise AssertionError(f"{key} C={c}: dv differs from the plain dv in {flips:.1%} of its "
                              "elements")
     _, uhat, _ = fb._ln(t.float(), ln_w, ln_b)
     du = dv.float() @ w1.to(dv.dtype).float()
     own = (du * uhat).sum(0), du.sum(0)
-    vs_plain = max(float(((a - r).abs() / sum_bound(r)).max()) for a, r in zip(got[2:4], ref[2:4]))
+    vs_plain = max(float(((a - r).abs() / sum_bound(r)).max()) for a, r in zip(got, ref))
     emit({"check": f"{key} dLN", "C": c, "M": m, "dv_flipped_fraction": flips,
           "plain_err_over_bound": vs_plain})
     return own
@@ -580,7 +585,9 @@ def wide_tail_check(rows_out, gen, parity) -> None:
     for key, (kern, plain) in launches.items():
         rows_out[key].update({"c2816_max_abs_err": errs[key], "c2816_ms": time_ms(kern),
                               "c2816_plain_ms": time_ms(plain),
-                              "c2816_library_ms": lib_fwd if "_fwd_" in key else lib_bwd})
+                              "c2816_library_ms": lib_bwd if "_bwd_" in key else lib_fwd})
+        if parity is masked_parity:
+            rows_out[key]["c2816_plan"] = masked_plan_of(inputs[0], key, N * K)
     emit({"check": "wide_tail", "C": WIDE_C, "M": [WIDE_ROWS, N * K],
           "launches": {key: {k[6:]: v for k, v in rows_out[key].items() if k.startswith("c2816_")}
                        for key in launches}})
@@ -589,6 +596,8 @@ def wide_tail_check(rows_out, gen, parity) -> None:
 
 
 MASKED = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick)
+    ("masked_rows", "mmearth_tpu/ops/fused_block.py:87",
+     "composed masked tail forward, covers both forward passes"),
     ("masked_fwd_stat", "mmearth_tpu/ops/fused_block.py:87",
      "composed masked tail forward, covers both forward passes"),
     ("masked_fwd_apply", "mmearth_tpu/ops/fused_block.py:87",
@@ -603,7 +612,8 @@ MASKED = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick)
      "composed masked tail backward, covers the four backward launches"),
 )
 # the launch that carries the bound of the Pallas kernel it shares
-MASKED_CARRIER = {"masked_fwd_stat": "masked_fwd_apply", "masked_bwd_stat": "masked_bwd_dv",
+MASKED_CARRIER = {"masked_rows": "masked_fwd_apply", "masked_fwd_stat": "masked_fwd_apply",
+                  "masked_bwd_stat": "masked_bwd_dv",
                   "masked_bwd_stat_dw2": "masked_bwd_dv", "masked_bwd_dv_dw1": "masked_bwd_dv"}
 
 
@@ -612,9 +622,10 @@ def masked_parity(check, inputs, gr, keep, wide=False) -> dict:
     sites ``keep`` (M, 1) kept, in GRN groups of ``gr`` rows, on the plain
     outputs of the phases before it, held by ``check`` against its plain
     phase with the spill-g tolerances (``wide``: dLN's two sums as
-    :func:`dln_reference` says), and y = x, dt = 0 exactly at masked sites
-    and do = dy * keep bit-exact.  Returns {launch: (kernel, plain)} to
-    time."""
+    :func:`dln_reference` says): the kept-row list bit-exact; y, dt and every
+    sum in full, with y = x and dt = 0 exactly at masked sites; the stored
+    do (bit-exact), h, dv and u at the kept slots of the list.  Returns
+    {launch: (kernel, plain)} to time."""
     import torch
 
     from mmearth_tpu_torch.ops import fused_block as fb
@@ -622,10 +633,16 @@ def masked_parity(check, inputs, gr, keep, wide=False) -> dict:
     t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2 = inputs
     c = t.shape[1]
     masked = keep[:, 0] == 0
-    gxsq = fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, gr)
-    rgxsq = fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, gr)
+    rows, rrows = fb._masked_rows_cuda(keep, gr), fb.kept_rows_plain(keep, gr)
+    if not (torch.equal(rows.ids, rrows.ids) and torch.equal(rows.cnt, rrows.cnt)):
+        raise AssertionError(f"masked_rows C={c}: the kept-row list differs from the plain one")
+    check("masked_rows", "list", rows.ids.float(), rrows.ids.float(), 0.0)
+    slots = fb.kept_slots(rrows, gr)
+    sel = rrows.ids.long()[slots]
+    gxsq = fb._masked_fwd_stat_cuda(t, keep, rows, lw, lb, w1, b1, gr)
+    rgxsq = fb.masked_fwd_stat_plain(t, keep, rrows, lw, lb, w1, b1, gr)
     check("masked_fwd_stat", "gxsq", gxsq, rgxsq, sum_bound(rgxsq))
-    ap_args = (t, x, keep, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2, gr)
+    ap_args = (t, x, keep, rows, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2, gr)
     y, gx, nx = fb._masked_fwd_apply_cuda(*ap_args)
     ry, rgx, rnx = fb.masked_fwd_apply_plain(*ap_args)
     check("masked_fwd_apply", "y", y, ry, ulp_bound(ry, 2e-3))
@@ -633,42 +650,62 @@ def masked_parity(check, inputs, gr, keep, wide=False) -> dict:
         raise AssertionError(f"masked_fwd_apply C={c}: y != x at a masked site")
     for nm, a, r in (("gx", gx, rgx), ("nx", nx, rnx)):
         check("masked_fwd_apply", nm, a, r, sum_bound(r))
-    st_args = (t, dy, keep, rnx, lw, lb, w1, b1, gm, bt, w2, gr)
+    st_args = (t, dy, keep, rows, rnx, lw, lb, w1, b1, gm, bt, w2, gr)
     got, ref = fb._masked_bwd_stat_cuda(*st_args), fb.masked_bwd_stat_plain(*st_args)
     for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx"), got[:4], ref[:4]):
         check("masked_bwd_stat", nm, a, r, sum_bound(r))
-    if not torch.equal(got[4], ref[4]):
+    if not torch.equal(got[4][slots], ref[4][slots]):
         raise AssertionError(f"masked_bwd_stat C={c}: do = dy * keep not bit-exact")
-    check("masked_bwd_stat", "h", got[5], ref[5], ulp_bound(ref[5], 2e-3))
+    check("masked_bwd_stat", "h", got[5][slots], ref[5][slots], ulp_bound(ref[5][slots], 2e-3))
     do, hh = ref[4], ref[5]
-    rdw2 = fb.atb_plain(do, hh)
-    check("masked_bwd_stat_dw2", "dW2", fb._masked_dw2_cuda(do, hh), rdw2, sum_bound(rdw2))
-    dv_args = (t, do, keep, rnx, fb.dgx_step(ref[3], rgx), lw, lb, w1, b1, gm, w2, gr)
+    rdw2 = fb.masked_atb_plain(do, hh, rrows, gr)
+    check("masked_bwd_stat_dw2", "dW2", fb._masked_dw2_cuda(do, hh, rows, gr), rdw2,
+          sum_bound(rdw2))
+    dv_args = (t, do, keep, rows, rnx, fb.dgx_step(ref[3], rgx), lw, lb, w1, b1, gm, w2, gr)
     got, ref = fb._masked_bwd_dv_cuda(*dv_args), fb.masked_bwd_dv_plain(*dv_args)
     check("masked_bwd_dv", "dt", got[0], ref[0], ulp_bound(ref[0], 2e-3))
     if bool(got[0][masked].any()):
         raise AssertionError(f"masked_bwd_dv C={c}: dt != 0 at a masked site")
-    dln = dln_reference("masked_bwd_dv", t, got, ref, w1, lw, lb, wide)
+    dln = dln_reference("masked_bwd_dv", t[sel], got[4][slots], ref[4][slots], got[2:4],
+                        ref[2:4], w1, lw, lb, wide)
     for nm, a, r in zip(("db1", "dln_w", "dln_b"), got[1:4], (ref[1], *dln)):
         check("masked_bwd_dv", nm, a, r, sum_bound(r))
     for nm, a, r in zip(("dv", "u"), got[4:], ref[4:]):
-        check("masked_bwd_dv", nm, a, r, ulp_bound(r, 2e-3))
+        check("masked_bwd_dv", nm, a[slots], r[slots], ulp_bound(r[slots], 2e-3))
     dv, u = ref[4], ref[5]
-    rdw1 = fb.atb_plain(dv, u)
-    check("masked_bwd_dv_dw1", "dW1", fb._masked_dw1_cuda(dv, u), rdw1, sum_bound(rdw1))
+    rdw1 = fb.masked_atb_plain(dv, u, rrows, gr)
+    check("masked_bwd_dv_dw1", "dW1", fb._masked_dw1_cuda(dv, u, rows, gr), rdw1,
+          sum_bound(rdw1))
     return {
-        "masked_fwd_stat": (lambda: fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, gr),
-                            lambda: fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, gr)),
+        "masked_rows": (lambda: fb._masked_rows_cuda(keep, gr),
+                        lambda: fb.kept_rows_plain(keep, gr)),
+        "masked_fwd_stat": (lambda: fb._masked_fwd_stat_cuda(t, keep, rows, lw, lb, w1, b1, gr),
+                            lambda: fb.masked_fwd_stat_plain(t, keep, rrows, lw, lb, w1, b1,
+                                                             gr)),
         "masked_fwd_apply": (lambda: fb._masked_fwd_apply_cuda(*ap_args),
                              lambda: fb.masked_fwd_apply_plain(*ap_args)),
         "masked_bwd_stat": (lambda: fb._masked_bwd_stat_cuda(*st_args),
                             lambda: fb.masked_bwd_stat_plain(*st_args)),
-        "masked_bwd_stat_dw2": (lambda: fb._masked_dw2_cuda(do, hh),
-                                lambda: fb.atb_plain(do, hh)),
+        "masked_bwd_stat_dw2": (lambda: fb._masked_dw2_cuda(do, hh, rows, gr),
+                                lambda: fb.masked_atb_plain(do, hh, rrows, gr)),
         "masked_bwd_dv": (lambda: fb._masked_bwd_dv_cuda(*dv_args),
                           lambda: fb.masked_bwd_dv_plain(*dv_args)),
-        "masked_bwd_dv_dw1": (lambda: fb._masked_dw1_cuda(dv, u), lambda: fb.atb_plain(dv, u)),
+        "masked_bwd_dv_dw1": (lambda: fb._masked_dw1_cuda(dv, u, rows, gr),
+                              lambda: fb.masked_atb_plain(dv, u, rrows, gr)),
     }
+
+
+def masked_plan_of(t, key, group_rows):
+    """A masked launch's plan at t's shape (its mode, row tile, threads,
+    shared bytes, persistent blocks, column split), or None for the launches
+    without one (the list and the X^T Y passes)."""
+    from mmearth_tpu_torch.ops import fused_block as fb
+
+    if key not in fb.MASKED_KINDS:
+        return None
+    plan = fb.masked_plan(t, key, group_rows)[0]
+    return {k: getattr(plan, k) for k in ("mode", "bm", "threads", "smem", "blocks",
+                                          "col_split")}
 
 
 def phase_masked_kernels() -> dict:
@@ -728,14 +765,17 @@ def phase_masked_kernels() -> dict:
         # (bytes, flops) for the kept sites, then for every site
         fwd = [(keep_b + 2 * rows_b + s * c * 2 + par_b, 2 * mm * s) for s in (kept, m)]
         bwd = [(keep_b + rows_b + 2 * s * c * 2 + 2 * par_b, 5 * mm * s) for s in (kept, m)]
-        dwb = c * c4 * 4
-        bounds = {  # library, bytes it moves, own bound (or None)
-            "masked_fwd_stat": (lib_fwd, rows_b + keep_b, None),
-            "masked_fwd_apply": (lib_fwd, 3 * rows_b + keep_b, fwd),
-            "masked_bwd_stat": (lib_bwd, 3 * rows_b + keep_b + m * c4 * 2, None),
-            "masked_bwd_stat_dw2": (lib_bwd, rows_b + m * c4 * 2 + dwb, None),
-            "masked_bwd_dv": (lib_bwd, 4 * rows_b + keep_b + m * c4 * 2, bwd),
-            "masked_bwd_dv_dw1": (lib_bwd, rows_b + m * c4 * 2 + dwb, None),
+        # what each launch itself moves once (weights and the list's counts
+        # left out): a kept row's (C) and (4C) values, its id and keep
+        kc_b, k4_b, kid_b, dwb = kept * c * 2, kept * c4 * 2, kept * 6, c * c4 * 4
+        bounds = {  # library, bytes the launch moves, own bound (or None)
+            "masked_rows": (lib_fwd, keep_b + m * 4, None),
+            "masked_fwd_stat": (lib_fwd, kc_b + kid_b, None),
+            "masked_fwd_apply": (lib_fwd, kc_b + 2 * rows_b + m * 4 + 2 * kept, fwd),
+            "masked_bwd_stat": (lib_bwd, 3 * kc_b + k4_b + kid_b, None),
+            "masked_bwd_stat_dw2": (lib_bwd, kc_b + k4_b + dwb, None),
+            "masked_bwd_dv": (lib_bwd, 3 * kc_b + rows_b + k4_b + m * 4 + 2 * kept, bwd),
+            "masked_bwd_dv_dw1": (lib_bwd, kc_b + k4_b + dwb, None),
         }
         for key, (kern, plain) in launches.items():
             lib, moved, bnd_of = bounds[key]
@@ -756,11 +796,13 @@ def phase_masked_kernels() -> dict:
             r["launch_bytes"] += count * moved
             if by and count * bnd >= largest.get(key, 0.0):  # the stage that dominates
                 largest[key], r["bound_by"] = count * bnd, by
+            plan = masked_plan_of(inputs[0], key, m)
+            r.setdefault("plans", {})[f"C={c}"] = plan
             emit({"kernel_shape": {"kernel": key, "shape": [m, c], "kept_sites": kept,
                                    "per_step": count, "ms": ms, "plain_ms": plain_ms,
                                    "library_ms": lib, "bound_ms": bnd, "bound_by": by,
                                    "bound_ms_all_sites": bnd_all, "launch_bytes": moved,
-                                   "max_abs_err": errs[key],
+                                   "plan": plan, "max_abs_err": errs[key],
                                    "max_err_over_scale": rel[key]}})
         del launches, inputs
         torch.cuda.empty_cache()

@@ -36,18 +36,27 @@ sites of the dense grid, with ``keep`` (M, 1), 1 = visible:
     y = x_res + keep * (GRN_keep(gelu(LN(t) W1^T + b1)) W2^T + b2)
 
 where the GRN sum of squares is over ``g * keep`` of the f32 ``g`` (never
-rounded for storage; ``fused_block_mlp_reference``, :663-675).  As in the
-Pallas kernel, g is recomputed in every pass instead of stored:
+rounded for storage; ``fused_block_mlp_reference``, :663-675).  Masked rows
+give y = x_res exactly, dt = 0, and add nothing to any sum; ``d x_res =
+dy``; ``keep`` takes no gradient (:345-351).  So the forward first builds the
+kept-row list (:func:`kept_rows_plain`: each GRN group cut into chunks of
+``ROWS_CHUNK`` rows, each chunk's kept rows then its masked ones, and the
+count kept per chunk), saved for the backward, and every pass computes the
+kept rows only.  As in the Pallas kernel, g is recomputed in every pass
+instead of stored:
 
-  stat   LN -> W1 -> GELU, sum (g keep)^2 per group          (``_fwd_kernel``
-  apply  again, GRN apply -> W2 -> y = x + o keep              phases 0, 1)
+  rows   the kept-row list                                    (``_fwd_kernel``
+  stat   LN -> W1 -> GELU, sum (g keep)^2 per group            phases 0, 1)
+  apply  again, GRN apply -> W2 -> y = x + o keep; y = x at masked rows
   bstat  do = dy keep; v, g, dh = do W2, h; dgamma, dbeta, dnx, db2; stores
-         do and h, and dW2 = do^T h is a second launch      (``_bwd_kernel``
+         do and h at the list's slots, and dW2 = do^T h over the kept
+         slots is a second launch                            (``_bwd_kernel``
      -- the dgx step, shared with spill-g                     phase 0,
-  dv     D on do, with g keep^2 in the dgx term; dW1 = dv^T u  phase 1)
+  dv     D on do, with g keep^2 in the dgx term; dt = 0 at     phase 1)
+         masked rows; dW1 = dv^T u over the kept slots
 
-Masked rows give y = x_res exactly, dt = 0, and add nothing to any sum.
-``d x_res = dy``; ``keep`` takes no gradient (:345-351).
+The ``masked_*_dense`` functions are the same phases on every row, as the
+Pallas kernel's dense grid computes them: the reference of the tests.
 
 GELU is the exact erf form: ``erff`` on the card and ``torch.erf`` on the CPU,
 where the Pallas kernels use a polynomial with an absolute error of 1.5e-7.
@@ -58,6 +67,7 @@ tensor takes the plain version; a CUDA tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Callable, NamedTuple
 
@@ -73,7 +83,7 @@ _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 # launches of each CUDA kernel (a plain count, read by chip_smoke.py)
 SPILLG_LAUNCHES = ("spillg_fwd_a", "spillg_fwd_b", "spillg_bwd_c", "spillg_bwd_c_dw2",
                    "spillg_bwd_d", "spillg_bwd_d_dw1")
-MASKED_LAUNCHES = ("masked_fwd_stat", "masked_fwd_apply", "masked_bwd_stat",
+MASKED_LAUNCHES = ("masked_rows", "masked_fwd_stat", "masked_fwd_apply", "masked_bwd_stat",
                    "masked_bwd_stat_dw2", "masked_bwd_dv", "masked_bwd_dv_dw1")
 LAUNCHES = dict.fromkeys(SPILLG_LAUNCHES + MASKED_LAUNCHES, 0)
 
@@ -84,14 +94,19 @@ _SIGNATURES = {
     "mm_spillg_bwd_c": [_P] * 9 + [_I] * 4 + [_P],
     "mm_spillg_bwd_d": [_P] * 19 + [_I] * 4 + [_P],
     "mm_spillg_atb": [_P] * 6 + [_I] * 7 + [_P],
-    "mm_masked_fwd_stat": [_P] * 7 + [_I] * 4 + [_P],
-    "mm_masked_fwd_apply": [_P] * 17 + [_I] * 4 + [_P],
-    "mm_masked_bwd_stat": [_P] * 18 + [_I] * 4 + [_P],
-    "mm_masked_bwd_dv": [_P] * 19 + [_I] * 4 + [_P],
-    "mm_fused_wide_bm": [_I] * 3,
+    "mm_fused_wide_bm": [_I] * 2,
+    "mm_masked_plan": [_I] * 5 + [_P],
+    "mm_masked_rows": [_P] * 3 + [_I] * 3 + [_P],
+    "mm_masked_fwd_stat": [_P] * 9 + [_I] * 4 + [_P] * 2,
+    "mm_masked_fwd_apply": [_P] * 18 + [_I] * 4 + [_P] * 2,
+    "mm_masked_bwd_stat": [_P] * 19 + [_I] * 4 + [_P] * 2,
+    "mm_masked_bwd_dv": [_P] * 21 + [_I] * 4 + [_P] * 2,
+    "mm_masked_atb": [_P] * 4 + [_I] * 6 + [_P],
 }
 _ATB_BLOCKS = 528  # X^T Y blocks to aim for (4 per SM on 132 SMs)
 _ATB_CHUNK = 64    # rows staged per step of the X^T Y kernel
+_MASKED_ATB_BLOCKS = 1584  # masked X^T Y blocks to aim for (12 of its blocks fit an SM)
+ROWS_CHUNK = 4096  # rows of a chunk of the kept-row list (``CHUNK`` in csrc)
 
 
 # ---------------------------------------------------------------------------
@@ -177,14 +192,14 @@ def dgx_step(dnx, gx):
     return torch.where(pos, dgx / torch.where(pos, gx, torch.ones_like(gx)), torch.zeros_like(gx))
 
 
-def _d_rows(t, dy, g_of_v, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
-    """D's row pass; ``g_of_v(v)`` is the f32 g of the dgx term."""
+def _d_rows(t, dy, g_of_v, nx_rows, dgxg_rows, ln_w, ln_b, w1, b1, gamma, w2):
+    """D's row pass with each row's nx and dgx/gx; ``g_of_v(v)`` is the f32 g
+    of the dgx term."""
     cd = _cd(t.dtype)
     u, uhat, r = _ln(t.float(), ln_w, ln_b)
     v = _mm(u, w1.t(), cd) + b1.float()
     dh = _mm(dy, w2, cd)
-    dg = (dh * (gamma.float() * _per_row(nx, group_rows) + 1.0)
-          + g_of_v(v) * _per_row(dgxg, group_rows))
+    dg = dh * (gamma.float() * nx_rows + 1.0) + g_of_v(v) * dgxg_rows
     dv = dg * _gelu_grad(v)
     du = _mm(dv, w1, cd)
     da = du * ln_w.float()
@@ -195,8 +210,8 @@ def _d_rows(t, dy, g_of_v, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
 def bwd_d_plain(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
     """Phase D but dW1 -> dt (M, C) in t.dtype, db1 (4C,), dln_w, dln_b (C,),
     and dv, u rounded to the product type (dW1 = ``atb_plain(dv, u)``)."""
-    return _d_rows(t, dy, lambda v: g.float(), nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2,
-                   group_rows)
+    return _d_rows(t, dy, lambda v: g.float(), _per_row(nx, group_rows),
+                   _per_row(dgxg, group_rows), ln_w, ln_b, w1, b1, gamma, w2)
 
 
 def fused_block_mlp_spillg_plain(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
@@ -215,13 +230,13 @@ def _g_plain(t, ln_w, ln_b, w1, b1):
     return _gelu(_mm(u, w1.t(), _cd(t.dtype)) + b1.float())
 
 
-def masked_fwd_stat_plain(t, keep, ln_w, ln_b, w1, b1, group_rows):
+def masked_fwd_stat_dense(t, keep, ln_w, ln_b, w1, b1, group_rows):
     """-> gxsq (G, 4C) f32, the sum of (g keep)^2 per group."""
     gk = _g_plain(t, ln_w, ln_b, w1, b1) * keep.float()
     return (gk * gk).reshape(-1, group_rows, gk.shape[-1]).sum(1)
 
 
-def masked_fwd_apply_plain(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
+def masked_fwd_apply_dense(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
                            group_rows):
     """-> y (M, C) in t.dtype, gx and nx (G, 4C) f32."""
     g = _g_plain(t, ln_w, ln_b, w1, b1)
@@ -231,7 +246,7 @@ def masked_fwd_apply_plain(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gamma, beta
     return (x_res.float() + o * keep.float()).to(t.dtype), gx, nx
 
 
-def masked_bwd_stat_plain(t, dy, keep, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, group_rows):
+def masked_bwd_stat_dense(t, dy, keep, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, group_rows):
     """The backward's first phase but dW2 -> db2 (C,), dgamma, dbeta (4C,),
     dnx (G, 4C), and do = dy keep and h rounded to the product type (dW2 =
     ``atb_plain(do, h)``)."""
@@ -245,12 +260,118 @@ def masked_bwd_stat_plain(t, dy, keep, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, 
             do.to(cd), h.to(cd))
 
 
-def masked_bwd_dv_plain(t, do, keep, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
-    """The second phase but dW1, on the stored do: D with g keep^2 in the dgx
-    term (``fused_block.py:192``) -> as ``bwd_d_plain``."""
+def masked_bwd_dv_dense(t, do, keep, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
+    """The second phase but dW1, on do: D with g keep^2 in the dgx term
+    (``fused_block.py:192``) -> as ``bwd_d_plain``."""
     k = keep.float()
-    return _d_rows(t, do, lambda v: _gelu(v) * k * k, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2,
-                   group_rows)
+    return _d_rows(t, do, lambda v: _gelu(v) * k * k, _per_row(nx, group_rows),
+                   _per_row(dgxg, group_rows), ln_w, ln_b, w1, b1, gamma, w2)
+
+
+class KeptRows(NamedTuple):
+    """The kept-row list of a keep mask: each GRN group is cut into chunks of
+    ``ROWS_CHUNK`` rows (the last one shorter), and chunk q's slots (its own
+    row range) hold its kept rows, ascending, then its masked ones; ``cnt``
+    counts each chunk's kept rows.  Both int32, on the mask's device."""
+
+    ids: torch.Tensor  # (M,)
+    cnt: torch.Tensor  # (G * chunks a group,)
+
+
+def _chunks(m, group_rows, device):
+    """Each row's (or slot's) chunk and its chunk's first row."""
+    r = torch.arange(m, device=device)
+    grp, k = r // group_rows, (r % group_rows) // ROWS_CHUNK
+    return grp * -(-group_rows // ROWS_CHUNK) + k, grp * group_rows + k * ROWS_CHUNK
+
+
+def kept_rows_plain(keep, group_rows):
+    """The kept-row list (``keep != 0``) of M keep values."""
+    kept = keep.reshape(-1) != 0
+    m = kept.numel()
+    q, _ = _chunks(m, group_rows, keep.device)
+    ids = torch.sort(q * 2 + (~kept).long(), stable=True).indices.to(torch.int32)
+    cnt = torch.bincount(q[kept], minlength=(m // group_rows) * -(-group_rows // ROWS_CHUNK))
+    return KeptRows(ids, cnt.to(torch.int32))
+
+
+def kept_slots(rows, group_rows):
+    """(M,) bool: the slots of the list that hold a kept row."""
+    q, start = _chunks(rows.ids.numel(), group_rows, rows.ids.device)
+    return torch.arange(q.numel(), device=q.device) - start < rows.cnt.long()[q]
+
+
+def _kept(rows, group_rows):
+    """The kept slots, the kept rows in slot order, and their groups."""
+    slots = kept_slots(rows, group_rows)
+    sel = rows.ids.long()[slots]
+    return slots, sel, sel // group_rows
+
+
+def _at_slots(rows_val, slots, dtype):
+    """(M, n) in ``dtype``: ``rows_val`` at the kept slots, 0 elsewhere."""
+    out = torch.zeros((slots.numel(), rows_val.shape[-1]), dtype=dtype, device=rows_val.device)
+    out[slots] = rows_val.to(dtype)
+    return out
+
+
+def masked_fwd_stat_plain(t, keep, rows, ln_w, ln_b, w1, b1, group_rows):
+    """-> gxsq (G, 4C) f32, the sum of (g keep)^2 per group over the kept rows."""
+    _, sel, grp = _kept(rows, group_rows)
+    gk = _g_plain(t[sel], ln_w, ln_b, w1, b1) * keep[sel].float()
+    out = torch.zeros((t.shape[0] // group_rows, gk.shape[-1]), device=t.device)
+    return out.index_add_(0, grp, gk * gk)
+
+
+def masked_fwd_apply_plain(t, x_res, keep, rows, gxsq, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
+                           group_rows):
+    """-> y (M, C) in t.dtype (x_res at masked rows), gx and nx (G, 4C) f32."""
+    _, sel, grp = _kept(rows, group_rows)
+    gx = torch.sqrt(gxsq)
+    nx = gx / (gx.mean(-1, keepdim=True) + GRN_EPS)
+    g = _g_plain(t[sel], ln_w, ln_b, w1, b1)
+    h = gamma.float() * (g * nx[grp]) + beta.float() + g
+    o = _mm(h, w2.t(), _cd(t.dtype)) + b2.float()
+    y = x_res.clone()
+    y[sel] = (x_res[sel].float() + o * keep[sel].float()).to(t.dtype)
+    return y, gx, nx
+
+
+def masked_bwd_stat_plain(t, dy, keep, rows, nx, ln_w, ln_b, w1, b1, gamma, beta, w2,
+                          group_rows):
+    """The backward's first phase but dW2, on the kept rows -> db2 (C,),
+    dgamma, dbeta (4C,), dnx (G, 4C), and do = dy keep and h rounded to the
+    product type at the kept slots (dW2 = ``masked_atb_plain(do, h, ...)``)."""
+    cd = _cd(t.dtype)
+    slots, sel, grp = _kept(rows, group_rows)
+    g = _g_plain(t[sel], ln_w, ln_b, w1, b1)
+    do = dy[sel].float() * keep[sel].float()
+    dh = _mm(do, w2, cd)
+    nxr = nx[grp]
+    dnx = torch.zeros_like(nx).index_add_(0, grp, dh * gamma.float() * g)
+    h = gamma.float() * (g * nxr) + beta.float() + g
+    return (do.sum(0), (dh * (g * nxr)).sum(0), dh.sum(0), dnx, _at_slots(do, slots, cd),
+            _at_slots(h, slots, cd))
+
+
+def masked_bwd_dv_plain(t, do, keep, rows, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
+    """The second phase but dW1, on the kept rows of do (at the slots) -> dt
+    (M, C) in t.dtype (0 at masked rows), db1 (4C,), dln_w, dln_b (C,), and
+    dv, u rounded to the product type at the kept slots."""
+    cd = _cd(t.dtype)
+    slots, sel, grp = _kept(rows, group_rows)
+    k = keep[sel].float()
+    dt_k, db1, dlnw, dlnb, dv, u = _d_rows(t[sel], do[slots], lambda v: _gelu(v) * k * k,
+                                           nx[grp], dgxg[grp], ln_w, ln_b, w1, b1, gamma, w2)
+    dt = torch.zeros_like(t)
+    dt[sel] = dt_k
+    return dt, db1, dlnw, dlnb, _at_slots(dv, slots, cd), _at_slots(u, slots, cd)
+
+
+def masked_atb_plain(x, y, rows, group_rows):
+    """x^T y over the kept slots of the list (f32 sums)."""
+    slots = kept_slots(rows, group_rows)
+    return atb_plain(x[slots], y[slots])
 
 
 def fused_block_mlp_plain(t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
@@ -258,21 +379,31 @@ def fused_block_mlp_plain(t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b
     """The masked forward, composed of the plain phases; params in the port's layout."""
     gr = t.shape[0] if group_rows is None else group_rows
     gm, bt = gamma.reshape(-1), beta.reshape(-1)
-    gxsq = masked_fwd_stat_plain(t, keep, ln_w, ln_b, w1, b1, gr)
-    return masked_fwd_apply_plain(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gm, bt, w2, b2,
-                                  gr)[0]
+    rows = kept_rows_plain(keep, gr)
+    gxsq = masked_fwd_stat_plain(t, keep, rows, ln_w, ln_b, w1, b1, gr)
+    return masked_fwd_apply_plain(t, x_res, keep, rows, gxsq, ln_w, ln_b, w1, b1, gm, bt, w2,
+                                  b2, gr)[0]
 
 
 # ---------------------------------------------------------------------------
 # CUDA launches (one wrapper per kernel, each counts its launch)
 # ---------------------------------------------------------------------------
+_LIB: list = []  # the loaded library, once built
+
+
 def _lib():
-    return _build.library("fused_block", _SIGNATURES)
+    if not _LIB:
+        _LIB.append(_build.library("fused_block", _SIGNATURES))
+    return _LIB[0]
 
 
 def _dev_call(name, key, device, *args):
-    with torch.cuda.device(device):
-        err = getattr(_lib(), name)(*args, _build.stream_ptr(device))
+    fn = getattr(_lib(), name)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, _build.stream_ptr(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _build.stream_ptr(device))
     _build.check(err, name)
     LAUNCHES[key] += 1
 
@@ -296,6 +427,8 @@ def _like(a, ref, shape, name):
 def _vec(v, n, dev):
     if v.numel() != n or v.device != dev:
         raise ValueError(f"expected {n} values on {dev}, got {tuple(v.shape)} on {v.device}")
+    if v.dtype == torch.float32 and v.is_contiguous():
+        return v
     return v.reshape(-1).float().contiguous()
 
 
@@ -307,6 +440,14 @@ def _w(w, ref, shape):
     return w.to(ref.dtype).contiguous()
 
 
+def _wt(w, ref, shape):
+    """w^T in ``ref``'s dtype, contiguous, on its device: one copy."""
+    if tuple(w.shape) != shape or w.device != ref.device:
+        raise ValueError(f"weight {tuple(w.shape)} on {w.device}, expected {shape} on "
+                         f"{ref.device}")
+    return torch.empty(shape[::-1], dtype=ref.dtype, device=ref.device).copy_(w.t())
+
+
 def _check_groups(x, c, group_rows, name):
     """C a multiple of 8; group_rows divides the rows."""
     m = x.shape[0]
@@ -316,31 +457,24 @@ def _check_groups(x, c, group_rows, name):
         raise ValueError(f"{name}: group_rows {group_rows} must divide M = {m}")
 
 
-# the launches that have a wide plan (the kernel's mm_fused_wide_bm kinds)
-_WIDE_KINDS = {"spillg_bwd_d": 0, "masked_bwd_dv": 1, "masked_fwd_apply": 2,
-               "masked_bwd_stat": 3}
-_WIDE_BM: dict = {}  # (device, dtype, launch, C) -> the wide plan's row tile, 0 if resident
+_WIDE_BM: dict = {}  # (device, dtype, C) -> D's wide row tile, 0 if resident
 
 
-def _wide_scratch(t, key, group_rows, acc=True, u=True):
-    """The device-memory scratch of a launch whose resident layout does not
-    fit its card at t's width (``mm_fused_wide_bm``): its f32 accumulator,
-    one slice of BM x C (rounded up to 16) per row block, and the (M, C) u
-    in t's dtype, each where asked for; (None, None) where the resident plan
-    fits."""
+def _wide_scratch(t, group_rows):
+    """The f32 du scratch of D's wide plan at t's width (one slice of BM x C,
+    rounded up to 16, a row block), or None where its resident plan fits
+    (``mm_fused_wide_bm``)."""
     m, c = t.shape
-    cache = (t.device, t.dtype, key, c)
+    cache = (t.device, t.dtype, c)
     bm = _WIDE_BM.get(cache)
     if bm is None:
         with torch.cuda.device(t.device):
-            bm = _lib().mm_fused_wide_bm(_WIDE_KINDS[key], c, int(t.dtype == torch.bfloat16))
+            bm = _lib().mm_fused_wide_bm(c, int(t.dtype == torch.bfloat16))
         _WIDE_BM[cache] = bm
     if bm == 0:
-        return None, None
+        return None
     rows = (m // group_rows) * -(-group_rows // bm) * bm
-    acc_t = torch.empty((rows, -(-c // 16) * 16), dtype=torch.float32, device=t.device) \
-        if acc else None
-    return acc_t, torch.empty_like(t) if u else None
+    return torch.empty((rows, -(-c // 16) * 16), dtype=torch.float32, device=t.device)
 
 
 def _ptr(t):
@@ -438,7 +572,7 @@ def _bwd_d_cuda(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
     w1c = _w(w1, t, (c4, c))
     w1t = w1c.t().contiguous()
     w2t = _w(w2, t, (c, c4)).t().contiguous()
-    acc, _ = _wide_scratch(t, "spillg_bwd_d", group_rows, u=False)
+    acc = _wide_scratch(t, group_rows)
     _dev_call("mm_spillg_bwd_d", "spillg_bwd_d", dev, t.data_ptr(), dy.data_ptr(), g.data_ptr(),
               nx.contiguous().data_ptr(), dgxg.contiguous().data_ptr(),
               _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(),
@@ -462,24 +596,119 @@ def _keep_rows(keep, t, name):
     if keep.numel() != t.shape[0] or keep.device != t.device:
         raise ValueError(f"{name}: keep must hold one value per row ({t.shape[0]}) on "
                          f"{t.device}, got {tuple(keep.shape)} on {keep.device}")
+    if keep.dtype == t.dtype and keep.is_contiguous():
+        return keep
     return keep.reshape(-1).to(t.dtype).contiguous()
 
 
-def _masked_fwd_stat_cuda(t, keep, ln_w, ln_b, w1, b1, group_rows):
+MASKED_KINDS = {"masked_fwd_stat": 0, "masked_fwd_apply": 1, "masked_bwd_stat": 2,
+                "masked_bwd_dv": 3}  # the kinds of mm_masked_plan
+MODES = ("resident", "ring", "wide")
+
+
+class MaskedPlan(NamedTuple):
+    """A masked pass's launch (``mm_masked_plan``): weights resident in shared
+    memory, streamed through a ring, or streamed with the C-wide row operands
+    by chunk ("wide"); rows a tile; threads and shared bytes a block;
+    persistent blocks and the column split over blockIdx.y; blocks an SM;
+    virtual tiles."""
+
+    mode: str
+    bm: int
+    threads: int
+    smem: int
+    blocks: int
+    col_split: int
+    per_sm: int
+    tiles: int
+
+
+_MASKED_PLANS: dict = {}  # (device, dtype, launch, M, C, group_rows) -> (plan, int array)
+
+
+def masked_plan(t, key, group_rows):
+    """The plan of masked launch ``key`` for t's shape and dtype on its card,
+    and the address of its int array, made once per shape."""
+    m, c = t.shape
+    cache = (t.device, t.dtype, key, m, c, group_rows)
+    hit = _MASKED_PLANS.get(cache)
+    if hit is None:
+        arr = (ctypes.c_int * 8)()
+        with torch.cuda.device(t.device):
+            err = _lib().mm_masked_plan(MASKED_KINDS[key], m, c, group_rows,
+                                        int(t.dtype == torch.bfloat16), ctypes.addressof(arr))
+        _build.check(err, f"{key} plan")
+        hit = _MASKED_PLANS[cache] = (MaskedPlan(MODES[arr[0]], *arr[1:]), arr)
+    return hit[0], ctypes.addressof(hit[1])
+
+
+def _masked_launch(t, key, group_rows):
+    """(plan, its address, and the f32 C-wide scratch of a wide apply or dv
+    plan, a BM x (Cp + 4) slice a block, or None)."""
+    plan, ptr = masked_plan(t, key, group_rows)
+    acc = None
+    if plan.mode == "wide" and key in ("masked_fwd_apply", "masked_bwd_dv"):
+        acc = torch.empty((plan.blocks * plan.bm, -(-t.shape[1] // 16) * 16 + 4),
+                          dtype=torch.float32, device=t.device)
+    return plan, ptr, acc
+
+
+def _check_rows(rows, t, group_rows, name):
+    m = t.shape[0]
+    n_cnt = (m // group_rows) * -(-group_rows // ROWS_CHUNK)
+    for a, n in ((rows.ids, m), (rows.cnt, n_cnt)):
+        if a.shape != (n,) or a.dtype != torch.int32 or a.device != t.device \
+                or not a.is_contiguous():
+            raise ValueError(f"{name}: the kept-row list must be int32 ({m},) and ({n_cnt},) "
+                             f"on {t.device}")
+    return rows.ids.data_ptr(), rows.cnt.data_ptr()
+
+
+def _zeros(dev, *shapes):
+    """f32 zeros of each shape, views of one buffer (one fill for a launch's
+    atomic outputs)."""
+    sizes = [math.prod(sh) if isinstance(sh, tuple) else sh for sh in shapes]
+    buf = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+    out, o = [], 0
+    for n, sh in zip(sizes, shapes):
+        out.append(buf[o:o + n] if isinstance(sh, int) else buf[o:o + n].view(sh))
+        o += n
+    return out
+
+
+def _masked_rows_cuda(keep, group_rows):
+    """The kept-row list of keep (M values in the activation dtype)."""
+    kp = keep if keep.is_contiguous() else keep.contiguous()
+    m = kp.numel()
+    if kp.dtype not in (torch.bfloat16, torch.float32) or not kp.is_cuda:
+        raise ValueError("masked rows: keep must be bfloat16 or float32 on a CUDA device")
+    if group_rows <= 0 or m % group_rows:
+        raise ValueError(f"masked rows: group_rows {group_rows} must divide M = {m}")
+    dev, n_cnt = kp.device, (m // group_rows) * -(-group_rows // ROWS_CHUNK)
+    both = torch.empty(m + n_cnt, dtype=torch.int32, device=dev)
+    ids, cnt = both[:m], both[m:]
+    _dev_call("mm_masked_rows", "masked_rows", dev, kp.data_ptr(), ids.data_ptr(),
+              cnt.data_ptr(), m, group_rows, int(kp.dtype == torch.bfloat16))
+    return KeptRows(ids, cnt)
+
+
+def _masked_fwd_stat_cuda(t, keep, rows, ln_w, ln_b, w1, b1, group_rows):
     m, c = _rows(t, "masked fwd stat")
     _check_groups(t, c, group_rows, "masked fwd stat")
     dev, c4 = t.device, 4 * c
     kp = _keep_rows(keep, t, "masked fwd stat")
+    ids, cnt = _check_rows(rows, t, group_rows, "masked fwd stat")
     gxsq = torch.zeros((m // group_rows, c4), dtype=torch.float32, device=dev)
     lw, lb, bb = _vec(ln_w, c, dev), _vec(ln_b, c, dev), _vec(b1, c4, dev)
     w = _w(w1, t, (c4, c))
-    _dev_call("mm_masked_fwd_stat", "masked_fwd_stat", dev, t.data_ptr(), kp.data_ptr(),
-              lw.data_ptr(), lb.data_ptr(), w.data_ptr(), bb.data_ptr(), gxsq.data_ptr(), m, c,
-              group_rows, int(t.dtype == torch.bfloat16))
+    _, cfg, _ = _masked_launch(t, "masked_fwd_stat", group_rows)
+    _dev_call("mm_masked_fwd_stat", "masked_fwd_stat", dev, t.data_ptr(), kp.data_ptr(), ids,
+              cnt, lw.data_ptr(), lb.data_ptr(), w.data_ptr(), bb.data_ptr(), gxsq.data_ptr(),
+              m, c, group_rows, int(t.dtype == torch.bfloat16), cfg)
     return gxsq
 
 
-def _masked_fwd_apply_cuda(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
+def _masked_fwd_apply_cuda(t, x_res, keep, rows, gxsq, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
                            group_rows):
     m, c = _rows(t, "masked fwd apply")
     _check_groups(t, c, group_rows, "masked fwd apply")
@@ -488,74 +717,89 @@ def _masked_fwd_apply_cuda(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gamma, beta
     if tuple(gxsq.shape) != (n_g, c4) or gxsq.dtype != torch.float32:
         raise ValueError("masked fwd apply: gxsq must be f32 (G, 4C)")
     kp = _keep_rows(keep, t, "masked fwd apply")
+    ids, cnt = _check_rows(rows, t, group_rows, "masked fwd apply")
     y = torch.empty_like(t)
-    gx = torch.empty((n_g, c4), dtype=torch.float32, device=dev)
-    nx = torch.empty_like(gx)
+    gx, nx = torch.empty((2, n_g, c4), dtype=torch.float32, device=dev)
     w1c, w2c = _w(w1, t, (c4, c)), _w(w2, t, (c, c4))
-    acc, u = _wide_scratch(t, "masked_fwd_apply", group_rows)
+    _, cfg, acc = _masked_launch(t, "masked_fwd_apply", group_rows)
     _dev_call("mm_masked_fwd_apply", "masked_fwd_apply", dev, t.data_ptr(), x_res.data_ptr(),
-              kp.data_ptr(), gxsq.contiguous().data_ptr(), _vec(ln_w, c, dev).data_ptr(),
-              _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(), _vec(b1, c4, dev).data_ptr(),
-              _vec(gamma, c4, dev).data_ptr(), _vec(beta, c4, dev).data_ptr(), w2c.data_ptr(),
-              _vec(b2, c, dev).data_ptr(), y.data_ptr(), gx.data_ptr(), nx.data_ptr(),
-              _ptr(acc), _ptr(u), m, c, group_rows, int(t.dtype == torch.bfloat16))
+              kp.data_ptr(), ids, cnt, gxsq.contiguous().data_ptr(),
+              _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(),
+              _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(),
+              _vec(beta, c4, dev).data_ptr(), w2c.data_ptr(), _vec(b2, c, dev).data_ptr(),
+              y.data_ptr(), gx.data_ptr(), nx.data_ptr(), _ptr(acc), m, c, group_rows,
+              int(t.dtype == torch.bfloat16), cfg)
     return y, gx, nx
 
 
-def _masked_bwd_stat_cuda(t, dy, keep, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, group_rows):
-    """-> db2, dgamma, dbeta, dnx and the stored do, h."""
+def _masked_bwd_stat_cuda(t, dy, keep, rows, nx, ln_w, ln_b, w1, b1, gamma, beta, w2,
+                          group_rows):
+    """-> db2, dgamma, dbeta, dnx and do, h at the kept slots."""
     m, c = _rows(t, "masked bwd stat")
     _check_groups(t, c, group_rows, "masked bwd stat")
     _like(dy, t, (m, c), "masked bwd stat dy")
     dev, c4 = t.device, 4 * c
     kp = _keep_rows(keep, t, "masked bwd stat")
-    f32 = dict(dtype=torch.float32, device=dev)
+    ids, cnt = _check_rows(rows, t, group_rows, "masked bwd stat")
     do, h = torch.empty_like(t), torch.empty((m, c4), dtype=t.dtype, device=dev)
-    db2, dgamma, dbeta = torch.zeros(c, **f32), torch.zeros(c4, **f32), torch.zeros(c4, **f32)
-    dnx = torch.zeros((m // group_rows, c4), **f32)
-    w2t = _w(w2, t, (c, c4)).t().contiguous()
-    _, u = _wide_scratch(t, "masked_bwd_stat", group_rows, acc=False)
+    db2, dgamma, dbeta, dnx = _zeros(dev, c, c4, c4, (m // group_rows, c4))
+    w2t = _wt(w2, t, (c, c4))
+    _, cfg, _ = _masked_launch(t, "masked_bwd_stat", group_rows)
     _dev_call("mm_masked_bwd_stat", "masked_bwd_stat", dev, t.data_ptr(), dy.data_ptr(),
-              kp.data_ptr(), nx.contiguous().data_ptr(), _vec(ln_w, c, dev).data_ptr(),
-              _vec(ln_b, c, dev).data_ptr(), _w(w1, t, (c4, c)).data_ptr(),
-              _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(),
-              _vec(beta, c4, dev).data_ptr(), w2t.data_ptr(), do.data_ptr(), h.data_ptr(),
-              db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dnx.data_ptr(), _ptr(u), m,
-              c, group_rows, int(t.dtype == torch.bfloat16))
+              kp.data_ptr(), ids, cnt, nx.contiguous().data_ptr(),
+              _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(),
+              _w(w1, t, (c4, c)).data_ptr(), _vec(b1, c4, dev).data_ptr(),
+              _vec(gamma, c4, dev).data_ptr(), _vec(beta, c4, dev).data_ptr(), w2t.data_ptr(),
+              do.data_ptr(), h.data_ptr(), db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+              dnx.data_ptr(), m, c, group_rows, int(t.dtype == torch.bfloat16), cfg)
     return db2, dgamma, dbeta, dnx, do, h
 
 
-def _masked_bwd_dv_cuda(t, do, keep, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
-    """The dv pass on the stored do: -> dt, db1, dln_w, dln_b, and the stored dv, u."""
+def _masked_bwd_dv_cuda(t, do, keep, rows, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
+    """The dv pass on do at the kept slots: -> dt, db1, dln_w, dln_b, and dv,
+    u at the kept slots."""
     m, c = _rows(t, "masked bwd dv")
     _check_groups(t, c, group_rows, "masked bwd dv")
     _like(do, t, (m, c), "masked bwd dv do")
     c4, dev = 4 * c, t.device
     kp = _keep_rows(keep, t, "masked bwd dv")
-    f32 = dict(dtype=torch.float32, device=dev)
+    ids, cnt = _check_rows(rows, t, group_rows, "masked bwd dv")
     dt, u = torch.empty_like(t), torch.empty_like(t)
     dv = torch.empty((m, c4), dtype=t.dtype, device=dev)
-    db1, dlnw, dlnb = torch.zeros(c4, **f32), torch.zeros(c, **f32), torch.zeros(c, **f32)
-    w1c = _w(w1, t, (c4, c))
-    w1t = w1c.t().contiguous()
-    w2t = _w(w2, t, (c, c4)).t().contiguous()
-    acc, _ = _wide_scratch(t, "masked_bwd_dv", group_rows, u=False)
+    db1, dlnw, dlnb = _zeros(dev, c4, c, c)
+    w1c, w1t, w2t = _w(w1, t, (c4, c)), _wt(w1, t, (c4, c)), _wt(w2, t, (c, c4))
+    _, cfg, acc = _masked_launch(t, "masked_bwd_dv", group_rows)
     _dev_call("mm_masked_bwd_dv", "masked_bwd_dv", dev, t.data_ptr(), do.data_ptr(),
-              kp.data_ptr(), nx.contiguous().data_ptr(), dgxg.contiguous().data_ptr(),
-              _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(),
-              _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(), w2t.data_ptr(),
-              w1t.data_ptr(), dt.data_ptr(), dv.data_ptr(), u.data_ptr(), db1.data_ptr(),
-              dlnw.data_ptr(), dlnb.data_ptr(), _ptr(acc), m, c, group_rows,
-              int(t.dtype == torch.bfloat16))
+              kp.data_ptr(), ids, cnt, nx.contiguous().data_ptr(),
+              dgxg.contiguous().data_ptr(), _vec(ln_w, c, dev).data_ptr(),
+              _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(), _vec(b1, c4, dev).data_ptr(),
+              _vec(gamma, c4, dev).data_ptr(), w2t.data_ptr(), w1t.data_ptr(), dt.data_ptr(),
+              dv.data_ptr(), u.data_ptr(), db1.data_ptr(), dlnw.data_ptr(), dlnb.data_ptr(),
+              _ptr(acc), m, c, group_rows, int(t.dtype == torch.bfloat16), cfg)
     return dt, db1, dlnw, dlnb, dv, u
 
 
-def _masked_dw2_cuda(do, h):
-    return _atb_cuda(do, h, "masked_bwd_stat_dw2")
+def _masked_atb_cuda(x, y, rows, group_rows, key):
+    """x^T y (f32) over the kept slots of the list."""
+    m, i = _rows(x, key)
+    _, j = _rows(y, key)
+    if y.shape[0] != m or y.dtype != x.dtype or y.device != x.device:
+        raise ValueError(f"{key}: x and y must share rows, dtype and device")
+    _check_rows(rows, x, group_rows, key)
+    out = torch.zeros((i, j), dtype=torch.float32, device=x.device)
+    tiles = -(-i // (64 if x.dtype == torch.bfloat16 else 32)) * -(-j // 64)
+    parts = max(1, min(ROWS_CHUNK // _ATB_CHUNK, _MASKED_ATB_BLOCKS // (tiles * rows.cnt.numel())))
+    _dev_call("mm_masked_atb", key, x.device, x.data_ptr(), y.data_ptr(), rows.cnt.data_ptr(),
+              out.data_ptr(), m, i, j, group_rows, parts, int(x.dtype == torch.bfloat16))
+    return out
 
 
-def _masked_dw1_cuda(dv, u):
-    return _atb_cuda(dv, u, "masked_bwd_dv_dw1")
+def _masked_dw2_cuda(do, h, rows, group_rows):
+    return _masked_atb_cuda(do, h, rows, group_rows, "masked_bwd_stat_dw2")
+
+
+def _masked_dw1_cuda(dv, u, rows, group_rows):
+    return _masked_atb_cuda(dv, u, rows, group_rows, "masked_bwd_dv_dw1")
 
 
 # ---------------------------------------------------------------------------
@@ -575,6 +819,7 @@ class Phases(NamedTuple):
 class MaskedPhases(NamedTuple):
     """The masked-dense tail's phase functions, with the plain versions' signatures."""
 
+    rows: Callable
     stat: Callable
     apply: Callable
     bstat: Callable
@@ -585,10 +830,12 @@ class MaskedPhases(NamedTuple):
 
 PLAIN = Phases(fwd_a_plain, fwd_b_plain, bwd_c_plain, dw2_plain, bwd_d_plain, atb_plain)
 CUDA = Phases(_fwd_a_cuda, _fwd_b_cuda, _bwd_c_cuda, _dw2_cuda, _bwd_d_cuda, _dw1_cuda)
-MASKED_PLAIN = MaskedPhases(masked_fwd_stat_plain, masked_fwd_apply_plain, masked_bwd_stat_plain,
-                            atb_plain, masked_bwd_dv_plain, atb_plain)
-MASKED_CUDA = MaskedPhases(_masked_fwd_stat_cuda, _masked_fwd_apply_cuda, _masked_bwd_stat_cuda,
-                           _masked_dw2_cuda, _masked_bwd_dv_cuda, _masked_dw1_cuda)
+MASKED_PLAIN = MaskedPhases(kept_rows_plain, masked_fwd_stat_plain, masked_fwd_apply_plain,
+                            masked_bwd_stat_plain, masked_atb_plain, masked_bwd_dv_plain,
+                            masked_atb_plain)
+MASKED_CUDA = MaskedPhases(_masked_rows_cuda, _masked_fwd_stat_cuda, _masked_fwd_apply_cuda,
+                           _masked_bwd_stat_cuda, _masked_dw2_cuda, _masked_bwd_dv_cuda,
+                           _masked_dw1_cuda)
 
 
 def phases(x, masked: bool = False):
@@ -644,25 +891,27 @@ class _Masked(torch.autograd.Function):
     def forward(ctx, t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows):
         ph = phases(t, masked=True)
         gm, bt = gamma.reshape(-1), beta.reshape(-1)
-        gxsq = ph.stat(t, keep, ln_w, ln_b, w1, b1, group_rows)
-        y, gx, nx = ph.apply(t, x_res, keep, gxsq, ln_w, ln_b, w1, b1, gm, bt, w2, b2,
+        rows = ph.rows(keep, group_rows)
+        gxsq = ph.stat(t, keep, rows, ln_w, ln_b, w1, b1, group_rows)
+        y, gx, nx = ph.apply(t, x_res, keep, rows, gxsq, ln_w, ln_b, w1, b1, gm, bt, w2, b2,
                              group_rows)
-        ctx.save_for_backward(t, keep, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2)
+        ctx.save_for_backward(t, keep, *rows, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2)
         ctx.group_rows = group_rows
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        t, keep, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2 = ctx.saved_tensors
-        ph, gr = phases(t, masked=True), ctx.group_rows
+        t, keep, ids, cnt, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2 = ctx.saved_tensors
+        ph, gr, rows = phases(t, masked=True), ctx.group_rows, KeptRows(ids, cnt)
         gm, bt = gamma.reshape(-1), beta.reshape(-1)
         dy = dy.contiguous()
-        db2, dgamma, dbeta, dnx, do, h = ph.bstat(t, dy, keep, nx, ln_w, ln_b, w1, b1, gm, bt,
-                                                  w2, gr)
-        dw2 = ph.dw2(do, h)
+        db2, dgamma, dbeta, dnx, do, h = ph.bstat(t, dy, keep, rows, nx, ln_w, ln_b, w1, b1, gm,
+                                                  bt, w2, gr)
+        dw2 = ph.dw2(do, h, rows, gr)
         dgxg = dgx_step(dnx, gx)
-        dt, db1, dlnw, dlnb, dv, u = ph.dv(t, do, keep, nx, dgxg, ln_w, ln_b, w1, b1, gm, w2, gr)
-        dw1 = ph.dw1(dv, u)
+        dt, db1, dlnw, dlnb, dv, u = ph.dv(t, do, keep, rows, nx, dgxg, ln_w, ln_b, w1, b1, gm,
+                                           w2, gr)
+        dw1 = ph.dw1(dv, u, rows, gr)
         return (dt, dy, None, *_param_grads((ln_w, ln_b, w1, b1, gamma, beta, w2, b2),
                                             (dlnw, dlnb, dw1, db1, dgamma, dbeta, dw2, db2)),
                 None)

@@ -100,6 +100,8 @@ def test_dwconv7_gathered_tiles_match_plain_on_gpu(dtype, p, c):
 
 def _ulp_close(got, ref, scale_frac):
     """Within one bf16 ulp of the plain value plus ``scale_frac`` of its scale."""
+    if ref.numel() == 0:  # no kept slot to hold
+        return
     ref = ref.float()
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
     assert bool(((got.float() - ref).abs() <= ulp + scale_frac * ref.abs().max()).all())
@@ -209,16 +211,40 @@ def test_spillg_refuses_rows_wider_than_shared_memory(dtype, c):
     test_spillg_kernels_match_plain_on_gpu(dtype, c, 24, 2)
 
 
-_MASKED_CASES = ([(d, *case) for d in ("bfloat16", "float32") for case in _ATTO + _WIDE]
-                 + [("bfloat16", 1536, 20, 2)])
+# keep patterns: about 40% of the rows kept ("random"), none kept, all kept,
+# and the first GRN group with no kept row
+_KEEPS = ("random", "none", "all", "empty_group")
+_MASKED_CASES = ([(d, *case, "random") for d in ("bfloat16", "float32") for case in _ATTO + _WIDE]
+                 + [("bfloat16", 1536, 20, 2, "random")]
+                 # groups of more than one 4096-row chunk of the kept-row list
+                 + [("bfloat16", 40, 5000, 2, "random"), ("float32", 80, 4100, 1, "random")]
+                 + [(d, c, gr, 2, k) for d in ("bfloat16", "float32") for c, gr in ((40, 350),
+                                                                                     (320, 150))
+                    for k in _KEEPS[1:]])
+
+
+def _keep_of(kind, m, group_rows, gen, dt):
+    """(M, 1) keep values of one of the ``_KEEPS`` patterns."""
+    dev = gen.device
+    if kind == "none":
+        return torch.zeros(m, 1, device=dev, dtype=dt)
+    if kind == "all":
+        return torch.ones(m, 1, device=dev, dtype=dt)
+    keep = (torch.rand(m, 1, generator=gen, device=dev) > 0.6).to(dt)
+    if kind == "empty_group":
+        keep[:group_rows] = 0
+    return keep
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,c,group_rows,groups", _MASKED_CASES)
-def test_masked_kernels_match_plain_on_gpu(dtype, c, group_rows, groups):
+@pytest.mark.parametrize("dtype,c,group_rows,groups,keep_kind", _MASKED_CASES)
+def test_masked_kernels_match_plain_on_gpu(dtype, c, group_rows, groups, keep_kind):
     """Each masked-dense launch against its plain phase on the same inputs
-    (about 40% of the rows kept), forward and backward, one and two GRN
-    groups, ragged row tiles; masked rows give y = x and dt = 0 exactly."""
+    (keep of ``_KEEPS``), forward and backward, one and two GRN groups,
+    ragged row tiles, groups of more than one chunk of the kept-row list:
+    the list bit-exact; y, dt and every sum in full; the stored do, h, dv
+    and u at the kept slots of the list; masked rows give y = x and dt = 0
+    exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -230,7 +256,7 @@ def test_masked_kernels_match_plain_on_gpu(dtype, c, group_rows, groups):
         return mean + s * torch.randn(*shape, generator=gen, device=dev)
 
     t, x, dy = rnd(m, c).to(dt), rnd(m, c).to(dt), rnd(m, c).to(dt)
-    keep = (torch.rand(m, 1, generator=gen, device=dev) > 0.6).to(dt)
+    keep = _keep_of(keep_kind, m, group_rows, gen, dt)
     masked = keep[:, 0] == 0
     lw, lb, b1, b2 = rnd(c, s=0.1, mean=1.0), rnd(c, s=0.1), rnd(c4, s=0.1), rnd(c, s=0.1)
     w1, w2 = rnd(c4, c, s=0.1), rnd(c, c4, s=0.1)
@@ -238,66 +264,108 @@ def test_masked_kernels_match_plain_on_gpu(dtype, c, group_rows, groups):
     # chip_smoke.py's term in bf16: every pass recomputes v in its own order,
     # so the product operands u and h may round the other way
     scale = 2e-3 if dtype == "bfloat16" else 1e-5
+    gr = group_rows
 
-    gxsq = fb._masked_fwd_stat_cuda(t, keep, lw, lb, w1, b1, group_rows)
-    rgxsq = fb.masked_fwd_stat_plain(t, keep, lw, lb, w1, b1, group_rows)
+    rows = fb._masked_rows_cuda(keep, gr)
+    ref_rows = fb.kept_rows_plain(keep, gr)
+    assert torch.equal(rows.ids, ref_rows.ids) and torch.equal(rows.cnt, ref_rows.cnt)
+    slots = fb.kept_slots(ref_rows, gr)
+
+    gxsq = fb._masked_fwd_stat_cuda(t, keep, rows, lw, lb, w1, b1, gr)
+    rgxsq = fb.masked_fwd_stat_plain(t, keep, ref_rows, lw, lb, w1, b1, gr)
     _sum_close(gxsq, rgxsq)
-    y, gx, nx = fb._masked_fwd_apply_cuda(t, x, keep, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2,
-                                          group_rows)
-    ry, rgx, rnx = fb.masked_fwd_apply_plain(t, x, keep, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2,
-                                             group_rows)
+    ap_args = (t, x, keep, rows, rgxsq, lw, lb, w1, b1, gm, bt, w2, b2, gr)
+    y, gx, nx = fb._masked_fwd_apply_cuda(*ap_args)
+    ry, rgx, rnx = fb.masked_fwd_apply_plain(*ap_args)
     _ulp_close(y, ry, scale)
     assert torch.equal(y[masked], x[masked])
     _sum_close(gx, rgx)
     _sum_close(nx, rnx)
 
-    got = fb._masked_bwd_stat_cuda(t, dy, keep, rnx, lw, lb, w1, b1, gm, bt, w2, group_rows)
-    ref = fb.masked_bwd_stat_plain(t, dy, keep, rnx, lw, lb, w1, b1, gm, bt, w2, group_rows)
+    st_args = (t, dy, keep, rows, rnx, lw, lb, w1, b1, gm, bt, w2, gr)
+    got, ref = fb._masked_bwd_stat_cuda(*st_args), fb.masked_bwd_stat_plain(*st_args)
     for a, r in zip(got[:4], ref[:4]):
         _sum_close(a, r)
-    assert torch.equal(got[4], ref[4])  # do = dy * keep, rounded once
-    _ulp_close(got[5], ref[5], scale)  # h
+    assert torch.equal(got[4][slots], ref[4][slots])  # do = dy * keep, rounded once
+    _ulp_close(got[5][slots], ref[5][slots], scale)  # h
     do, h = ref[4], ref[5]
-    _sum_close(fb._masked_dw2_cuda(do, h), fb.atb_plain(do, h))
+    _sum_close(fb._masked_dw2_cuda(do, h, rows, gr), fb.masked_atb_plain(do, h, ref_rows, gr))
 
     dgxg = fb.dgx_step(ref[3], rgx)
-    dv_args = (t, do, keep, rnx, dgxg, lw, lb, w1, b1, gm, w2, group_rows)
+    dv_args = (t, do, keep, rows, rnx, dgxg, lw, lb, w1, b1, gm, w2, gr)
     dt_k, db1, dlnw, dlnb, dv, u = fb._masked_bwd_dv_cuda(*dv_args)
     rdt, rdb1, rdlnw, rdlnb, rdv, ru = fb.masked_bwd_dv_plain(*dv_args)
     _ulp_close(dt_k, rdt, 1e-3 if dtype == "bfloat16" else 1e-5)
     assert not dt_k[masked].any()
-    _ulp_close(dv, rdv, scale)
-    _ulp_close(u, ru, scale)
+    _ulp_close(dv[slots], rdv[slots], scale)
+    _ulp_close(u[slots], ru[slots], scale)
     for a, r in ((db1, rdb1), (dlnw, rdlnw), (dlnb, rdlnb)):
         _sum_close(a, r)
-    _sum_close(fb._masked_dw1_cuda(dv, u), fb.atb_plain(dv, u))
+    _sum_close(fb._masked_dw1_cuda(rdv, ru, rows, gr), fb.masked_atb_plain(rdv, ru, ref_rows, gr))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,c", _WIDEST)
 def test_masked_refuses_rows_wider_than_shared_memory(dtype, c):
     """Rows wider than a block's shared memory holds at 16 rows no longer
-    raise: every masked-dense launch runs (the apply, statistic and dv
-    passes on their wide plans where the resident layout does not fit) and
-    matches its plain phase, at 48 rows in two GRN groups, with the
-    tolerances of ``test_masked_kernels_match_plain_on_gpu``."""
-    test_masked_kernels_match_plain_on_gpu(dtype, c, 24, 2)
+    raise: every masked-dense launch runs (on its wide plan) and matches its
+    plain phase, at 48 rows in two GRN groups, with the tolerances of
+    ``test_masked_kernels_match_plain_on_gpu``."""
+    test_masked_kernels_match_plain_on_gpu(dtype, c, 24, 2, "random")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,c", _WIDEST)
 def test_wide_plans_are_taken_only_past_the_resident_layout(dtype, c):
     """The launches that have a wide plan take it at the widest stages and
-    keep their resident plan (no scratch) at every atto width."""
+    keep a plan with their C-wide operands in shared memory (no scratch) at
+    every atto width."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
-    for key in fb._WIDE_KINDS:
-        for width, wide in ((c, key != "masked_bwd_stat" or dtype == "float32"),
-                            (40, False), (320, False)):
-            t = torch.empty(32, width, device=dev, dtype=dt)
-            acc, u = fb._wide_scratch(t, key, 16)
-            assert (acc is not None or u is not None) == wide, (key, width)
+    for width, wide in ((c, True), (40, False), (320, False)):
+        t = torch.empty(32, width, device=dev, dtype=dt)
+        assert (fb._wide_scratch(t, 16) is not None) == wide, ("spillg_bwd_d", width)
+        for key in fb.MASKED_KINDS:
+            assert (fb.masked_plan(t, key, 16)[0].mode == "wide") == wide, (key, width)
+
+
+# (dtype, C) -> each masked launch's mode: the weights resident where they
+# fit twice on an SM (both tails of C = 40, the forward statistic of C = 80),
+# else streamed through the ring, and wide where the C-wide row operands do
+# not fit
+_MASKED_MODES = {
+    ("bfloat16", 40): ("resident",) * 4,
+    ("bfloat16", 80): ("resident", "ring", "ring", "ring"),
+    ("bfloat16", 160): ("ring",) * 4,
+    ("bfloat16", 320): ("ring",) * 4,
+    ("bfloat16", 2816): ("wide",) * 4,
+    ("float32", 2816): ("wide",) * 4,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c", list(_MASKED_MODES))
+def test_masked_plans_per_stage_width(dtype, c):
+    """At the atto stage widths (batch 256, every site of the 56/28/14/7
+    grid) and huge's C = 2816 (4,864 rows): each masked launch's mode, a
+    row tile of 64 (bf16) or 32 (f32) rows, its shared memory within the
+    card's, persistent blocks no more than fit at once nor than its virtual
+    tiles, and a column split only on the statistic passes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    props = torch.cuda.get_device_properties(dev)
+    m = {40: 256 * 56 * 56, 80: 256 * 28 * 28, 160: 256 * 14 * 14, 320: 256 * 7 * 7}.get(c, 4864)
+    t = torch.empty(m, c, device=dev, dtype=dt)
+    for key, mode in zip(fb.MASKED_KINDS, _MASKED_MODES[(dtype, c)]):
+        plan, _ = fb.masked_plan(t, key, m)
+        assert plan.mode == mode, (key, plan)
+        assert plan.bm == (64 if dtype == "bfloat16" else 32)
+        assert plan.smem <= props.shared_memory_per_block_optin
+        assert 1 <= plan.blocks <= min(plan.per_sm * props.multi_processor_count, plan.tiles)
+        assert plan.col_split >= 1 and (plan.col_split == 1 or key in (
+            "masked_fwd_stat", "masked_bwd_stat"))
 
 
 @pytest.mark.gpu
@@ -333,6 +401,7 @@ def test_masked_dense_fused_encoder_matches_cpu(dims):
         out[name] = (y.detach().cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()
                                         if p.grad is not None})
     assert fb.LAUNCHES["masked_bwd_dv"] == fb_before["masked_bwd_dv"] + 4
+    assert fb.LAUNCHES["masked_rows"] == fb_before["masked_rows"] + 4
     (y_cpu, g_cpu), (y_gpu, g_gpu) = out["cpu"], out["gpu"]
     assert g_cpu.keys() == g_gpu.keys() and len(g_cpu) > 0
     for name, got, ref in [("y", y_gpu, y_cpu)] + [(k, g_gpu[k], g_cpu[k]) for k in g_cpu]:
