@@ -19,9 +19,10 @@ Phases, each of which exits non-zero on failure:
    the rows' ``pico112_stage0`` and not added to the atto step.  Each is
    timed with CUDA events (median of 25 after warm-up) beside the plain
    version and one PyTorch call computing the same function (timed here
-   only; the port never calls it).  The six spill-g launches (phases A, B, the
-   row pass and the dW2 pass of C, the row pass and the dW1 pass of D) each
-   against their plain phase on the same inputs at the four stage shapes:
+   only; the port never calls it).  The five spill-g launches of the atto
+   step (phases A, B, C with its dW2 folded in, the row pass and the dW1 pass
+   of D; each stage's line gives C's and D's plans) each against their plain
+   phase on the same inputs at the four stage shapes:
    g, y, dt and the stored dv/u within one bf16 ulp plus 2e-3 of their scale
    (an operand of a product -- u in A, h in B -- is rounded to bf16 from an
    f32 value summed in another order, and where that rounding goes the other
@@ -33,11 +34,15 @@ Phases, each of which exits non-zero on failure:
    composed tail (LN -> F.linear -> GELU -> MaskedGRN -> F.linear +
    residual): its forward on A and B, its autograd backward on the four
    backward launches, labelled in ``library``.  Each bound counts the bytes
-   and products of the Pallas kernel's own function; C and D are two launches
-   each here, so the row pass carries the kernel's bound, the weight-gradient
-   pass shows 0 with ``bound_in`` naming the row pass, and the traffic that
-   the split adds (the dW2 pass re-reads dy and g; D stores dv and u and the
-   dW1 pass reads them back) is given per launch as ``split_extra_bytes``.
+   and products of the Pallas kernel's own function; D is two launches here,
+   so its row pass carries the kernel's bound, the weight-gradient pass shows
+   0 with ``bound_in`` naming the row pass, and the traffic that the split
+   adds (D stores dv and u and the dW1 pass reads them back) is given per
+   launch as ``split_extra_bytes``.  The same launches are held and timed
+   at stage 3 of pico-112/16 (batch 64, C = 512), the one stage of the main
+   paths where C's dW2 does not fold (C's row pass, then its separate dW2
+   pass adding into the same output), reported in the rows'
+   ``pico112_stage3`` and not added to the atto step.
    The seven masked-dense launches (the kept-row list; the statistic and
    apply passes of the forward; the statistic pass, its dW2 pass, the dv
    pass and its dW1 pass of the backward) each against their plain phase at
@@ -56,7 +61,9 @@ Phases, each of which exits non-zero on failure:
    which must equal the plain dv in all but 5% of its elements (and A's sum
    of squares against its own stored g, as the GPU tests hold it); at
    4,864 rows each launch is timed beside its plain phase and the composed
-   tail (``c2816_*`` per launch).  Row 5's three launches carry its bound on
+   tail (``c2816_*`` per launch; spill-g C there is a row pass and a
+   separate dW2 pass, timed together and the latter alone, ``c2816_dw2``).
+   Row 5's three launches carry its bound on
    the apply pass and row 6's four on the dv pass; each bound counts what
    this run's mask needs (the products and the t, dy reads of the kept sites
    only), with the all-sites count beside it (``bound_ms_all_sites``), and
@@ -77,15 +84,17 @@ Phases, each of which exits non-zero on failure:
    ``fused``.  Every step's loss must be finite and the launch counters, set
    to 0 before each run, must rise by exactly 2/2/12/12 (gather/scatter/
    dwconv fwd/bwd) per step on the gathered slices and 0 on the masked-dense
-   ones, 12 of each spill-g launch a step under wholeblock and none
-   elsewhere, 12 of each masked-dense launch a step under masked_dense
+   ones, 12 of each spill-g launch a step under wholeblock (C's separate
+   dW2 pass none: every atto width folds it) and none elsewhere, 12 of each
+   masked-dense launch a step under masked_dense
    fused (the kept-row list included) and none elsewhere, and the dense
    dwconv's dW 1 a step on the
    gathered slices (the decoder Block) and 13 on masked-dense.  Then
    292 synthetic 128-px samples and ``main_pretrain.main`` at the CLI's
    defaults, convnextv2_pico 112/16 (dwconv7_gathered at p = 16/8/4/2),
    batch 64 as bench.py's tiny112, ``--block_impl wholeblock``, 12 steps
-   with the same per-step counts.  The
+   with the same per-step counts, but for C's separate dW2 pass, which runs
+   in the 2 blocks of stage 3 (C = 512 does not fold).  The
    ``wholeblock`` slice's FCMAE is saved as ``build/smoke_pretrain.pth``;
    ``main_finetune.main`` runs the GEO-Bench classification recipe from it
    (convnextv2_atto at patch 8, batch 32, bf16, 3 epochs of synthetic
@@ -117,6 +126,7 @@ FT_BATCH = 32  # the finetune recipe's batch
 FT_GEOMS = ((64, 40, 2), (32, 80, 2), (16, 160, 6), (8, 320, 2))  # 64-px tiles at stride 1
 DECODER_GEOM = (7, 512, 1)
 PICO_N, PICO_P16 = 64, (16, 64, 2)  # pico 112/16 at batch 64: stage 0's (p, C, blocks)
+PICO_STAGE3 = (2, 512, 2)  # and stage 3's, where spill-g C's dW2 does not fold
 WIDE_C, WIDE_ROWS = 2816, 64  # huge's last stage; 64 rows in two GRN groups
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
@@ -320,20 +330,19 @@ def gathered_dwconv_stage(gen, p, c, kept, inv) -> tuple[dict, dict]:
     return fwd, bwd
 
 
-SPILLG = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick)
+SPILLG = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick) on the atto step
     ("spillg_fwd_a", "mmearth_tpu/ops/fused_block.py:381", "composed tail forward, covers A+B"),
     ("spillg_fwd_b", "mmearth_tpu/ops/fused_block.py:411", "composed tail forward, covers A+B"),
     ("spillg_bwd_c", "mmearth_tpu/ops/fused_block.py:423", "composed tail backward, covers C+D"),
-    ("spillg_bwd_c_dw2", "mmearth_tpu/ops/fused_block.py:423",
-     "composed tail backward, covers C+D"),
     ("spillg_bwd_d", "mmearth_tpu/ops/fused_block.py:463", "composed tail backward, covers C+D"),
     ("spillg_bwd_d_dw1", "mmearth_tpu/ops/fused_block.py:463",
      "composed tail backward, covers C+D"),
 )
+SPILLG_WIDE_DW2 = "spillg_bwd_c_dw2"  # C's separate dW2 pass, where dW2 does not fold
 
 
 # the weight-gradient pass -> the row pass whose Pallas kernel's bound it shares
-SPILLG_PAIR = {"spillg_bwd_c_dw2": "spillg_bwd_c", "spillg_bwd_d_dw1": "spillg_bwd_d"}
+SPILLG_PAIR = {"spillg_bwd_d_dw1": "spillg_bwd_d"}
 
 
 def sum_bound(ref):
@@ -400,14 +409,17 @@ def spillg_parity(check, inputs, gr, wide=False) -> dict:
     of ``gr`` rows, on the plain outputs of the phases before it, held by
     ``check(key, name, got, ref, bound)`` against its plain phase: g, y, dt,
     dv, u within one bf16 ulp plus 2e-3 of their scale, every f32 sum within
-    :func:`sum_bound`.  ``wide`` (huge's C = 2816, where D takes its wide
-    plan): A's sum of squares is held against that of its own stored g, and
-    dLN's two sums as :func:`dln_reference` says.  Returns {launch: (kernel,
-    plain)} to time."""
+    :func:`sum_bound`; C's dW2 from its one launch, or where it does not fold
+    from its separate pass (also held and timed alone).  ``wide`` (huge's C =
+    2816, where D takes its wide plan): A's sum of squares is held against
+    that of its own stored g, and dLN's two sums as :func:`dln_reference`
+    says.  Returns {launch: (kernel, plain)} to time."""
     from mmearth_tpu_torch.ops import fused_block as fb
 
     t, x, dy, lw, lb, w1, b1, gm, bt, w2, b2 = inputs
     c, c4 = t.shape[1], w1.shape[0]
+    wts, rwts = fb._bwd_weights_cuda(w1, w2, t.dtype), fb.bwd_weights_plain(w1, w2, t.dtype)
+    fold = fb.tail_plan(t, "spillg_bwd_c", gr)[0].fold > 0
     g, gxsq = fb._fwd_a_cuda(t, lw, lb, w1, b1, gr)
     rg, rgxsq = fb.fwd_a_plain(t, lw, lb, w1, b1, gr)
     check("spillg_fwd_a", "g", g, rg, ulp_bound(rg, 2e-3))
@@ -418,15 +430,16 @@ def spillg_parity(check, inputs, gr, wide=False) -> dict:
     check("spillg_fwd_b", "y", got[0], ry, ulp_bound(ry, 2e-3))
     for nm, a, r in zip(("gx", "nx"), got[1:], (rgx, rnx)):
         check("spillg_fwd_b", nm, a, r, sum_bound(r))
-    rsums = fb.bwd_c_plain(dy, rg, rnx, gm, w2, gr)
-    for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx"),
-                        fb._bwd_c_cuda(dy, rg, rnx, gm, w2, gr), rsums):
+    c_args, rc_args = (dy, rg, rnx, gm, bt, wts, gr), (dy, rg, rnx, gm, bt, rwts, gr)
+    rsums = fb.bwd_c_plain(*rc_args)
+    for nm, a, r in zip(("db2", "dgamma", "dbeta", "dnx", "dW2"), fb._bwd_c_cuda(*c_args), rsums):
         check("spillg_bwd_c", nm, a, r, sum_bound(r))
-    rdw2 = fb.dw2_plain(dy, rg, rnx, gm, bt, gr)
-    check("spillg_bwd_c_dw2", "dW2", fb._dw2_cuda(dy, rg, rnx, gm, bt, gr), rdw2,
-          sum_bound(rdw2))
-    d_args = (t, dy, rg, rnx, fb.dgx_step(rsums[3], rgx), lw, lb, w1, b1, gm, w2, gr)
-    got, ref = fb._bwd_d_cuda(*d_args), fb.bwd_d_plain(*d_args)
+    if not fold:
+        check(SPILLG_WIDE_DW2, "dW2", fb._dw2_cuda(dy, rg, rnx, gm, bt, gr), rsums[4],
+              sum_bound(rsums[4]))
+    dgxg = fb.dgx_step(rsums[3], rgx)
+    d_args, rd_args = ((t, dy, rg, rnx, dgxg, lw, lb, ws, b1, gm, gr) for ws in (wts, rwts))
+    got, ref = fb._bwd_d_cuda(*d_args), fb.bwd_d_plain(*rd_args)
     check("spillg_bwd_d", "dt", got[0], ref[0], ulp_bound(ref[0], 2e-3))
     dln = dln_reference("spillg_bwd_d", t, got[4], ref[4], got[2:4], ref[2:4], w1, lw, lb, wide)
     for nm, a, r in zip(("db1", "dln_w", "dln_b"), got[1:4], (ref[1], *dln)):
@@ -436,17 +449,18 @@ def spillg_parity(check, inputs, gr, wide=False) -> dict:
     dv, u = ref[4], ref[5]
     rdw1 = fb.atb_plain(dv, u)
     check("spillg_bwd_d_dw1", "dW1", fb._dw1_cuda(dv, u), rdw1, sum_bound(rdw1))
-    return {
+    launches = {
         "spillg_fwd_a": (lambda: fb._fwd_a_cuda(t, lw, lb, w1, b1, gr),
                          lambda: fb.fwd_a_plain(t, lw, lb, w1, b1, gr)),
         "spillg_fwd_b": (lambda: fb._fwd_b_cuda(*b_args), lambda: fb.fwd_b_plain(*b_args)),
-        "spillg_bwd_c": (lambda: fb._bwd_c_cuda(dy, rg, rnx, gm, w2, gr),
-                         lambda: fb.bwd_c_plain(dy, rg, rnx, gm, w2, gr)),
-        "spillg_bwd_c_dw2": (lambda: fb._dw2_cuda(dy, rg, rnx, gm, bt, gr),
-                             lambda: fb.dw2_plain(dy, rg, rnx, gm, bt, gr)),
-        "spillg_bwd_d": (lambda: fb._bwd_d_cuda(*d_args), lambda: fb.bwd_d_plain(*d_args)),
+        "spillg_bwd_c": (lambda: fb._bwd_c_cuda(*c_args), lambda: fb.bwd_c_plain(*rc_args)),
+        "spillg_bwd_d": (lambda: fb._bwd_d_cuda(*d_args), lambda: fb.bwd_d_plain(*rd_args)),
         "spillg_bwd_d_dw1": (lambda: fb._dw1_cuda(dv, u), lambda: fb.atb_plain(dv, u)),
     }
+    if not fold:
+        launches[SPILLG_WIDE_DW2] = (lambda: fb._dw2_cuda(dy, rg, rnx, gm, bt, gr),
+                                     lambda: fb.dw2_plain(dy, rg, rnx, gm, bt, gr))
+    return launches
 
 
 def dln_reference(key, t, dv, ref_dv, got, ref, w1, ln_w, ln_b, wide):
@@ -509,25 +523,12 @@ def phase_spillg_kernels() -> dict:
                 errs[key] = max(errs.get(key, 0.0), err)
 
         launches = spillg_parity(check, inputs, m)
+        if SPILLG_WIDE_DW2 in launches:
+            raise AssertionError(f"spillg_bwd_c C={c}: dW2 does not fold at an atto width")
         emit({"check": "spillg", "C": c, "M": m, "max_abs_err": every})
         lib_fwd, lib_bwd = composed_tail_ms(*inputs)
 
-        # Bytes and products of each Pallas kernel's own function: A reads t
-        # and writes g; B reads g, x and writes y; C (kernel 9) reads dy, g and
-        # writes dW2 (products dh, dW2); D (kernel 10) reads t, dy, g and writes
-        # dt and dW1 (products v, dh, du, dW1).  The pair of launches that
-        # replaces C or D shares that bound, carried on the row pass.
-        rows_b, rows_4c, dw_b = m * c * 2, m * c4 * 2, c * c4 * 4
-        mm_flops = 2.0 * m * c * c4
-        spill = rows_b + rows_4c  # one more pass over (M, C) and (M, 4C) rows
-        bounds = {  # library, bytes, products, the split's extra bytes
-            "spillg_fwd_a": (lib_fwd, rows_b + rows_4c, mm_flops, 0),
-            "spillg_fwd_b": (lib_fwd, rows_4c + 2 * rows_b, mm_flops, 0),
-            "spillg_bwd_c": (lib_bwd, rows_b + rows_4c + dw_b, 2 * mm_flops, 0),
-            "spillg_bwd_c_dw2": (lib_bwd, None, None, spill),
-            "spillg_bwd_d": (lib_bwd, 3 * rows_b + rows_4c + dw_b, 4 * mm_flops, spill),
-            "spillg_bwd_d_dw1": (lib_bwd, None, None, spill),
-        }
+        bounds = spillg_bounds(m, c, lib_fwd, lib_bwd)
         for key, (kern, plain) in launches.items():
             lib, nbytes, flops, extra = bounds[key]
             r = rows_out[key]
@@ -544,16 +545,86 @@ def phase_spillg_kernels() -> dict:
             r["split_extra_bytes"] += count * extra
             if by and count * bnd >= largest.get(key, 0.0):  # the stage that dominates
                 largest[key], r["bound_by"] = count * bnd, by
+            plan = plan_of(inputs[0], key, m)
+            if plan is not None:
+                r.setdefault("plans", {})[f"C={c}"] = plan
             emit({"kernel_shape": {"kernel": key, "shape": [m, c], "per_step": count, "ms": ms,
                                    "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bnd,
-                                   "bound_by": by, "split_extra_bytes": extra,
+                                   "bound_by": by, "split_extra_bytes": extra, "plan": plan,
                                    "max_abs_err": errs[key]}})
         del launches, inputs
         torch.cuda.empty_cache()
     for key, pair in SPILLG_PAIR.items():
         rows_out[key]["bound_by"] = rows_out[pair]["bound_by"]
+    pico_stage3_check(rows_out, gen, side)
     wide_tail_check(rows_out, gen, spillg_parity)
     return rows_out
+
+
+def spillg_bounds(m, c, lib_fwd, lib_bwd) -> dict:
+    """Per spill-g launch at (m, C): (library ms, bytes, products, the split's
+    extra bytes).  Bytes and products of each Pallas kernel's own function: A
+    reads t and writes g; B reads g, x and writes y; C (kernel 9) reads dy, g
+    and writes dW2 (products dh, dW2); D (kernel 10) reads t, dy, g and
+    writes dt and dW1 (products v, dh, du, dW1).  The pair of launches that
+    replaces D shares that bound, carried on the row pass; C's separate dW2
+    pass, where dW2 does not fold, shares C's."""
+    c4 = 4 * c
+    rows_b, rows_4c, dw_b = m * c * 2, m * c4 * 2, c * c4 * 4
+    mm_flops = 2.0 * m * c * c4
+    spill = rows_b + rows_4c  # one more pass over (M, C) and (M, 4C) rows
+    return {
+        "spillg_fwd_a": (lib_fwd, rows_b + rows_4c, mm_flops, 0),
+        "spillg_fwd_b": (lib_fwd, rows_4c + 2 * rows_b, mm_flops, 0),
+        "spillg_bwd_c": (lib_bwd, rows_b + rows_4c + dw_b, 2 * mm_flops, 0),
+        SPILLG_WIDE_DW2: (lib_bwd, None, None, 0),
+        "spillg_bwd_d": (lib_bwd, 3 * rows_b + rows_4c + dw_b, 4 * mm_flops, spill),
+        "spillg_bwd_d_dw1": (lib_bwd, None, None, spill),
+    }
+
+
+def pico_stage3_check(rows_out, gen, side) -> None:
+    """The spill-g launches at stage 3 of pico 112/16 (batch 64, C = 512, one
+    GRN group), the one stage of the main paths where C's dW2 does not fold:
+    C runs its row pass and the separate dW2 pass, which adds into C's zeroed
+    output.  Each launch against its plain phase with the atto stages'
+    tolerances, timed beside it, in the rows' ``pico112_stage3`` (C's also
+    gives the dW2 pass alone, ``dw2``, and both together, ``with_dw2_ms``);
+    not added to the atto step."""
+    import torch
+
+    p, c, count = PICO_STAGE3
+    m = PICO_N * K * p * p
+    errs, every = {}, {}
+
+    def check(key, name, got, ref, bound):
+        err = check_close(f"{key} {name} C={c} pico112", got, ref, bound)
+        every[f"{key} {name}"] = err
+        if name not in side:
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    inputs = tail_inputs(gen, m, c)
+    launches = spillg_parity(check, inputs, m)
+    if SPILLG_WIDE_DW2 not in launches:
+        raise AssertionError(f"spillg_bwd_c C={c}: expected the separate dW2 pass")
+    emit({"check": "spillg", "path": "pico112", "C": c, "M": m, "max_abs_err": every})
+    bounds = spillg_bounds(m, c, None, None)
+    for key, (kern, plain) in launches.items():
+        _, nbytes, flops, _ = bounds[key]
+        bnd, by = bound_ms(nbytes, flops, BF16_FLOPS) if nbytes else (0.0, None)
+        s = {"per_step": count, "shape": [m, c], "ms": time_ms(kern), "plain_ms": time_ms(plain),
+             "bound_ms": bnd, "bound_by": by, "max_abs_err": errs[key],
+             "plan": plan_of(inputs[0], key, m)}
+        if key == SPILLG_WIDE_DW2:
+            entry = rows_out["spillg_bwd_c"]["pico112_stage3"]
+            entry["dw2"] = s
+            entry["with_dw2_ms"] = entry["ms"] + s["ms"]
+            entry["with_dw2_plain_ms"] = entry["plain_ms"] + s["plain_ms"]
+        else:
+            rows_out[key]["pico112_stage3"] = s
+        emit({"kernel_shape": {"kernel": key, "path": "pico112", **s}})
+    del launches, inputs
+    torch.cuda.empty_cache()
 
 
 def wide_tail_check(rows_out, gen, parity) -> None:
@@ -583,14 +654,17 @@ def wide_tail_check(rows_out, gen, parity) -> None:
         launches = parity(check, inputs, gr, wide=True, **extra)
     lib_fwd, lib_bwd = composed_tail_ms(*inputs, extra.get("keep"))
     for key, (kern, plain) in launches.items():
+        if key == SPILLG_WIDE_DW2:  # C's separate dW2 pass, alone
+            rows_out["spillg_bwd_c"]["c2816_dw2"] = {
+                "max_abs_err": errs[key], "ms": time_ms(kern), "plain_ms": time_ms(plain)}
+            continue
         rows_out[key].update({"c2816_max_abs_err": errs[key], "c2816_ms": time_ms(kern),
                               "c2816_plain_ms": time_ms(plain),
-                              "c2816_library_ms": lib_bwd if "_bwd_" in key else lib_fwd})
-        if parity is masked_parity:
-            rows_out[key]["c2816_plan"] = masked_plan_of(inputs[0], key, N * K)
+                              "c2816_library_ms": lib_bwd if "_bwd_" in key else lib_fwd,
+                              "c2816_plan": plan_of(inputs[0], key, N * K)})
     emit({"check": "wide_tail", "C": WIDE_C, "M": [WIDE_ROWS, N * K],
           "launches": {key: {k[6:]: v for k, v in rows_out[key].items() if k.startswith("c2816_")}
-                       for key in launches}})
+                       for key in launches if key in rows_out}})
     del launches, inputs
     torch.cuda.empty_cache()
 
@@ -695,17 +769,17 @@ def masked_parity(check, inputs, gr, keep, wide=False) -> dict:
     }
 
 
-def masked_plan_of(t, key, group_rows):
-    """A masked launch's plan at t's shape (its mode, row tile, threads,
-    shared bytes, persistent blocks, column split), or None for the launches
-    without one (the list and the X^T Y passes)."""
+def plan_of(t, key, group_rows):
+    """A persistent launch's plan at t's shape (its mode, row tile, threads,
+    shared bytes, blocks, column split, and spill-g C's dW2 fold), or None
+    for the launches without one (the list, A, B and the X^T Y passes)."""
     from mmearth_tpu_torch.ops import fused_block as fb
 
-    if key not in fb.MASKED_KINDS:
+    if key not in fb.PLAN_KINDS:
         return None
-    plan = fb.masked_plan(t, key, group_rows)[0]
+    plan = fb.tail_plan(t, key, group_rows)[0]
     return {k: getattr(plan, k) for k in ("mode", "bm", "threads", "smem", "blocks",
-                                          "col_split")}
+                                          "col_split", "fold")}
 
 
 def phase_masked_kernels() -> dict:
@@ -796,7 +870,7 @@ def phase_masked_kernels() -> dict:
             r["launch_bytes"] += count * moved
             if by and count * bnd >= largest.get(key, 0.0):  # the stage that dominates
                 largest[key], r["bound_by"] = count * bnd, by
-            plan = masked_plan_of(inputs[0], key, m)
+            plan = plan_of(inputs[0], key, m)
             r.setdefault("plans", {})[f"C={c}"] = plan
             emit({"kernel_shape": {"kernel": key, "shape": [m, c], "kept_sites": kept,
                                    "per_step": count, "ms": ms, "plain_ms": plain_ms,
@@ -948,13 +1022,18 @@ SLICES = (("gathered", "dwg"), ("gathered", "wholeblock"), ("masked_dense", "aut
           ("masked_dense", "fused"))
 
 
-def expected_launches(sparse_impl: str, block_impl: str) -> tuple[dict, tuple]:
-    """Launches a step of every kernel on a pretraining slice, and the kernels
-    whose row of the kernels line takes its count from this slice (each from
-    its own path: rows 1-4 from dwg, 7-10 from wholeblock, 5-6 from
-    masked_dense fused; row 11 from the finetune slice).  The dense dwconv's
-    dW runs in the decoder Block (1 a step) and, on masked-dense, in the 12
-    encoder blocks too."""
+def expected_launches(sparse_impl: str, block_impl: str, config: tuple) -> tuple[dict, tuple]:
+    """Launches a step of every kernel on a pretraining slice of ``config``,
+    and the kernels whose row of the kernels line takes its count from this
+    slice (each from its own path: rows 1-4 from dwg, 7-10 from wholeblock,
+    5-6 from masked_dense fused; row 11 from the finetune slice).  Spill-g
+    C's separate dW2 pass runs in the blocks of the stages whose C does not
+    fold dW2 (its plan's ``fold``).  The dense dwconv's dW runs in the
+    decoder Block (1 a step) and, on masked-dense, in the 12 encoder blocks
+    too."""
+    import torch
+
+    from mmearth_tpu_torch.configs.config import model_size
     from mmearth_tpu_torch.ops import fused_block as fb
 
     gathered = sparse_impl == "gathered"
@@ -962,9 +1041,14 @@ def expected_launches(sparse_impl: str, block_impl: str) -> tuple[dict, tuple]:
     spillg = gathered and block_impl == "wholeblock"
     masked = not gathered and block_impl == "fused"
     per_step.update(dict.fromkeys(fb.SPILLG_LAUNCHES, 12 if spillg else 0))
+    depths, dims = model_size(config[0])
+    per_step[SPILLG_WIDE_DW2] = sum(
+        d for d, c in zip(depths, dims)
+        if spillg and not fb.tail_plan(torch.empty(64, c, dtype=torch.bfloat16, device="cuda"),
+                                       "spillg_bwd_c", 64)[0].fold)
     per_step.update(dict.fromkeys(fb.MASKED_LAUNCHES, 12 if masked else 0))
     per_step["dw_weight_grad"] = 1 if gathered else 13
-    own = {"dwg": GATHERED_KERNELS, "wholeblock": fb.SPILLG_LAUNCHES,
+    own = {"dwg": GATHERED_KERNELS, "wholeblock": tuple(key for key, _, _ in SPILLG),
            "fused": fb.MASKED_LAUNCHES}.get(block_impl, ())
     return per_step, own
 
@@ -1018,7 +1102,7 @@ def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str, da
         raise AssertionError(f"slice ran {steps} steps")
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         raise AssertionError(f"non-finite loss in {losses}")
-    per_step, own = expected_launches(sparse_impl, block_impl)
+    per_step, own = expected_launches(sparse_impl, block_impl, config)
     for name, k in per_step.items():
         if launches[name] != k * steps:
             raise AssertionError(f"{model_name} {sparse_impl} {block_impl} slice, {name}: "

@@ -3,67 +3,78 @@
 // its VJP, on (M, C) rows in bf16 (or f32) with f32 params.
 //
 // Replaces the Pallas kernels of mmearth_tpu/ops/fused_block.py:
-//   spillg_fwd_a_kernel  <- _sg_fwd_a_kernel (:381, called at :538)
-//   spillg_fwd_b_kernel  <- _sg_fwd_b_kernel (:411, called at :552)
-//   spillg_bwd_c_kernel  <- _sg_bwd_c_kernel (:423, called at :580), all but dW2
-//   spillg_atb_kernel    <- the dW2 sum of _sg_bwd_c_kernel (:448) and the dW1
-//                           sum of _sg_bwd_d_kernel (:494): out += X^T Y over rows
-//   spillg_bwd_d_kernel  <- _sg_bwd_d_kernel (:463, called at :608), all but dW1
+//   spillg_fwd_a_kernel      <- _sg_fwd_a_kernel (:381, called at :538)
+//   spillg_fwd_b_kernel      <- _sg_fwd_b_kernel (:411, called at :552)
+//   spillg_bwd_c_kernel      <- _sg_bwd_c_kernel (:423, called at :580), with its
+//                               dW2 sum (:448) where that fits (below)
+//   bwd_dv_kernel<SpillRows> <- _sg_bwd_d_kernel (:463, called at :608), all but
+//                               dW1
+//   spillg_atb_kernel        <- the dW1 sum of _sg_bwd_d_kernel (:494), and C's
+//                               dW2 sum where it does not fold: out += X^T Y
+//                               over rows
 //
 // Numerics follow the Pallas kernels: every product takes operands rounded to
 // the activation dtype and sums in f32 (_mm, fused_block.py:69-81), on the
 // bf16 tensor cores (mma.sync m16n8k16) for bf16 and as plain f32 FMAs for
 // f32; LN and GRN eps 1e-6; g is stored in the activation dtype and the GRN
-// sum of squares is taken over the stored value (:397-404); erf is erff
-// (the Pallas kernel uses a polynomial with |error| <= 1.5e-7).
+// sum of squares is taken over the stored value (:397-404), and D reads the
+// stored g; erf is erff (the Pallas kernel uses a polynomial with |error| <=
+// 1.5e-7).
 //
-// Bound on the H100: each of the 2 (forward) and 6 (backward, counting the
-// recomputed v and dh) products is 2*M*C*4C flops against ~2-3 bytes of
-// (M, C) / (M, 4C) traffic per row element: at C = 40 (stage 0) the bytes
-// bound every kernel (~37-52 us at 3.35 TB/s); at C = 320 the products do
-// (D: ~16 us at 989 TFLOP/s).  The design keeps every 4C-wide intermediate
-// except the spilled g (and, in the backward, dv) out of device memory: a
-// block owns BM rows of one GRN group and walks the 4C columns in tiles of 64,
-// with the C-wide operand of its rows resident in shared memory.  A, B and C
-// also split a row block's output columns over blockIdx.y, so that the stages
-// with few rows (C = 160, 320) still fill the card; D cannot (its du needs
-// every column) and runs twice the warps instead.  Operands are staged with
-// 16-byte loads, and g and dv go to and from device memory through shared
-// memory so that those accesses are coalesced.  dW1 needs dv, which only the
-// end of D's row pass has: D stores dv and u (rounded to the product type,
-// as _mm rounds them) and a second launch sums dv^T u, one (M, 4C) + (M, C)
-// write and read more than the Pallas kernel, whose dW1 accumulator stayed
-// in VMEM.
+// Forward.  Each of A and B is one product of 2*M*C*4C flops against ~2-3
+// bytes of (M, C) / (M, 4C) traffic per row element: bytes bound both at C =
+// 40 (stage 0), products at C = 320.  A block owns BM rows of one GRN group
+// and walks the 4C columns in tiles of 64 with its rows' C-wide operand
+// resident in shared memory, the output columns split over blockIdx.y so that
+// the stages with few rows still fill the card; g goes to device memory
+// through shared memory, coalesced.  A takes the largest row tile (64 rows in
+// bf16, 32 in f32, halved down to 16) whose shared memory fits (C <= 5992 in
+// bf16, 3248 in f32); B fits every width JAX runs.  Phase A cannot finish the
+// GRN statistic (it needs every block), so A and B are two launches and B
+// takes sqrt and nx at its start.
 //
-// Width: a block keeps its rows' C-wide operands (and, in D, the f32 du of
-// its rows) in shared memory, so that memory grows with C.  Each launch takes
-// the largest row tile (64 rows in bf16, 32 in f32, halved down to 16) whose
-// shared memory fits the card: at atto widths (C <= 320) every launch keeps
-// its full tile; in bf16 D takes 32 rows above C = 368 and 16 above C = 784
-// (f32: 16 above C = 384).  Where no tile of this resident layout fits (on
-// the H100's 227 KB: D above C = 1616 in bf16 and 960 in f32), D takes a
-// wide plan at the full row tile: the C-wide operands are staged one
-// 64-column chunk at a time (u from where LN wrote it in device memory, dy
-// from its array) and the f32 du is summed in the block's own slice of a
-// device-memory scratch (64 x 2816 f32, 721 KB, at huge's widest bf16
-// stage), read and written once per 64-column tile of 4C, through L2.  A
-// (C <= 5992 bf16, 3248 f32), B and C fit every width JAX runs, so with the
-// wide plan every stage up to huge's C = 2816 has a plan.  (The masked-dense
-// passes plan their own layouts: see masked_plan.)
-
+// Backward.  C reads dy and g and writes dW2 (products dh and dW2), D reads
+// t, dy and g and writes dt and dW1 (products v, dh, du and dW1): bytes bound
+// both at stage 0 (C = 40), products at stage 3 (C = 320).  dW1 needs dv,
+// which only the end of D's row pass has, so D stores dv and u (rounded to
+// the product type, as _mm rounds them) and a second launch sums dv^T u: one
+// (M, 4C) + (M, C) write and read more than the Pallas kernel, whose dW1
+// accumulator stayed in VMEM.  The dgx step between C and D is (G, 4C)
+// elementwise work left to the caller, as JAX leaves it to XLA; it needs the
+// finished dnx of every block, so C and D are two launches.  The first design
+// of both (a block a 64-row tile, every block re-staging the weights from L2
+// for every 64-column tile of 4C, stage / barrier / a few mma.sync / barrier,
+// LN and the dLN sums one row a warp, an atomicAdd per column sum and tile)
+// ran 15-38x its bound.  Now:
+//   D is the masked tail's dv pass (below) on a row source that walks every
+//   row of each group in order: persistent blocks, weights resident at C = 40
+//   and streamed through a cp.async ring elsewhere, LN over the whole tile at
+//   once, column sums in shared memory until the block ends, 16 warps, the
+//   wide plan past the rows that fit (huge's C = 2816).  It takes the stored
+//   g (each thread fetches its fragment's values before the tile's
+//   products, so the loads overlap them) and only gelu'(v) from v.
+//   C: a block owns one 64-column slice of 4C and walks a contiguous range of
+//   row tiles (several blocks a slice, so that every stage fills the card);
+//   W2^T's slice is staged once, each tile's dy rows and g slice come by
+//   cp.async while the tile before is computed, the column sums stay in
+//   shared memory (dnx until the block's group changes), and dW2's (C x 64)
+//   slice is summed in the mma accumulators over the block's tiles (dy^T h:
+//   A from the staged dy rows by ldmatrix.trans, h^T from the epilogue) and
+//   added once, one atomicAdd an element.  That fold holds where the slice
+//   takes at most 5 m-tiles of 16 a warp (40 f32 a thread: bf16 C <= 320, f32
+//   C <= 160, every atto width); past it dW2 is the X^T Y pass again, with h
+//   computed from g as it is read, and past the rows that fit (bf16 C >~ 540)
+//   C's dy rows and W2^T's slice stream by chunk through a ring.
+//
 // Cross-block sums: the TPU carried its accumulators from one grid step to
 // the next.  Blocks run in no order here, so every column sum (sum g^2 per
 // group, db1, db2, dgamma, dbeta, dnx, dLN) is reduced inside the block
 // (warp shuffles, then shared memory) and added to its f32 output with one
-// atomicAdd per column and block; dW1/dW2 are split over rows (a few
-// thousand rows per block) and each block adds its 64 x 64 tile once.  The
-// atomics make the order of those sums vary from run to run (f32 noise of
-// ~1e-6 of their scale).  The callers zero every atomic output.
-//
-// Phase A cannot finish the GRN statistic (it needs every block), so A and B
-// are two launches and B takes sqrt and nx at its start.  The dgx step
-// between C and D is (G, 4C) elementwise work left to the caller, as JAX
-// leaves it to XLA.
+// atomicAdd per column and block (the persistent passes: per block and
+// group); dW1 (and dW2 where it does not fold) is split over rows and each
+// block adds its 64 x 64 tile once.  The atomics make the order of those sums
+// vary from run to run (f32 noise of ~1e-6 of their scale).  The callers zero
+// every atomic output.
 //
 // The masked-dense tail (fused_block_mlp: the same block tail on every site
 // of the dense grid, with y = x + keep * (...) and the GRN statistic over the
@@ -79,7 +90,7 @@
 //   masked_bwd_stat_kernel   <- phase 0 of _bwd_kernel (:129, called at :302),
 //                               all but dW2: stores do = dy * keep and h
 //   spillg_atb_kernel<MASKED> <- its dW2 sum (:175), h^T do over kept rows
-//   masked_bwd_dv_kernel     <- phase 1 of _bwd_kernel, all but dW1: D on do,
+//   bwd_dv_kernel<KeptRows>  <- phase 1 of _bwd_kernel, all but dW1: D on do,
 //                               with g = gelu(v) recomputed and the dgx term
 //                               g * keep^2 * dgx/gx (:192); dt = 0 at masked
 //                               rows
@@ -94,8 +105,10 @@
 // exactly 0 everywhere.  At the kept sites the forward moves t (kept), x and
 // y (every row) against 2 products of 2*C*4C a site, the backward t and dy
 // (kept) and dt (every row) against 5: stage 0 of atto (C = 40) is bound by
-// bytes, the later stages by products, and every stage holds the same ~50 M
-// kept (row, 4C) elements a pass, each with an erf GELU (two in the dv pass).
+// bytes, the later stages by products.  From stage to stage the kept rows
+// fall 4x and 4C grows 2x, so a pass holds 49.8 / 24.9 / 12.5 / 6.2 M kept
+// (row, 4C) elements at stages 0-3, each with an erf GELU (two in the dv
+// pass).
 // The earlier design computed every site (2.58x the work), re-staged the
 // weights through L2 for every 64-row block (more bytes than t, x and y at
 // stage 0), and stalled on each 64 x 64 weight tile (stage, barrier, a few
@@ -479,212 +492,6 @@ spillg_fwd_b_kernel(const T* __restrict__ g, const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// C: dh = dy W2 (recomputed per 64-column tile, never stored);
-//    dgamma += sum dh*(g*nx), dbeta += sum dh, dnx[grp] += sum dh*gamma*g,
-//    db2 += sum dy.
-// ---------------------------------------------------------------------------
-template <typename T, int BM>
-__global__ void __launch_bounds__(BM * 2)
-spillg_bwd_c_kernel(const T* __restrict__ dy, const T* __restrict__ g,
-                    const float* __restrict__ nx, const float* __restrict__ gamma,
-                    const T* __restrict__ w2t, float* __restrict__ db2,
-                    float* __restrict__ dgamma, float* __restrict__ dbeta,
-                    float* __restrict__ dnx, int C, int C4, int GR, int tpg) {
-  constexpr int NW = BM / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Cp = (C + 15) & ~15, lda = Cp + 8;
-  T* sDY = reinterpret_cast<T*>(smem);
-  T* sB = reinterpret_cast<T*>(smem + align16(sizeof(T) * BM * lda));
-  T* sG = sB + TN * LDC;
-  float* red = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sG) +
-                                        align16(sizeof(T) * BM * LDC));
-  const int w = threadIdx.x >> 5;
-  const Rows rw = block_rows<BM>(GR, tpg);
-  stage(sDY, lda, dy, C, rw.row0, BM, rw.row0 + rw.nvalid, 0, Cp, C);
-  __syncthreads();
-  for (int c = threadIdx.x; c < C && blockIdx.y == 0; c += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < rw.nvalid; ++r) s += to_f(sDY[r * lda + c]);
-    atomicAdd(db2 + c, s);
-  }
-  const float* nxg = nx + (size_t)rw.grp * C4;
-
-  for (int j0 = blockIdx.y * TN; j0 < C4; j0 += gridDim.y * TN) {
-    float acc[8][4] = {};
-    for (int k0 = 0; k0 < Cp; k0 += KC) {
-      const int kc = min(KC, Cp - k0);
-      __syncthreads();
-      if (k0 == 0) stage(sG, LDC, g, C4, rw.row0, BM, rw.row0 + rw.nvalid, j0, TN, C4);
-      stage(sB, LDC, w2t, C, j0, TN, C4, k0, kc, C);
-      __syncthreads();
-      WarpMM<T>::run(sDY + w * 16 * lda + k0, lda, sB, LDC, kc, acc);
-    }
-    float a[8][4], b[8][4], d[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = w * 16 + frag_row(e), j = j0 + frag_col(nt, e);
-        float gv = 0.f, nxv = 0.f, gm = 0.f;
-        if (r < rw.nvalid && j < C4) {
-          gv = to_f(sG[r * LDC + j - j0]);
-          nxv = nxg[j];
-          gm = gamma[j];
-        }
-        const float dh = acc[nt][e];
-        a[nt][e] = dh * (gv * nxv);
-        b[nt][e] = dh;
-        d[nt][e] = dh * gm * gv;
-      }
-    }
-    col_sum<NW>(a, red, dgamma + j0, C4 - j0);
-    col_sum<NW>(b, red, dbeta + j0, C4 - j0);
-    col_sum<NW>(d, red, dnx + (size_t)rw.grp * C4 + j0, C4 - j0);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// D: u, v = LN(t) W1^T + b1 and dh = dy W2 recomputed per 64-column tile;
-//    dv = (dh*(gamma*nx + 1) + g*dgxg) * gelu'(v), stored rounded to T for
-//    the dW1 pass; db1 += sum dv; du = dv W1 accumulated in shared memory;
-//    dLN sums and dt = r*(da - mean da - uhat*mean(da*uhat)), da = du*lnw.
-//    The rounded u is stored for the dW1 pass too.  Twice the warps of the
-//    other kernels (each of BM/16 row-warps split over two 32-column halves
-//    of a tile): the block holds the most shared memory, so few fit an SM.
-//    WIDE (rows too wide for the resident layout): u and dy are staged one
-//    64-column chunk at a time (u from u_out, which LN writes first) and du
-//    is summed in the block's slice of wide_acc (BM x Cp f32 in device
-//    memory, mostly held in L2) in place of shared memory.
-// ---------------------------------------------------------------------------
-template <typename T, int BM, bool WIDE>
-__global__ void __launch_bounds__(BM * 4)
-spillg_bwd_d_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* __restrict__ g,
-                    const float* __restrict__ nx, const float* __restrict__ dgxg,
-                    const float* __restrict__ lnw, const float* __restrict__ lnb,
-                    const T* __restrict__ w1, const float* __restrict__ b1,
-                    const float* __restrict__ gamma, const T* __restrict__ w2t,
-                    const T* __restrict__ w1t, T* __restrict__ dt, T* __restrict__ dv_out,
-                    T* __restrict__ u_out, float* __restrict__ db1, float* __restrict__ dlnw,
-                    float* __restrict__ dlnb, float* wide_acc, int C, int C4, int GR, int tpg) {
-  constexpr int NW = BM / 16, NTH = 4;  // row-warps; n-tiles per warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Cp = (C + 15) & ~15, lda = WIDE ? LDC : Cp + 8;
-  unsigned char* p = smem;
-  T* sU = reinterpret_cast<T*>(p);
-  p += align16(sizeof(T) * BM * lda);
-  T* sDY = reinterpret_cast<T*>(p);
-  p += align16(sizeof(T) * BM * lda);
-  T* sB1 = reinterpret_cast<T*>(p);
-  p += align16(sizeof(T) * TN * LDC);
-  T* sB2 = reinterpret_cast<T*>(p);
-  p += align16(sizeof(T) * TN * LDC);
-  T* sDV = reinterpret_cast<T*>(p);
-  p += align16(sizeof(T) * BM * LDC);
-  T* sG = reinterpret_cast<T*>(p);
-  p += align16(sizeof(T) * BM * LDC);
-  float* sDU = reinterpret_cast<float*>(p);  // du of the block's rows
-  if constexpr (WIDE) sDU = wide_acc + (size_t)blockIdx.x * BM * Cp;
-  else p += align16(sizeof(float) * BM * Cp);
-  float* sMean = reinterpret_cast<float*>(p);
-  float* sRs = sMean + BM;
-  float* red = sRs + BM;
-
-  const int lane = threadIdx.x & 31, wt = threadIdx.x >> 5, nwt = blockDim.x >> 5;
-  const int w = wt % NW, col = (wt / NW) * NTH * 8;  // row-warp; first column of the warp
-  const Rows rw = block_rows<BM>(GR, tpg);
-  layer_norm_rows<T, BM>(t, lnw, lnb, WIDE ? nullptr : sU, lda, C, Cp, rw, sMean, sRs, u_out);
-  if constexpr (!WIDE) stage(sDY, lda, dy, C, rw.row0, BM, rw.row0 + rw.nvalid, 0, Cp, C);
-  for (int i = threadIdx.x; i < BM * Cp; i += blockDim.x) sDU[i] = 0.f;
-  const float* nxg = nx + (size_t)rw.grp * C4;
-  const float* dgg = dgxg + (size_t)rw.grp * C4;
-
-  for (int j0 = 0; j0 < C4; j0 += TN) {
-    float av[NTH][4] = {}, ah[NTH][4] = {};
-    for (int k0 = 0; k0 < Cp; k0 += KC) {
-      const int kc = min(KC, Cp - k0), ka = WIDE ? 0 : k0;
-      __syncthreads();
-      if (k0 == 0) stage(sG, LDC, g, C4, rw.row0, BM, rw.row0 + rw.nvalid, j0, TN, C4);
-      if constexpr (WIDE) {
-        stage<T, true>(sU, LDC, u_out, C, rw.row0, BM, rw.row0 + rw.nvalid, k0, kc, C);
-        stage(sDY, LDC, dy, C, rw.row0, BM, rw.row0 + rw.nvalid, k0, kc, C);
-      }
-      stage(sB1, LDC, w1, C, j0, TN, C4, k0, kc, C);
-      stage(sB2, LDC, w2t, C, j0, TN, C4, k0, kc, C);
-      __syncthreads();
-      WarpMM<T>::run(sU + w * 16 * lda + ka, lda, sB1 + col * LDC, LDC, kc, av);
-      WarpMM<T>::run(sDY + w * 16 * lda + ka, lda, sB2 + col * LDC, LDC, kc, ah);
-    }
-    float dvs[NTH][4];
-#pragma unroll
-    for (int nt = 0; nt < NTH; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = w * 16 + frag_row(e), jc = col + frag_col(nt, e), j = j0 + jc;
-        float dvv = 0.f;
-        if (r < rw.nvalid && j < C4) {
-          const float v = av[nt][e] + b1[j];
-          const float dg = ah[nt][e] * (gamma[j] * nxg[j] + 1.f) + to_f(sG[r * LDC + jc]) * dgg[j];
-          dvv = dg * gelu_grad(v);
-        }
-        const T q = from_f<T>(dvv);
-        sDV[r * LDC + jc] = q;
-        dvs[nt][e] = dvv;
-      }
-    }
-    col_sum<NW, NTH>(dvs, red, db1 + j0, C4 - j0, col);  // also publishes sDV
-    for (int i = threadIdx.x; i < BM * TN; i += blockDim.x) {  // coalesced store of dv
-      const int r = i / TN, jc = i - r * TN;
-      if (r < rw.nvalid && j0 + jc < C4)
-        dv_out[(size_t)(rw.row0 + r) * C4 + j0 + jc] = sDV[r * LDC + jc];
-    }
-    const int kj = min(KC, C4 - j0);
-    for (int c0 = 0; c0 < C; c0 += TN) {
-      stage(sB1, LDC, w1t, C4, c0, TN, C, j0, kj, C4);
-      __syncthreads();
-      float acc[NTH][4] = {};
-      WarpMM<T>::run(sDV + w * 16 * LDC, LDC, sB1 + col * LDC, LDC, kj, acc);
-#pragma unroll
-      for (int nt = 0; nt < NTH; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = w * 16 + frag_row(e), c = c0 + col + frag_col(nt, e);
-          if (c < C) sDU[r * Cp + c] += acc[nt][e];
-        }
-      }
-      __syncthreads();
-    }
-  }
-  __syncthreads();
-
-  for (int r = wt; r < rw.nvalid; r += nwt) {
-    const T* tr = t + (size_t)(rw.row0 + r) * C;
-    const float mean = sMean[r], rs = sRs[r];
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float uh = (to_f(tr[c]) - mean) * rs, da = sDU[r * Cp + c] * lnw[c];
-      s1 += da;
-      s2 += da * uh;
-    }
-    const float md = warp_sum(s1) / C, mdu = warp_sum(s2) / C;
-    for (int c = lane; c < C; c += 32) {
-      const float uh = (to_f(tr[c]) - mean) * rs, da = sDU[r * Cp + c] * lnw[c];
-      dt[(size_t)(rw.row0 + r) * C + c] = from_f<T>(rs * (da - md - uh * mdu));
-    }
-  }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int r = 0; r < rw.nvalid; ++r) {
-      const float du = sDU[r * Cp + c];
-      s1 += du * ((to_f(t[(size_t)(rw.row0 + r) * C + c]) - sMean[r]) * sRs[r]);
-      s2 += du;
-    }
-    atomicAdd(dlnw + c, s1);
-    atomicAdd(dlnb + c, s2);
-  }
-}
-
-
-// ---------------------------------------------------------------------------
 // The masked-dense tail (rows 5-6 of the kernel table).  Only kept sites
 // (keep != 0) reach y, dt or any sum, so every pass works on a list of them:
 //
@@ -717,7 +524,7 @@ spillg_bwd_d_kernel(const T* __restrict__ t, const T* __restrict__ dy, const T* 
 constexpr int CHUNK = 4096;        // rows of a chunk of the kept-row list
 constexpr int ROWS_THREADS = 512;  // threads of masked_fwd_rows_kernel, 8 rows each
 enum Mode { RES = 0, RING = 1, WIDE = 2 };
-enum Kind { K_STAT = 0, K_APPLY = 1, K_BSTAT = 2, K_DV = 3 };
+enum Kind { K_STAT = 0, K_APPLY = 1, K_BSTAT = 2, K_DV = 3, K_SC = 4, K_SD = 5 };  // SC, SD: spill-g C, D
 // Every masked row pass: BM/16 row-warps times COLW warps across a 64-column
 // tile (CNT = 8 / COLW n-tiles of 8 each), so 2 * COLW * BM threads.
 constexpr int COLW = 4, CNT = 8 / COLW;
@@ -773,7 +580,8 @@ __device__ void matrix_async(T* s, int lds, const T* __restrict__ src, int rows,
   }
 }
 
-// The kept-row list and its virtual tiles.
+// The kept-row list and its virtual tiles, or (ids and cnt null: spill-g's
+// D) every row of each group in order, one chunk a group.
 struct Walk {
   const int* ids;
   const int* cnt;
@@ -783,14 +591,17 @@ struct Tile {
   int grp, p0, nk, nf;  // slots [p0, p0 + nk) kept, the next nf masked
   bool first;           // the group's first tile
 };
-template <int BM> __device__ __forceinline__ Tile tile_of(const Walk& w, int v) {
+// SPILL: the spill-g walk, its chunk the group and every row kept (a
+// template argument, so that the masked passes' code has no branch on it).
+template <int BM, bool SPILL = false>
+__device__ __forceinline__ Tile tile_of(const Walk& w, int v) {
   const int nq = w.nvt / w.tpc, i = v / nq, q = v - i * nq;  // chunk-minor: kept tiles first
-  const int grp = q / w.ncg, k = q - grp * w.ncg;
-  const int len = min(CHUNK, w.GR - k * CHUNK), ke = __ldg(w.cnt + q);
+  const int grp = q / w.ncg, k = q - grp * w.ncg, chunk = SPILL ? w.GR : CHUNK;
+  const int len = min(chunk, w.GR - k * chunk), ke = SPILL ? len : __ldg(w.cnt + q);
   const int a = i * BM, b = min(len, a + BM);
   Tile t;
   t.grp = grp;
-  t.p0 = grp * w.GR + k * CHUNK + a;
+  t.p0 = grp * w.GR + k * chunk + a;
   t.nk = max(0, min(b, ke) - a);
   t.nf = max(0, b - max(a, ke));
   t.first = k == 0 && i == 0;
@@ -835,13 +646,6 @@ masked_fwd_rows_kernel(const T* __restrict__ keep, int* __restrict__ ids, int* _
   if (threadIdx.x == 0) cnt[q] = total;
 }
 
-// LN of the tile's kept rows: keeps each row's mean, 1/std, keep and id in
-// shared memory and writes the rounded u at the row's slot of u_out when
-// given.  With sU, every thread first gathers the raw rows into sU with
-// 16-byte loads (zero in the padding and past nk), so that a tile waits for
-// device memory once, and each row is normalised in place from shared
-// memory; with sU null (WIDE) each warp reads its rows from t.  Syncs the
-// block.
 // dst[r][c] = s[r][c] for r < n, c < C (row pitches ldd, lds; C a multiple
 // of 8), 16 bytes a copy.
 template <typename T>
@@ -862,10 +666,15 @@ __device__ __forceinline__ float lane_sum(float v, int L) {
   return v;
 }
 
+// The row of slot p: ids[p] on the kept-row list, p itself on the spill-g walk.
+template <bool SPILL> __device__ __forceinline__ int row_at(const int* __restrict__ ids, int p) {
+  return SPILL ? p : ids[p];
+}
+
 // s[r][c] = src[row of slot p0 + r][c] for r < nk, c < C, zero in the
 // padding up to Cp and in the rows past nk (row pitch lds), every thread
 // loading 16 bytes at a time, so that a tile waits for device memory once.
-template <typename T, int BM>
+template <typename T, int BM, bool SPILL = false>
 __device__ void gather_rows(T* s, int lds, const T* __restrict__ src, const int* __restrict__ ids,
                             int p0, int nk, int C, int Cp) {
   constexpr int V = VEC_BYTES / sizeof(T);
@@ -873,23 +682,31 @@ __device__ void gather_rows(T* s, int lds, const T* __restrict__ src, const int*
   for (int i = threadIdx.x; i < BM * pv; i += blockDim.x) {
     const int r = i / pv, c = (i - r * pv) * V;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nk && c < C) v = *reinterpret_cast<const uint4*>(src + (size_t)ids[p0 + r] * C + c);
+    if (r < nk && c < C)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)row_at<SPILL>(ids, p0 + r) * C + c);
     *reinterpret_cast<uint4*>(s + r * lds + c) = v;
   }
 }
 
-template <typename T, int BM>
+// LN of the tile's kept rows (every row on the spill-g walk, keep 1): keeps
+// each row's mean, 1/std, keep and id in shared memory and writes the
+// rounded u at the row's slot of u_out when given.  With sU, every thread
+// first gathers the raw rows into sU with 16-byte loads (zero in the padding
+// and past nk), so that a tile waits for device memory once, and each row is
+// normalised in place from shared memory; with sU null (WIDE) each warp
+// reads its rows from t.  Syncs the block.
+template <typename T, int BM, bool SPILL = false>
 __device__ void ln_tile(const T* __restrict__ t, const T* __restrict__ keep, const int* __restrict__ ids,
                         const Tile& tl, const float* __restrict__ lnw,
                         const float* __restrict__ lnb, T* sU, int lda, int C, int Cp,
                         float* sMean, float* sRs, float* sKeep, int* sId, T* u_out) {
   const int nwt = blockDim.x >> 5, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   for (int r = threadIdx.x; r < tl.nk; r += blockDim.x) {
-    const int id = ids[tl.p0 + r];
+    const int id = row_at<SPILL>(ids, tl.p0 + r);
     sId[r] = id;
-    sKeep[r] = to_f(keep[id]);
+    sKeep[r] = SPILL ? 1.f : to_f(keep[id]);
   }
-  if (sU != nullptr) gather_rows<T, BM>(sU, lda, t, ids, tl.p0, tl.nk, C, Cp);
+  if (sU != nullptr) gather_rows<T, BM, SPILL>(sU, lda, t, ids, tl.p0, tl.nk, C, Cp);
   __syncthreads();
   // L lanes a row, 32 / L rows a warp at a time (narrow rows take fewer lanes)
   const int L = C <= 64 ? 8 : C <= 256 ? 16 : 32, sub = lane % L;
@@ -1542,10 +1359,18 @@ masked_bwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ dy, const 
 }
 
 // ---------------------------------------------------------------------------
-// dv pass of the backward (phase 1 of _bwd_kernel), all but dW1: D on the
-// stored do (at the slots), with g = gelu(v) recomputed in f32 and the dgx
-// term g * keep^2 * dgx/gx (:192); dv and u stored at the slots for the dW1
-// pass; dt = 0 at masked rows.  D's warp layout.
+// dv pass of the backward, all but dW1: u and v = LN(t) W1^T + b1, dh = do
+// W2 per 64-column tile of 4C; dv = (dh*(gamma*nx + 1) + g'*dgx/gx) *
+// gelu'(v), stored (rounded to T) with u for the dW1 pass; db1 += sum dv; du
+// = dv W1 summed C wide; the dLN sums and dt = r*(da - mean da - uhat *
+// mean(da*uhat)), da = du*lnw.  D's warp layout.  Two row sources (a tag
+// type, so that profiles and ptxas name them):
+//   KeptRows (phase 1 of _bwd_kernel): the kept-row list, do = dy * keep at
+//     the slots, g' = gelu(v) * keep^2 of the f32 g recomputed (:192), dt = 0
+//     at masked rows;
+//   SpillRows (row 10, _sg_bwd_d_kernel, :463): every row of each group, do = dy,
+//     g' the stored g (the same load for the whole tile: each thread fetches
+//     its fragment's g before the tile's products), and only gelu'(v) from v.
 // ---------------------------------------------------------------------------
 template <typename T, int BM, int MODE>
 __host__ __device__ size_t dv_smem(int C) {
@@ -1562,17 +1387,33 @@ __host__ __device__ size_t dv_smem(int C) {
   return c.off;
 }
 
-template <typename T, int BM, int MODE>
+// The two values of an mma fragment's column pair (e, e + 1) at p, as f32.
+__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, float& b) {
+  const __nv_bfloat162 v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+  a = __low2float(v);
+  b = __high2float(v);
+}
+
+struct KeptRows {};
+struct SpillRows {};
+
+template <typename T, int BM, int MODE, typename Src>
 __global__ void __launch_bounds__(BM * 2 * COLW)
-masked_bwd_dv_kernel(const T* __restrict__ t, const T* __restrict__ do_in, const T* __restrict__ keep,
-                 Walk wk, const float* __restrict__ nx, const float* __restrict__ dgxg,
-                 const float* __restrict__ lnw, const float* __restrict__ lnb,
-                 const T* __restrict__ w1, const float* __restrict__ b1,
-                 const float* __restrict__ gamma, const T* __restrict__ w2t,
-                 const T* __restrict__ w1t, T* __restrict__ dt, T* __restrict__ dv_out,
-                 T* __restrict__ u_out, float* __restrict__ db1, float* __restrict__ dlnw,
-                 float* __restrict__ dlnb, float* wide_acc, int C) {
+bwd_dv_kernel(const T* __restrict__ t, const T* __restrict__ do_in, const T* __restrict__ keep,
+              const T* __restrict__ g, Walk wk, const float* __restrict__ nx,
+              const float* __restrict__ dgxg, const float* __restrict__ lnw,
+              const float* __restrict__ lnb, const T* __restrict__ w1,
+              const float* __restrict__ b1, const float* __restrict__ gamma,
+              const T* __restrict__ w2t, const T* __restrict__ w1t, T* __restrict__ dt,
+              T* __restrict__ dv_out, T* __restrict__ u_out, float* __restrict__ db1,
+              float* __restrict__ dlnw, float* __restrict__ dlnb, float* wide_acc, int C) {
   constexpr int NW = BM / 16, S = ring_slots<T>(K_DV);
+  constexpr bool SPILL = std::is_same_v<Src, SpillRows>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int C4 = 4 * C, Cp = (C + 15) & ~15, lda = MODE == WIDE ? LDC : Cp + 8;
   const int nj = (C4 + TN - 1) / TN, nk = (Cp + KC - 1) / KC, nc = (C + TN - 1) / TN;
@@ -1625,12 +1466,12 @@ masked_bwd_dv_kernel(const T* __restrict__ t, const T* __restrict__ do_in, const
   }
   int si = 0;
   for (int v = blockIdx.x; v < wk.nvt; v += gridDim.x) {
-    const Tile tl = tile_of<BM>(wk, v);
+    const Tile tl = tile_of<BM, SPILL>(wk, v);
     fill_rows<T>(dt, nullptr, wk.ids, tl.p0 + tl.nk, tl.nf, C);
     if (tl.nk == 0) continue;
     __syncthreads();  // the tile before is consumed
-    ln_tile<T, BM>(t, keep, wk.ids, tl, lnw, lnb, MODE == WIDE ? nullptr : sU, lda, C, Cp,
-                   sMean, sRs, sKeep, sId, u_out);
+    ln_tile<T, BM, SPILL>(t, keep, wk.ids, tl, lnw, lnb, MODE == WIDE ? nullptr : sU, lda, C,
+                          Cp, sMean, sRs, sKeep, sId, u_out);
     if constexpr (MODE != WIDE) stage(sDY, lda, do_in, C, tl.p0, BM, tl.p0 + tl.nk, 0, Cp, C);
     for (int i = threadIdx.x; i < BM * ldo; i += blockDim.x) sDU[i] = 0.f;
     if constexpr (MODE == RES) {
@@ -1641,7 +1482,17 @@ masked_bwd_dv_kernel(const T* __restrict__ t, const T* __restrict__ do_in, const
     const float* dgg = dgxg + (size_t)tl.grp * C4;
     for (int jt = 0; jt < nj; ++jt) {
       const int j0 = jt * TN;
-      float av[CNT][4] = {}, ah[CNT][4] = {};
+      float av[CNT][4] = {}, ah[CNT][4] = {}, gs[CNT][4] = {};
+      if constexpr (SPILL) {  // the stored g of this thread's fragment, in flight over the products
+#pragma unroll
+        for (int nt = 0; nt < CNT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int r = w * 16 + frag_row(e), j = j0 + col + frag_col(nt, e);
+            if (r < tl.nk && j < C4) load_pair(g + (size_t)(tl.p0 + r) * C4 + j, gs[nt][e], gs[nt][e + 1]);
+          }
+        }
+      }
       for (int kt = 0; kt < nk; ++kt) {
         const int k0 = kt * KC, kc = min(KC, Cp - k0);
         const T *B1, *B2;
@@ -1673,10 +1524,17 @@ masked_bwd_dv_kernel(const T* __restrict__ t, const T* __restrict__ do_in, const
           const int r = w * 16 + frag_row(e), jc = col + frag_col(nt, e), j = j0 + jc;
           float dvv = 0.f;
           if (r < tl.nk && j < C4) {
-            const float v = av[nt][e] + b1[j], k = sKeep[r];
+            const float v = av[nt][e] + b1[j];
             float gv, gd;
-            gelu_both(v, gv, gd);
-            const float dg = ah[nt][e] * (gamma[j] * nxg[j] + 1.f) + gv * k * k * dgg[j];
+            if constexpr (SPILL) {
+              gv = gs[nt][e];
+              gd = gelu_grad(v);
+            } else {
+              const float k = sKeep[r];
+              gelu_both(v, gv, gd);
+              gv = gv * k * k;
+            }
+            const float dg = ah[nt][e] * (gamma[j] * nxg[j] + 1.f) + gv * dgg[j];
             dvv = dg * gd;
           }
           sDV[r * LDC + jc] = from_f<T>(dvv);
@@ -1713,7 +1571,7 @@ masked_bwd_dv_kernel(const T* __restrict__ t, const T* __restrict__ do_in, const
     if constexpr (MODE == WIDE) __threadfence();
     __syncthreads();
     if constexpr (MODE != WIDE) {  // the raw rows of t, in place of u
-      gather_rows<T, BM>(sU, lda, t, wk.ids, tl.p0, tl.nk, C, Cp);
+      gather_rows<T, BM, SPILL>(sU, lda, t, wk.ids, tl.p0, tl.nk, C, Cp);
       __syncthreads();
     }
     // dt of each kept row, L lanes a row as in ln_tile
@@ -1758,6 +1616,332 @@ masked_bwd_dv_kernel(const T* __restrict__ t, const T* __restrict__ do_in, const
     flush_sums(sDLW, dlnw, C);
     flush_sums(sDLB, dlnb, C);
   }
+  cp_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// Row 9, phase C of the spill-g backward (_sg_bwd_c_kernel, :423): dh = dy W2
+// (never stored), dgamma += sum dh*(g*nx), dbeta += sum dh, dnx[grp] += sum
+// dh*gamma*g, db2 += sum dy, and, where the block's slice of dW2 fits its
+// registers (FOLD, MT > 0), dW2 += dy^T h with h = gamma*(g*nx) + beta + g
+// rounded to T: the TPU kernel's dw2_acc (:448).  A block owns one 64-column
+// slice j0 of 4C and walks a contiguous range of row tiles (see c_range).
+// RES: W2^T's slice is staged once, and each tile's dy rows (C wide) and g
+// slice come by cp.async two tiles ahead of the products; RING (rows too
+// wide for that): the dy rows and W2^T's slice stream by 64-column chunk
+// through a ring, the g slice with the tile's first chunk.  Each thread
+// keeps gamma, beta, nx and its column sums in registers until the block
+// ends (dnx: until its group changes); dW2's slice stays in the mma
+// accumulators and is added once.  MT: the m-tiles (16 rows of C) of dW2 a
+// warp holds, 0 without the fold.
+// ---------------------------------------------------------------------------
+constexpr int C_RING_SLOTS = 3;
+
+// s[r][c] = src[r0 + r][c0 + c] for r < nr, c < nc (row pitch lds), zero
+// where r0 + r >= rmax or c0 + c >= cmax, by cp.async.
+template <typename T>
+__device__ __forceinline__ void rows_async(T* s, int lds, const T* __restrict__ src, int ld,
+                                           int r0, int nr, int rmax, int c0, int nc, int cmax) {
+  constexpr int V = VEC_BYTES / sizeof(T);
+  const int pv = nc / V;
+  for (int i = threadIdx.x; i < nr * pv; i += blockDim.x) {
+    const int r = i / pv, c = (i - r * pv) * V;
+    const bool ok = r0 + r < rmax && c0 + c < cmax;
+    cp16(s + r * lds + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+  }
+}
+
+// acc[mt][nt][*] += A[m0 + 16 mt.. + 16][0:kc] . B[nt*8 + n][0:kc] for this
+// warp, with A stored transposed (sA[k][m], pitch lda: the dy rows of a tile)
+// and B n-major with k contiguous; the fragment layout of WarpMM.  bf16: A's
+// fragments come by ldmatrix.trans.
+template <typename T> struct WarpMMt;
+
+template <> struct WarpMMt<__nv_bfloat16> {
+  template <int NT>
+  __device__ __forceinline__ static void run(const __nv_bfloat16* sA, int lda, int m0,
+                                             const __nv_bfloat16* sB, int ldb, int kc,
+                                             float (&acc)[NT][4]) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, q = lane >> 3, i = lane & 7;
+    for (int k = 0; k < kc; k += 16) {
+      uint32_t a0, a1, a2, a3;
+      const __nv_bfloat16* pa = sA + (k + (q >> 1) * 8 + i) * lda + m0 + (q & 1) * 8;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
+                   : "r"(smem_addr(pa)));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const __nv_bfloat16* b = sB + (nt * 8 + g) * ldb + k + 2 * t;
+        const uint32_t b0 = ld32(b), b1 = ld32(b + 8);
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(acc[nt][0]), "+f"(acc[nt][1]), "+f"(acc[nt][2]), "+f"(acc[nt][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      }
+    }
+  }
+};
+
+template <> struct WarpMMt<float> {
+  template <int NT>
+  __device__ __forceinline__ static void run(const float* sA, int lda, int m0, const float* sB,
+                                             int ldb, int kc, float (&acc)[NT][4]) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* a = sA + m0 + g + (e >> 1) * 8;
+        const float* b = sB + (nt * 8 + 2 * t + (e & 1)) * ldb;
+        float s = acc[nt][e];
+        for (int k = 0; k < kc; ++k) s = fmaf(a[k * lda], b[k], s);
+        acc[nt][e] = s;
+      }
+    }
+  }
+};
+
+// p[0] += a, p[1] += b in device memory, one vector atomic (sm_90; p 8-byte
+// aligned).
+__device__ __forceinline__ void red_add2(float* p, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
+
+// The block's slice y of the nj 64-column slices of 4C and its row tiles
+// [t0, t1) of nt: block b takes slice b % nj, and the blocks of a slice cut
+// its tiles into even ranges, so that any number of blocks >= nj fills the
+// card at every stage.
+__device__ __forceinline__ void c_range(int nt, int nj, int& y, int& t0, int& t1) {
+  const int nb = gridDim.x, b = blockIdx.x;
+  y = b % nj;
+  const int ri = b / nj, rr = nb / nj + (y < nb % nj ? 1 : 0);
+  t0 = (int)((long long)ri * nt / rr);
+  t1 = (int)((long long)(ri + 1) * nt / rr);
+}
+
+// Tiles of dy rows and g in flight in RES: the copy of tile u + 2 overlaps
+// the products of tile u.
+constexpr int C_TILE_BUFS = 3;
+
+template <typename T, int BM, int MODE, int MT>
+__host__ __device__ size_t c_smem(int C) {
+  Carve c;
+  const int Cp = (C + 15) & ~15;
+  if (MODE == RES) {
+    c.take(sizeof(T) * TN * (Cp + 8));                // W2^T's slice
+    c.take(sizeof(T) * C_TILE_BUFS * BM * (Cp + 8));  // dy rows of the tiles in flight
+    c.take(sizeof(T) * C_TILE_BUFS * BM * LDC);       // their g slices
+  } else {
+    c.take(sizeof(T) * C_RING_SLOTS * 2 * TN * LDC);  // W2^T chunk, dy chunk
+    c.take(sizeof(T) * 2 * BM * LDC);                 // g slices of two tiles
+  }
+  c.take(MT > 0 ? sizeof(T) * TN * (BM + 8) : 0);  // h^T of a tile
+  c.take(sizeof(float) * (3 * TN + C));             // dgamma, dbeta, dnx, db2
+  return c.off;
+}
+
+// v (the warp's per-thread column sums of a tile, CNT x 2 columns) into acc[c]
+// (shared memory): a warp shuffle over its rows, then one shared atomic a
+// column and warp.
+__device__ __forceinline__ void col_acc2(const float (&v)[CNT][2], float* acc, int nvalid,
+                                         int coloff) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < CNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = v[nt][e];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      const int c = coloff + frag_col(nt, e);
+      if (lane < 4 && c < nvalid) atomicAdd(acc + c, s);
+    }
+  }
+}
+
+// Two blocks an SM where one would leave the card half idle: RING (huge's
+// widths) has one block a 64-column slice of 4C, 176 at C = 2816, and the
+// half tile (8 warps a block) relies on a second block to hide its waits.
+template <typename T, int BM, int MODE, int MT>
+__global__ void __launch_bounds__(BM * 2 * COLW, MODE == RING || BM < Cfg<T>::BM ? 2 : 1)
+spillg_bwd_c_kernel(const T* __restrict__ dy, const T* __restrict__ g,
+                    const float* __restrict__ nx, const float* __restrict__ gamma,
+                    const float* __restrict__ beta, const T* __restrict__ w2t,
+                    float* __restrict__ db2, float* __restrict__ dgamma,
+                    float* __restrict__ dbeta, float* __restrict__ dnx, float* __restrict__ dw2,
+                    int M, int C, int GR) {
+  constexpr int NW = BM / 16, S = C_RING_SLOTS, ldh = BM + 8, NB = C_TILE_BUFS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C4 = 4 * C, Cp = (C + 15) & ~15, ldy = Cp + 8;
+  const int nj = (C4 + TN - 1) / TN, nk = (Cp + KC - 1) / KC, tpg = (GR + BM - 1) / BM;
+  int y, t0, t1;
+  c_range((M / GR) * tpg, nj, y, t0, t1);
+  if (t0 >= t1) return;
+  const int j0 = y * TN, jn = min(TN, C4 - j0);
+  Carve cv;
+  T* sW = reinterpret_cast<T*>(smem + cv.take(MODE == RES ? sizeof(T) * TN * ldy
+                                                         : sizeof(T) * S * 2 * TN * LDC));
+  T* sDY = reinterpret_cast<T*>(smem + cv.take(MODE == RES ? sizeof(T) * NB * BM * ldy : 0));
+  T* sG = reinterpret_cast<T*>(smem + cv.take(sizeof(T) * (MODE == RES ? NB : 2) * BM * LDC));
+  T* sHT = reinterpret_cast<T*>(smem + cv.take(MT > 0 ? sizeof(T) * TN * ldh : 0));
+  float* sDG = reinterpret_cast<float*>(smem + cv.take(sizeof(float) * (3 * TN + C)));
+  float *sDB = sDG + TN, *sDN = sDB + TN, *sDB2 = sDN + TN;
+  for (int j = threadIdx.x; j < 3 * TN + C; j += blockDim.x) sDG[j] = 0.f;
+  const int wt = threadIdx.x >> 5, w = wt % NW, col = (wt / NW) * CNT * 8;
+  // this thread's columns of the slice: gamma, beta (and nx of the current
+  // group) in registers, and its running column sums over the block's rows
+  float gmr[CNT][2], btr[CNT][2], nxr[CNT][2], sg[CNT][2] = {}, sb[CNT][2] = {}, sn[CNT][2] = {};
+#pragma unroll
+  for (int nt = 0; nt < CNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int jc = col + frag_col(nt, e);
+      gmr[nt][e] = jc < jn ? gamma[j0 + jc] : 0.f;
+      btr[nt][e] = jc < jn ? beta[j0 + jc] : 0.f;
+    }
+  }
+
+  auto rows_of = [&](int u, int& grp, int& row0, int& nr) {  // tile u: its group and rows
+    grp = u / tpg;
+    const int i = u - grp * tpg;
+    row0 = grp * GR + i * BM;
+    nr = min(BM, GR - i * BM);
+  };
+  auto fetch_g = [&](int u, T* dst) {
+    int grp, row0, nr;
+    rows_of(u, grp, row0, nr);
+    rows_async(dst, LDC, g, C4, row0, BM, row0 + nr, j0, TN, C4);
+  };
+  auto fetch_tile = [&](int u) {  // RES: tile u's dy rows and g slice, if it is the block's
+    if (u >= t1) return;
+    int grp, row0, nr;
+    rows_of(u, grp, row0, nr);
+    const int b = (u - t0) % NB;
+    rows_async(sDY + b * BM * ldy, ldy, dy, C, row0, BM, row0 + nr, 0, Cp, C);
+    fetch_g(u, sG + b * BM * LDC);
+  };
+  auto fetch = [&](int i) {  // RING step i: chunk i % nk of tile t0 + i / nk
+    const int u = t0 + i / nk, kt = i % nk;
+    if (u >= t1) return;
+    int grp, row0, nr;
+    rows_of(u, grp, row0, nr);
+    const int k0 = kt * KC, kc = min(KC, Cp - k0);
+    T* slot = sW + (size_t)(i % S) * 2 * TN * LDC;
+    rows_async(slot, LDC, w2t, C, j0, TN, C4, k0, kc, C);
+    rows_async(slot + TN * LDC, LDC, dy, C, row0, BM, row0 + nr, k0, kc, C);
+    if (kt == 0) fetch_g(u, sG + ((u - t0) & 1) * BM * LDC);
+  };
+  // the group's column sums of dnx out: registers -> shared -> device memory
+  auto flush_dnx = [&](int grp) {
+    col_acc2(sn, sDN, jn, col);
+    flush_sums(sDN, dnx + (size_t)grp * C4 + j0, jn);
+#pragma unroll
+    for (int nt = 0; nt < CNT; ++nt) sn[nt][0] = sn[nt][1] = 0.f;
+  };
+  if constexpr (MODE == RES) {
+    rows_async(sW, ldy, w2t, C, j0, TN, C4, 0, Cp, C);
+    fetch_tile(t0);
+    cp_commit();
+    fetch_tile(t0 + 1);
+    cp_commit();
+  } else {
+    for (int i = 0; i < S - 1; ++i) {
+      fetch(i);
+      cp_commit();
+    }
+  }
+  float acc2[MT > 0 ? MT : 1][CNT][4] = {};
+  int si = 0, cur = -1;
+  for (int u = t0; u < t1; ++u) {
+    int grp, row0, nr;
+    rows_of(u, grp, row0, nr);
+    const int b = MODE == RES ? (u - t0) % NB : (u - t0) & 1;
+    const T* dyb = MODE == RES ? sDY + b * BM * ldy : nullptr;
+    const T* gb = sG + b * BM * LDC;
+    float acc[CNT][4] = {};
+    if constexpr (MODE == RES) {
+      cp_wait<1>();
+      __syncthreads();  // tile u is in; tile u - 1 is consumed
+      fetch_tile(u + 2);
+      cp_commit();
+      WarpMM<T>::run(dyb + w * 16 * ldy, ldy, sW + col * ldy, ldy, Cp, acc);
+    } else {
+      for (int kt = 0; kt < nk; ++kt) {
+        const T* B = ring_step<T, S>(sW, 2, si++, fetch);
+        WarpMM<T>::run(B + TN * LDC + w * 16 * LDC, LDC, B + col * LDC, LDC, min(KC, Cp - kt * KC),
+                       acc);
+      }
+    }
+    if (grp != cur) {  // the group's nx; the group before's dnx out
+      if (cur >= 0) flush_dnx(cur);
+#pragma unroll
+      for (int nt = 0; nt < CNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jc = col + frag_col(nt, e);
+          nxr[nt][e] = jc < jn ? nx[(size_t)grp * C4 + j0 + jc] : 0.f;
+        }
+      }
+      cur = grp;
+    }
+#pragma unroll
+    for (int nt = 0; nt < CNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = w * 16 + frag_row(e), jc = col + frag_col(nt, e), q = e & 1;
+        float gv = 0.f, hv = 0.f;
+        if (r < nr && jc < jn) {
+          gv = to_f(gb[r * LDC + jc]);
+          hv = grn_h(gv, nxr[nt][q], gmr[nt][q], btr[nt][q]);
+        }
+        if constexpr (MT > 0) sHT[jc * ldh + r] = from_f<T>(hv);
+        const float dh = acc[nt][e];
+        sg[nt][q] += dh * (gv * nxr[nt][q]);
+        sb[nt][q] += dh;
+        sn[nt][q] += dh * gmr[nt][q] * gv;
+      }
+    }
+    if (y == 0) {  // db2 += the tile's dy, each column's rows split over `parts` threads
+      const int parts = max(1, (int)blockDim.x / C);
+      for (int i = threadIdx.x; i < C * parts; i += blockDim.x) {
+        const int c = i % C;
+        float sum = 0.f;
+        for (int r = i / C; r < nr; r += parts)
+          sum += MODE == RES ? to_f(dyb[r * ldy + c]) : to_f(dy[(size_t)(row0 + r) * C + c]);
+        atomicAdd(sDB2 + c, sum);
+      }
+    }
+    if constexpr (MT > 0) {
+      __syncthreads();  // publishes h^T
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int mt = w + i * NW;
+        if (mt * 16 < Cp) WarpMMt<T>::run(dyb, ldy, mt * 16, sHT + col * ldh, ldh, BM, acc2[i]);
+      }
+    }
+  }
+  if constexpr (MT > 0) {  // the block's dW2 slice, one atomic a pair of elements
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int nt = 0; nt < CNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int c = (w + i * NW) * 16 + frag_row(e), jc = col + frag_col(nt, e);
+          if (c < C && jc < jn)
+            red_add2(dw2 + (size_t)c * C4 + j0 + jc, acc2[i][nt][e], acc2[i][nt][e + 1]);
+        }
+      }
+    }
+  }
+  col_acc2(sg, sDG, jn, col);
+  col_acc2(sb, sDB, jn, col);
+  flush_sums(sDG, dgamma + j0, jn);
+  flush_sums(sDB, dbeta + j0, jn);
+  flush_dnx(cur);
+  if (y == 0) flush_sums(sDB2, db2, C);
   cp_wait<0>();
 }
 
@@ -1818,20 +2002,11 @@ spillg_atb_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float*
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-// Shared memory of A and C (rows_smem), D (d_smem) and B (b_smem) at a row
-// tile of BM rows; WIDE: D's plan that stages the C-wide operands by chunk
-// and keeps du in device memory.
+// Shared memory of A (rows_smem) and B (b_smem) at a row tile of BM rows.
 template <typename T> size_t rows_smem(int C, int BM) {
   const int lda = ((C + 15) & ~15) + 8;
   return align16(sizeof(T) * BM * lda) + sizeof(T) * TN * LDC +
          align16(sizeof(T) * BM * LDC) + sizeof(float) * (BM / 16) * 64;
-}
-
-template <typename T, bool WIDE> size_t d_smem(int C, int BM) {
-  const int Cp = (C + 15) & ~15, lda = WIDE ? LDC : Cp + 8;
-  return 2 * align16(sizeof(T) * BM * lda) + 2 * align16(sizeof(T) * TN * LDC) +
-         2 * align16(sizeof(T) * BM * LDC) + (WIDE ? 0 : align16(sizeof(float) * BM * Cp)) +
-         sizeof(float) * (2 * BM + (BM / 16) * 64);
 }
 
 template <typename T> size_t b_smem(int C) {
@@ -1865,19 +2040,6 @@ template <typename T, typename F> int with_bm(int bm, F f) {
   if (bm == 32) return f(std::integral_constant<int, 32>{});
   if (bm == 16) return f(std::integral_constant<int, 16>{});
   return (int)cudaErrorInvalidConfiguration;  // no row tile fits: a bug for C <= 2816
-}
-
-// D's row plan: the largest row tile of the resident layout that fits, else
-// the largest tile of the wide layout.
-struct RowPlan {
-  int bm;
-  bool wide;
-};
-template <typename T> RowPlan d_plan(int C) {
-  const size_t limit = smem_limit();
-  const int bm = pick_bm<T>(d_smem<T, false>, C, limit);
-  if (bm) return {bm, false};
-  return {pick_bm<T>(d_smem<T, true>, C, limit), true};
 }
 
 template <typename K>
@@ -1927,47 +2089,6 @@ int fwd_b(const void* g, const void* x, const void* gxsq, const void* gamma, con
 }
 
 template <typename T>
-int bwd_c(const void* dy, const void* g, const void* nx, const void* gamma, const void* w2t,
-          void* db2, void* dgamma, void* dbeta, void* dnx, int M, int C, int GR,
-          cudaStream_t s) {
-  return with_bm<T>(pick_bm<T>(rows_smem<T>, C, smem_limit()), [&](auto bm) {
-    constexpr int BM = decltype(bm)::value;
-    const size_t smem = rows_smem<T>(C, BM);
-    cudaError_t e = prepare(spillg_bwd_c_kernel<T, BM>, smem);
-    if (e != cudaSuccess) return (int)e;
-    spillg_bwd_c_kernel<T, BM><<<grid_2d(M, GR, 4 * C, BM), BM * 2, smem, s>>>(
-        (const T*)dy, (const T*)g, (const float*)nx, (const float*)gamma, (const T*)w2t,
-        (float*)db2, (float*)dgamma, (float*)dbeta, (float*)dnx, C, 4 * C, GR,
-        (GR + BM - 1) / BM);
-    return (int)cudaGetLastError();
-  });
-}
-
-template <typename T>
-int bwd_d(const void* t, const void* dy, const void* g, const void* nx, const void* dgxg,
-          const void* lnw, const void* lnb, const void* w1, const void* b1, const void* gamma,
-          const void* w2t, const void* w1t, void* dt, void* dv, void* u, void* db1, void* dlnw,
-          void* dlnb, void* wide_acc, int M, int C, int GR, cudaStream_t s) {
-  const RowPlan plan = d_plan<T>(C);
-  if (plan.wide && wide_acc == nullptr) return (int)cudaErrorInvalidValue;
-  auto launch = [&](auto bm, auto wide) {
-    constexpr int BM = decltype(bm)::value;
-    constexpr bool WIDE = decltype(wide)::value;
-    const size_t smem = d_smem<T, WIDE>(C, BM);
-    cudaError_t e = prepare(spillg_bwd_d_kernel<T, BM, WIDE>, smem);
-    if (e != cudaSuccess) return (int)e;
-    spillg_bwd_d_kernel<T, BM, WIDE><<<grid_rows(M, GR, BM), BM * 4, smem, s>>>(
-        (const T*)t, (const T*)dy, (const T*)g, (const float*)nx, (const float*)dgxg,
-        (const float*)lnw, (const float*)lnb, (const T*)w1, (const float*)b1,
-        (const float*)gamma, (const T*)w2t, (const T*)w1t, (T*)dt, (T*)dv, (T*)u, (float*)db1,
-        (float*)dlnw, (float*)dlnb, (float*)wide_acc, C, 4 * C, GR, (GR + BM - 1) / BM);
-    return (int)cudaGetLastError();
-  };
-  if (plan.wide) return with_bm<T>(plan.bm, [&](auto bm) { return launch(bm, std::true_type{}); });
-  return with_bm<T>(plan.bm, [&](auto bm) { return launch(bm, std::false_type{}); });
-}
-
-template <typename T>
 int atb(const void* X, const void* Y, const void* nx, const void* gamma, const void* beta,
         void* out, int M, int I, int J, int GR, int rps, int splits, cudaStream_t s) {
   if (rps % KC != 0) return (int)cudaErrorInvalidValue;
@@ -1979,7 +2100,7 @@ int atb(const void* X, const void* Y, const void* nx, const void* gamma, const v
   return (int)cudaGetLastError();
 }
 
-// ---- the masked-dense tail ----
+// ---- the persistent passes: the masked-dense tail and spill-g's C and D ----
 int chunks_per_group(int GR) { return (GR + CHUNK - 1) / CHUNK; }
 
 Walk make_walk(const void* ids, const void* cnt, int M, int GR, int BM) {
@@ -1993,74 +2114,42 @@ Walk make_walk(const void* ids, const void* cnt, int M, int GR, int BM) {
   return w;
 }
 
-template <typename T, int MODE> size_t masked_smem_of(int kind, int C) {
-  constexpr int BM = Cfg<T>::BM;
+// Every row of each group, in order: spill-g's D.
+Walk spill_walk(int M, int GR, int BM) {
+  Walk w;
+  w.ids = nullptr;
+  w.cnt = nullptr;
+  w.GR = GR;
+  w.ncg = 1;
+  w.tpc = (GR + BM - 1) / BM;
+  w.nvt = (M / GR) * w.tpc;
+  return w;
+}
+
+template <typename T, int BM, int MODE> size_t pass_smem(int kind, int C) {
   switch (kind) {
     case K_STAT: return stat_smem<T, BM, MODE>(C);
     case K_APPLY: return apply_smem<T, BM, MODE>(C);
     case K_BSTAT: return bstat_smem<T, BM, MODE>(C);
-    default: return dv_smem<T, BM, MODE>(C);
+    default: return dv_smem<T, BM, MODE>(C);  // the dv passes, masked and spill-g D
   }
 }
 
-template <typename T> size_t masked_smem(int kind, int mode, int C) {
-  return mode == RES ? masked_smem_of<T, RES>(kind, C)
-         : mode == RING ? masked_smem_of<T, RING>(kind, C)
-                        : masked_smem_of<T, WIDE>(kind, C);
+template <typename T, int BM> size_t pass_smem(int kind, int mode, int C) {
+  return mode == RES ? pass_smem<T, BM, RES>(kind, C)
+         : mode == RING ? pass_smem<T, BM, RING>(kind, C)
+                        : pass_smem<T, BM, WIDE>(kind, C);
 }
 
-template <typename T, int MODE> const void* masked_kernel_of(int kind) {
+template <typename T, int MODE> const void* pass_kernel(int kind) {
   constexpr int BM = Cfg<T>::BM;
   switch (kind) {
     case K_STAT: return (const void*)masked_fwd_stat_kernel<T, BM, MODE>;
     case K_APPLY: return (const void*)masked_fwd_apply_kernel<T, BM, MODE>;
     case K_BSTAT: return (const void*)masked_bwd_stat_kernel<T, BM, MODE>;
-    default: return (const void*)masked_bwd_dv_kernel<T, BM, MODE>;
+    case K_DV: return (const void*)bwd_dv_kernel<T, BM, MODE, KeptRows>;
+    default: return (const void*)bwd_dv_kernel<T, BM, MODE, SpillRows>;
   }
-}
-
-// A masked pass's launch plan, as plan[0..7]: mode (RES where the resident
-// weights fit twice on an SM, else RING where the C-wide row operands fit,
-// else WIDE), row tile, threads, shared bytes,
-// persistent blocks (as many as fit on the card at once, at most one a
-// virtual tile), the column split over blockIdx.y (the statistic passes:
-// enough blocks for ~2 waves, the backward's ~4, at 40% of the tiles kept,
-// since each column split repeats a tile's LN), blocks an SM, and
-// virtual tiles.
-template <typename T> int masked_plan(int kind, int M, int C, int GR, int* plan) {
-  constexpr int BM = Cfg<T>::BM;
-  const size_t limit = smem_limit();
-  const size_t sm_bytes = (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
-  const int mode = 2 * (masked_smem<T>(kind, RES, C) + 1024) <= sm_bytes ? RES
-                   : masked_smem<T>(kind, RING, C) <= limit                ? RING
-                                                                           : WIDE;
-  const size_t smem = masked_smem<T>(kind, mode, C);
-  if (smem > limit) return (int)cudaErrorInvalidValue;
-  const int threads = 2 * COLW * BM;
-  const void* kernel = mode == RES ? masked_kernel_of<T, RES>(kind)
-                       : mode == RING ? masked_kernel_of<T, RING>(kind)
-                                      : masked_kernel_of<T, WIDE>(kind);
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  int occ = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
-  const int nvt = make_walk(nullptr, nullptr, M, GR, BM).nvt;
-  const int nj = (4 * C + TN - 1) / TN;
-  int ny = 1;
-  const int waves = kind == K_STAT ? 5 : 10;  // the backward statistic has twice the work a tile
-  if (kind == K_STAT || kind == K_BSTAT) ny = max(1, min(nj, (waves * occ * sms + nvt - 1) / nvt));
-  plan[0] = mode;
-  plan[1] = BM;
-  plan[2] = threads;
-  plan[3] = (int)smem;
-  plan[4] = min(nvt, occ * sms);
-  plan[5] = ny;
-  plan[6] = occ;
-  plan[7] = nvt;
-  return 0;
 }
 
 // f(std::integral_constant<int, mode>) for a plan's mode.
@@ -2068,6 +2157,162 @@ template <typename F> int with_mode(int mode, F f) {
   if (mode == RES) return f(std::integral_constant<int, RES>{});
   if (mode == RING) return f(std::integral_constant<int, RING>{});
   return f(std::integral_constant<int, WIDE>{});
+}
+
+// C's dW2 fold: the m-tiles a warp holds (its instantiations: 1, 2, 3, 5), 0
+// for none.
+template <typename F> int with_mt(int mt, F f) {
+  switch (mt) {
+    case 0: return f(std::integral_constant<int, 0>{});
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+constexpr int MAX_FOLD_MT = 5;  // 40 f32 sums a thread of the bf16 block at C = 320
+
+// Threads, shared bytes, occupancy and blocks of a chosen kernel, into
+// plan[2..6] (see pass_plan).
+int finish_plan(const void* kernel, int threads, size_t smem, int ny, int units, bool sliced,
+                int* plan) {
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  int occ = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  const int fit = occ * device_attr(cudaDevAttrMultiProcessorCount);
+  plan[2] = threads;
+  plan[3] = (int)smem;
+  plan[4] = sliced ? max(ny, min(ny * units, fit)) : min(units, fit);
+  plan[5] = ny;
+  plan[6] = occ;
+  return 0;
+}
+
+// C's plan at a row tile of BM rows: RES where W2^T's slice, two tiles of dy
+// rows and of g (and h^T) fit a block, else RING; the fold where the slice
+// of dW2 takes at most MAX_FOLD_MT m-tiles a warp (bf16 at 64 rows: C <=
+// 320, f32: C <= 160).  Blocks: as many as fit at once, at least one a slice
+// (c_range).
+template <typename T, int BM> int c_plan(int M, int C, int GR, int* plan) {
+  constexpr int NW = BM / 16;
+  const size_t limit = smem_limit();
+  const int Cp = (C + 15) & ~15, need = (Cp / 16 + NW - 1) / NW;
+  int mt = need <= 3 ? need : need <= MAX_FOLD_MT ? MAX_FOLD_MT : 0;
+  int mode = RES;
+  size_t smem = with_mt(mt, [&](auto m) { return (int)c_smem<T, BM, RES, decltype(m)::value>(C); });
+  if (smem > limit && mt > 0) {
+    mt = 0;
+    smem = c_smem<T, BM, RES, 0>(C);
+  }
+  if (smem > limit) {
+    mode = RING;
+    smem = c_smem<T, BM, RING, 0>(C);
+    if (smem > limit || Cp <= KC) return (int)cudaErrorInvalidValue;  // RING needs >= 2 chunks
+  }
+  const void* kernel = mode == RING ? (const void*)spillg_bwd_c_kernel<T, BM, RING, 0>
+                                    : nullptr;
+  if (mode == RES)
+    with_mt(mt, [&](auto m) {
+      kernel = (const void*)spillg_bwd_c_kernel<T, BM, RES, decltype(m)::value>;
+      return 0;
+    });
+  plan[0] = mode;
+  plan[1] = BM;
+  plan[7] = grid_rows(M, GR, BM);
+  plan[8] = mt;
+  return finish_plan(kernel, 2 * COLW * BM, smem, (4 * C + TN - 1) / TN, plan[7], true, plan);
+}
+
+// f(std::integral_constant<int, bm>) for the default row tile or (bf16) its half.
+template <typename T, typename F> int with_tile(int bm, F f) {
+  constexpr int BM = Cfg<T>::BM;
+  if (bm == BM) return f(std::integral_constant<int, BM>{});
+  if constexpr (BM == 64) {
+    if (bm == BM / 2) return f(std::integral_constant<int, BM / 2>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// A persistent pass's launch plan, as plan[0..8]: mode (RES where the
+// resident weights fit twice on an SM, else RING where the C-wide row
+// operands fit, else WIDE; C: see c_plan), row tile, threads, shared bytes,
+// blocks (as many as fit on the card at once, at most one a tile; C: at
+// least one a slice), the column split over blockIdx.y (the statistic
+// passes: enough blocks for ~2 waves, the backward's ~4, at 40% of the tiles
+// kept, since each column split repeats a tile's LN; C: its 64-column slices
+// of 4C, over blockIdx.x), blocks an SM, row tiles (the masked passes: the
+// list's virtual tiles), and C's dW2 fold (m-tiles a warp, 0 for none).  bm:
+// 0 for the plan's own row tile, else the tile its half-tile step tries:
+// spill-g C (bf16) and D (on a RING plan) take half the default where two or
+// three blocks of 8 warps an SM then hide each other's waits, which one
+// block of 16 (its registers allow no more) cannot: D on a RING plan, from
+// RES or RING, where its tiles still give every block two; C where its dW2
+// fold then takes at most 3 m-tiles a warp (stages 0-1 of atto; more spill).
+template <typename T> int pass_plan(int kind, int M, int C, int GR, int bm, int* plan) {
+  constexpr int BM = Cfg<T>::BM;
+  if (kind == K_SC) {
+    if (bm == 0 && BM == 64) {  // the half tile where its fold takes at most 3 m-tiles a warp
+      int half[9];
+      if (pass_plan<T>(kind, M, C, GR, BM / 2, half) == 0 && half[8] > 0 && half[8] <= 3) {
+        for (int i = 0; i < 9; ++i) plan[i] = half[i];
+        return 0;
+      }
+    }
+    return with_tile<T>(bm == 0 ? BM : bm, [&](auto b) {
+      return c_plan<T, decltype(b)::value>(M, C, GR, plan);
+    });
+  }
+  const size_t limit = smem_limit();
+  const size_t sm_bytes = (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
+  if (kind == K_SD && bm == 0 && BM == 64) {
+    int half[9];
+    const int e = pass_plan<T>(kind, M, C, GR, BM, plan);
+    if (e || plan[0] == WIDE || pass_plan<T>(kind, M, C, GR, BM / 2, half)) return e;
+    if (half[7] >= 2 * half[4])
+      for (int i = 0; i < 9; ++i) plan[i] = half[i];
+    return 0;
+  }
+  if (bm == 0) bm = BM;
+  plan[8] = 0;
+  if (bm != BM) {  // spill-g D's half tile, on its RING plan
+    if constexpr (BM == 64) {
+      constexpr int H = BM / 2;
+      const size_t smem = dv_smem<T, H, RING>(C);
+      if (kind != K_SD || smem > limit) return (int)cudaErrorInvalidValue;
+      plan[0] = RING;
+      plan[1] = H;
+      plan[7] = spill_walk(M, GR, H).nvt;
+      return finish_plan((const void*)bwd_dv_kernel<T, H, RING, SpillRows>, 2 * COLW * H, smem, 1,
+                         plan[7], false, plan);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  const int mode = 2 * (pass_smem<T, BM>(kind, RES, C) + 1024) <= sm_bytes ? RES
+                   : pass_smem<T, BM>(kind, RING, C) <= limit              ? RING
+                                                                           : WIDE;
+  const size_t smem = pass_smem<T, BM>(kind, mode, C);
+  if (smem > limit) return (int)cudaErrorInvalidValue;
+  const void* kernel = mode == RES ? pass_kernel<T, RES>(kind)
+                       : mode == RING ? pass_kernel<T, RING>(kind)
+                                      : pass_kernel<T, WIDE>(kind);
+  const int nvt = kind == K_SD ? spill_walk(M, GR, BM).nvt : make_walk(nullptr, nullptr, M, GR, BM).nvt;
+  int ny = 1;
+  if (kind == K_STAT || kind == K_BSTAT) {
+    // probe the occupancy first: the split depends on it
+    int e = finish_plan(kernel, 2 * COLW * BM, smem, 1, nvt, false, plan);
+    if (e) return e;
+    const int nj = (4 * C + TN - 1) / TN, fit = plan[6] * device_attr(cudaDevAttrMultiProcessorCount);
+    const int waves = kind == K_STAT ? 5 : 10;  // the backward statistic has twice the work a tile
+    ny = max(1, min(nj, (waves * fit + nvt - 1) / nvt));
+  }
+  plan[0] = mode;
+  plan[1] = BM;
+  plan[7] = nvt;
+  return finish_plan(kernel, 2 * COLW * BM, smem, ny, nvt, false, plan);
 }
 
 template <typename T>
@@ -2135,6 +2380,24 @@ int masked_bstat(const void* t, const void* dy, const void* keep, const void* id
   });
 }
 
+// The dv pass on the kept-row list (masked) or on every row (spill-g D: ids,
+// cnt and keep null, g the stored g).
+template <typename T, int BM, int MODE, typename Src>
+int dv_launch(const void* t, const void* do_in, const void* keep, const void* g, const Walk& wk,
+              const void* nx, const void* dgxg, const void* lnw, const void* lnb, const void* w1,
+              const void* b1, const void* gamma, const void* w2t, const void* w1t, void* dt,
+              void* dv, void* u, void* db1, void* dlnw, void* dlnb, void* wide_acc, int C,
+              const int* plan, cudaStream_t s) {
+  cudaError_t e = prepare(bwd_dv_kernel<T, BM, MODE, Src>, plan[3]);
+  if (e != cudaSuccess) return (int)e;
+  bwd_dv_kernel<T, BM, MODE, Src><<<plan[4], plan[2], plan[3], s>>>(
+      (const T*)t, (const T*)do_in, (const T*)keep, (const T*)g, wk, (const float*)nx,
+      (const float*)dgxg, (const float*)lnw, (const float*)lnb, (const T*)w1, (const float*)b1,
+      (const float*)gamma, (const T*)w2t, (const T*)w1t, (T*)dt, (T*)dv, (T*)u, (float*)db1,
+      (float*)dlnw, (float*)dlnb, (float*)wide_acc, C);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int masked_dv(const void* t, const void* do_in, const void* keep, const void* ids,
               const void* cnt, const void* nx, const void* dgxg, const void* lnw,
@@ -2144,16 +2407,59 @@ int masked_dv(const void* t, const void* do_in, const void* keep, const void* id
               cudaStream_t s) {
   constexpr int BM = Cfg<T>::BM;
   if (plan[0] == WIDE && wide_acc == nullptr) return (int)cudaErrorInvalidValue;
+  const Walk wk = make_walk(ids, cnt, M, GR, BM);
   return with_mode(plan[0], [&](auto m) {
-    constexpr int MODE = decltype(m)::value;
-    cudaError_t e = prepare(masked_bwd_dv_kernel<T, BM, MODE>, plan[3]);
+    return dv_launch<T, BM, decltype(m)::value, KeptRows>(t, do_in, keep, nullptr, wk, nx, dgxg, lnw,
+                                                       lnb, w1, b1, gamma, w2t, w1t, dt, dv, u,
+                                                       db1, dlnw, dlnb, wide_acc, C, plan, s);
+  });
+}
+
+template <typename T>
+int spillg_d(const void* t, const void* dy, const void* g, const void* nx, const void* dgxg,
+             const void* lnw, const void* lnb, const void* w1, const void* b1,
+             const void* gamma, const void* w2t, const void* w1t, void* dt, void* dv, void* u,
+             void* db1, void* dlnw, void* dlnb, void* wide_acc, int M, int C, int GR,
+             const int* plan, cudaStream_t s) {
+  constexpr int BM = Cfg<T>::BM;
+  if (plan[0] == WIDE && wide_acc == nullptr) return (int)cudaErrorInvalidValue;
+  const Walk wk = spill_walk(M, GR, plan[1]);
+  if (plan[1] == BM)
+    return with_mode(plan[0], [&](auto m) {
+      return dv_launch<T, BM, decltype(m)::value, SpillRows>(t, dy, nullptr, g, wk, nx, dgxg, lnw, lnb,
+                                                        w1, b1, gamma, w2t, w1t, dt, dv, u, db1,
+                                                        dlnw, dlnb, wide_acc, C, plan, s);
+    });
+  if constexpr (BM == 64) {
+    if (plan[1] == BM / 2 && plan[0] == RING)
+      return dv_launch<T, BM / 2, RING, SpillRows>(t, dy, nullptr, g, wk, nx, dgxg, lnw, lnb, w1, b1,
+                                              gamma, w2t, w1t, dt, dv, u, db1, dlnw, dlnb,
+                                              wide_acc, C, plan, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int spillg_c(const void* dy, const void* g, const void* nx, const void* gamma, const void* beta,
+             const void* w2t, void* db2, void* dgamma, void* dbeta, void* dnx, void* dw2, int M,
+             int C, int GR, const int* plan, cudaStream_t s) {
+  if (plan[8] > 0 && dw2 == nullptr) return (int)cudaErrorInvalidValue;
+  auto launch = [&](auto kernel) {
+    cudaError_t e = prepare(kernel, plan[3]);
     if (e != cudaSuccess) return (int)e;
-    masked_bwd_dv_kernel<T, BM, MODE><<<plan[4], plan[2], plan[3], s>>>(
-        (const T*)t, (const T*)do_in, (const T*)keep, make_walk(ids, cnt, M, GR, BM),
-        (const float*)nx, (const float*)dgxg, (const float*)lnw, (const float*)lnb,
-        (const T*)w1, (const float*)b1, (const float*)gamma, (const T*)w2t, (const T*)w1t,
-        (T*)dt, (T*)dv, (T*)u, (float*)db1, (float*)dlnw, (float*)dlnb, (float*)wide_acc, C);
+    kernel<<<plan[4], plan[2], plan[3], s>>>(
+        (const T*)dy, (const T*)g, (const float*)nx, (const float*)gamma, (const float*)beta,
+        (const T*)w2t, (float*)db2, (float*)dgamma, (float*)dbeta, (float*)dnx, (float*)dw2, M,
+        C, GR);
     return (int)cudaGetLastError();
+  };
+  return with_tile<T>(plan[1], [&](auto b) {
+    constexpr int BM = decltype(b)::value;
+    if (plan[0] == RING)
+      return plan[8] == 0 ? launch(spillg_bwd_c_kernel<T, BM, RING, 0>) : (int)cudaErrorInvalidValue;
+    return with_mt(plan[8], [&](auto m) {
+      return launch(spillg_bwd_c_kernel<T, BM, RES, decltype(m)::value>);
+    });
   });
 }
 
@@ -2171,14 +2477,12 @@ int masked_atb(const void* X, const void* Y, const void* cnt, void* out, int M, 
 
 }  // namespace
 
-// Shapes: t, x, y, dy, dt (M, C); g, dv (M, 4C); gxsq, gx, nx, dnx, dgxg
+// Shapes: t, x, y, dy, dt, u (M, C); g, dv (M, 4C); gxsq, gx, nx, dnx, dgxg
 // (M / GR, 4C) f32; weights in the activation dtype, w1 (4C, C), w2 (C, 4C),
-// w1t = w1^T, w2t = w2^T, contiguous; every vector f32.  GR (rows per GRN
-// group) divides M; C is a multiple of 8; every array is 16-byte aligned.
-// Outputs taken by atomicAdd (gxsq, db*, dgamma, dbeta, dnx, dln*, out) must
-// be zeroed by the caller.  Where mm_fused_wide_bm gives D a wide plan of BM
-// rows, it takes scratch from the caller: wide_acc, (M / GR) * ceil(GR / BM)
-// * BM rows of Cp = C rounded up to 16 f32 values.  Elsewhere it may be null.
+// w1t = w1^T, w2t = w2^T, contiguous; every vector f32; dW2 (C, 4C) f32.  GR
+// (rows per GRN group) divides M; C is a multiple of 8; every array is
+// 16-byte aligned.  Outputs taken by atomicAdd (gxsq, db*, dgamma, dbeta,
+// dnx, dln*, dW2, out) must be zeroed by the caller.
 extern "C" int mm_spillg_fwd_a(const void* t, const void* lnw, const void* lnb, const void* w1,
                                const void* b1, void* g, void* gxsq, int M, int C, int GR,
                                int is_bf16, void* stream) {
@@ -2199,36 +2503,44 @@ extern "C" int mm_spillg_fwd_b(const void* g, const void* x, const void* gxsq, c
   return fwd_b<float>(g, x, gxsq, gamma, beta, w2, b2, y, gx, nx, M, C, GR, s);
 }
 
-extern "C" int mm_spillg_bwd_c(const void* dy, const void* g, const void* nx, const void* gamma,
-                               const void* w2t, void* db2, void* dgamma, void* dbeta, void* dnx,
-                               int M, int C, int GR, int is_bf16, void* stream) {
-  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return bwd_c<__nv_bfloat16>(dy, g, nx, gamma, w2t, db2, dgamma, dbeta, dnx, M, C, GR, s);
-  return bwd_c<float>(dy, g, nx, gamma, w2t, db2, dgamma, dbeta, dnx, M, C, GR, s);
+// The plan of a persistent pass (kind 0 masked statistic, 1 apply, 2
+// backward statistic, 3 dv; 4 spill-g C; 5 spill-g D) at this M, C, GR, as
+// the int[9] of pass_plan.  Where the dv passes' mode is 2 (WIDE), they and
+// the apply pass take wide_acc, plan[4] * plan[1] rows of Cp + 4 f32 (Cp: C
+// rounded up to 16), else null.
+extern "C" int mm_tail_plan(int kind, int M, int C, int GR, int is_bf16, int* plan) {
+  if (C % 8 != 0 || kind < 0 || kind > K_SD) return (int)cudaErrorInvalidValue;
+  return is_bf16 ? pass_plan<__nv_bfloat16>(kind, M, C, GR, 0, plan)
+                 : pass_plan<float>(kind, M, C, GR, 0, plan);
 }
 
+// Row 9: db2, dgamma, dbeta, dnx and, where plan[8] > 0, dW2 (else dw2 may be
+// null and dW2 is the mm_spillg_atb pass of dy and g with h_of).
+extern "C" int mm_spillg_bwd_c(const void* dy, const void* g, const void* nx, const void* gamma,
+                               const void* beta, const void* w2t, void* db2, void* dgamma,
+                               void* dbeta, void* dnx, void* dw2, int M, int C, int GR,
+                               int is_bf16, const int* plan, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return spillg_c<__nv_bfloat16>(dy, g, nx, gamma, beta, w2t, db2, dgamma, dbeta, dnx, dw2, M,
+                                   C, GR, plan, s);
+  return spillg_c<float>(dy, g, nx, gamma, beta, w2t, db2, dgamma, dbeta, dnx, dw2, M, C, GR,
+                         plan, s);
+}
+
+// Row 10's row pass: dt, db1, dln_w, dln_b, and the dv and u of the dW1 pass.
 extern "C" int mm_spillg_bwd_d(const void* t, const void* dy, const void* g, const void* nx,
                                const void* dgxg, const void* lnw, const void* lnb,
                                const void* w1, const void* b1, const void* gamma,
                                const void* w2t, const void* w1t, void* dt, void* dv, void* u,
                                void* db1, void* dlnw, void* dlnb, void* wide_acc, int M, int C,
-                               int GR, int is_bf16, void* stream) {
-  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+                               int GR, int is_bf16, const int* plan, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return bwd_d<__nv_bfloat16>(t, dy, g, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt, dv,
-                                u, db1, dlnw, dlnb, wide_acc, M, C, GR, s);
-  return bwd_d<float>(t, dy, g, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt, dv, u, db1,
-                      dlnw, dlnb, wide_acc, M, C, GR, s);
-}
-
-// The row tile of D's wide plan at width C on the current device, or 0
-// where its resident plan fits (and it takes no scratch).
-extern "C" int mm_fused_wide_bm(int C, int is_bf16) {
-  const RowPlan plan = is_bf16 ? d_plan<__nv_bfloat16>(C) : d_plan<float>(C);
-  return plan.wide ? plan.bm : 0;
+    return spillg_d<__nv_bfloat16>(t, dy, g, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt, dv,
+                                   u, db1, dlnw, dlnb, wide_acc, M, C, GR, plan, s);
+  return spillg_d<float>(t, dy, g, nx, dgxg, lnw, lnb, w1, b1, gamma, w2t, w1t, dt, dv, u, db1,
+                         dlnw, dlnb, wide_acc, M, C, GR, plan, s);
 }
 
 // out (I, J) f32 += X^T Y; nx/gamma/beta null for plain Y, else Y is g and
@@ -2246,19 +2558,10 @@ extern "C" int mm_spillg_atb(const void* X, const void* Y, const void* nx, const
 
 // The masked-dense tail.  keep (M) in the activation dtype; the kept-row
 // list: ids (M) and cnt (M / GR * ceil(GR / 4096)) int32, from
-// mm_masked_rows; gxsq, gx, nx, dnx, dgxg (M / GR, 4C) f32; do_out (M, C), h
-// (M, 4C), dv (M, 4C) and u (M, C) in the activation dtype are written at the
-// kept slots of the list (the operands of the dW2 and dW1 passes,
-// mm_masked_atb).  plan: the int[8] of mm_masked_plan for the pass (kind 0
-// statistic, 1 apply, 2 backward statistic, 3 dv) at this M, C, GR; where its
-// mode is 2 (WIDE), the apply and dv passes take wide_acc, plan[4] * plan[1]
-// rows of Cp + 4 f32 (Cp: C rounded up to 16), else null.
-extern "C" int mm_masked_plan(int kind, int M, int C, int GR, int is_bf16, int* plan) {
-  if (C % 8 != 0 || kind < 0 || kind > K_DV) return (int)cudaErrorInvalidValue;
-  return is_bf16 ? masked_plan<__nv_bfloat16>(kind, M, C, GR, plan)
-                 : masked_plan<float>(kind, M, C, GR, plan);
-}
-
+// mm_masked_rows; do_out (M, C), h (M, 4C), dv (M, 4C) and u (M, C) in the
+// activation dtype are written at the kept slots of the list (the operands
+// of the dW2 and dW1 passes, mm_masked_atb).  plan: mm_tail_plan's for the
+// pass at this M, C, GR.
 extern "C" int mm_masked_rows(const void* keep, void* ids, void* cnt, int M, int GR, int is_bf16,
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

@@ -25,9 +25,13 @@ Phases, as in JAX (each a plain function here, and CUDA launches in
         to XLA (``fused_block.py:602-606``)
   D  recompute u, v, dh; dv; db1, dLN, dt; dW1 = dv^T u (``_sg_bwd_d_kernel``)
 
-On the card C and D are two launches each: a row pass and a split-over-rows
-``X^T Y`` pass for the weight gradient (``spillg_bwd_c_dw2`` from dy and h,
-``spillg_bwd_d_dw1`` from the dv and u that the row pass of D stores).
+The backward's product operands (W1, W1^T, W2^T in the activation dtype) are
+made once per call (:class:`BwdWeights`).  On the card C is one launch where
+its slice of dW2 fits the block's registers (every atto width; ``fold`` of
+its :class:`TailPlan`), else a row pass and the split-over-rows ``X^T Y``
+pass ``spillg_bwd_c_dw2`` from dy and h; D is a row pass (the masked dv
+pass's kernel on every row, the stored g in its dgx term) and
+``spillg_bwd_d_dw1`` from the dv and u it stores.
 
 **Masked dense** (port of ``fused_block_mlp``, ``fused_block.py:87-354``, the
 tail of ``--sparse_impl masked_dense --block_impl fused``).  On the (M, C)
@@ -91,11 +95,10 @@ _P, _I = _build.P, _build.I
 _SIGNATURES = {
     "mm_spillg_fwd_a": [_P] * 7 + [_I] * 4 + [_P],
     "mm_spillg_fwd_b": [_P] * 10 + [_I] * 4 + [_P],
-    "mm_spillg_bwd_c": [_P] * 9 + [_I] * 4 + [_P],
-    "mm_spillg_bwd_d": [_P] * 19 + [_I] * 4 + [_P],
+    "mm_spillg_bwd_c": [_P] * 11 + [_I] * 4 + [_P] * 2,
+    "mm_spillg_bwd_d": [_P] * 19 + [_I] * 4 + [_P] * 2,
     "mm_spillg_atb": [_P] * 6 + [_I] * 7 + [_P],
-    "mm_fused_wide_bm": [_I] * 2,
-    "mm_masked_plan": [_I] * 5 + [_P],
+    "mm_tail_plan": [_I] * 5 + [_P],
     "mm_masked_rows": [_P] * 3 + [_I] * 3 + [_P],
     "mm_masked_fwd_stat": [_P] * 9 + [_I] * 4 + [_P] * 2,
     "mm_masked_fwd_apply": [_P] * 18 + [_I] * 4 + [_P] * 2,
@@ -165,12 +168,29 @@ def fwd_b_plain(g, x_res, gxsq, gamma, beta, w2, b2, group_rows):
     return (x_res.float() + o).to(g.dtype), gx, nx
 
 
-def bwd_c_plain(dy, g, nx, gamma, w2, group_rows):
-    """Phase C's row sums -> db2 (C,), dgamma, dbeta (4C,), dnx (G, 4C)."""
-    dh = _mm(dy, w2, _cd(dy.dtype))
+class BwdWeights(NamedTuple):
+    """The backward's product operands, in the activation dtype (f32 on an
+    f32 tail): W1 (4C, C), W1^T (C, 4C), W2^T (4C, C); contiguous copies on
+    the card, views or casts in the plain version."""
+
+    w1: torch.Tensor
+    w1t: torch.Tensor
+    w2t: torch.Tensor
+
+
+def bwd_weights_plain(w1, w2, dtype):
+    """The backward's operands for an activation ``dtype``: casts and views."""
+    cd = _cd(dtype)
+    return BwdWeights(w1.to(cd), w1.t().to(cd), w2.t().to(cd))
+
+
+def bwd_c_plain(dy, g, nx, gamma, beta, wts, group_rows):
+    """Phase C -> db2 (C,), dgamma, dbeta (4C,), dnx (G, 4C) and dW2 (C, 4C)."""
+    dh = _mm(dy, wts.w2t.t(), _cd(dy.dtype))
     gf, nxr = g.float(), _per_row(nx, group_rows)
     dnx = (dh * gamma.float() * gf).reshape(-1, group_rows, gf.shape[-1]).sum(1)
-    return dy.float().sum(0), (dh * (gf * nxr)).sum(0), dh.sum(0), dnx
+    return (dy.float().sum(0), (dh * (gf * nxr)).sum(0), dh.sum(0), dnx,
+            dw2_plain(dy, g, nx, gamma, beta, group_rows))
 
 
 def atb_plain(x, y):
@@ -207,11 +227,11 @@ def _d_rows(t, dy, g_of_v, nx_rows, dgxg_rows, ln_w, ln_b, w1, b1, gamma, w2):
     return dt.to(t.dtype), dv.sum(0), (du * uhat).sum(0), du.sum(0), dv.to(cd), u.to(cd)
 
 
-def bwd_d_plain(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
+def bwd_d_plain(t, dy, g, nx, dgxg, ln_w, ln_b, wts, b1, gamma, group_rows):
     """Phase D but dW1 -> dt (M, C) in t.dtype, db1 (4C,), dln_w, dln_b (C,),
     and dv, u rounded to the product type (dW1 = ``atb_plain(dv, u)``)."""
     return _d_rows(t, dy, lambda v: g.float(), _per_row(nx, group_rows),
-                   _per_row(dgxg, group_rows), ln_w, ln_b, w1, b1, gamma, w2)
+                   _per_row(dgxg, group_rows), ln_w, ln_b, wts.w1, b1, gamma, wts.w2t.t())
 
 
 def fused_block_mlp_spillg_plain(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2,
@@ -457,26 +477,6 @@ def _check_groups(x, c, group_rows, name):
         raise ValueError(f"{name}: group_rows {group_rows} must divide M = {m}")
 
 
-_WIDE_BM: dict = {}  # (device, dtype, C) -> D's wide row tile, 0 if resident
-
-
-def _wide_scratch(t, group_rows):
-    """The f32 du scratch of D's wide plan at t's width (one slice of BM x C,
-    rounded up to 16, a row block), or None where its resident plan fits
-    (``mm_fused_wide_bm``)."""
-    m, c = t.shape
-    cache = (t.device, t.dtype, c)
-    bm = _WIDE_BM.get(cache)
-    if bm is None:
-        with torch.cuda.device(t.device):
-            bm = _lib().mm_fused_wide_bm(c, int(t.dtype == torch.bfloat16))
-        _WIDE_BM[cache] = bm
-    if bm == 0:
-        return None
-    rows = (m // group_rows) * -(-group_rows // bm) * bm
-    return torch.empty((rows, -(-c // 16) * 16), dtype=torch.float32, device=t.device)
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -515,31 +515,53 @@ def _fwd_b_cuda(g, x_res, gxsq, gamma, beta, w2, b2, group_rows):
     return y, gx, nx
 
 
-def _bwd_c_cuda(dy, g, nx, gamma, w2, group_rows):
+def _bwd_weights_cuda(w1, w2, dtype):
+    """W1, W1^T and W2^T in ``dtype``, contiguous, on their device: three copies."""
+    c4, c = w1.shape
+    if tuple(w2.shape) != (c, c4) or w2.device != w1.device:
+        raise ValueError(f"spillg weights: w1 {tuple(w1.shape)} and w2 {tuple(w2.shape)} on "
+                         f"{w1.device}, {w2.device}")
+    dev = w1.device
+    return BwdWeights(w1.to(dtype).contiguous(),
+                      torch.empty((c, c4), dtype=dtype, device=dev).copy_(w1.t()),
+                      torch.empty((c4, c), dtype=dtype, device=dev).copy_(w2.t()))
+
+
+def _check_weights(wts, ref, c, name):
+    for a, shape in zip(wts, ((4 * c, c), (c, 4 * c), (4 * c, c))):
+        _like(a, ref, shape, f"{name} weights")
+
+
+def _bwd_c_cuda(dy, g, nx, gamma, beta, wts, group_rows):
+    """Row 9: one launch where the plan folds dW2, else the row pass and the
+    dW2 pass (``spillg_bwd_c_dw2``)."""
     m, c = _rows(dy, "spillg bwd C")
     _check_groups(dy, c, group_rows, "spillg bwd C")
     c4, dev = 4 * c, dy.device
     _like(g, dy, (m, c4), "spillg bwd C g")
-    f32 = dict(dtype=torch.float32, device=dev)
-    db2, dgamma, dbeta = torch.zeros(c, **f32), torch.zeros(c4, **f32), torch.zeros(c4, **f32)
-    dnx = torch.zeros((m // group_rows, c4), **f32)
-    w2t = _w(w2, dy, (c, c4)).t().contiguous()
+    _check_weights(wts, dy, c, "spillg bwd C")
+    db2, dgamma, dbeta, dnx, dw2 = _zeros(dev, c, c4, c4, (m // group_rows, c4), (c, c4))
+    gm, bt = _vec(gamma, c4, dev), _vec(beta, c4, dev)
+    plan, cfg, _ = _launch_of(dy, "spillg_bwd_c", group_rows)
     _dev_call("mm_spillg_bwd_c", "spillg_bwd_c", dev, dy.data_ptr(), g.data_ptr(),
-              nx.contiguous().data_ptr(), _vec(gamma, c4, dev).data_ptr(), w2t.data_ptr(),
-              db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dnx.data_ptr(), m, c,
-              group_rows, int(dy.dtype == torch.bfloat16))
-    return db2, dgamma, dbeta, dnx
+              nx.contiguous().data_ptr(), gm.data_ptr(), bt.data_ptr(), wts.w2t.data_ptr(),
+              db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dnx.data_ptr(),
+              dw2.data_ptr(), m, c, group_rows, int(dy.dtype == torch.bfloat16), cfg)
+    if not plan.fold:
+        _dw2_cuda(dy, g, nx, gm, bt, group_rows, out=dw2)
+    return db2, dgamma, dbeta, dnx, dw2
 
 
-def _atb_cuda(x, y, key, h_of=None):
-    """x^T y (f32) over the rows; ``h_of`` = (nx, gamma, beta, group_rows)
-    turns y (= g) into h as it is read."""
+def _atb_cuda(x, y, key, h_of=None, out=None):
+    """x^T y (f32) over the rows, added to ``out`` (zeros when None); ``h_of``
+    = (nx, gamma, beta, group_rows) turns y (= g) into h as it is read."""
     m, i = _rows(x, key)
     _, j = _rows(y, key)
     if y.shape[0] != m or y.dtype != x.dtype or y.device != x.device:
         raise ValueError(f"{key}: x and y must share rows, dtype and device")
     dev = x.device
-    out = torch.zeros((i, j), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.zeros((i, j), dtype=torch.float32, device=dev)
     bm = 64 if x.dtype == torch.bfloat16 else 32
     tiles = -(-i // bm) * -(-j // 64)
     chunks = -(-m // _ATB_CHUNK)
@@ -557,34 +579,30 @@ def _atb_cuda(x, y, key, h_of=None):
     return out
 
 
-def _bwd_d_cuda(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gamma, w2, group_rows):
+def _bwd_d_cuda(t, dy, g, nx, dgxg, ln_w, ln_b, wts, b1, gamma, group_rows):
     """The row pass of D: -> dt, db1, dln_w, dln_b, and the stored dv, u."""
     m, c = _rows(t, "spillg bwd D")
     _check_groups(t, c, group_rows, "spillg bwd D")
     c4, dev = 4 * c, t.device
     _like(dy, t, (m, c), "spillg bwd D dy")
     _like(g, t, (m, c4), "spillg bwd D g")
-    f32 = dict(dtype=torch.float32, device=dev)
-    dt = torch.empty_like(t)
+    _check_weights(wts, t, c, "spillg bwd D")
+    dt, u = torch.empty_like(t), torch.empty_like(t)
     dv = torch.empty((m, c4), dtype=t.dtype, device=dev)
-    u = torch.empty_like(t)
-    db1, dlnw, dlnb = torch.zeros(c4, **f32), torch.zeros(c, **f32), torch.zeros(c, **f32)
-    w1c = _w(w1, t, (c4, c))
-    w1t = w1c.t().contiguous()
-    w2t = _w(w2, t, (c, c4)).t().contiguous()
-    acc = _wide_scratch(t, group_rows)
+    db1, dlnw, dlnb = _zeros(dev, c4, c, c)
+    _, cfg, acc = _launch_of(t, "spillg_bwd_d", group_rows)
     _dev_call("mm_spillg_bwd_d", "spillg_bwd_d", dev, t.data_ptr(), dy.data_ptr(), g.data_ptr(),
               nx.contiguous().data_ptr(), dgxg.contiguous().data_ptr(),
-              _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(),
-              _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(), w2t.data_ptr(),
-              w1t.data_ptr(), dt.data_ptr(), dv.data_ptr(), u.data_ptr(), db1.data_ptr(),
+              _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(), wts.w1.data_ptr(),
+              _vec(b1, c4, dev).data_ptr(), _vec(gamma, c4, dev).data_ptr(), wts.w2t.data_ptr(),
+              wts.w1t.data_ptr(), dt.data_ptr(), dv.data_ptr(), u.data_ptr(), db1.data_ptr(),
               dlnw.data_ptr(), dlnb.data_ptr(), _ptr(acc), m, c, group_rows,
-              int(t.dtype == torch.bfloat16))
+              int(t.dtype == torch.bfloat16), cfg)
     return dt, db1, dlnw, dlnb, dv, u
 
 
-def _dw2_cuda(dy, g, nx, gamma, beta, group_rows):
-    return _atb_cuda(dy, g, "spillg_bwd_c_dw2", (nx, gamma, beta, group_rows))
+def _dw2_cuda(dy, g, nx, gamma, beta, group_rows, out=None):
+    return _atb_cuda(dy, g, "spillg_bwd_c_dw2", (nx, gamma, beta, group_rows), out)
 
 
 def _dw1_cuda(dv, u):
@@ -602,16 +620,20 @@ def _keep_rows(keep, t, name):
 
 
 MASKED_KINDS = {"masked_fwd_stat": 0, "masked_fwd_apply": 1, "masked_bwd_stat": 2,
-                "masked_bwd_dv": 3}  # the kinds of mm_masked_plan
+                "masked_bwd_dv": 3}
+PLAN_KINDS = {**MASKED_KINDS, "spillg_bwd_c": 4, "spillg_bwd_d": 5}  # the kinds of mm_tail_plan
 MODES = ("resident", "ring", "wide")
 
 
-class MaskedPlan(NamedTuple):
-    """A masked pass's launch (``mm_masked_plan``): weights resident in shared
-    memory, streamed through a ring, or streamed with the C-wide row operands
-    by chunk ("wide"); rows a tile; threads and shared bytes a block;
-    persistent blocks and the column split over blockIdx.y; blocks an SM;
-    virtual tiles."""
+class TailPlan(NamedTuple):
+    """A persistent pass's launch (``mm_tail_plan``): weights resident in
+    shared memory, streamed through a ring, or streamed with the C-wide row
+    operands by chunk ("wide"); rows a tile; threads and shared bytes a
+    block; blocks; the column split (the masked statistic passes: over
+    blockIdx.y; spill-g C: its 64-column slices of 4C, each taken by one or
+    more blocks); blocks an SM; row tiles (masked: the list's virtual tiles);
+    and spill-g C's dW2 fold (m-tiles of C a warp sums, 0: dW2 is a
+    separate launch)."""
 
     mode: str
     bm: int
@@ -621,33 +643,34 @@ class MaskedPlan(NamedTuple):
     col_split: int
     per_sm: int
     tiles: int
+    fold: int
 
 
-_MASKED_PLANS: dict = {}  # (device, dtype, launch, M, C, group_rows) -> (plan, int array)
+_PLANS: dict = {}  # (device, dtype, launch, M, C, group_rows) -> (plan, int array)
 
 
-def masked_plan(t, key, group_rows):
-    """The plan of masked launch ``key`` for t's shape and dtype on its card,
-    and the address of its int array, made once per shape."""
+def tail_plan(t, key, group_rows):
+    """The plan of launch ``key`` (of ``PLAN_KINDS``) for t's shape and dtype
+    on its card, and the address of its int array, made once per shape."""
     m, c = t.shape
     cache = (t.device, t.dtype, key, m, c, group_rows)
-    hit = _MASKED_PLANS.get(cache)
+    hit = _PLANS.get(cache)
     if hit is None:
-        arr = (ctypes.c_int * 8)()
+        arr = (ctypes.c_int * 9)()
         with torch.cuda.device(t.device):
-            err = _lib().mm_masked_plan(MASKED_KINDS[key], m, c, group_rows,
-                                        int(t.dtype == torch.bfloat16), ctypes.addressof(arr))
+            err = _lib().mm_tail_plan(PLAN_KINDS[key], m, c, group_rows,
+                                      int(t.dtype == torch.bfloat16), ctypes.addressof(arr))
         _build.check(err, f"{key} plan")
-        hit = _MASKED_PLANS[cache] = (MaskedPlan(MODES[arr[0]], *arr[1:]), arr)
+        hit = _PLANS[cache] = (TailPlan(MODES[arr[0]], *arr[1:]), arr)
     return hit[0], ctypes.addressof(hit[1])
 
 
-def _masked_launch(t, key, group_rows):
+def _launch_of(t, key, group_rows):
     """(plan, its address, and the f32 C-wide scratch of a wide apply or dv
     plan, a BM x (Cp + 4) slice a block, or None)."""
-    plan, ptr = masked_plan(t, key, group_rows)
+    plan, ptr = tail_plan(t, key, group_rows)
     acc = None
-    if plan.mode == "wide" and key in ("masked_fwd_apply", "masked_bwd_dv"):
+    if plan.mode == "wide" and key in ("masked_fwd_apply", "masked_bwd_dv", "spillg_bwd_d"):
         acc = torch.empty((plan.blocks * plan.bm, -(-t.shape[1] // 16) * 16 + 4),
                           dtype=torch.float32, device=t.device)
     return plan, ptr, acc
@@ -701,7 +724,7 @@ def _masked_fwd_stat_cuda(t, keep, rows, ln_w, ln_b, w1, b1, group_rows):
     gxsq = torch.zeros((m // group_rows, c4), dtype=torch.float32, device=dev)
     lw, lb, bb = _vec(ln_w, c, dev), _vec(ln_b, c, dev), _vec(b1, c4, dev)
     w = _w(w1, t, (c4, c))
-    _, cfg, _ = _masked_launch(t, "masked_fwd_stat", group_rows)
+    _, cfg, _ = _launch_of(t, "masked_fwd_stat", group_rows)
     _dev_call("mm_masked_fwd_stat", "masked_fwd_stat", dev, t.data_ptr(), kp.data_ptr(), ids,
               cnt, lw.data_ptr(), lb.data_ptr(), w.data_ptr(), bb.data_ptr(), gxsq.data_ptr(),
               m, c, group_rows, int(t.dtype == torch.bfloat16), cfg)
@@ -721,7 +744,7 @@ def _masked_fwd_apply_cuda(t, x_res, keep, rows, gxsq, ln_w, ln_b, w1, b1, gamma
     y = torch.empty_like(t)
     gx, nx = torch.empty((2, n_g, c4), dtype=torch.float32, device=dev)
     w1c, w2c = _w(w1, t, (c4, c)), _w(w2, t, (c, c4))
-    _, cfg, acc = _masked_launch(t, "masked_fwd_apply", group_rows)
+    _, cfg, acc = _launch_of(t, "masked_fwd_apply", group_rows)
     _dev_call("mm_masked_fwd_apply", "masked_fwd_apply", dev, t.data_ptr(), x_res.data_ptr(),
               kp.data_ptr(), ids, cnt, gxsq.contiguous().data_ptr(),
               _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(), w1c.data_ptr(),
@@ -744,7 +767,7 @@ def _masked_bwd_stat_cuda(t, dy, keep, rows, nx, ln_w, ln_b, w1, b1, gamma, beta
     do, h = torch.empty_like(t), torch.empty((m, c4), dtype=t.dtype, device=dev)
     db2, dgamma, dbeta, dnx = _zeros(dev, c, c4, c4, (m // group_rows, c4))
     w2t = _wt(w2, t, (c, c4))
-    _, cfg, _ = _masked_launch(t, "masked_bwd_stat", group_rows)
+    _, cfg, _ = _launch_of(t, "masked_bwd_stat", group_rows)
     _dev_call("mm_masked_bwd_stat", "masked_bwd_stat", dev, t.data_ptr(), dy.data_ptr(),
               kp.data_ptr(), ids, cnt, nx.contiguous().data_ptr(),
               _vec(ln_w, c, dev).data_ptr(), _vec(ln_b, c, dev).data_ptr(),
@@ -768,7 +791,7 @@ def _masked_bwd_dv_cuda(t, do, keep, rows, nx, dgxg, ln_w, ln_b, w1, b1, gamma, 
     dv = torch.empty((m, c4), dtype=t.dtype, device=dev)
     db1, dlnw, dlnb = _zeros(dev, c4, c, c)
     w1c, w1t, w2t = _w(w1, t, (c4, c)), _wt(w1, t, (c4, c)), _wt(w2, t, (c, c4))
-    _, cfg, acc = _masked_launch(t, "masked_bwd_dv", group_rows)
+    _, cfg, acc = _launch_of(t, "masked_bwd_dv", group_rows)
     _dev_call("mm_masked_bwd_dv", "masked_bwd_dv", dev, t.data_ptr(), do.data_ptr(),
               kp.data_ptr(), ids, cnt, nx.contiguous().data_ptr(),
               dgxg.contiguous().data_ptr(), _vec(ln_w, c, dev).data_ptr(),
@@ -810,8 +833,8 @@ class Phases(NamedTuple):
 
     fwd_a: Callable
     fwd_b: Callable
+    bwd_weights: Callable
     bwd_c: Callable
-    dw2: Callable
     bwd_d: Callable
     dw1: Callable
 
@@ -828,8 +851,8 @@ class MaskedPhases(NamedTuple):
     dw1: Callable
 
 
-PLAIN = Phases(fwd_a_plain, fwd_b_plain, bwd_c_plain, dw2_plain, bwd_d_plain, atb_plain)
-CUDA = Phases(_fwd_a_cuda, _fwd_b_cuda, _bwd_c_cuda, _dw2_cuda, _bwd_d_cuda, _dw1_cuda)
+PLAIN = Phases(fwd_a_plain, fwd_b_plain, bwd_weights_plain, bwd_c_plain, bwd_d_plain, atb_plain)
+CUDA = Phases(_fwd_a_cuda, _fwd_b_cuda, _bwd_weights_cuda, _bwd_c_cuda, _bwd_d_cuda, _dw1_cuda)
 MASKED_PLAIN = MaskedPhases(kept_rows_plain, masked_fwd_stat_plain, masked_fwd_apply_plain,
                             masked_bwd_stat_plain, masked_atb_plain, masked_bwd_dv_plain,
                             masked_atb_plain)
@@ -866,10 +889,10 @@ class _SpillG(torch.autograd.Function):
         ph, gr = phases(t), ctx.group_rows
         gm, bt = gamma.reshape(-1), beta.reshape(-1)
         dy = dy.contiguous()
-        db2, dgamma, dbeta, dnx = ph.bwd_c(dy, g, nx, gm, w2, gr)
-        dw2 = ph.dw2(dy, g, nx, gm, bt, gr)
+        wts = ph.bwd_weights(w1, w2, t.dtype)
+        db2, dgamma, dbeta, dnx, dw2 = ph.bwd_c(dy, g, nx, gm, bt, wts, gr)
         dgxg = dgx_step(dnx, gx)
-        dt, db1, dlnw, dlnb, dv, u = ph.bwd_d(t, dy, g, nx, dgxg, ln_w, ln_b, w1, b1, gm, w2, gr)
+        dt, db1, dlnw, dlnb, dv, u = ph.bwd_d(t, dy, g, nx, dgxg, ln_w, ln_b, wts, b1, gm, gr)
         dw1 = ph.dw1(dv, u)
         return (dt, dy, *_param_grads((ln_w, ln_b, w1, b1, gamma, beta, w2, b2),
                                       (dlnw, dlnb, dw1, db1, dgamma, dbeta, dw2, db2)), None)

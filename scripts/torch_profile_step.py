@@ -46,8 +46,10 @@ GROUPS = (
     ("dw7_wgrad", "dense dwconv dW (port kernel)"),
     ("spillg_fwd", "spill-g fwd A/B (port kernels)"),
     ("spillg_bwd", "spill-g bwd C/D row passes (port kernels)"),
+    ("SpillRows", "spill-g bwd C/D row passes (port kernels)"),  # D: bwd_dv_kernel<..., SpillRows>
     ("masked_fwd", "masked-dense fwd stat/apply (port kernels)"),
     ("masked_bwd", "masked-dense bwd stat/dv row passes (port kernels)"),
+    ("KeptRows", "masked-dense bwd stat/dv row passes (port kernels)"),
     ("spillg_atb", "dW1/dW2 X^T Y passes (port kernel)"),
     ("dw7_fwd", "dwconv7_gathered fwd (port kernel)"),
     ("dw7_bwd", "dwconv7_gathered bwd (port kernel)"),

@@ -100,6 +100,73 @@ def test_plain_matches_jax(dtype, against):
     np.testing.assert_array_equal(fb.fused_block_mlp_spillg_plain(*args).float().numpy(), got[0])
 
 
+# (C, rows): the atto stages (C = 40/80/160/320 at p = 8/4/2/1) on one GRN
+# group of 19 visible patches of p x p rows in each of N = 2 samples
+_ATTO_STAGES = [(40, 19 * 64 * 2), (80, 19 * 16 * 2), (160, 19 * 4 * 2), (320, 19 * 2)]
+
+
+@pytest.mark.parametrize("against", ["reference", "pallas_interpret"])
+@pytest.mark.parametrize("c,m", _ATTO_STAGES)
+def test_plain_matches_jax_at_atto_widths(c, m, against):
+    """The atto stage widths in f32: forward and all 10 gradients against the
+    reference and the Pallas kernel (interpret mode), within 1e-4 of scale."""
+    a, dy = _make(m, c, seed=c)
+    fn = (jfb.fused_block_mlp_spillg_reference if against == "reference"
+          else lambda *xs: jfb.fused_block_mlp_spillg(*xs, True))
+    _assert_all_close(_port(a, dy, "float32"), _jax(a, dy, jnp.float32, fn), TOL["float32"])
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_phase_c_matches_the_pallas_kernel(groups):
+    """Phase C with dW2 folded in (``bwd_c_plain``, the plain version of the
+    one launch): db2, dgamma, dbeta, dnx and dW2 in f32 against the Pallas
+    kernel it replaces (``_sg_bwd_c_kernel``, interpret mode), which sums
+    over all its rows: run once a GRN group, its dnx stacked and the rest
+    added, within the file's f32 tolerance."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    gr, c = 150, 16
+    m, c4 = gr * groups, 4 * c
+    a, dy_np = _make(m, c, seed=4)
+    ts = {k: torch.from_numpy(v) for k, v in a.items()}
+    w1, w2, dy = ts["w1"].t(), ts["w2"].t(), torch.from_numpy(dy_np)
+    g, gxsq = fb.fwd_a_plain(ts["t"], ts["ln_scale"], ts["ln_bias"], w1, ts["b1"], gr)
+    _, gx, nx = fb.fwd_b_plain(g, ts["x_res"], gxsq, ts["gamma"], ts["beta"], w2, ts["b2"], gr)
+    got = fb.bwd_c_plain(dy, g, nx, ts["gamma"], ts["beta"],
+                         fb.bwd_weights_plain(w1, w2, torch.float32), gr)
+
+    tm = jfb._sg_tile(c4)
+    row = lambda cc: pl.BlockSpec((tm, cc), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    full = lambda shape: pl.BlockSpec(shape, lambda i: tuple(0 for _ in shape),
+                                      memory_space=pltpu.VMEM)
+    vec = lambda k: jnp.asarray(a[k]).reshape(1, c4)
+    parts = []
+    for i in range(groups):
+        rows = slice(i * gr, (i + 1) * gr)
+        dyp = jfb._pad_rows(jnp.asarray(dy_np[rows]), tm)
+        gp = jfb._pad_rows(jnp.asarray(g[rows].numpy()), tm)
+        parts.append(pl.pallas_call(
+            jfb._sg_bwd_c_kernel, grid=(dyp.shape[0] // tm,),
+            in_specs=[row(c), row(c4), full((1, c4)), full((1, c4)), full((1, c4)),
+                      full((c4, c))],
+            out_specs=[full((c4, c)), full((1, c)), full((1, c4)), full((1, c4)),
+                       full((1, c4))],
+            out_shape=[jax.ShapeDtypeStruct((c4, c), jnp.float32)]
+            + [jax.ShapeDtypeStruct((1, n), jnp.float32) for n in (c, c4, c4, c4)],
+            scratch_shapes=[pltpu.VMEM((c4, c), jnp.float32)]
+            + [pltpu.VMEM((1, n), jnp.float32) for n in (c, c4, c4, c4)],
+            interpret=True,
+        )(dyp, gp, jnp.asarray(gx[i:i + 1].numpy()), vec("gamma"), vec("beta"),
+          jnp.asarray(a["w2"])))
+    dw2, db2, dgamma, dbeta = (sum(np.asarray(p[j]) for p in parts) for j in range(4))
+    dnx = np.concatenate([np.asarray(p[4]) for p in parts])
+    ref = (db2.reshape(c), dgamma.reshape(c4), dbeta.reshape(c4), dnx, dw2.T)
+    for name, x, r in zip(("db2", "dgamma", "dbeta", "dnx", "dW2"), got, ref):
+        np.testing.assert_allclose(x.numpy(), r, rtol=TOL["float32"],
+                                   atol=TOL["float32"] * np.abs(r).max(), err_msg=name)
+
+
 def test_dead_channel_has_finite_grads():
     """A hidden channel with gx == 0: dgx/gx is taken as 0 there
     (``fused_block.py:606``), so no gradient is NaN; against the Pallas

@@ -112,25 +112,46 @@ def _sum_close(got, ref):
     torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max()))
 
 
-# (C, rows per group, groups): the atto stages, then wider rows, where D's
-# tile drops to 32 rows (C = 384, 768) and to 16 (C = 1536 in bf16; f32 at
-# 1536 takes D's wide plan, held in the _WIDEST cases below)
+# (C, rows per group, groups): the atto stages, then wider rows, where D
+# and the masked passes take their wide plans and spill-g C its separate
+# dW2 pass (C = 384, 768; 1536 in bf16, and in f32 in the _WIDEST cases below)
 _ATTO = [(40, 350, 1), (40, 350, 2), (80, 130, 2), (160, 300, 1), (320, 150, 2)]
 _WIDE = [(384, 70, 2), (768, 40, 2)]
 _SPILLG_CASES = ([(d, *case) for d in ("bfloat16", "float32") for case in _ATTO + _WIDE]
                  + [("bfloat16", 1536, 20, 2)])
-# the widest bf16 C whose 16-row tile D holds in an H100 block's shared
-# memory; past it D takes its wide plan
-_SPILLG_BF16_RESIDENT_C = 1616
+# past this bf16 width (huge's C = 2816) D's dLN sums are held against those
+# of its own stored dv
+_SPILLG_DLN_OWN_DV_C = 1616
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,c,group_rows,groups", _SPILLG_CASES)
 def test_spillg_kernels_match_plain_on_gpu(dtype, c, group_rows, groups):
     """Each spill-g launch against its plain phase on the same inputs, forward
-    and backward, one and two GRN groups, ragged row tiles."""
+    and backward, one and two GRN groups, ragged row tiles; C's dW2 from the
+    one launch where its plan folds it (every atto width in bf16), else from
+    its separate pass."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
+    scale = 1e-4 if dtype == "bfloat16" else 1e-5
+    if dtype == "bfloat16" and c > 320:
+        # chip_smoke.py's term for bf16 at full size: a product operand (u, h)
+        # is rounded from an f32 value summed in another order, and where that
+        # rounding flips, g, y and dv move by an operand ulp times a weight
+        scale = 2e-3
+    _spillg_parity(dtype, c, group_rows, groups, scale)
+
+
+def _spillg_parity(dtype, c, group_rows, groups, scale, u_flips=False):
+    """Every spill-g launch against its plain phase (see
+    ``test_spillg_kernels_match_plain_on_gpu``); g, y, dv and u within one
+    bf16 ulp plus ``scale`` of their scale; in bf16 past C = 1616, D's dLN
+    sums against those of its own stored dv.  ``u_flips`` (bf16 at a stage's
+    full size, where D's LN, summed in another order, rounds some u one ulp
+    the other way): u and dv within one ulp plus 1e-4 of scale, dv in the
+    rows whose u flipped against the plain dv of D's own u, at most 0.1% of
+    dv off the plain dv, and the dLN sums against those of that reference
+    dv (the plain sums where no u flipped)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(c + groups)
@@ -143,12 +164,6 @@ def test_spillg_kernels_match_plain_on_gpu(dtype, c, group_rows, groups):
     lw, lb, b1, b2 = rnd(c, s=0.1, mean=1.0), rnd(c, s=0.1), rnd(c4, s=0.1), rnd(c, s=0.1)
     w1, w2 = rnd(c4, c, s=0.1), rnd(c, c4, s=0.1)
     gm, bt = rnd(c4, s=0.5), rnd(c4, s=0.1)
-    scale = 1e-4 if dtype == "bfloat16" else 1e-5
-    if dtype == "bfloat16" and c > 320:
-        # chip_smoke.py's term for bf16 at full size: a product operand (u, h)
-        # is rounded from an f32 value summed in another order, and where that
-        # rounding flips, g, y and dv move by an operand ulp times a weight
-        scale = 2e-3
 
     g, gxsq = fb._fwd_a_cuda(t, lw, lb, w1, b1, group_rows)
     rg, rgxsq = fb.fwd_a_plain(t, lw, lb, w1, b1, group_rows)
@@ -165,33 +180,56 @@ def test_spillg_kernels_match_plain_on_gpu(dtype, c, group_rows, groups):
     _sum_close(gx, rgx)
     _sum_close(nx, rnx)
 
-    for got, ref in zip(fb._bwd_c_cuda(dy, rg, rnx, gm, w2, group_rows),
-                        fb.bwd_c_plain(dy, rg, rnx, gm, w2, group_rows)):
+    wts, rwts = fb._bwd_weights_cuda(w1, w2, dt), fb.bwd_weights_plain(w1, w2, dt)
+    fold = fb.tail_plan(dy, "spillg_bwd_c", group_rows)[0].fold > 0
+    before = dict(fb.LAUNCHES)
+    got_c = fb._bwd_c_cuda(dy, rg, rnx, gm, bt, wts, group_rows)
+    assert {k: fb.LAUNCHES[k] - before[k] for k in ("spillg_bwd_c", "spillg_bwd_c_dw2")} == {
+        "spillg_bwd_c": 1, "spillg_bwd_c_dw2": 0 if fold else 1}
+    ref_c = fb.bwd_c_plain(dy, rg, rnx, gm, bt, rwts, group_rows)
+    for got, ref in zip(got_c[:4], ref_c[:4]):
         _sum_close(got, ref)
     h = fb.h_plain(rg, rnx, gm, bt, group_rows)
-    _sum_close(fb._atb_cuda(dy, rg, "spillg_bwd_c_dw2", (rnx, gm, bt, group_rows)),
-               fb.atb_plain(dy, h))
+    _sum_close(got_c[4], fb.atb_plain(dy, h))
 
-    dgxg = fb.dgx_step(fb.bwd_c_plain(dy, rg, rnx, gm, w2, group_rows)[3], rgx)
-    dt_k, db1, dlnw, dlnb, dv, u = fb._bwd_d_cuda(t, dy, rg, rnx, dgxg, lw, lb, w1, b1, gm, w2,
+    dgxg = fb.dgx_step(ref_c[3], rgx)
+    rdt, rdb1, rdlnw, rdlnb, rdv, ru = fb.bwd_d_plain(t, dy, rg, rnx, dgxg, lw, lb, rwts,
+                                                      b1, gm, group_rows)
+    dt_k, db1, dlnw, dlnb, dv, u = fb._bwd_d_cuda(t, dy, rg, rnx, dgxg, lw, lb, wts, b1, gm,
                                                   group_rows)
-    rdt, rdb1, rdlnw, rdlnb, rdv, ru = fb.bwd_d_plain(t, dy, rg, rnx, dgxg, lw, lb, w1,
-                                                      b1, gm, w2, group_rows)
     _ulp_close(dt_k, rdt, 1e-3 if dtype == "bfloat16" else 1e-5)
-    _ulp_close(dv, rdv, scale)
-    _ulp_close(u, ru, scale)
-    if dtype == "bfloat16" and c > _SPILLG_BF16_RESIDENT_C:
-        # D's wide plan (huge's C = 2816): du sums 4C = 11,264 products of the
-        # bf16 dv that D stores, and where dv rounds one ulp the other way
-        # (about 1% of it) a few rows' dLN sums move past the f32 bound: hold
-        # them against the sums of the stored dv (as A's sum of squares
-        # against the stored g above), and dv itself to the plain dv in all
-        # but a few elements, so that a dv off everywhere cannot pass
+    _ulp_close(u, ru, 1e-4 if u_flips else scale)
+    sums = (rdb1, rdlnw, rdlnb)
+    if u_flips:
+        flipped = (u != ru).any(1)
+        ref_dv = rdv.clone()
+        if bool(flipped.any()):
+            # the plain dv of the rows whose stored u flipped, from that u
+            cd = rdv.dtype
+            v = fb._mm(u[flipped], rwts.w1.t(), cd) + b1.float()
+            dh = fb._mm(dy[flipped], rwts.w2t.t(), cd)
+            grp = fb._per_row(torch.arange(groups, device=dev), group_rows)[flipped]
+            dg = dh * (gm.float() * rnx[grp] + 1.0) + rg[flipped].float() * dgxg[grp]
+            ref_dv[flipped] = (dg * fb._gelu_grad(v)).to(cd)
+            du = fb._mm(ref_dv, rwts.w1, cd)
+            _, uhat, _ = fb._ln(t.float(), lw, lb)
+            sums = (rdb1, (du * uhat).sum(0), du.sum(0))
+        _ulp_close(dv, ref_dv, 1e-4)
+        assert float((dv != rdv).float().mean()) <= 1e-3
+    else:
+        _ulp_close(dv, rdv, scale)
+    if dtype == "bfloat16" and c > _SPILLG_DLN_OWN_DV_C:
+        # huge's C = 2816: du sums 4C = 11,264 products of the bf16 dv that D
+        # stores, and where dv rounds one ulp the other way (about 1% of it)
+        # a few rows' dLN sums move past the f32 bound: hold them against the
+        # sums of the stored dv (as A's sum of squares against the stored g
+        # above), and dv itself to the plain dv in all but a few elements, so
+        # that a dv off everywhere cannot pass
         assert float((dv != rdv).float().mean()) < 0.05
         _, uhat, _ = fb._ln(t.float(), lw, lb)
         du = dv.float() @ w1.to(dt).float()
-        rdlnw, rdlnb = (du * uhat).sum(0), du.sum(0)
-    for got, ref in ((db1, rdb1), (dlnw, rdlnw), (dlnb, rdlnb)):
+        sums = (rdb1, (du * uhat).sum(0), du.sum(0))
+    for got, ref in zip((db1, dlnw, dlnb), sums):
         _sum_close(got, ref)
     _sum_close(fb._atb_cuda(dv, u, "spillg_bwd_d_dw1"), fb.atb_plain(dv, u))
 
@@ -325,9 +363,8 @@ def test_wide_plans_are_taken_only_past_the_resident_layout(dtype, c):
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     for width, wide in ((c, True), (40, False), (320, False)):
         t = torch.empty(32, width, device=dev, dtype=dt)
-        assert (fb._wide_scratch(t, 16) is not None) == wide, ("spillg_bwd_d", width)
-        for key in fb.MASKED_KINDS:
-            assert (fb.masked_plan(t, key, 16)[0].mode == "wide") == wide, (key, width)
+        for key in (*fb.MASKED_KINDS, "spillg_bwd_d"):
+            assert (fb.tail_plan(t, key, 16)[0].mode == "wide") == wide, (key, width)
 
 
 # (dtype, C) -> each masked launch's mode: the weights resident where they
@@ -359,13 +396,69 @@ def test_masked_plans_per_stage_width(dtype, c):
     m = {40: 256 * 56 * 56, 80: 256 * 28 * 28, 160: 256 * 14 * 14, 320: 256 * 7 * 7}.get(c, 4864)
     t = torch.empty(m, c, device=dev, dtype=dt)
     for key, mode in zip(fb.MASKED_KINDS, _MASKED_MODES[(dtype, c)]):
-        plan, _ = fb.masked_plan(t, key, m)
+        plan, _ = fb.tail_plan(t, key, m)
         assert plan.mode == mode, (key, plan)
         assert plan.bm == (64 if dtype == "bfloat16" else 32)
         assert plan.smem <= props.shared_memory_per_block_optin
         assert 1 <= plan.blocks <= min(plan.per_sm * props.multi_processor_count, plan.tiles)
         assert plan.col_split >= 1 and (plan.col_split == 1 or key in (
             "masked_fwd_stat", "masked_bwd_stat"))
+
+
+# (dtype, C) -> the spill-g backward's plans: C's mode, whether it folds dW2
+# (its slice of dW2 in registers: every atto width in bf16) and its row tile
+# (half a tile where the fold then takes at most 3 m-tiles a warp: stages
+# 0-1); D's mode and row tile (half a tile on the ring where that still gives
+# every block two tiles: stages 0-2)
+_SPILLG_PLANS = {
+    ("bfloat16", 40): ("resident", True, 32, "ring", 32),
+    ("bfloat16", 80): ("resident", True, 32, "ring", 32),
+    ("bfloat16", 160): ("resident", True, 64, "ring", 32),
+    ("bfloat16", 320): ("resident", True, 64, "ring", 64),
+    ("bfloat16", 2816): ("ring", False, 64, "wide", 64),
+    ("float32", 2816): ("ring", False, 32, "wide", 32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c", list(_SPILLG_PLANS))
+def test_spillg_plans_per_stage_width(dtype, c):
+    """At the atto stage widths (batch 256, 19 of 49 patches of p x p rows,
+    p = 8/4/2/1) and huge's C = 2816 (4,864 rows): C's and D's modes, C's
+    fold and both row tiles; C's blocks at least one a 64-column slice of 4C
+    and no more than fit at once beyond that; D's no more than fit at once
+    nor than its tiles; shared memory within the card's.  Then every spill-g
+    launch against its plain phase at about the stage's rows, in one and two
+    GRN groups whose ends are not a multiple of a row tile, where the plans
+    are the ones asserted (checked there too): in bf16 g and y with
+    chip_smoke.py's term for the outputs of rounded operands at full size
+    (2e-3 of scale), u and dv as ``_spillg_parity``'s ``u_flips`` says at
+    the atto widths, and at C = 2816 as
+    ``test_spillg_kernels_match_plain_on_gpu`` holds that width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    props = torch.cuda.get_device_properties(dev)
+    m = {40: 256 * 19 * 64, 80: 256 * 19 * 16, 160: 256 * 19 * 4, 320: 256 * 19}.get(c, 4864)
+    c_mode, fold, c_bm, d_mode, d_bm = _SPILLG_PLANS[(dtype, c)]
+    slices = -(-4 * c // 64)
+    bf16 = dtype == "bfloat16"
+    # the stage's rows, then one and two groups of 19 rows fewer each
+    for gr, groups in ((m, 1), (m - 19, 1), (m // 2 - 19, 2)):
+        t = torch.empty(gr * groups, c, device=dev, dtype=dt)
+        pc, _ = fb.tail_plan(t, "spillg_bwd_c", gr)
+        pd, _ = fb.tail_plan(t, "spillg_bwd_d", gr)
+        assert (pc.mode, pc.fold > 0, pc.bm, pd.mode, pd.bm) == (
+            c_mode, fold, c_bm, d_mode, d_bm), (gr, groups, pc, pd)
+        assert pc.col_split == slices and pd.col_split == 1
+        assert pc.tiles == groups * -(-gr // c_bm) and pd.tiles == groups * -(-gr // d_bm)
+        assert slices <= pc.blocks <= max(slices, pc.per_sm * props.multi_processor_count)
+        assert 1 <= pd.blocks <= min(pd.per_sm * props.multi_processor_count, pd.tiles)
+        assert max(pc.smem, pd.smem) <= props.shared_memory_per_block_optin
+        if gr != m:
+            _spillg_parity(dtype, c, gr, groups, 2e-3 if bf16 else 1e-5, bf16 and c <= 320)
+        del t
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu
