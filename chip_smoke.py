@@ -21,8 +21,9 @@ Phases, each of which exits non-zero on failure:
    version and one PyTorch call computing the same function (timed here
    only; the port never calls it).  The five spill-g launches of the atto
    step (phases A, B, C with its dW2 folded in, the row pass and the dW1 pass
-   of D; each stage's line gives C's and D's plans) each against their plain
-   phase on the same inputs at the four stage shapes:
+   of D; each stage's line gives the plans of A, B, C and D, and so do the
+   pico-112/16 and C = 2816 lines) each against their plain phase on the
+   same inputs at the four stage shapes:
    g, y, dt and the stored dv/u within one bf16 ulp plus 2e-3 of their scale
    (an operand of a product -- u in A, h in B -- is rounded to bf16 from an
    f32 value summed in another order, and where that rounding goes the other
@@ -339,6 +340,9 @@ SPILLG = (  # (LAUNCHES key, replaced Pallas kernel, library yardstick) on the a
      "composed tail backward, covers C+D"),
 )
 SPILLG_WIDE_DW2 = "spillg_bwd_c_dw2"  # C's separate dW2 pass, where dW2 does not fold
+# rows 7-8 run on the persistent passes; the earlier design's times stand in
+# PERF.md, since the kernels line holds only this run's measurements
+SPILLG_REDESIGNED = ("spillg_fwd_a", "spillg_fwd_b")
 
 
 # the weight-gradient pass -> the row pass whose Pallas kernel's bound it shares
@@ -506,6 +510,8 @@ def phase_spillg_kernels() -> dict:
                       "bound_ms": 0.0, "bound_by": "bytes", "library_ms": 0.0, "library": lib,
                       "split_extra_bytes": 0}
                 for key, rep, lib in SPILLG}
+    for key in SPILLG_REDESIGNED:
+        rows_out[key].update(redesigned=True, earlier_design_ms="PERF.md section 6, rows 7-8")
     # a row's max_abs_err is that of its main outputs (g, y, dt, dW1, dW2, C's
     # sums), not of the sums it feeds
     side = ("gxsq", "gx", "nx", "db1", "dln_w", "dln_b", "dv", "u")
@@ -772,7 +778,7 @@ def masked_parity(check, inputs, gr, keep, wide=False) -> dict:
 def plan_of(t, key, group_rows):
     """A persistent launch's plan at t's shape (its mode, row tile, threads,
     shared bytes, blocks, column split, and spill-g C's dW2 fold), or None
-    for the launches without one (the list, A, B and the X^T Y passes)."""
+    for the launches without one (the list and the X^T Y passes)."""
     from mmearth_tpu_torch.ops import fused_block as fb
 
     if key not in fb.PLAN_KINDS:

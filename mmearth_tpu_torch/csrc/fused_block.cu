@@ -3,7 +3,7 @@
 // its VJP, on (M, C) rows in bf16 (or f32) with f32 params.
 //
 // Replaces the Pallas kernels of mmearth_tpu/ops/fused_block.py:
-//   spillg_fwd_a_kernel      <- _sg_fwd_a_kernel (:381, called at :538)
+//   fwd_stat_kernel<SpillRows> <- _sg_fwd_a_kernel (:381, called at :538)
 //   spillg_fwd_b_kernel      <- _sg_fwd_b_kernel (:411, called at :552)
 //   spillg_bwd_c_kernel      <- _sg_bwd_c_kernel (:423, called at :580), with its
 //                               dW2 sum (:448) where that fits (below)
@@ -21,17 +21,39 @@
 // stored g; erf is erff (the Pallas kernel uses a polynomial with |error| <=
 // 1.5e-7).
 //
-// Forward.  Each of A and B is one product of 2*M*C*4C flops against ~2-3
-// bytes of (M, C) / (M, 4C) traffic per row element: bytes bound both at C =
-// 40 (stage 0), products at C = 320.  A block owns BM rows of one GRN group
-// and walks the 4C columns in tiles of 64 with its rows' C-wide operand
-// resident in shared memory, the output columns split over blockIdx.y so that
-// the stages with few rows still fill the card; g goes to device memory
-// through shared memory, coalesced.  A takes the largest row tile (64 rows in
-// bf16, 32 in f32, halved down to 16) whose shared memory fits (C <= 5992 in
-// bf16, 3248 in f32); B fits every width JAX runs.  Phase A cannot finish the
-// GRN statistic (it needs every block), so A and B are two launches and B
-// takes sqrt and nx at its start.
+// Forward.  A reads t and writes g, B reads g and x and writes y, each with
+// one product of 2*M*C*4C flops: 4.0 GFLOP at every stage of the atto-56/8
+// batch-256 step (M falls 4x as C doubles) against 124 / 62 / 31 / 16 MB (A)
+// and 149 / 75 / 37 / 19 MB (B) at stages 0-3, so bytes bound both at every
+// atto stage (37 / 19 / 9.3 / 4.7 us and 45 / 22 / 11 / 5.6 us at 3.35 TB/s),
+// the products about equal at stage 3 (4.1 us at 989 TFLOP/s).  A cannot
+// finish the GRN statistic (it needs every row of the group), so A and B are
+// two launches and B takes sqrt and nx at its start.  The first design of
+// both (a block a 64-row tile, the weights re-staged from L2 for every
+// 64-column tile, stage / barrier / mma / barrier, LN one row a warp from
+// device memory, an atomicAdd per column sum and tile, h built with 2-byte
+// loads by every output-column block) ran 8-17x its bound.  Now both walk
+// the rows of each group with persistent blocks, as the masked passes and D
+// do (the persistent skeleton below: Walk and tile_of, plans from
+// pass_plan, cp.async staging):
+//   A is the masked statistic pass on every row (fwd_stat_kernel<SpillRows>):
+//   the block's column tiles of W1 resident (the fewest splits of 4C over
+//   blockIdx.y that fit two blocks an SM: every atto stage), a tile's rows
+//   staged 16 bytes a load and normalised in place 8 lanes a row, g rounded
+//   to T, staged and stored 16 bytes a thread, and each thread's squares of
+//   g added to its own partial sums in shared memory until the block's group
+//   changes; huge's C = 2816 takes the WIDE plan (u by chunk from t).
+//   B: a step is one 64-column chunk of 4C, its g (and W2's tile where W2's
+//   rows are not resident) by cp.async three steps ahead; each thread makes
+//   h of the pieces it copied, in place, one barrier publishes them, and the
+//   output sums stay in registers over the whole contraction, C's columns
+//   split over blockIdx.y past 160 (stage 3: two slices, so that the 76 row
+//   tiles give 152 blocks).
+// What still holds them back: A's erf GELU on every element and its LN,
+// repeated by each column split; the products' fragments come from shared
+// memory 4 bytes a lane (mma.sync: shared-memory bandwidth, not the tensor
+// cores, bounds them); B makes h and multiplies in turn around one block
+// barrier a step; wgmma and TMA are not used.
 //
 // Backward.  C reads dy and g and writes dW2 (products dh and dW2), D reads
 // t, dy and g and writes dt and dW1 (products v, dh, du and dW1): bytes bound
@@ -236,34 +258,6 @@ __device__ __forceinline__ int frag_col(int nt, int e) {
   return nt * 8 + 2 * (threadIdx.x & 3) + (e & 1);
 }
 
-// Sum v over the block's rows for each of a tile's 64 columns and add column
-// c to dst[c] for c < nvalid.  The block's warps are NW row-warps (warp w owns
-// rows of w % NW) times column groups (warp w holds the NT n-tiles from
-// column coloff).  red: NW * 64 floats.  Synchronises the block.
-template <int NW, int NT = 8>
-__device__ __forceinline__ void col_sum(const float (&v)[NT][4], float* red, float* dst,
-                                        int nvalid, int coloff = 0) {
-  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) % NW;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float s = v[nt][e] + v[nt][e + 2];
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (lane < 4) red[w * 64 + coloff + frag_col(nt, e)] = s;
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < 64; c += blockDim.x) {
-    float s = 0.f;
-    for (int i = 0; i < NW; ++i) s += red[i * 64 + c];
-    if (c < nvalid) atomicAdd(dst + c, s);
-  }
-  __syncthreads();
-}
-
 // Staging takes 16-byte loads: every row length, column offset and width
 // below is a multiple of 8 elements (C % 8 == 0, checked by the entry points)
 // and every array is 16-byte aligned (checked by the Python wrappers).
@@ -312,184 +306,7 @@ __device__ __forceinline__ void stage_t(T* s, int lds, const T* __restrict__ src
   }
 }
 
-// The block's rows: tile `tile` of group `grp`, nvalid of BM rows from row0.
-struct Rows {
-  int grp, tile, row0, nvalid;
-};
-template <int BM>
-__device__ __forceinline__ Rows block_rows(int GR, int tpg) {
-  Rows r;
-  r.grp = blockIdx.x / tpg;
-  r.tile = blockIdx.x - r.grp * tpg;
-  r.row0 = r.grp * GR + r.tile * BM;
-  r.nvalid = min(BM, GR - r.tile * BM);
-  return r;
-}
-
-// LN of the block's rows into sU (activation dtype, zero in the padding)
-// unless sU is null; keeps each row's mean and 1/std when the pointers are
-// given and writes the rounded u to u_out when given.
-template <typename T, int BM>
-__device__ void layer_norm_rows(const T* __restrict__ t, const float* __restrict__ lnw,
-                                const float* __restrict__ lnb, T* sU, int lda, int C, int Cp,
-                                const Rows& rw, float* sMean, float* sRs, T* u_out) {
-  const int NW = blockDim.x >> 5, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int r = w; r < BM; r += NW) {
-    if (r >= rw.nvalid) {
-      if (sU != nullptr)
-        for (int c = lane; c < Cp; c += 32) sU[r * lda + c] = from_f<T>(0.f);
-      continue;
-    }
-    const T* tr = t + (size_t)(rw.row0 + r) * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += to_f(tr[c]);
-    const float mean = warp_sum(s) / C;
-    float q = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = to_f(tr[c]) - mean;
-      q += d * d;
-    }
-    const float rs = rsqrtf(warp_sum(q) / C + LN_EPS);
-    if (sMean != nullptr && lane == 0) {
-      sMean[r] = mean;
-      sRs[r] = rs;
-    }
-    for (int c = lane; c < Cp; c += 32) {
-      T u = from_f<T>(0.f);
-      if (c < C) {
-        u = from_f<T>((to_f(tr[c]) - mean) * rs * lnw[c] + lnb[c]);
-        if (u_out != nullptr) u_out[(size_t)(rw.row0 + r) * C + c] = u;
-      }
-      if (sU != nullptr) sU[r * lda + c] = u;
-    }
-  }
-}
-
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
-
-// ---------------------------------------------------------------------------
-// A: g = gelu(LN(t) W1^T + b1) stored in T; gxsq[grp] += sum over rows of g^2.
-// ---------------------------------------------------------------------------
-template <typename T, int BM>
-__global__ void __launch_bounds__(BM * 2)
-spillg_fwd_a_kernel(const T* __restrict__ t, const float* __restrict__ lnw,
-                    const float* __restrict__ lnb, const T* __restrict__ w1,
-                    const float* __restrict__ b1, T* __restrict__ g, float* __restrict__ gxsq,
-                    int C, int C4, int GR, int tpg) {
-  constexpr int NW = BM / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Cp = (C + 15) & ~15, lda = Cp + 8;
-  T* sU = reinterpret_cast<T*>(smem);
-  T* sB = reinterpret_cast<T*>(smem + align16(sizeof(T) * BM * lda));
-  T* sG = sB + TN * LDC;
-  float* red = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sG) +
-                                        align16(sizeof(T) * BM * LDC));
-  const int w = threadIdx.x >> 5;
-  const Rows rw = block_rows<BM>(GR, tpg);
-  layer_norm_rows<T, BM>(t, lnw, lnb, sU, lda, C, Cp, rw, nullptr, nullptr, nullptr);
-
-  for (int j0 = blockIdx.y * TN; j0 < C4; j0 += gridDim.y * TN) {
-    float acc[8][4] = {};
-    for (int k0 = 0; k0 < Cp; k0 += KC) {
-      const int kc = min(KC, Cp - k0);
-      __syncthreads();
-      stage(sB, LDC, w1, C, j0, TN, C4, k0, kc, C);
-      __syncthreads();
-      WarpMM<T>::run(sU + w * 16 * lda + k0, lda, sB, LDC, kc, acc);
-    }
-    float sq[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = w * 16 + frag_row(e), j = j0 + frag_col(nt, e);
-        float gv = 0.f;
-        if (r < rw.nvalid && j < C4) gv = to_f(from_f<T>(gelu(acc[nt][e] + b1[j])));
-        sG[r * LDC + j - j0] = from_f<T>(gv);
-        sq[nt][e] = gv * gv;
-      }
-    }
-    col_sum<NW>(sq, red, gxsq + (size_t)rw.grp * C4 + j0, C4 - j0);  // also publishes sG
-    for (int i = threadIdx.x; i < BM * TN; i += blockDim.x) {  // coalesced store of g
-      const int r = i / TN, jc = i - r * TN;
-      if (r < rw.nvalid && j0 + jc < C4)
-        g[(size_t)(rw.row0 + r) * C4 + j0 + jc] = sG[r * LDC + jc];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B: gx = sqrt(gxsq), nx = gx / (mean gx + eps); h = gamma*(g*nx) + beta + g;
-//    y = x + (h W2^T + b2).  Tile 0 of each group writes gx and nx.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(Cfg<T>::BM * 2)
-spillg_fwd_b_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                    const float* __restrict__ gxsq, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, const T* __restrict__ w2,
-                    const float* __restrict__ b2, T* __restrict__ y, float* __restrict__ gx_out,
-                    float* __restrict__ nx_out, int C, int C4, int GR, int tpg) {
-  constexpr int BM = Cfg<T>::BM;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sNX = reinterpret_cast<float*>(smem);
-  float* red = sNX + C4;
-  T* sH = reinterpret_cast<T*>(smem + align16(sizeof(float) * (C4 + 32)));
-  T* sB = sH + BM * LDC;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const Rows rw = block_rows<BM>(GR, tpg);
-
-  float part = 0.f;
-  for (int j = threadIdx.x; j < C4; j += blockDim.x) {
-    const float v = sqrtf(gxsq[(size_t)rw.grp * C4 + j]);
-    sNX[j] = v;
-    part += v;
-  }
-  part = warp_sum(part);
-  if (lane == 0) red[w] = part;
-  __syncthreads();
-  float total = 0.f;
-  for (int i = 0; i < BM / 16; ++i) total += red[i];
-  const float denom = total / C4 + GRN_EPS;
-  for (int j = threadIdx.x; j < C4; j += blockDim.x) {
-    const float gxv = sNX[j], nxv = gxv / denom;
-    if (rw.tile == 0 && blockIdx.y == 0) {
-      gx_out[(size_t)rw.grp * C4 + j] = gxv;
-      nx_out[(size_t)rw.grp * C4 + j] = nxv;
-    }
-    sNX[j] = nxv;
-  }
-
-  for (int c0 = blockIdx.y * TN; c0 < C; c0 += gridDim.y * TN) {
-    float acc[8][4] = {};
-    for (int k0 = 0; k0 < C4; k0 += KC) {
-      const int kc = min(KC, C4 - k0);
-      __syncthreads();
-      for (int i = threadIdx.x; i < BM * kc; i += blockDim.x) {
-        const int r = i / kc, c = i - r * kc, j = k0 + c;
-        float v = 0.f;
-        if (r < rw.nvalid) {
-          const float gv = to_f(g[(size_t)(rw.row0 + r) * C4 + j]);
-          v = grn_h(gv, sNX[j], gamma[j], beta[j]);
-        }
-        sH[r * LDC + c] = from_f<T>(v);
-      }
-      stage(sB, LDC, w2, C4, c0, TN, C, k0, kc, C4);
-      __syncthreads();
-      WarpMM<T>::run(sH + w * 16 * LDC, LDC, sB, LDC, kc, acc);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = w * 16 + frag_row(e), c = c0 + frag_col(nt, e);
-        if (r < rw.nvalid && c < C) {
-          const size_t o = (size_t)(rw.row0 + r) * C + c;
-          y[o] = from_f<T>(to_f(x[o]) + (acc[nt][e] + b2[c]));
-        }
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The masked-dense tail (rows 5-6 of the kernel table).  Only kept sites
@@ -524,7 +341,8 @@ spillg_fwd_b_kernel(const T* __restrict__ g, const T* __restrict__ x,
 constexpr int CHUNK = 4096;        // rows of a chunk of the kept-row list
 constexpr int ROWS_THREADS = 512;  // threads of masked_fwd_rows_kernel, 8 rows each
 enum Mode { RES = 0, RING = 1, WIDE = 2 };
-enum Kind { K_STAT = 0, K_APPLY = 1, K_BSTAT = 2, K_DV = 3, K_SC = 4, K_SD = 5 };  // SC, SD: spill-g C, D
+// SA .. SD: spill-g A, B, C, D
+enum Kind { K_STAT = 0, K_APPLY = 1, K_BSTAT = 2, K_DV = 3, K_SC = 4, K_SD = 5, K_SA = 6, K_SB = 7 };
 // Every masked row pass: BM/16 row-warps times COLW warps across a 64-column
 // tile (CNT = 8 / COLW n-tiles of 8 each), so 2 * COLW * BM threads.
 constexpr int COLW = 4, CNT = 8 / COLW;
@@ -580,6 +398,20 @@ __device__ void matrix_async(T* s, int lds, const T* __restrict__ src, int rows,
   }
 }
 
+// s[r][c] = src[r0 + r][c0 + c] for r < nr, c < nc (row pitch lds), zero
+// where r0 + r >= rmax or c0 + c >= cmax, by cp.async.
+template <typename T>
+__device__ __forceinline__ void rows_async(T* s, int lds, const T* __restrict__ src, int ld,
+                                           int r0, int nr, int rmax, int c0, int nc, int cmax) {
+  constexpr int V = VEC_BYTES / sizeof(T);
+  const int pv = nc / V;
+  for (int i = threadIdx.x; i < nr * pv; i += blockDim.x) {
+    const int r = i / pv, c = (i - r * pv) * V;
+    const bool ok = r0 + r < rmax && c0 + c < cmax;
+    cp16(s + r * lds + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+  }
+}
+
 // The kept-row list and its virtual tiles, or (ids and cnt null: spill-g's
 // D) every row of each group in order, one chunk a group.
 struct Walk {
@@ -607,6 +439,12 @@ __device__ __forceinline__ Tile tile_of(const Walk& w, int v) {
   t.first = k == 0 && i == 0;
   return t;
 }
+
+// The row source of a persistent pass (a tag type, so that profiles and
+// ptxas name it): the kept-row list of the masked tail, or every row of each
+// group in order (spill-g).
+struct KeptRows {};
+struct SpillRows {};
 
 // Chunk q of the list: its kept rows, ascending, then its masked ones.
 template <typename T>
@@ -658,6 +496,26 @@ __device__ __forceinline__ void copy_rows(T* __restrict__ dst, int ldd, const T*
     *reinterpret_cast<uint4*>(dst + (size_t)r * ldd + c) =
         *reinterpret_cast<const uint4*>(s + r * lds + c);
   }
+}
+
+// The two values of an mma fragment's column pair (e, e + 1) at p, as f32.
+__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, float& b) {
+  const __nv_bfloat162 v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+  a = __low2float(v);
+  b = __high2float(v);
+}
+
+// p[0] = a, p[1] = b rounded to T, one 4-byte (bf16) or 8-byte (f32) store.
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // The sum of v over each group of L lanes (L a power of two), in every lane.
@@ -740,6 +598,59 @@ __device__ void ln_tile(const T* __restrict__ t, const T* __restrict__ keep, con
     __syncthreads();
     copy_rows(u_out + (size_t)tl.p0 * C, C, sU, lda, tl.nk, C);
   }
+}
+
+// Spill-g A's LN of the tile's rows [0, nk) in place in sU (row pitch lda),
+// which holds the raw rows (zero past C and nk): 8 lanes a row, so that a
+// warp takes 4 rows and the block all BM rows at once, 16 bytes of a row a
+// load, lnw and lnb from shared memory (sLW, sLB).  ln_tile's arithmetic,
+// its sums taken in another order.  Syncs the block.
+template <typename T, int BM>
+__device__ void ln_rows(T* sU, int lda, const float* sLW, const float* sLB, int nk, int C) {
+  constexpr int V = VEC_BYTES / sizeof(T), L = 8, RW = 32 / L;
+  const int lane = threadIdx.x & 31, sub = lane % L, np = C / V;
+  for (int r0 = (threadIdx.x >> 5) * RW; r0 < BM; r0 += (blockDim.x >> 5) * RW) {
+    const int r = r0 + lane / L;
+    const bool ok = r < nk;
+    T* row = sU + r * lda;
+    float s = 0.f;
+    if (ok)
+      for (int p = sub; p < np; p += L) {
+        const uint4 q = *reinterpret_cast<const uint4*>(row + p * V);
+        const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+        for (int k = 0; k < V; ++k) s += to_f(e[k]);
+      }
+    const float mean = lane_sum(s, L) / C;
+    float v = 0.f;
+    if (ok)
+      for (int p = sub; p < np; p += L) {
+        const uint4 q = *reinterpret_cast<const uint4*>(row + p * V);
+        const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float d = to_f(e[k]) - mean;
+          v += d * d;
+        }
+      }
+    const float rs = rsqrtf(lane_sum(v, L) / C + LN_EPS);
+    if (ok)
+      for (int p = sub; p < np; p += L) {
+        uint4 q = *reinterpret_cast<const uint4*>(row + p * V);
+        T* e = reinterpret_cast<T*>(&q);
+#pragma unroll
+        for (int k = 0; k < V; k += 4) {
+          const float4 w = *reinterpret_cast<const float4*>(sLW + p * V + k);
+          const float4 b = *reinterpret_cast<const float4*>(sLB + p * V + k);
+          e[k] = from_f<T>((to_f(e[k]) - mean) * rs * w.x + b.x);
+          e[k + 1] = from_f<T>((to_f(e[k + 1]) - mean) * rs * w.y + b.y);
+          e[k + 2] = from_f<T>((to_f(e[k + 2]) - mean) * rs * w.z + b.z);
+          e[k + 3] = from_f<T>((to_f(e[k + 3]) - mean) * rs * w.w + b.w);
+        }
+        *reinterpret_cast<uint4*>(row + p * V) = q;
+      }
+  }
+  __syncthreads();
 }
 
 // WIDE: s[r][c] = u of the tile's row r at column k0 + c (c < kc), from t
@@ -877,45 +788,89 @@ __device__ __forceinline__ T* ring_step(T* ring, int ntl, int si, F fetch) {
 }
 
 // ---------------------------------------------------------------------------
-// Statistic pass of the forward (phase 0 of _fwd_kernel): gxsq[grp] += sum of
-// (g * keep)^2 of the f32 g = gelu(LN(t) W1^T + b1) over the kept rows; the
-// 4C column tiles are split over blockIdx.y.
+// Statistic pass of the forward, on two row sources:
+//   KeptRows (phase 0 of _fwd_kernel): gxsq[grp] += sum of (g * keep)^2 of
+//     the f32 g = gelu(LN(t) W1^T + b1) over the kept rows;
+//   SpillRows (row 7, _sg_fwd_a_kernel, :381): every row of each group; g is
+//     rounded to T, staged in shared memory and stored with 16-byte coalesced
+//     stores, and gxsq[grp] += sum of the squares of the stored g (:397-404).
+//     RES stages the block's own column tiles of W1 once (its slice of the
+//     split), so that the few-row stages, split over more blockIdx.y slices,
+//     keep their weights resident too.
+// The 4C column tiles are split over blockIdx.y.
 // ---------------------------------------------------------------------------
-template <typename T, int BM, int MODE>
-__host__ __device__ size_t stat_smem(int C) {
+template <typename T, int BM, int MODE, bool SPILL = false>
+__host__ __device__ size_t stat_smem(int C, int njl = 0) {  // njl: SPILL RES's column tiles a block
   Carve c;
   const int Cp = (C + 15) & ~15, lda = MODE == WIDE ? LDC : Cp + 8;
   c.take(sizeof(T) * BM * lda);
-  c.take(MODE == RES ? sizeof(T) * pad64(4 * C) * (Cp + 8)
+  c.take(MODE == RES ? sizeof(T) * (SPILL ? (size_t)njl * TN : (size_t)pad64(4 * C)) * (Cp + 8)
                      : sizeof(T) * ring_slots<T>(K_STAT) * TN * LDC);
   c.take(4 * sizeof(float) * BM);
-  c.take(MODE == WIDE ? 0 : sizeof(float) * 4 * C);
+  // the column sums of the block's group: C4 floats, or (SPILL RES) each
+  // thread's own partial sums of its columns, BM / 2 rows of njl * 64 + 4
+  c.take(SPILL && MODE == RES ? sizeof(float) * (BM / 2) * (njl * TN + 4)
+                              : MODE == WIDE ? 0 : sizeof(float) * 4 * C);
+  if (SPILL) c.take(sizeof(T) * 2 * BM * LDC);  // two g tiles: one stored while the next is made
+  if (SPILL && MODE != WIDE) c.take(sizeof(float) * 2 * C);  // lnw, lnb
   return c.off;
 }
 
-template <typename T, int BM, int MODE>
+template <typename T, int BM, int MODE, typename Src>
 __global__ void __launch_bounds__(BM * 2 * COLW)
-masked_fwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ keep, Walk wk,
-                       const float* __restrict__ lnw, const float* __restrict__ lnb,
-                       const T* __restrict__ w1, const float* __restrict__ b1,
-                       float* __restrict__ gxsq, int C) {
+fwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ keep, Walk wk,
+                const float* __restrict__ lnw, const float* __restrict__ lnb,
+                const T* __restrict__ w1, const float* __restrict__ b1,
+                float* __restrict__ gxsq, T* __restrict__ g_out, int C) {
   constexpr int NW = BM / 16, S = ring_slots<T>(K_STAT);
+  constexpr bool SPILL = std::is_same_v<Src, SpillRows>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int C4 = 4 * C, Cp = (C + 15) & ~15, lda = MODE == WIDE ? LDC : Cp + 8;
   const int nj = (C4 + TN - 1) / TN, nk = (Cp + KC - 1) / KC;
   const int njl = (nj - (int)blockIdx.y + (int)gridDim.y - 1) / (int)gridDim.y;
   Carve cv;
   T* sU = reinterpret_cast<T*>(smem + cv.take(sizeof(T) * BM * lda));
-  T* sW = reinterpret_cast<T*>(smem + cv.take(MODE == RES ? sizeof(T) * pad64(C4) * (Cp + 8)
-                                                         : sizeof(T) * S * TN * LDC));
+  T* sW = reinterpret_cast<T*>(smem + cv.take(
+      MODE == RES ? sizeof(T) * (SPILL ? (size_t)((nj + gridDim.y - 1) / gridDim.y) * TN
+                                       : (size_t)pad64(C4)) * (Cp + 8)
+                  : sizeof(T) * S * TN * LDC));
   float* sMean = reinterpret_cast<float*>(smem + cv.take(4 * sizeof(float) * BM));
   float* sRs = sMean + BM;
   float* sKeep = sRs + BM;
   int* sId = reinterpret_cast<int*>(sKeep + BM);
-  float* sAcc = reinterpret_cast<float*>(smem + cv.take(MODE == WIDE ? 0 : sizeof(float) * C4));
+  const int njm = (nj + gridDim.y - 1) / gridDim.y, ppitch = njm * TN + 4;
+  constexpr bool PARTS = SPILL && MODE == RES;  // per-thread column sums
+  float* sAcc = reinterpret_cast<float*>(smem + cv.take(
+      PARTS ? sizeof(float) * (BM / 2) * ppitch : MODE == WIDE ? 0 : sizeof(float) * C4));
+  T* sG = nullptr;  // SPILL: two g tiles, and (but WIDE) lnw and lnb
+  float* sLW = nullptr;
+  if constexpr (SPILL) sG = reinterpret_cast<T*>(smem + cv.take(sizeof(T) * 2 * BM * LDC));
+  if constexpr (SPILL && MODE != WIDE) {
+    sLW = reinterpret_cast<float*>(smem + cv.take(sizeof(float) * 2 * C));
+    for (int j = threadIdx.x; j < C; j += blockDim.x) {
+      sLW[j] = lnw[j];
+      sLW[C + j] = lnb[j];
+    }
+  }
   const int wt = threadIdx.x >> 5, w = wt % NW, col = (wt / NW) * CNT * 8;
-  if constexpr (MODE != WIDE)  // the sum of squares of the block's current group
+  if constexpr (PARTS)
+    for (int j = threadIdx.x; j < (BM / 2) * ppitch; j += blockDim.x) sAcc[j] = 0.f;
+  else if constexpr (MODE != WIDE)  // the sum of squares of the block's current group
     for (int j = threadIdx.x; j < C4; j += blockDim.x) sAcc[j] = 0.f;
+  // PARTS: the partial sums of each column of the block's slice into gxsq[grp]
+  auto flush_parts = [&](int grp) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < njl * TN; i += blockDim.x) {
+      const int jj = i / TN, j = (blockIdx.y + jj * gridDim.y) * TN + i - jj * TN;
+      float sum = 0.f;
+      for (int q = 0; q < BM / 2; ++q) {
+        sum += sAcc[q * ppitch + i];
+        sAcc[q * ppitch + i] = 0.f;
+      }
+      if (j < C4) atomicAdd(gxsq + (size_t)grp * C4 + j, sum);
+    }
+    __syncthreads();
+  };
 
   auto fetch = [&](int i) {  // step i: W1 tile (column tile jt, contraction chunk kt)
     const int l = i % (njl * nk), jt = blockIdx.y + (l / nk) * gridDim.y, kt = l % nk;
@@ -923,7 +878,12 @@ masked_fwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ keep, Walk
                min(KC, Cp - kt * KC), C);
   };
   if constexpr (MODE == RES) {
-    matrix_async(sW, Cp + 8, w1, C4, pad64(C4), C, Cp);
+    if constexpr (SPILL)  // the block's column tiles of W1
+      for (int jj = 0; jj < njl; ++jj)
+        rows_async(sW + (size_t)jj * TN * (Cp + 8), Cp + 8, w1, C,
+                   (blockIdx.y + jj * gridDim.y) * TN, TN, C4, 0, Cp, C);
+    else
+      matrix_async(sW, Cp + 8, w1, C4, pad64(C4), C, Cp);
     cp_commit();
   } else {
     for (int i = 0; i < S - 1; ++i) {
@@ -933,13 +893,23 @@ masked_fwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ keep, Walk
   }
   int si = 0, cur = -1;
   for (int v = blockIdx.x; v < wk.nvt; v += gridDim.x) {
-    const Tile tl = tile_of<BM>(wk, v);
+    const Tile tl = tile_of<BM, SPILL>(wk, v);
     if (tl.nk == 0) continue;
-    if (MODE != WIDE && tl.grp != cur && cur >= 0) flush_sums(sAcc, gxsq + (size_t)cur * C4, C4);
+    if constexpr (PARTS) {
+      if (tl.grp != cur && cur >= 0) flush_parts(cur);
+    } else {
+      if (MODE != WIDE && tl.grp != cur && cur >= 0) flush_sums(sAcc, gxsq + (size_t)cur * C4, C4);
+    }
     cur = tl.grp;
     __syncthreads();  // the tile before is consumed
-    ln_tile<T, BM>(t, keep, wk.ids, tl, lnw, lnb, MODE == WIDE ? nullptr : sU, lda, C, Cp,
-                   sMean, sRs, sKeep, sId, nullptr);
+    if constexpr (SPILL && MODE != WIDE) {  // the tile's rows, then their LN in place
+      gather_rows<T, BM, true>(sU, lda, t, nullptr, tl.p0, tl.nk, C, Cp);
+      __syncthreads();
+      ln_rows<T, BM>(sU, lda, sLW, sLW + C, tl.nk, C);
+    } else {
+      ln_tile<T, BM, SPILL>(t, keep, wk.ids, tl, lnw, lnb, MODE == WIDE ? nullptr : sU, lda, C,
+                            Cp, sMean, sRs, sKeep, sId, nullptr);
+    }
     if constexpr (MODE == RES) {
       cp_wait<0>();
       __syncthreads();
@@ -953,7 +923,7 @@ masked_fwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ keep, Walk
         const T* B;
         int ldb;
         if constexpr (MODE == RES) {
-          B = sW + (size_t)j0 * (Cp + 8) + k0;
+          B = sW + (size_t)(SPILL ? jj * TN : j0) * (Cp + 8) + k0;
           ldb = Cp + 8;
         } else {
           B = ring_step<T, S>(sW, 1, si++, fetch);
@@ -967,20 +937,51 @@ masked_fwd_stat_kernel(const T* __restrict__ t, const T* __restrict__ keep, Walk
                        acc);
       }
       float sq[CNT][4];
+      if constexpr (SPILL) {  // g rounded to T: stored, and its square summed
+        T* sGb = sG + (jj & 1) * BM * LDC;
 #pragma unroll
-      for (int nt = 0; nt < CNT; ++nt) {
+        for (int nt = 0; nt < CNT; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = w * 16 + frag_row(e), j = j0 + col + frag_col(nt, e);
-          float gk = 0.f;
-          if (r < tl.nk && j < C4) gk = gelu(acc[nt][e] + b1[j]) * sKeep[r];
-          sq[nt][e] = gk * gk;
+          for (int e = 0; e < 4; ++e) {
+            const int r = w * 16 + frag_row(e), jc = col + frag_col(nt, e), j = j0 + jc;
+            float gv = 0.f;
+            if (r < tl.nk && j < C4) gv = to_f(from_f<T>(gelu(acc[nt][e] + b1[j])));
+            sGb[r * LDC + jc] = from_f<T>(gv);
+            sq[nt][e] = gv * gv;
+          }
         }
+        if constexpr (PARTS) {  // this thread's two rows of each of its columns
+          float* pr = sAcc + (w * 8 + ((threadIdx.x & 31) >> 2)) * ppitch + jj * TN + col;
+#pragma unroll
+          for (int nt = 0; nt < CNT; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) pr[frag_col(nt, e)] += sq[nt][e] + sq[nt][e + 2];
+          }
+        } else {
+          col_acc(sq, sums + j0, C4 - j0, col);
+        }
+        __syncthreads();  // publishes the g tile (the other one may still be read)
+        copy_rows(g_out + (size_t)tl.p0 * C4 + j0, C4, sGb, LDC, tl.nk, min(TN, C4 - j0));
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < CNT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = w * 16 + frag_row(e), j = j0 + col + frag_col(nt, e);
+            float gk = 0.f;
+            if (r < tl.nk && j < C4) gk = gelu(acc[nt][e] + b1[j]) * sKeep[r];
+            sq[nt][e] = gk * gk;
+          }
+        }
+        col_acc(sq, sums + j0, C4 - j0, col);
       }
-      col_acc(sq, sums + j0, C4 - j0, col);
     }
   }
-  if (MODE != WIDE && cur >= 0) flush_sums(sAcc, gxsq + (size_t)cur * C4, C4);
+  if constexpr (PARTS) {
+    if (cur >= 0) flush_parts(cur);
+  } else {
+    if (MODE != WIDE && cur >= 0) flush_sums(sAcc, gxsq + (size_t)cur * C4, C4);
+  }
   cp_wait<0>();
 }
 
@@ -1169,6 +1170,174 @@ masked_fwd_apply_kernel(const T* __restrict__ t, const T* __restrict__ x, const 
         ye[q] = from_f<T>(to_f(xe[q]) + (acc_get<MODE>(sO + r * ldo + c + q) + b2[c + q]) *
                                             sKeep[r]);
       *reinterpret_cast<uint4*>(y + o) = yv;
+    }
+  }
+  cp_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// Row 8, phase B of the spill-g forward (_sg_fwd_b_kernel, :411): per GRN
+// group gx = sqrt(gxsq) and nx = gx / (mean gx + eps); h = gamma*(g*nx) +
+// beta + g of the stored g; y = x + (h W2^T + b2).  The statistic pass's
+// persistent walk over every row of each group; blockIdx.y owns OC = COLW *
+// NT * 8 output columns of C (one slice at C <= 160).  A step takes one
+// 64-column chunk of 4C: its g rows (and, RING, W2's OC x 64 tile) come by
+// cp.async S - 1 steps ahead; each thread turns the 16-byte pieces of g it
+// copied into h in place, so that h is built once an element; one block
+// barrier publishes them and frees the slot of the step before; then each
+// warp adds h W2^T to its 16 x NT*8 output sums, which stay in registers
+// over the whole contraction.  RES stages the block's OC rows of W2 once.
+// nx of the block's group stays in shared memory; the group's first tile
+// writes gx and nx.  x of a tile is loaded at its last step, so that the
+// loads overlap that step's products.
+// ---------------------------------------------------------------------------
+template <int MODE> __host__ __device__ constexpr int b_slots() { return MODE == RES ? 4 : 3; }
+
+template <typename T, int BM, int MODE, int NT>
+__host__ __device__ size_t b_smem(int C) {
+  constexpr int OC = COLW * NT * 8;
+  Carve c;
+  c.take(sizeof(float) * 4 * C);  // nx
+  c.take(sizeof(float) * 32);     // block sums
+  c.take(MODE == RES ? sizeof(T) * OC * (pad64(4 * C) + 8) : 0);
+  c.take(sizeof(T) * b_slots<MODE>() * (BM + (MODE == RES ? 0 : OC)) * LDC);
+  return c.off;
+}
+
+template <typename T> struct PairOf;  // the raw bits of two adjacent values
+template <> struct PairOf<float> { using type = float2; };
+template <> struct PairOf<__nv_bfloat16> { using type = __nv_bfloat162; };
+__device__ __forceinline__ float2 pair_f(float2 v) { return v; }
+__device__ __forceinline__ float2 pair_f(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+
+template <typename T, int BM, int MODE, int NT>
+__global__ void __launch_bounds__(BM * 2 * COLW)
+spillg_fwd_b_kernel(const T* __restrict__ g, const T* __restrict__ x, Walk wk,
+                    const float* __restrict__ gxsq, const float* __restrict__ gamma,
+                    const float* __restrict__ beta, const T* __restrict__ w2,
+                    const float* __restrict__ b2, T* __restrict__ y, float* __restrict__ gx_out,
+                    float* __restrict__ nx_out, int C) {
+  constexpr int NW = BM / 16, OC = COLW * NT * 8, S = b_slots<MODE>();
+  constexpr int V = VEC_BYTES / sizeof(T), PR = TN / V;  // 16-byte pieces a chunk row
+  constexpr int SLOT = (BM + (MODE == RES ? 0 : OC)) * LDC;
+  using Pair = typename PairOf<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C4 = 4 * C, nj = (C4 + TN - 1) / TN, ldw = pad64(C4) + 8, c0 = blockIdx.y * OC;
+  Carve cv;
+  float* sNX = reinterpret_cast<float*>(smem + cv.take(sizeof(float) * C4));
+  float* red = reinterpret_cast<float*>(smem + cv.take(sizeof(float) * 32));
+  T* sW2 = reinterpret_cast<T*>(smem + cv.take(MODE == RES ? sizeof(T) * OC * ldw : 0));
+  T* ring = reinterpret_cast<T*>(smem + cv.take(sizeof(T) * S * SLOT));
+  const int lane = threadIdx.x & 31, wt = threadIdx.x >> 5, nwt = blockDim.x >> 5;
+  const int w = wt % NW, oc = (wt / NW) * NT * 8;  // the warp's rows and output columns
+  const bool busy = c0 + oc < C;
+
+  auto fetch = [&](int st) {  // step st: chunk st % nj of the block's tile st / nj
+    const int v = blockIdx.x + (st / nj) * gridDim.x;
+    if (v >= wk.nvt) return;
+    const Tile tl = tile_of<BM, true>(wk, v);
+    const int j0 = (st % nj) * TN;
+    T* slot = ring + (size_t)(st % S) * SLOT;
+    for (int i = threadIdx.x; i < BM * PR; i += blockDim.x) {
+      const int r = i / PR, c = (i - r * PR) * V;
+      const bool ok = r < tl.nk && j0 + c < C4;
+      cp16(slot + r * LDC + c, ok ? g + (size_t)(tl.p0 + r) * C4 + j0 + c : g, ok);
+    }
+    if constexpr (MODE != RES) rows_async(slot + BM * LDC, LDC, w2, C4, c0, OC, C, j0, TN, C4);
+  };
+  if constexpr (MODE == RES) {
+    rows_async(sW2, ldw, w2, C4, c0, OC, C, 0, pad64(C4), C4);
+    cp_commit();
+  }
+  for (int i = 0; i < S - 1; ++i) {
+    fetch(i);
+    cp_commit();
+  }
+  int st = 0, cur = -1;
+  for (int v = blockIdx.x; v < wk.nvt; v += gridDim.x) {
+    const Tile tl = tile_of<BM, true>(wk, v);
+    if (tl.grp != cur) {  // the GRN statistic of the tile's group
+      __syncthreads();  // every conversion of the group before is done
+      float part = 0.f;
+      for (int j = threadIdx.x; j < C4; j += blockDim.x) {
+        const float gv = sqrtf(gxsq[(size_t)tl.grp * C4 + j]);
+        sNX[j] = gv;
+        part += gv;
+      }
+      part = warp_sum(part);
+      if (lane == 0) red[wt] = part;
+      __syncthreads();
+      float total = 0.f;
+      for (int i = 0; i < nwt; ++i) total += red[i];
+      const float denom = total / C4 + GRN_EPS;
+      for (int j = threadIdx.x; j < C4; j += blockDim.x) {
+        const float gxv = sNX[j], nxv = gxv / denom;
+        if (tl.first && blockIdx.y == 0) {
+          gx_out[(size_t)tl.grp * C4 + j] = gxv;
+          nx_out[(size_t)tl.grp * C4 + j] = nxv;
+        }
+        sNX[j] = nxv;
+      }
+      cur = tl.grp;
+      __syncthreads();  // publishes nx
+    }
+    float acc[NT][4] = {};
+    Pair xr[NT][2];
+    for (int jt = 0; jt < nj; ++jt, ++st) {
+      const int j0 = jt * TN;
+      if (jt == nj - 1 && busy) {  // x of the warp's outputs, in flight over the last products
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = w * 16 + frag_row(2 * h), c = c0 + oc + frag_col(nt, 0);
+            if (r < tl.nk && c < C)
+              xr[nt][h] = __ldg(reinterpret_cast<const Pair*>(x + (size_t)(tl.p0 + r) * C + c));
+          }
+        }
+      }
+      cp_wait<S - 2>();
+      T* slot = ring + (size_t)(st % S) * SLOT;
+      for (int i = threadIdx.x; i < BM * PR; i += blockDim.x) {  // h of this thread's pieces
+        const int r = i / PR, c = (i - r * PR) * V, j = j0 + c;
+        if (r >= tl.nk || j >= C4) continue;  // zero-filled, and never stored
+        uint4* q = reinterpret_cast<uint4*>(slot + r * LDC + c);
+        uint4 raw = *q;
+        T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+        for (int k = 0; k < V; k += 4) {
+          const float4 n4 = *reinterpret_cast<const float4*>(sNX + j + k);
+          const float4 g4 = __ldg(reinterpret_cast<const float4*>(gamma + j + k));
+          const float4 b4 = __ldg(reinterpret_cast<const float4*>(beta + j + k));
+          e[k] = from_f<T>(grn_h(to_f(e[k]), n4.x, g4.x, b4.x));
+          e[k + 1] = from_f<T>(grn_h(to_f(e[k + 1]), n4.y, g4.y, b4.y));
+          e[k + 2] = from_f<T>(grn_h(to_f(e[k + 2]), n4.z, g4.z, b4.z));
+          e[k + 3] = from_f<T>(grn_h(to_f(e[k + 3]), n4.w, g4.w, b4.w));
+        }
+        *q = raw;
+      }
+      __syncthreads();  // h of the chunk is published; the slot of step st - 1 is free
+      fetch(st + S - 1);
+      cp_commit();
+      if (busy) {
+        const T* B = MODE == RES ? sW2 + (size_t)oc * ldw + j0 : slot + (BM + oc) * LDC;
+        WarpMM<T>::run(slot + w * 16 * LDC, LDC, B, MODE == RES ? ldw : LDC, min(TN, C4 - j0),
+                       acc);
+      }
+    }
+    if (busy) {  // y = x + (o + b2), a column pair a store
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = w * 16 + frag_row(2 * h), c = c0 + oc + frag_col(nt, 0);
+          if (r < tl.nk && c < C) {
+            const float2 xv = pair_f(xr[nt][h]);
+            store_pair(y + (size_t)(tl.p0 + r) * C + c, xv.x + (acc[nt][2 * h] + b2[c]),
+                       xv.y + (acc[nt][2 * h + 1] + b2[c + 1]));
+          }
+        }
+      }
     }
   }
   cp_wait<0>();
@@ -1386,21 +1555,6 @@ __host__ __device__ size_t dv_smem(int C) {
   c.take(MODE == WIDE ? 0 : sizeof(float) * 6 * C);
   return c.off;
 }
-
-// The two values of an mma fragment's column pair (e, e + 1) at p, as f32.
-__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-  a = v.x;
-  b = v.y;
-}
-__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, float& b) {
-  const __nv_bfloat162 v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
-  a = __low2float(v);
-  b = __high2float(v);
-}
-
-struct KeptRows {};
-struct SpillRows {};
 
 template <typename T, int BM, int MODE, typename Src>
 __global__ void __launch_bounds__(BM * 2 * COLW)
@@ -1636,20 +1790,6 @@ bwd_dv_kernel(const T* __restrict__ t, const T* __restrict__ do_in, const T* __r
 // warp holds, 0 without the fold.
 // ---------------------------------------------------------------------------
 constexpr int C_RING_SLOTS = 3;
-
-// s[r][c] = src[r0 + r][c0 + c] for r < nr, c < nc (row pitch lds), zero
-// where r0 + r >= rmax or c0 + c >= cmax, by cp.async.
-template <typename T>
-__device__ __forceinline__ void rows_async(T* s, int lds, const T* __restrict__ src, int ld,
-                                           int r0, int nr, int rmax, int c0, int nc, int cmax) {
-  constexpr int V = VEC_BYTES / sizeof(T);
-  const int pv = nc / V;
-  for (int i = threadIdx.x; i < nr * pv; i += blockDim.x) {
-    const int r = i / pv, c = (i - r * pv) * V;
-    const bool ok = r0 + r < rmax && c0 + c < cmax;
-    cp16(s + r * lds + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
-  }
-}
 
 // acc[mt][nt][*] += A[m0 + 16 mt.. + 16][0:kc] . B[nt*8 + n][0:kc] for this
 // warp, with A stored transposed (sA[k][m], pitch lda: the dy rows of a tile)
@@ -2002,17 +2142,6 @@ spillg_atb_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float*
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-// Shared memory of A (rows_smem) and B (b_smem) at a row tile of BM rows.
-template <typename T> size_t rows_smem(int C, int BM) {
-  const int lda = ((C + 15) & ~15) + 8;
-  return align16(sizeof(T) * BM * lda) + sizeof(T) * TN * LDC +
-         align16(sizeof(T) * BM * LDC) + sizeof(float) * (BM / 16) * 64;
-}
-
-template <typename T> size_t b_smem(int C) {
-  return align16(sizeof(float) * (4 * C + 32)) + sizeof(T) * (Cfg<T>::BM + TN) * LDC;
-}
-
 int device_attr(cudaDeviceAttr attr) {
   int dev = 0, v = 0;
   cudaGetDevice(&dev);
@@ -2024,69 +2153,12 @@ size_t smem_limit() {  // opt-in shared memory per block of the current device
   return (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
 }
 
-// The largest row tile (Cfg<T>::BM halved down to 16 rows) whose shared
-// memory fits, or 0 when none does.
-template <typename T> int pick_bm(size_t (*smem)(int, int), int C, size_t limit) {
-  for (int bm = Cfg<T>::BM; bm >= 16; bm /= 2)
-    if (smem(C, bm) <= limit) return bm;
-  return 0;
-}
-
-// f(std::integral_constant<int, bm>) for a picked row tile.
-template <typename T, typename F> int with_bm(int bm, F f) {
-  if constexpr (Cfg<T>::BM >= 64) {
-    if (bm == 64) return f(std::integral_constant<int, 64>{});
-  }
-  if (bm == 32) return f(std::integral_constant<int, 32>{});
-  if (bm == 16) return f(std::integral_constant<int, 16>{});
-  return (int)cudaErrorInvalidConfiguration;  // no row tile fits: a bug for C <= 2816
-}
-
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 int grid_rows(int M, int GR, int BM) { return (M / GR) * ((GR + BM - 1) / BM); }
-
-// Row blocks times a split of the ncols output columns over blockIdx.y, so
-// that the few-row stages (C = 160, 320) still fill the card.
-constexpr int TARGET_BLOCKS = 1056;  // 8 per SM on 132 SMs
-dim3 grid_2d(int M, int GR, int ncols, int BM) {
-  const int rows = grid_rows(M, GR, BM), tiles = (ncols + TN - 1) / TN;
-  const int ny = max(1, min(tiles, (TARGET_BLOCKS + rows - 1) / rows));
-  return dim3(rows, ny);
-}
-
-template <typename T>
-int fwd_a(const void* t, const void* lnw, const void* lnb, const void* w1, const void* b1,
-          void* g, void* gxsq, int M, int C, int GR, cudaStream_t s) {
-  return with_bm<T>(pick_bm<T>(rows_smem<T>, C, smem_limit()), [&](auto bm) {
-    constexpr int BM = decltype(bm)::value;
-    const size_t smem = rows_smem<T>(C, BM);
-    cudaError_t e = prepare(spillg_fwd_a_kernel<T, BM>, smem);
-    if (e != cudaSuccess) return (int)e;
-    spillg_fwd_a_kernel<T, BM><<<grid_2d(M, GR, 4 * C, BM), BM * 2, smem, s>>>(
-        (const T*)t, (const float*)lnw, (const float*)lnb, (const T*)w1, (const float*)b1,
-        (T*)g, (float*)gxsq, C, 4 * C, GR, (GR + BM - 1) / BM);
-    return (int)cudaGetLastError();
-  });
-}
-
-template <typename T>
-int fwd_b(const void* g, const void* x, const void* gxsq, const void* gamma, const void* beta,
-          const void* w2, const void* b2, void* y, void* gx, void* nx, int M, int C, int GR,
-          cudaStream_t s) {
-  constexpr int BM = Cfg<T>::BM;
-  const size_t smem = b_smem<T>(C);
-  cudaError_t e = prepare(spillg_fwd_b_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  spillg_fwd_b_kernel<T><<<grid_2d(M, GR, C, BM), BM * 2, smem, s>>>(
-      (const T*)g, (const T*)x, (const float*)gxsq, (const float*)gamma, (const float*)beta,
-      (const T*)w2, (const float*)b2, (T*)y, (float*)gx, (float*)nx, C, 4 * C, GR,
-      (GR + BM - 1) / BM);
-  return (int)cudaGetLastError();
-}
 
 template <typename T>
 int atb(const void* X, const void* Y, const void* nx, const void* gamma, const void* beta,
@@ -2144,7 +2216,7 @@ template <typename T, int BM> size_t pass_smem(int kind, int mode, int C) {
 template <typename T, int MODE> const void* pass_kernel(int kind) {
   constexpr int BM = Cfg<T>::BM;
   switch (kind) {
-    case K_STAT: return (const void*)masked_fwd_stat_kernel<T, BM, MODE>;
+    case K_STAT: return (const void*)fwd_stat_kernel<T, BM, MODE, KeptRows>;
     case K_APPLY: return (const void*)masked_fwd_apply_kernel<T, BM, MODE>;
     case K_BSTAT: return (const void*)masked_bwd_stat_kernel<T, BM, MODE>;
     case K_DV: return (const void*)bwd_dv_kernel<T, BM, MODE, KeptRows>;
@@ -2227,6 +2299,91 @@ template <typename T, int BM> int c_plan(int M, int C, int GR, int* plan) {
   return finish_plan(kernel, 2 * COLW * BM, smem, (4 * C + TN - 1) / TN, plan[7], true, plan);
 }
 
+// A's plan (row 7, the statistic pass on every row): RES with the block's
+// slice of W1 resident, at the fewest column splits over blockIdx.y that
+// give the tiles x slices two blocks an SM twice over and fit two blocks an
+// SM (else one); else RING where the C-wide rows fit, else WIDE, split as
+// the masked statistic pass is.  Blocks: one wave, blockIdx.x walking the
+// row tiles of slice blockIdx.y.
+template <typename T> int sa_plan(int M, int C, int GR, int* plan) {
+  constexpr int BM = Cfg<T>::BM;
+  const size_t limit = smem_limit();
+  const size_t sm_bytes = (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
+  const int nsm = device_attr(cudaDevAttrMultiProcessorCount);
+  const int nj = (4 * C + TN - 1) / TN, nvt = spill_walk(M, GR, BM).nvt;
+  int mode = -1, ny = 1;
+  for (int per = 2; per >= 1 && mode < 0; --per)
+    for (int y = max(1, min(nj, (2 * per * nsm + nvt - 1) / nvt)); y <= nj; ++y) {
+      const size_t b = stat_smem<T, BM, RES, true>(C, (nj + y - 1) / y);
+      if (b <= limit && per * (b + 1024) <= sm_bytes) {
+        mode = RES;
+        ny = y;
+        break;
+      }
+    }
+  size_t smem;
+  const void* kernel;
+  if (mode == RES) {
+    smem = stat_smem<T, BM, RES, true>(C, (nj + ny - 1) / ny);
+    kernel = (const void*)fwd_stat_kernel<T, BM, RES, SpillRows>;
+  } else {
+    mode = stat_smem<T, BM, RING, true>(C) <= limit ? RING : WIDE;
+    smem = mode == RING ? stat_smem<T, BM, RING, true>(C) : stat_smem<T, BM, WIDE, true>(C);
+    kernel = mode == RING ? (const void*)fwd_stat_kernel<T, BM, RING, SpillRows>
+                          : (const void*)fwd_stat_kernel<T, BM, WIDE, SpillRows>;
+    const int e = finish_plan(kernel, 2 * COLW * BM, smem, 1, nvt, false, plan);
+    if (e) return e;
+    ny = max(1, min(nj, (5 * plan[6] * nsm + nvt - 1) / nvt));
+  }
+  if (smem > limit) return (int)cudaErrorInvalidValue;
+  plan[0] = mode;
+  plan[1] = BM;
+  plan[7] = nvt;
+  plan[8] = 0;
+  const int e = finish_plan(kernel, 2 * COLW * BM, smem, ny, nvt, false, plan);
+  plan[4] = max(1, min(nvt, plan[6] * nsm / ny));
+  return e;
+}
+
+// B's n-tiles of 8 output columns a warp: its COLW warps across a row then
+// cover OC = 64 (C <= 64), 96 (C <= 96) or 160 columns, and wider C is split
+// over blockIdx.y.
+int b_nt(int C) { return C <= 64 ? 2 : C <= 96 ? 3 : 5; }
+
+template <typename F> int with_nt(int nt, F f) {
+  if (nt == 2) return f(std::integral_constant<int, 2>{});
+  if (nt == 3) return f(std::integral_constant<int, 3>{});
+  return f(std::integral_constant<int, 5>{});
+}
+
+// B's plan (row 8): RES (W2's OC rows resident) where that fits two blocks
+// an SM, else RING; the output-column slices over blockIdx.y; one wave of
+// blocks, blockIdx.x walking the row tiles.
+template <typename T> int sb_plan(int M, int C, int GR, int* plan) {
+  constexpr int BM = Cfg<T>::BM;
+  const size_t limit = smem_limit();
+  const size_t sm_bytes = (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerMultiprocessor);
+  const int nsm = device_attr(cudaDevAttrMultiProcessorCount);
+  const int nt = b_nt(C), ny = (C + COLW * nt * 8 - 1) / (COLW * nt * 8);
+  const int nvt = spill_walk(M, GR, BM).nvt;
+  return with_nt(nt, [&](auto n) {
+    constexpr int NT = decltype(n)::value;
+    const size_t res = b_smem<T, BM, RES, NT>(C);
+    const int mode = res <= limit && 2 * (res + 1024) <= sm_bytes ? RES : RING;
+    const size_t smem = mode == RES ? res : b_smem<T, BM, RING, NT>(C);
+    if (smem > limit) return (int)cudaErrorInvalidValue;
+    const void* kernel = mode == RES ? (const void*)spillg_fwd_b_kernel<T, BM, RES, NT>
+                                     : (const void*)spillg_fwd_b_kernel<T, BM, RING, NT>;
+    plan[0] = mode;
+    plan[1] = BM;
+    plan[7] = nvt;
+    plan[8] = 0;
+    const int e = finish_plan(kernel, 2 * COLW * BM, smem, ny, nvt, false, plan);
+    plan[4] = max(1, min(nvt, plan[6] * nsm / ny));
+    return e;
+  });
+}
+
 // f(std::integral_constant<int, bm>) for the default row tile or (bf16) its half.
 template <typename T, typename F> int with_tile(int bm, F f) {
   constexpr int BM = Cfg<T>::BM;
@@ -2254,6 +2411,8 @@ template <typename T, typename F> int with_tile(int bm, F f) {
 // fold then takes at most 3 m-tiles a warp (stages 0-1 of atto; more spill).
 template <typename T> int pass_plan(int kind, int M, int C, int GR, int bm, int* plan) {
   constexpr int BM = Cfg<T>::BM;
+  if (kind == K_SA) return sa_plan<T>(M, C, GR, plan);
+  if (kind == K_SB) return sb_plan<T>(M, C, GR, plan);
   if (kind == K_SC) {
     if (bm == 0 && BM == 64) {  // the half tile where its fold takes at most 3 m-tiles a warp
       int half[9];
@@ -2330,11 +2489,11 @@ int masked_stat(const void* t, const void* keep, const void* ids, const void* cn
   constexpr int BM = Cfg<T>::BM;
   return with_mode(plan[0], [&](auto m) {
     constexpr int MODE = decltype(m)::value;
-    cudaError_t e = prepare(masked_fwd_stat_kernel<T, BM, MODE>, plan[3]);
+    cudaError_t e = prepare(fwd_stat_kernel<T, BM, MODE, KeptRows>, plan[3]);
     if (e != cudaSuccess) return (int)e;
-    masked_fwd_stat_kernel<T, BM, MODE><<<dim3(plan[4], plan[5]), plan[2], plan[3], s>>>(
+    fwd_stat_kernel<T, BM, MODE, KeptRows><<<dim3(plan[4], plan[5]), plan[2], plan[3], s>>>(
         (const T*)t, (const T*)keep, make_walk(ids, cnt, M, GR, BM), (const float*)lnw,
-        (const float*)lnb, (const T*)w1, (const float*)b1, (float*)gxsq, C);
+        (const float*)lnb, (const T*)w1, (const float*)b1, (float*)gxsq, nullptr, C);
     return (int)cudaGetLastError();
   });
 }
@@ -2440,6 +2599,45 @@ int spillg_d(const void* t, const void* dy, const void* g, const void* nx, const
 }
 
 template <typename T>
+int spillg_a(const void* t, const void* lnw, const void* lnb, const void* w1, const void* b1,
+             void* g, void* gxsq, int M, int C, int GR, const int* plan, cudaStream_t s) {
+  constexpr int BM = Cfg<T>::BM;
+  if (plan[1] != BM) return (int)cudaErrorInvalidValue;
+  const Walk wk = spill_walk(M, GR, BM);
+  return with_mode(plan[0], [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    cudaError_t e = prepare(fwd_stat_kernel<T, BM, MODE, SpillRows>, plan[3]);
+    if (e != cudaSuccess) return (int)e;
+    fwd_stat_kernel<T, BM, MODE, SpillRows><<<dim3(plan[4], plan[5]), plan[2], plan[3], s>>>(
+        (const T*)t, nullptr, wk, (const float*)lnw, (const float*)lnb, (const T*)w1,
+        (const float*)b1, (float*)gxsq, (T*)g, C);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int spillg_b(const void* g, const void* x, const void* gxsq, const void* gamma, const void* beta,
+             const void* w2, const void* b2, void* y, void* gx, void* nx, int M, int C, int GR,
+             const int* plan, cudaStream_t s) {
+  constexpr int BM = Cfg<T>::BM;
+  if (plan[1] != BM || plan[0] == WIDE) return (int)cudaErrorInvalidValue;
+  const Walk wk = spill_walk(M, GR, BM);
+  return with_nt(b_nt(C), [&](auto n) {
+    constexpr int NT = decltype(n)::value;
+    auto launch = [&](auto kernel) {
+      cudaError_t e = prepare(kernel, plan[3]);
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<dim3(plan[4], plan[5]), plan[2], plan[3], s>>>(
+          (const T*)g, (const T*)x, wk, (const float*)gxsq, (const float*)gamma,
+          (const float*)beta, (const T*)w2, (const float*)b2, (T*)y, (float*)gx, (float*)nx, C);
+      return (int)cudaGetLastError();
+    };
+    return plan[0] == RES ? launch(spillg_fwd_b_kernel<T, BM, RES, NT>)
+                          : launch(spillg_fwd_b_kernel<T, BM, RING, NT>);
+  });
+}
+
+template <typename T>
 int spillg_c(const void* dy, const void* g, const void* nx, const void* gamma, const void* beta,
              const void* w2t, void* db2, void* dgamma, void* dbeta, void* dnx, void* dw2, int M,
              int C, int GR, const int* plan, cudaStream_t s) {
@@ -2483,33 +2681,35 @@ int masked_atb(const void* X, const void* Y, const void* cnt, void* out, int M, 
 // (rows per GRN group) divides M; C is a multiple of 8; every array is
 // 16-byte aligned.  Outputs taken by atomicAdd (gxsq, db*, dgamma, dbeta,
 // dnx, dln*, dW2, out) must be zeroed by the caller.
+// Row 7: g (M, 4C) and gxsq += the sum of g^2 per group; row 8: y, gx, nx.
+// plan: mm_tail_plan's for the launch (kind 6, 7) at this M, C, GR.
 extern "C" int mm_spillg_fwd_a(const void* t, const void* lnw, const void* lnb, const void* w1,
                                const void* b1, void* g, void* gxsq, int M, int C, int GR,
-                               int is_bf16, void* stream) {
+                               int is_bf16, const int* plan, void* stream) {
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) return fwd_a<__nv_bfloat16>(t, lnw, lnb, w1, b1, g, gxsq, M, C, GR, s);
-  return fwd_a<float>(t, lnw, lnb, w1, b1, g, gxsq, M, C, GR, s);
+  if (is_bf16) return spillg_a<__nv_bfloat16>(t, lnw, lnb, w1, b1, g, gxsq, M, C, GR, plan, s);
+  return spillg_a<float>(t, lnw, lnb, w1, b1, g, gxsq, M, C, GR, plan, s);
 }
 
 extern "C" int mm_spillg_fwd_b(const void* g, const void* x, const void* gxsq, const void* gamma,
                                const void* beta, const void* w2, const void* b2, void* y,
                                void* gx, void* nx, int M, int C, int GR, int is_bf16,
-                               void* stream) {
+                               const int* plan, void* stream) {
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return fwd_b<__nv_bfloat16>(g, x, gxsq, gamma, beta, w2, b2, y, gx, nx, M, C, GR, s);
-  return fwd_b<float>(g, x, gxsq, gamma, beta, w2, b2, y, gx, nx, M, C, GR, s);
+    return spillg_b<__nv_bfloat16>(g, x, gxsq, gamma, beta, w2, b2, y, gx, nx, M, C, GR, plan, s);
+  return spillg_b<float>(g, x, gxsq, gamma, beta, w2, b2, y, gx, nx, M, C, GR, plan, s);
 }
 
 // The plan of a persistent pass (kind 0 masked statistic, 1 apply, 2
-// backward statistic, 3 dv; 4 spill-g C; 5 spill-g D) at this M, C, GR, as
+// backward statistic, 3 dv; spill-g 4 C, 5 D, 6 A, 7 B) at this M, C, GR, as
 // the int[9] of pass_plan.  Where the dv passes' mode is 2 (WIDE), they and
 // the apply pass take wide_acc, plan[4] * plan[1] rows of Cp + 4 f32 (Cp: C
 // rounded up to 16), else null.
 extern "C" int mm_tail_plan(int kind, int M, int C, int GR, int is_bf16, int* plan) {
-  if (C % 8 != 0 || kind < 0 || kind > K_SD) return (int)cudaErrorInvalidValue;
+  if (C % 8 != 0 || kind < 0 || kind > K_SB) return (int)cudaErrorInvalidValue;
   return is_bf16 ? pass_plan<__nv_bfloat16>(kind, M, C, GR, 0, plan)
                  : pass_plan<float>(kind, M, C, GR, 0, plan);
 }

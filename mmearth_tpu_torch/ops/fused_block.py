@@ -25,8 +25,13 @@ Phases, as in JAX (each a plain function here, and CUDA launches in
         to XLA (``fused_block.py:602-606``)
   D  recompute u, v, dh; dv; db1, dLN, dt; dW1 = dv^T u (``_sg_bwd_d_kernel``)
 
-The backward's product operands (W1, W1^T, W2^T in the activation dtype) are
-made once per call (:class:`BwdWeights`).  On the card C is one launch where
+On the card every phase is a persistent row pass over every row of each
+group, launched from its :class:`TailPlan`: A is the masked statistic pass's
+kernel on every row, storing g (rounded to the activation dtype, with the
+sum of squares of the stored g); B builds h from the stored g once an
+element and sums h W2^T in registers, its output columns split over the
+grid where C > 160.  The backward's product operands (W1, W1^T, W2^T in the
+activation dtype) are made once per call (:class:`BwdWeights`).  C is one launch where
 its slice of dW2 fits the block's registers (every atto width; ``fold`` of
 its :class:`TailPlan`), else a row pass and the split-over-rows ``X^T Y``
 pass ``spillg_bwd_c_dw2`` from dy and h; D is a row pass (the masked dv
@@ -93,8 +98,8 @@ LAUNCHES = dict.fromkeys(SPILLG_LAUNCHES + MASKED_LAUNCHES, 0)
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
-    "mm_spillg_fwd_a": [_P] * 7 + [_I] * 4 + [_P],
-    "mm_spillg_fwd_b": [_P] * 10 + [_I] * 4 + [_P],
+    "mm_spillg_fwd_a": [_P] * 7 + [_I] * 4 + [_P] * 2,
+    "mm_spillg_fwd_b": [_P] * 10 + [_I] * 4 + [_P] * 2,
     "mm_spillg_bwd_c": [_P] * 11 + [_I] * 4 + [_P] * 2,
     "mm_spillg_bwd_d": [_P] * 19 + [_I] * 4 + [_P] * 2,
     "mm_spillg_atb": [_P] * 6 + [_I] * 7 + [_P],
@@ -445,11 +450,12 @@ def _like(a, ref, shape, name):
 
 
 def _vec(v, n, dev):
+    """n f32 values, contiguous and 16-byte aligned (the kernels read them 16
+    bytes at a time), on ``dev``."""
     if v.numel() != n or v.device != dev:
         raise ValueError(f"expected {n} values on {dev}, got {tuple(v.shape)} on {v.device}")
-    if v.dtype == torch.float32 and v.is_contiguous():
-        return v
-    return v.reshape(-1).float().contiguous()
+    out = v.reshape(-1).float().contiguous()
+    return out if out.data_ptr() % 16 == 0 else out.clone()
 
 
 def _w(w, ref, shape):
@@ -482,6 +488,7 @@ def _ptr(t):
 
 
 def _fwd_a_cuda(t, ln_w, ln_b, w1, b1, group_rows):
+    """Row 7: the statistic pass on every row, storing g."""
     m, c = _rows(t, "spillg fwd A")
     _check_groups(t, c, group_rows, "spillg fwd A")
     dev, c4 = t.device, 4 * c
@@ -489,13 +496,15 @@ def _fwd_a_cuda(t, ln_w, ln_b, w1, b1, group_rows):
     gxsq = torch.zeros((m // group_rows, c4), dtype=torch.float32, device=dev)
     lw, lb, bb = _vec(ln_w, c, dev), _vec(ln_b, c, dev), _vec(b1, c4, dev)
     w = _w(w1, t, (c4, c))
+    _, cfg, _ = _launch_of(t, "spillg_fwd_a", group_rows)
     _dev_call("mm_spillg_fwd_a", "spillg_fwd_a", dev, t.data_ptr(), lw.data_ptr(),
               lb.data_ptr(), w.data_ptr(), bb.data_ptr(), g.data_ptr(), gxsq.data_ptr(),
-              m, c, group_rows, int(t.dtype == torch.bfloat16))
+              m, c, group_rows, int(t.dtype == torch.bfloat16), cfg)
     return g, gxsq
 
 
 def _fwd_b_cuda(g, x_res, gxsq, gamma, beta, w2, b2, group_rows):
+    """Row 8: h of the stored g, y = x + h W2^T + b2, and gx, nx."""
     m, c4 = _rows(g, "spillg fwd B")
     c = c4 // 4
     _check_groups(g, c, group_rows, "spillg fwd B")
@@ -508,10 +517,11 @@ def _fwd_b_cuda(g, x_res, gxsq, gamma, beta, w2, b2, group_rows):
     nx = torch.empty_like(gx)
     gm, bt, bb = _vec(gamma, c4, dev), _vec(beta, c4, dev), _vec(b2, c, dev)
     w = _w(w2, g, (c, c4))
+    _, cfg, _ = _launch_of(x_res, "spillg_fwd_b", group_rows)
     _dev_call("mm_spillg_fwd_b", "spillg_fwd_b", dev, g.data_ptr(), x_res.data_ptr(),
               gxsq.contiguous().data_ptr(), gm.data_ptr(), bt.data_ptr(), w.data_ptr(),
               bb.data_ptr(), y.data_ptr(), gx.data_ptr(), nx.data_ptr(), m, c, group_rows,
-              int(g.dtype == torch.bfloat16))
+              int(g.dtype == torch.bfloat16), cfg)
     return y, gx, nx
 
 
@@ -621,19 +631,22 @@ def _keep_rows(keep, t, name):
 
 MASKED_KINDS = {"masked_fwd_stat": 0, "masked_fwd_apply": 1, "masked_bwd_stat": 2,
                 "masked_bwd_dv": 3}
-PLAN_KINDS = {**MASKED_KINDS, "spillg_bwd_c": 4, "spillg_bwd_d": 5}  # the kinds of mm_tail_plan
+PLAN_KINDS = {**MASKED_KINDS, "spillg_bwd_c": 4, "spillg_bwd_d": 5,  # the kinds of mm_tail_plan
+              "spillg_fwd_a": 6, "spillg_fwd_b": 7}
 MODES = ("resident", "ring", "wide")
 
 
 class TailPlan(NamedTuple):
     """A persistent pass's launch (``mm_tail_plan``): weights resident in
-    shared memory, streamed through a ring, or streamed with the C-wide row
+    shared memory (spill-g A: the block's column tiles of W1; B: its output
+    rows of W2), streamed through a ring, or streamed with the C-wide row
     operands by chunk ("wide"); rows a tile; threads and shared bytes a
-    block; blocks; the column split (the masked statistic passes: over
-    blockIdx.y; spill-g C: its 64-column slices of 4C, each taken by one or
-    more blocks); blocks an SM; row tiles (masked: the list's virtual tiles);
-    and spill-g C's dW2 fold (m-tiles of C a warp sums, 0: dW2 is a
-    separate launch)."""
+    block; blocks (A, B: over blockIdx.x, one wave with the split); the
+    column split (the statistic passes and A: 4C's column tiles over
+    blockIdx.y; B: C's output columns over blockIdx.y; spill-g C: its
+    64-column slices of 4C, each taken by one or more blocks); blocks an SM;
+    row tiles (masked: the list's virtual tiles); and spill-g C's dW2 fold
+    (m-tiles of C a warp sums, 0: dW2 is a separate launch)."""
 
     mode: str
     bm: int

@@ -3,7 +3,7 @@
 at the atto-56/8 stage shapes, so that two checkouts can be compared on one
 card.
 
-    python3 scripts/torch_launch_ab.py [--root DIR] [--iters 100] [--ptxas] [--c2816]
+    python3 scripts/torch_launch_ab.py [--root DIR] [--iters 100] [--ptxas] [--c2816] [--pico]
 
 ``--root`` is the root of the checkout whose ``mmearth_tpu_torch`` is timed
 (default: this one); its kernels are built into its own ``build/kernels``.
@@ -21,10 +21,12 @@ both per stage and summed over a step (2/2/6/2 blocks a stage).  C is timed
 as one call: its launch, and its dW2 pass where dW2 does not fold; the
 backward's weights (``BwdWeights``) are made outside the timed calls.
 ``--c2816`` adds huge's last stage (C = 2816, the
-4,864 rows of a batch-256 step) as a fifth shape, not counted in the step.  With ``--ptxas`` the
+4,864 rows of a batch-256 step) and ``--pico`` pico-112/16's stage 3 (C =
+512, the 4,864 rows of a batch-64 step) as further shapes, not counted in
+the step.  With ``--ptxas`` the
 line also holds the registers, spill bytes and static shared memory that
-``nvcc -Xptxas -v`` reports for every instance of the C and dv kernels of the
-checkout's ``csrc/fused_block.cu``.  Needs a CUDA GPU; it imports nothing of
+``nvcc -Xptxas -v`` reports for every instance of the A, B, C and dv kernels
+(A: the statistic pass) of the checkout's ``csrc/fused_block.cu``.  Needs a CUDA GPU; it imports nothing of
 JAX.
 """
 from __future__ import annotations
@@ -99,8 +101,8 @@ def launches(fb, torch, gen, m, c):
 
 
 def ptxas(build, root: Path) -> list:
-    """-Xptxas -v of the checkout's fused_block.cu: each C and dv kernel
-    instance's registers, spill bytes and static shared memory."""
+    """-Xptxas -v of the checkout's fused_block.cu: each A, B, C and dv
+    kernel instance's registers, spill bytes and static shared memory."""
     out = root / "build" / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / "fused_block.so"),
@@ -111,7 +113,8 @@ def ptxas(build, root: Path) -> list:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             cur = ({"kernel": entry.group(1)}
-                   if re.search(r"spillg_bwd_[cd]_kernel|bwd_dv_kernel", entry.group(1)) else None)
+                   if re.search(r"spillg_(bwd_[cd]|fwd_b)_kernel|bwd_dv_kernel|fwd_stat_kernel",
+                                entry.group(1)) else None)
             if cur is not None:
                 found.append(cur)
         elif cur is not None and "spill stores" in line:
@@ -129,6 +132,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--c2816", action="store_true", help="also time huge's last stage")
+    ap.add_argument("--pico", action="store_true", help="also time pico-112/16's stage 3")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -144,6 +148,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1)
     stages, step = [], {}
     shapes = [(N * K * p * p, c, count) for p, c, count in STAGES]
+    shapes += [(64 * K * 4, 512, 0)] if args.pico else []
     for m, c, count in shapes + ([(N * K, 2816, 0)] if args.c2816 else []):
         times = {}
         for key, fn in launches(fb, torch, gen, m, c).items():

@@ -41,12 +41,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# kernel-name fragments -> group, first match wins
+# kernel-name fragments (a tuple: all of them) -> group, first match wins
 GROUPS = (
     ("dw7_wgrad", "dense dwconv dW (port kernel)"),
-    ("spillg_fwd", "spill-g fwd A/B (port kernels)"),
+    (("fwd_stat_kernel", "SpillRows"), "spill-g fwd A (port kernel)"),  # row 7
+    ("spillg_fwd_a", "spill-g fwd A (port kernel)"),  # row 7's earlier kernel
+    ("spillg_fwd_b", "spill-g fwd B (port kernel)"),  # row 8
     ("spillg_bwd", "spill-g bwd C/D row passes (port kernels)"),
     ("SpillRows", "spill-g bwd C/D row passes (port kernels)"),  # D: bwd_dv_kernel<..., SpillRows>
+    ("fwd_stat_kernel", "masked-dense fwd stat/apply (port kernels)"),  # <..., KeptRows>
     ("masked_fwd", "masked-dense fwd stat/apply (port kernels)"),
     ("masked_bwd", "masked-dense bwd stat/dv row passes (port kernels)"),
     ("KeptRows", "masked-dense bwd stat/dv row passes (port kernels)"),
@@ -72,8 +75,9 @@ GROUPS = (
 
 
 def group_of(name: str) -> str:
-    for frag, group in GROUPS:
-        if frag.lower() in name.lower():
+    low = name.lower()
+    for frags, group in GROUPS:
+        if all(f.lower() in low for f in ((frags,) if isinstance(frags, str) else frags)):
             return group
     return "other"
 

@@ -116,6 +116,100 @@ def test_plain_matches_jax_at_atto_widths(c, m, against):
     _assert_all_close(_port(a, dy, "float32"), _jax(a, dy, jnp.float32, fn), TOL["float32"])
 
 
+def _pallas_specs(tm):
+    """Row tiles of ``tm`` rows and whole-array blocks, as ``_sg_fwd`` cuts them."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    row = lambda cc: pl.BlockSpec((tm, cc), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    full = lambda shape: pl.BlockSpec(shape, lambda i: tuple(0 for _ in shape),
+                                      memory_space=pltpu.VMEM)
+    return row, full
+
+
+def _phase_inputs(groups, gr=150, c=16):
+    a, dy = _make(gr * groups, c, seed=5)
+    ts = {k: torch.from_numpy(v) for k, v in a.items()}
+    return a, dy, ts, ts["w1"].t(), ts["w2"].t()
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_phase_a_matches_the_pallas_kernel(groups):
+    """Phase A (``fwd_a_plain``, the plain version of row 7's launch): g and
+    the sum of g^2 of each GRN group in f32 against the Pallas kernel it
+    replaces (``_sg_fwd_a_kernel``, interpret mode), which takes one group
+    (all its rows): run once a group, its g stacked and its gx squared,
+    within the file's f32 tolerance."""
+    import functools
+
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    gr, c = 150, 16
+    a, _, ts, w1, _ = _phase_inputs(groups, gr, c)
+    c4 = 4 * c
+    g, gxsq = fb.fwd_a_plain(ts["t"], ts["ln_scale"], ts["ln_bias"], w1, ts["b1"], gr)
+
+    tm = jfb._sg_tile(c4)
+    row, full = _pallas_specs(tm)
+    ref_g, ref_sq = [], []
+    for i in range(groups):
+        tp = jfb._pad_rows(jnp.asarray(a["t"][i * gr:(i + 1) * gr]), tm)
+        gp, gx = pl.pallas_call(
+            functools.partial(jfb._sg_fwd_a_kernel, m_valid=gr), grid=(tp.shape[0] // tm,),
+            in_specs=[row(c), full((1, c)), full((1, c)), full((c, c4)), full((1, c4))],
+            out_specs=[row(c4), full((1, c4))],
+            out_shape=[jax.ShapeDtypeStruct((tp.shape[0], c4), jnp.float32),
+                       jax.ShapeDtypeStruct((1, c4), jnp.float32)],
+            scratch_shapes=[pltpu.VMEM((1, c4), jnp.float32)],
+            interpret=True,
+        )(tp, jnp.asarray(a["ln_scale"]).reshape(1, c), jnp.asarray(a["ln_bias"]).reshape(1, c),
+          jnp.asarray(a["w1"]), jnp.asarray(a["b1"]).reshape(1, c4))
+        ref_g.append(np.asarray(gp)[:gr])
+        ref_sq.append(np.asarray(gx) ** 2)
+    for name, x, r in (("g", g, np.concatenate(ref_g)), ("gxsq", gxsq, np.concatenate(ref_sq))):
+        np.testing.assert_allclose(x.numpy(), r, rtol=TOL["float32"],
+                                   atol=TOL["float32"] * np.abs(r).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_phase_b_matches_the_pallas_kernel(groups):
+    """Phase B (``fwd_b_plain``, the plain version of row 8's launch): y of
+    each GRN group in f32, given the same g and the group's gx (``gxsq`` the
+    port's, its square root the kernel's), against the Pallas kernel it
+    replaces (``_sg_fwd_b_kernel``, interpret mode), run once a group, within
+    the file's f32 tolerance."""
+    from jax.experimental import pallas as pl
+
+    gr, c = 150, 16
+    a, _, ts, w1, w2 = _phase_inputs(groups, gr, c)
+    c4 = 4 * c
+    g, gxsq = fb.fwd_a_plain(ts["t"], ts["ln_scale"], ts["ln_bias"], w1, ts["b1"], gr)
+    y, gx, _ = fb.fwd_b_plain(g, ts["x_res"], gxsq, ts["gamma"], ts["beta"], w2, ts["b2"], gr)
+
+    tm = jfb._sg_tile(c4)
+    row, full = _pallas_specs(tm)
+    vec = lambda k, n: jnp.asarray(a[k]).reshape(1, n)
+    ref = []
+    for i in range(groups):
+        rows = slice(i * gr, (i + 1) * gr)
+        gp = jfb._pad_rows(jnp.asarray(g[rows].numpy()), tm)
+        xp = jfb._pad_rows(jnp.asarray(a["x_res"][rows]), tm)
+        yp = pl.pallas_call(
+            jfb._sg_fwd_b_kernel, grid=(gp.shape[0] // tm,),
+            in_specs=[row(c4), row(c), full((1, c4)), full((1, c4)), full((1, c4)),
+                      full((c4, c)), full((1, c))],
+            out_specs=row(c),
+            out_shape=jax.ShapeDtypeStruct((gp.shape[0], c), jnp.float32),
+            interpret=True,
+        )(gp, xp, jnp.asarray(gx[i:i + 1].numpy()), vec("gamma", c4), vec("beta", c4),
+          jnp.asarray(a["w2"]), vec("b2", c))
+        ref.append(np.asarray(yp)[:gr])
+    r = np.concatenate(ref)
+    np.testing.assert_allclose(y.numpy(), r, rtol=TOL["float32"],
+                               atol=TOL["float32"] * np.abs(r).max(), err_msg="y")
+
+
 @pytest.mark.parametrize("groups", [1, 2])
 def test_phase_c_matches_the_pallas_kernel(groups):
     """Phase C with dW2 folded in (``bwd_c_plain``, the plain version of the

@@ -118,7 +118,9 @@ def _sum_close(got, ref):
 _ATTO = [(40, 350, 1), (40, 350, 2), (80, 130, 2), (160, 300, 1), (320, 150, 2)]
 _WIDE = [(384, 70, 2), (768, 40, 2)]
 _SPILLG_CASES = ([(d, *case) for d in ("bfloat16", "float32") for case in _ATTO + _WIDE]
-                 + [("bfloat16", 1536, 20, 2)])
+                 + [("bfloat16", 1536, 20, 2),
+                    # groups of fewer rows than half a tile, 45 not a multiple of 16
+                    ("bfloat16", 320, 45, 3)])
 # past this bf16 width (huge's C = 2816) D's dLN sums are held against those
 # of its own stored dv
 _SPILLG_DLN_OWN_DV_C = 1616
@@ -409,14 +411,19 @@ def test_masked_plans_per_stage_width(dtype, c):
 # (its slice of dW2 in registers: every atto width in bf16) and its row tile
 # (half a tile where the fold then takes at most 3 m-tiles a warp: stages
 # 0-1); D's mode and row tile (half a tile on the ring where that still gives
-# every block two tiles: stages 0-2)
+# every block two tiles: stages 0-2); then the forward's: A's mode and column
+# split (W1's column tiles of the block resident, at the fewest splits of 4C
+# that fit two blocks an SM with the threads' partial column sums; huge's
+# C = 2816 wide, split by occupancy: None)
+# and B's mode and column split (W2's rows of the block resident at C <= 80,
+# else a ring; C's output columns in slices of 160 past C = 160)
 _SPILLG_PLANS = {
-    ("bfloat16", 40): ("resident", True, 32, "ring", 32),
-    ("bfloat16", 80): ("resident", True, 32, "ring", 32),
-    ("bfloat16", 160): ("resident", True, 64, "ring", 32),
-    ("bfloat16", 320): ("resident", True, 64, "ring", 64),
-    ("bfloat16", 2816): ("ring", False, 64, "wide", 64),
-    ("float32", 2816): ("ring", False, 32, "wide", 32),
+    ("bfloat16", 40): ("resident", True, 32, "ring", 32, "resident", 1, "resident", 1),
+    ("bfloat16", 80): ("resident", True, 32, "ring", 32, "resident", 2, "resident", 1),
+    ("bfloat16", 160): ("resident", True, 64, "ring", 32, "resident", 5, "ring", 1),
+    ("bfloat16", 320): ("resident", True, 64, "ring", 64, "resident", 20, "ring", 2),
+    ("bfloat16", 2816): ("ring", False, 64, "wide", 64, "wide", None, "ring", 18),
+    ("float32", 2816): ("ring", False, 32, "wide", 32, "wide", None, "ring", 18),
 }
 
 
@@ -427,7 +434,9 @@ def test_spillg_plans_per_stage_width(dtype, c):
     p = 8/4/2/1) and huge's C = 2816 (4,864 rows): C's and D's modes, C's
     fold and both row tiles; C's blocks at least one a 64-column slice of 4C
     and no more than fit at once beyond that; D's no more than fit at once
-    nor than its tiles; shared memory within the card's.  Then every spill-g
+    nor than its tiles; A's and B's modes, row tiles and column splits, their
+    blocks (over blockIdx.x) no more than their tiles and, times the split,
+    no more than fit at once; shared memory within the card's.  Then every spill-g
     launch against its plain phase at about the stage's rows, in one and two
     GRN groups whose ends are not a multiple of a row tile, where the plans
     are the ones asserted (checked there too): in bf16 g and y with
@@ -440,7 +449,7 @@ def test_spillg_plans_per_stage_width(dtype, c):
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     props = torch.cuda.get_device_properties(dev)
     m = {40: 256 * 19 * 64, 80: 256 * 19 * 16, 160: 256 * 19 * 4, 320: 256 * 19}.get(c, 4864)
-    c_mode, fold, c_bm, d_mode, d_bm = _SPILLG_PLANS[(dtype, c)]
+    c_mode, fold, c_bm, d_mode, d_bm, a_mode, a_split, b_mode, b_split = _SPILLG_PLANS[(dtype, c)]
     slices = -(-4 * c // 64)
     bf16 = dtype == "bfloat16"
     # the stage's rows, then one and two groups of 19 rows fewer each
@@ -455,6 +464,16 @@ def test_spillg_plans_per_stage_width(dtype, c):
         assert slices <= pc.blocks <= max(slices, pc.per_sm * props.multi_processor_count)
         assert 1 <= pd.blocks <= min(pd.per_sm * props.multi_processor_count, pd.tiles)
         assert max(pc.smem, pd.smem) <= props.shared_memory_per_block_optin
+        for key, mode, split in (("spillg_fwd_a", a_mode, a_split),
+                                 ("spillg_fwd_b", b_mode, b_split)):
+            plan, _ = fb.tail_plan(t, key, gr)
+            assert plan.mode == mode and plan.bm == (64 if bf16 else 32), (key, gr, plan)
+            assert plan.col_split == split if split else plan.col_split >= 1, (key, gr, plan)
+            assert plan.tiles == groups * -(-gr // plan.bm), (key, gr, plan)
+            assert 1 <= plan.blocks <= plan.tiles, (key, gr, plan)
+            assert plan.blocks * plan.col_split <= max(
+                plan.col_split, plan.per_sm * props.multi_processor_count), (key, gr, plan)
+            assert plan.smem <= props.shared_memory_per_block_optin, (key, gr, plan)
         if gr != m:
             _spillg_parity(dtype, c, gr, groups, 2e-3 if bf16 else 1e-5, bf16 and c <= 320)
         del t
