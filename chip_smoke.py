@@ -9,7 +9,14 @@ Phases, each of which exits non-zero on failure:
    per source, in parallel) into ``build/kernels/``.
 2. kernels: each kernel against its plain PyTorch version at the shapes the
    atto-56/8 batch-256 pretraining step gives it, in bf16 with TF32 off:
-   gather/scatter bit-exact; dwconv7_gathered forward and dx within one bf16
+   gather/scatter bit-exact at the stem (p = 8, C = 40) and stage 3 (p = 1,
+   C = 320), and again at pico-112/16's (p = 16, C = 64 and p = 2, C = 512,
+   batch 64), reported in the rows' ``pico112_stem`` and ``pico112_stage3``
+   and not added to the atto step; each launch also gives its device time
+   with L2 cold (``device_ms``: calls back to back on distinct inputs after
+   a 128 MB write, in a window opened by a sleep kernel so that no host
+   work lies inside it) beside the CUDA-event ``ms``, and its launch plan
+   (path, ring, chunking, grid); dwconv7_gathered forward and dx within one bf16
    ulp (|k - p| <= 2^(floor(log2|p|) - 7) + 1e-4 * max|p|, the second term
    covering f32 summation-order noise on values near 0); dK and db within
    |k - p| <= 1e-3 * |p| + 1e-5 * max|p| (atomics reorder the sums); each
@@ -156,6 +163,59 @@ def time_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_window_ms(calls, flush=None, keep: bool = True, reps: int = 5) -> float:
+    """Device ms a call: the median over ``reps`` windows, each around the
+    thunks ``calls`` back to back (each one's output kept to the window's
+    end where ``keep``), after ``flush`` is written where given.  A sleep
+    kernel opens each window, long enough for the host to enqueue every
+    call first, so that no host work lies inside it; a window the host did
+    not finish enqueueing within the sleep is run again with a sleep four
+    times longer."""
+    import torch
+
+    cycles, times = 2_000_000, []
+    while len(times) < reps:
+        torch.cuda.synchronize()
+        if flush is not None:
+            flush.zero_()
+        s0, s1, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(cycles)
+        s1.record()
+        t0 = time.perf_counter()
+        outs = []
+        for fn in calls:
+            out = fn()
+            if keep:
+                outs.append(out)
+            del out
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        del outs
+        if host >= s0.elapsed_time(s1):
+            if cycles > 2 ** 34:
+                raise RuntimeError("device_window_ms: the host cannot get ahead of the card")
+            cycles *= 4
+            continue
+        times.append(s1.elapsed_time(end) / len(calls))
+    return statistics.median(times)
+
+
+def cold_device_ms(fn, make, in_bytes: int, reps: int = 5) -> float:
+    """Device ms a call of ``fn`` with L2 cold: ``device_window_ms`` over
+    calls on distinct inputs from ``make`` (over 100 MB of them, and at
+    least four), each window after a 128 MB write has pushed them out of
+    the 50 MB L2."""
+    import math
+
+    import torch
+
+    copies = [make() for _ in range(max(4, math.ceil(100e6 / in_bytes)))]
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=copies[0].device)
+    return device_window_ms([lambda x=x: fn(x) for x in copies], flush, True, reps)
+
+
 def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -194,18 +254,13 @@ def phase_kernels() -> dict:
 
     from mmearth_tpu_torch.models.convnextv2 import visible_ids
     from mmearth_tpu_torch.models.fcmae import gen_random_mask
-    from mmearth_tpu_torch.ops import patch_select as ps
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    bf = torch.bfloat16
     mask = gen_random_mask(N, GRID * GRID, 0.6, gen, dev)
     kept, inv = visible_ids(mask, K)
-    kept_l = kept.long()
-    rows = torch.arange(N, device=dev)[:, None]
-    gy, gx = kept_l // GRID, kept_l % GRID
     rows_out = {}
 
     def row(name, source, replaces):
@@ -216,47 +271,23 @@ def phase_kernels() -> dict:
 
     def add(r, count, s):
         r["max_abs_err"] = max(r["max_abs_err"], s["max_abs_err"])
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            r[key] += count * s[key]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms"):
+            if key in s:
+                r[key] += count * s[key]
         r["bound_by"] = s["bound_by"]
         emit({"kernel_shape": {"kernel": r["name"], "per_step": count, **s}})
 
-    # gather: stem gather (56x56x40 -> p=8) and the final scatter's VJP (7x7x320 -> p=1)
+    # gather: stem gather (56x56x40 -> p=8) and the final scatter's VJP (7x7x320 -> p=1);
+    # scatter: the final scatter (p=1) and the stem gather's VJP (p=8)
     g_row = row("gather_patches", "mmearth_tpu_torch/csrc/patch_select.cu",
                 "mmearth_tpu/ops/patch_select.py:52")
     s_row = row("scatter_patches", "mmearth_tpu_torch/csrc/patch_select.cu",
                 "mmearth_tpu/ops/patch_select.py:63")
+    for r in (g_row, s_row):
+        r["device_ms"] = 0.0
     for p, c in ((8, 40), (1, 320)):
-        h = GRID * p
-        x = torch.randn(N, h, h, c, generator=gen, device=dev).to(bf)
-        got = ps._gather(x, kept, p, GRID)
-        ref = ps.gather_patches_plain(x, kept, p, GRID)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"gather_patches p={p} C={c}: not bit-exact")
-        x6 = x.view(N, GRID, p, GRID, p, c)
-        add(g_row, 1, launch_summary(
-            [N, h, h, c], 0.0, lambda: ps._gather(x, kept, p, GRID),
-            lambda: ps.gather_patches_plain(x, kept, p, GRID), lambda: x6[rows, gy, :, gx],
-            2 * N * K * p * p * c * 2 + kept.numel() * 4, 0))
-
-        xg = torch.randn(N, K, p, p, c, generator=gen, device=dev).to(bf)
-        got = ps._scatter(xg, kept, inv, p, GRID, h)
-        ref = ps.scatter_patches_plain(xg, kept, p, GRID, h)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"scatter_patches p={p} C={c}: not bit-exact")
-
-        def lib_scatter():
-            out = torch.zeros(N, h, h, c, dtype=bf, device=dev)
-            out.view(N, GRID, p, GRID, p, c)[rows, gy, :, gx] = xg
-            return out
-
-        if not torch.equal(lib_scatter(), ref):
-            raise AssertionError("scatter library call disagrees")
-        add(s_row, 1, launch_summary(
-            [N, K, p, p, c], 0.0, lambda: ps._scatter(xg, kept, inv, p, GRID, h),
-            lambda: ps.scatter_patches_plain(xg, kept, p, GRID, h), lib_scatter,
-            (N * K + N * h * h // (p * p)) * p * p * c * 2 + inv.numel() * 4, 0))
-
+        for r, s in zip((g_row, s_row), patch_stage(gen, p, c, kept, inv)):
+            add(r, 1, s)
     f_row = row("dwconv7_gathered_fwd", "mmearth_tpu_torch/csrc/wholeblock.cu",
                 "mmearth_tpu/ops/wholeblock.py:127")
     b_row = row("dwconv7_gathered_bwd", "mmearth_tpu_torch/csrc/wholeblock.cu",
@@ -271,7 +302,67 @@ def phase_kernels() -> dict:
     for r, s in zip((f_row, b_row), gathered_dwconv_stage(gen, p, c, *pico)):
         r["pico112_stage0"] = {"per_step": count, **s}
         emit({"kernel_shape": {"kernel": r["name"], "path": "pico112", "per_step": count, **s}})
+    # rows 1-2 at pico 112/16's stem and stage 3 (same mask), not added to the atto step
+    for (p, c), stage in (((PICO_P16[0], PICO_P16[1]), "stem"), (PICO_STAGE3[:2], "stage3")):
+        for r, s in zip((g_row, s_row), patch_stage(gen, p, c, *pico)):
+            r[f"pico112_{stage}"] = {"per_step": 1, **s}
+            emit({"kernel_shape": {"kernel": r["name"], "path": "pico112", "per_step": 1, **s}})
     return rows_out
+
+
+def patch_stage(gen, p, c, kept, inv) -> tuple[dict, dict]:
+    """Rows 1-2 at one patch side: a bf16 dense (N, 7p, 7p, C) grid gathered
+    at the visible ids ``kept`` and gathered rows scattered through ``inv``,
+    each bit-exact against its plain version, timed beside it and one
+    PyTorch indexing call (a gather, and a zero fill with an index put),
+    its cold device time beside (``device_ms``); each with its launch
+    plan."""
+    import torch
+
+    from mmearth_tpu_torch.ops import patch_select as ps
+
+    dev, bf, n, h = kept.device, torch.bfloat16, kept.shape[0], GRID * p
+    k = kept.shape[1]
+    kept_l = kept.long()
+    rows = torch.arange(n, device=dev)[:, None]
+    gy, gx = kept_l // GRID, kept_l % GRID
+    ids = kept.numel() * 4
+    make_x = lambda: torch.randn(n, h, h, c, generator=gen, device=dev).to(bf)  # noqa: E731
+    make_xg = lambda: torch.randn(n, k, p, p, c, generator=gen, device=dev).to(bf)  # noqa: E731
+    x = make_x()
+    got = ps._gather(x, kept, p, GRID)
+    if not torch.equal(got, ps.gather_patches_plain(x, kept, p, GRID)):
+        raise AssertionError(f"gather_patches p={p} C={c} N={n}: not bit-exact")
+    x6 = x.view(n, GRID, p, GRID, p, c)
+    gather = launch_summary(
+        [n, h, h, c], 0.0, lambda: ps._gather(x, kept, p, GRID),
+        lambda: ps.gather_patches_plain(x, kept, p, GRID), lambda: x6[rows, gy, :, gx],
+        2 * n * k * p * p * c * 2 + ids, 0)
+    gather["device_ms"] = cold_device_ms(lambda a: ps._gather(a, kept, p, GRID), make_x,
+                                         n * h * h * c * 2)
+    gather["plan"] = ps.launch_plan(x, kept, p, GRID, False)._asdict()
+
+    xg = make_xg()
+    ref = ps.scatter_patches_plain(xg, kept, p, GRID, h)
+    if not torch.equal(ps._scatter(xg, kept, inv, p, GRID, h), ref):
+        raise AssertionError(f"scatter_patches p={p} C={c} N={n}: not bit-exact")
+
+    def lib_scatter():
+        out = torch.zeros(n, h, h, c, dtype=bf, device=dev)
+        out.view(n, GRID, p, GRID, p, c)[rows, gy, :, gx] = xg
+        return out
+
+    if not torch.equal(lib_scatter(), ref):
+        raise AssertionError("scatter library call disagrees")
+    scatter = launch_summary(
+        [n, k, p, p, c], 0.0, lambda: ps._scatter(xg, kept, inv, p, GRID, h),
+        lambda: ps.scatter_patches_plain(xg, kept, p, GRID, h), lib_scatter,
+        (n * k + n * h * h // (p * p)) * p * p * c * 2 + inv.numel() * 4, 0)
+    scatter["device_ms"] = cold_device_ms(lambda a: ps._scatter(a, kept, inv, p, GRID, h),
+                                          make_xg, n * k * p * p * c * 2)
+    scatter["plan"] = ps.launch_plan(xg, inv, p, GRID, True)._asdict()
+    torch.cuda.empty_cache()
+    return gather, scatter
 
 
 def launch_summary(shape, err, kern, plain, lib, nbytes, flops) -> dict:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Times the spill-g block-tail launches of one checkout of the PyTorch port
-at the atto-56/8 stage shapes, so that two checkouts can be compared on one
-card.
+at the atto-56/8 stage shapes, or with ``--patch`` its patch gather and
+scatter launches, so that two checkouts can be compared on one card.
 
     python3 scripts/torch_launch_ab.py [--root DIR] [--iters 100] [--ptxas] [--c2816] [--pico]
+    python3 scripts/torch_launch_ab.py --patch [--root DIR] [--iters 100] [--ptxas]
 
 ``--root`` is the root of the checkout whose ``mmearth_tpu_torch`` is timed
 (default: this one); its kernels are built into its own ``build/kernels``.
@@ -26,13 +27,40 @@ backward's weights (``BwdWeights``) are made outside the timed calls.
 the step.  With ``--ptxas`` the
 line also holds the registers, spill bytes and static shared memory that
 ``nvcc -Xptxas -v`` reports for every instance of the A, B, C and dv kernels
-(A: the statistic pass) of the checkout's ``csrc/fused_block.cu``.  Needs a CUDA GPU; it imports nothing of
-JAX.
+(A: the statistic pass) of the checkout's ``csrc/fused_block.cu`` (with
+``--patch``: of the copy kernels of its ``csrc/patch_select.cu``).
+
+``--patch`` times the eight gather/scatter launches of a gathered step
+instead: at atto-56/8 (batch 256) and pico-112/16 (batch 64), 19 of 49
+patches visible, bf16, the stem's gather and the stage-3 gather (the final
+scatter's VJP), the stage-3 scatter and the stem's scatter (the gather's
+VJP).  Beside ``call_ms``, ``stream_ms`` and ``host_ms`` (warm: the same
+input back to back) each launch gets two device times from
+``chip_smoke.py``'s timers (this checkout's, whatever ``--root`` is):
+``cold_ms``, calls on distinct copies of the input with L2 flushed
+(``cold_device_ms``), and ``warm_ms``, ``--iters`` calls on one input
+after a first call (``device_window_ms``), as a step's repeated launches
+would find L2 at best.  Sums over a step (2 + 2 launches at each
+configuration) and each launch's byte bound at 3.35 TB/s are given beside.
+``memcpy_cold_ms`` is one contiguous ``copy_`` of the same bytes (half
+read, half written) timed as ``cold_ms``: the rate at which the card copies
+memory in practice, a yardstick beside the bound.  Further cold times, not
+counted in the step, ask why a launch takes its time: for each launch
+``register_cold_ms``, the same launch on an input whose base lies 8 bytes
+into its buffer (the register path at 8-byte vectors, where the plan's
+rule sends such a pointer); for the stem scatter, the same launch under
+three other masks: ``runs_cold_ms``, the grid's first 19 patches visible
+(the same bytes, the masked rows in one run a sample against runs that
+alternate every row or two under the random mask), ``all_kept_cold_ms``,
+every patch visible (loads only, no zero row), and ``none_kept_cold_ms``,
+none visible (zero rows only, no load).  Needs a CUDA GPU; it imports
+nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -42,6 +70,9 @@ from pathlib import Path
 
 N, GRID, K = 256, 7, 19
 STAGES = ((8, 40, 2), (4, 80, 2), (2, 160, 6), (1, 320, 2))  # (p, C, blocks a step)
+# (configuration, batch, (p, C) of the stem, (p, C) of stage 3) of the gathered steps
+PATCH_CONFIGS = (("atto56_8", 256, (8, 40), (1, 320)), ("pico112_16", 64, (16, 64), (2, 512)))
+HBM_BYTES_PER_S = 3.35e12
 
 
 def call_ms(torch, fn, iters):
@@ -75,6 +106,95 @@ def stream_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters, host
 
 
+def patch_launches(ps, torch, gen, n, stem, stage3, kept, inv):
+    """The four gather/scatter launches of one gathered configuration under
+    the mask of ``kept``/``inv``: name -> (the call on a given input, the
+    input's maker, the bytes the launch moves once, the input's bytes, the
+    launch's plan where the checkout has one)."""
+    dev, bf, k = gen.device, torch.bfloat16, kept.shape[1]
+    plan = getattr(ps, "launch_plan", None)
+    out = {}
+    for where, (p, c) in (("stem", stem), ("stage3", stage3)):
+        h = GRID * p
+        dense, rows = n * h * h * c * 2, n * k * p * p * c * 2
+        out[f"gather_{where}"] = (
+            lambda x, p=p: ps._gather(x, kept, p, GRID),
+            lambda h=h, c=c: torch.randn(n, h, h, c, generator=gen, device=dev).to(bf),
+            2 * rows + kept.numel() * 4, dense,
+            plan and (lambda x, p=p: plan(x, kept, p, GRID, False)))
+        out[f"scatter_{where}"] = (
+            lambda xg, p=p, h=h: ps._scatter(xg, kept, inv, p, GRID, h),
+            lambda p=p, c=c: torch.randn(n, k, p, p, c, generator=gen, device=dev).to(bf),
+            rows + dense + inv.numel() * 4, rows,
+            plan and (lambda xg, p=p: plan(xg, inv, p, GRID, True)))
+    return {k: out[k] for k in ("gather_stem", "gather_stage3", "scatter_stage3", "scatter_stem")}
+
+
+def offset8(torch, make):
+    """``make``'s input, copied to a base 8 bytes into a larger buffer."""
+    def made():
+        x = make()
+        extra = 8 // x.element_size()
+        y = torch.empty(x.numel() + extra, dtype=x.dtype, device=x.device)[extra:]
+        return y.view(x.shape).copy_(x)
+    return made
+
+
+def time_patch(args, torch, smoke) -> dict:
+    """Per configuration of ``PATCH_CONFIGS``: each launch's times, bound
+    and plan, and their sums over a step (each launch runs once a step)."""
+    from mmearth_tpu_torch.models.convnextv2 import visible_ids
+    from mmearth_tpu_torch.models.fcmae import gen_random_mask
+    from mmearth_tpu_torch.ops import patch_select as ps
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    configs = {}
+    for name, n, stem, stage3 in PATCH_CONFIGS:
+        kept, inv = visible_ids(gen_random_mask(n, GRID * GRID, 0.6, gen, gen.device), K)
+        first = torch.ones(n, GRID * GRID, device=gen.device)
+        first[:, :K] = 0  # the first K patches visible: the masked rows in one run a sample
+        probes = {probe: patch_launches(ps, torch, gen, n, stem, stage3,
+                                        *visible_ids(mask, visible))["scatter_stem"]
+                  for probe, mask, visible in (
+                      ("runs", first, K), ("all_kept", torch.zeros_like(first), GRID * GRID),
+                      ("none_kept", torch.ones_like(first), 0))}
+        times, step = {}, {}
+        for key, (fn, make, nbytes, in_bytes, plan) in patch_launches(
+                ps, torch, gen, n, stem, stage3, kept, inv).items():
+            x = make()
+            one = lambda fn=fn, x=x: fn(x)  # noqa: E731
+            card, host = stream_ms(torch, one, args.iters)
+            cold = smoke.cold_device_ms(fn, make, in_bytes)
+            one()
+            warm = smoke.device_window_ms([one] * args.iters, keep=False)
+            # a yardstick of what the card copies: one contiguous copy of the same bytes
+            pairs = [(torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda"),
+                      torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda"))
+                     for _ in range(max(4, math.ceil(100e6 / nbytes)))]
+            flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+            memcpy = smoke.device_window_ms([lambda d=d, s=s: d.copy_(s) for d, s in pairs],
+                                            flush)
+            del pairs, flush
+            t = {"call_ms": call_ms(torch, one, args.iters), "stream_ms": card, "host_ms": host,
+                 "cold_ms": cold, "warm_ms": warm, "memcpy_cold_ms": memcpy,
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+                 "register_cold_ms": smoke.cold_device_ms(fn, offset8(torch, make), in_bytes)}
+            if key == "scatter_stem":
+                for probe, (pfn, pmake, _, pin, _) in probes.items():
+                    # an empty input (none visible): four calls a window
+                    t[f"{probe}_cold_ms"] = smoke.cold_device_ms(pfn, pmake, pin or 25e6)
+            if plan:
+                t["plan"] = plan(x)._asdict()
+                t["register_plan"] = plan(offset8(torch, make)())._asdict()
+            times[key] = t
+            for k in ("call_ms", "stream_ms", "host_ms", "cold_ms", "warm_ms", "memcpy_cold_ms",
+                      "bound_ms"):
+                step[k] = step.get(k, 0.0) + t[k]
+            torch.cuda.empty_cache()
+        configs[name] = {"batch": n, "launches": times, "per_step": step}
+    return configs
+
+
 def launches(fb, torch, gen, m, c):
     """The spill-g launches on seeded inputs of (m, C) rows."""
     dev, bf, c4 = gen.device, torch.bfloat16, 4 * c
@@ -100,21 +220,20 @@ def launches(fb, torch, gen, m, c):
     return out
 
 
-def ptxas(build, root: Path) -> list:
-    """-Xptxas -v of the checkout's fused_block.cu: each A, B, C and dv
-    kernel instance's registers, spill bytes and static shared memory."""
+def ptxas(build, root: Path, source: str, kernels: str) -> list:
+    """-Xptxas -v of the checkout's ``csrc/<source>.cu``: the registers,
+    spill bytes and static shared memory of each kernel instance whose
+    mangled name matches ``kernels``."""
     out = root / "build" / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / "fused_block.so"),
-           str(root / "mmearth_tpu_torch" / "csrc" / "fused_block.cu")]
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / f"{source}.so"),
+           str(root / "mmearth_tpu_torch" / "csrc" / f"{source}.cu")]
     log = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr.splitlines()
     found, cur = [], None
     for line in log:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            cur = ({"kernel": entry.group(1)}
-                   if re.search(r"spillg_(bwd_[cd]|fwd_b)_kernel|bwd_dv_kernel|fwd_stat_kernel",
-                                entry.group(1)) else None)
+            cur = {"kernel": entry.group(1)} if re.search(kernels, entry.group(1)) else None
             if cur is not None:
                 found.append(cur)
         elif cur is not None and "spill stores" in line:
@@ -133,7 +252,12 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--c2816", action="store_true", help="also time huge's last stage")
     ap.add_argument("--pico", action="store_true", help="also time pico-112/16's stage 3")
+    ap.add_argument("--patch", action="store_true",
+                    help="time the patch gather/scatter launches instead")
     args = ap.parse_args()
+    # chip_smoke.py's timers from this checkout, imported before --root's package
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -144,6 +268,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_launch_ab: needs a CUDA GPU", file=sys.stderr)
         return 2
+    if args.patch:
+        line = {"root": str(root), "card": torch.cuda.get_device_name(0), "iters": args.iters,
+                "configs": time_patch(args, torch, chip_smoke)}
+        if args.ptxas:
+            line["ptxas"] = ptxas(_build, root, "patch_select", r"patch_copy")
+        print(json.dumps(line), flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
     stages, step = [], {}
@@ -163,7 +294,8 @@ def main() -> int:
     line = {"root": str(root), "card": torch.cuda.get_device_name(0), "iters": args.iters,
             "per_step": step, "stages": stages}
     if args.ptxas:
-        line["ptxas"] = ptxas(_build, root)
+        line["ptxas"] = ptxas(_build, root, "fused_block",
+                              r"spillg_(bwd_[cd]|fwd_b)_kernel|bwd_dv_kernel|fwd_stat_kernel")
     print(json.dumps(line), flush=True)
     return 0
 

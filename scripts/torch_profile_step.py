@@ -56,7 +56,8 @@ GROUPS = (
     ("spillg_atb", "dW1/dW2 X^T Y passes (port kernel)"),
     ("dw7_fwd", "dwconv7_gathered fwd (port kernel)"),
     ("dw7_bwd", "dwconv7_gathered bwd (port kernel)"),
-    ("gather_kernel", "patch gather/scatter (port kernel)"),
+    ("patch_copy", "patch gather/scatter (port kernel)"),  # rows 1-2: patch_copy_bulk/_reg
+    ("gather_kernel", "patch gather/scatter (port kernel)"),  # their earlier kernels
     ("scatter_kernel", "patch gather/scatter (port kernel)"),
     ("multi_tensor_apply", "optimizer (foreach)"),
     ("gemm", "matmul (cuBLAS)"),

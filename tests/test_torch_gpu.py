@@ -19,7 +19,9 @@ GRID, K = 7, 19
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_gpu():
-    """The CUDA kernels against their plain versions (needs a GPU and nvcc)."""
+    """The dwconv7_gathered kernels against their plain versions at the atto
+    stages (needs a GPU and nvcc); the patch kernels' inputs come from the
+    plain gather."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     dev = torch.device("cuda")
@@ -29,10 +31,7 @@ def test_kernels_match_plain_on_gpu():
     for p, c in ((8, 40), (4, 80), (2, 160), (1, 320)):
         h = GRID * p
         x = torch.randn(8, h, h, c, device=dev, dtype=torch.bfloat16)
-        xg = ps._gather(x, kept, p, GRID)
-        assert torch.equal(xg, ps.gather_patches_plain(x, kept, p, GRID))
-        assert torch.equal(ps._scatter(xg, kept, inv, p, GRID, h),
-                           ps.scatter_patches_plain(xg, kept, p, GRID, h))
+        xg = ps.gather_patches_plain(x, kept, p, GRID)
         w, b = torch.randn(c, 1, 7, 7, device=dev), torch.randn(c, device=dev)
         ref = wb.dwconv7_gathered_plain(xg, kept, w, b, GRID).float()
         got = wb._fwd_cuda(xg, kept, inv, w, b, GRID).float()
@@ -42,6 +41,79 @@ def test_kernels_match_plain_on_gpu():
         assert float((dx.float() - rdx.float()).abs().max()) <= 2 ** -6 * float(rdx.abs().max())
         torch.testing.assert_close(dk, rdk, rtol=1e-3, atol=1e-3 * float(rdk.abs().max()))
         torch.testing.assert_close(db, rdb, rtol=1e-3, atol=1e-3 * float(rdb.abs().max()))
+
+
+# (p, C): the atto stages, pico-112/16's stem and stage 3, huge's last width,
+# and C = 37 and 24 (rows of 74 and 48 bytes at p = 1: the register path in
+# bf16 where the row is not a multiple of 16 bytes)
+_PATCH_CASES = [(8, 40), (4, 80), (2, 160), (1, 320), (16, 64), (2, 512), (8, 37), (1, 37),
+                (2, 37), (1, 24), (1, 2816)]
+# (grid, K): one visible patch, the pretraining mask, every patch, a 14-patch grid
+_PATCH_MASKS = [(7, 1), (7, 19), (7, 49), (14, 77)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("p,c", _PATCH_CASES)
+def test_gather_scatter_match_plain_on_gpu(dtype, p, c):
+    """Gather and scatter bit-exact against the plain versions at odd N = 3
+    for each mask of ``_PATCH_MASKS``, one launch each; the path the plan
+    takes follows its rule (bulk copies where the row is a multiple of 16
+    bytes and both pointers are 16-byte aligned); views whose base lies one
+    or two elements into their buffer take the register path (2-, 4- or
+    8-byte vectors as the row and the offset allow) and agree too; the
+    gather -> scatter round trip under autograd gives the plain version's
+    gradient (each op's backward is the other's kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    rng = np.random.default_rng(10 * p + c)
+    gen = torch.Generator(device=dev).manual_seed(10 * p + c)
+    row_bytes = p * c * (2 if dt == torch.bfloat16 else 4)
+    for grid, k in _PATCH_MASKS:
+        h = grid * p
+        order = np.argsort(rng.random((3, grid * grid)), axis=1)
+        kept, inv = visible_ids(torch.from_numpy((order >= k).astype(np.float32)).to(dev), k)
+        x = torch.randn(3, h, h, c, generator=gen, device=dev).to(dt)
+        xg = torch.randn(3, k, p, p, c, generator=gen, device=dev).to(dt)
+        ref_g = ps.gather_patches_plain(x, kept, p, grid)
+        ref_s = ps.scatter_patches_plain(xg, kept, p, grid, h)
+        before = dict(ps.LAUNCHES)
+        got_g = ps._gather(x, kept, p, grid)
+        got_s = ps._scatter(xg, kept, inv, p, grid, h)
+        torch.cuda.synchronize()
+        assert {n: ps.LAUNCHES[n] - before[n] for n in before} == {
+            "gather_patches": 1, "scatter_patches": 1}
+        assert torch.equal(got_g, ref_g), f"gather grid={grid} K={k}"
+        assert torch.equal(got_s, ref_s), f"scatter grid={grid} K={k}"
+        for src, scatter, ids in ((x, False, kept), (xg, True, inv)):
+            assert ps.launch_plan(src, ids, p, grid, scatter).bulk == (row_bytes % 16 == 0)
+        # one or two elements into a larger buffer: no 16-byte aligned base
+        for off in (1, 2):
+            shift = off * x.element_size()
+            vec = max(v for v in (8, 4, 2) if row_bytes % v == 0 and shift % v == 0)
+            xo = torch.empty(x.numel() + off, dtype=dt, device=dev)[off:].view(x.shape)
+            xo.copy_(x)
+            plan = ps.launch_plan(xo, kept, p, grid, False)
+            assert not plan.bulk and plan.vec == vec
+            assert torch.equal(ps._gather(xo, kept, p, grid), ref_g), f"gather offset {off}"
+            xgo = torch.empty(xg.numel() + off, dtype=dt, device=dev)[off:].view(xg.shape)
+            xgo.copy_(xg)
+            plan = ps.launch_plan(xgo, inv, p, grid, True)
+            assert not plan.bulk and plan.vec == vec
+            got_s = ps._scatter(xgo, kept, inv, p, grid, h)
+            assert torch.equal(got_s, ref_s), f"scatter offset {off}"
+        # gather -> scatter under autograd: dx = gather's VJP of scatter's VJP
+        w = torch.randn(3, h, h, c, generator=gen, device=dev).to(dt)
+        grads = []
+        for fwd in ((ps.gather_patches, ps.scatter_patches),
+                    (lambda a, kk, ii, pp, gg: ps.gather_patches_plain(a, kk, pp, gg),
+                     lambda a, kk, ii, pp, gg, hh: ps.scatter_patches_plain(a, kk, pp, gg, hh))):
+            xr = x.clone().requires_grad_(True)
+            y = fwd[1](fwd[0](xr, kept, inv, p, grid) * 2, kept, inv, p, grid, h)
+            (y * w).sum().backward()
+            grads.append(xr.grad)
+        assert torch.equal(grads[0], grads[1]), f"round trip grid={grid} K={k}"
 
 
 # (p, C): every patch side at C = 37 (staged with scalar loads), 24 and the
