@@ -103,13 +103,26 @@ Phases, each of which exits non-zero on failure:
    batch 64 as bench.py's tiny112, ``--block_impl wholeblock``, 12 steps
    with the same per-step counts, but for C's separate dW2 pass, which runs
    in the 2 blocks of stage 3 (C = 512 does not fold).  The
-   ``wholeblock`` slice's FCMAE is saved as ``build/smoke_pretrain.pth``;
-   ``main_finetune.main`` runs the GEO-Bench classification recipe from it
-   (convnextv2_atto at patch 8, batch 32, bf16, 3 epochs of synthetic
-   m-eurosat 512/128/128), once finetuning (12 dW launches a step, no other
-   kernel) and once as the linear probe (no launch at all), with finite
-   losses and accuracies in [0, 1].
-4. reference: a small f32 FCMAE step on the GPU against the same step on the
+   ``wholeblock`` slice runs with ``--output_dir build/smoke_pretrain_out``
+   (wiped first, ``--save_ckpt_num 2``): its ``checkpoint-2.pth``, loaded
+   into a fresh FCMAE and AdamW, must equal the run's in-memory params and
+   optimizer state bit for bit; ``main_pretrain.main`` with ``--epochs 4``
+   on the same directory must auto-resume after epoch 2, run epoch 3 alone
+   (the slice's launches a step) and leave checkpoints 2 and 3.
+   ``main_finetune.main`` runs the GEO-Bench classification recipe from
+   that ``checkpoint-2.pth`` (convnextv2_atto at patch 8, batch 32, bf16, 3
+   epochs of synthetic m-eurosat 512/128/128), once finetuning (12 dW
+   launches a step, no other kernel) and once as the linear probe (no
+   launch at all), with finite losses and accuracies in [0, 1].
+4. bench and gate: ``scripts/torch_bench.py --config atto56 --rounds 2
+   --steps 10`` as a subprocess (the built kernels reused), whose last line
+   must carry the metric's keys, a rate above 0 and this card; then the
+   synthetic convergence gate of ``scripts/torch_convergence_gate.py`` at
+   its full 500 steps (batch 256, ``wholeblock``, after its own bench run
+   of 4 rounds of 30 steps), whose loss must drop by more than half, with
+   the slice's launches a step; its samples/s against the bench's is
+   printed, not held (the script alone holds it).
+5. reference: a small f32 FCMAE step on the GPU against the same step on the
    CPU (plain versions), loss and grads, for dwg, wholeblock and
    masked_dense fused, wholeblock at pico widths 112/16 (one block a
    stage), and a small f32 classifier step.
@@ -120,6 +133,7 @@ with a row per kernel, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1101,8 +1115,6 @@ def phase_data(name: str = "smoke_data", n: int = 1170, tile: int = 64) -> Path:
     """Synthetic packed data for the slices, written anew on every run: 1,170
     64-px samples (1,024 train + 146 val) for the atto slices, 292 128-px
     ones (256 + 36) for the pico 112/16 slice."""
-    import shutil
-
     from mmearth_tpu_torch.data.synthetic import generate_packed
 
     data = ROOT / "build" / name
@@ -1175,23 +1187,39 @@ ATTO56 = ("convnextv2_atto", 56, 8, 256)
 PICO112 = ("convnextv2_pico", 112, 16, PICO_N)
 
 
+def slice_args(sparse_impl: str, block_impl: str, data: Path, config: tuple, *extra):
+    from mmearth_tpu_torch import main_pretrain
+
+    model_name, size, patch, batch = config
+    return main_pretrain.get_args_parser().parse_args([
+        "--model", model_name, "--input_size", str(size), "--patch_size", str(patch),
+        "--batch_size", str(batch), "--use_bf16", "True", "--device", "cuda",
+        "--processed_dir", str(data), "--epochs", "3", "--warmup_epochs", "1",
+        "--seed", "0", "--sparse_impl", sparse_impl, "--block_impl", block_impl, *extra])
+
+
+def check_launches(what: str, launches: dict, per_step: dict, steps: int) -> None:
+    for name, k in per_step.items():
+        if launches[name] != k * steps:
+            raise AssertionError(f"{what}, {name}: {launches[name]} launches in {steps} steps, "
+                                 f"expected {k} per step")
+
+
 def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str, data: Path,
-                save_to: Path | None = None, config: tuple = ATTO56) -> dict:
-    """A pretraining slice through ``main_pretrain.main``; its launches set the
-    rows' counts only on the atto configuration."""
+                output_dir: Path | None = None, config: tuple = ATTO56) -> dict:
+    """A pretraining slice through ``main_pretrain.main`` (saving its
+    checkpoints in ``output_dir`` when given, the newest two kept); its
+    launches set the rows' counts only on the atto configuration."""
     import torch
 
     from mmearth_tpu_torch import main_pretrain
 
     model_name, size, patch, batch = config
-    args = main_pretrain.get_args_parser().parse_args([
-        "--model", model_name, "--input_size", str(size), "--patch_size", str(patch),
-        "--batch_size", str(batch), "--use_bf16", "True", "--device", "cuda",
-        "--processed_dir", str(data), "--epochs", "3", "--warmup_epochs", "1",
-        "--seed", "0", "--sparse_impl", sparse_impl, "--block_impl", block_impl])
+    extra = ["--output_dir", str(output_dir), "--save_ckpt_num", "2"] if output_dir else []
+    args = slice_args(sparse_impl, block_impl, data, config, *extra)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    model, history = main_pretrain.main(args)
+    model, history, opt = main_pretrain.main(args)
     launches = read_launches()
     steps = sum(e["steps"] for e in history)
     losses = [x for e in history for x in e["step_losses"]]
@@ -1200,15 +1228,9 @@ def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str, da
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         raise AssertionError(f"non-finite loss in {losses}")
     per_step, own = expected_launches(sparse_impl, block_impl, config)
-    for name, k in per_step.items():
-        if launches[name] != k * steps:
-            raise AssertionError(f"{model_name} {sparse_impl} {block_impl} slice, {name}: "
-                                 f"{launches[name]} launches in {steps} steps, expected {k} "
-                                 "per step")
+    check_launches(f"{model_name} {sparse_impl} {block_impl} slice", launches, per_step, steps)
     for name in own if config == ATTO56 else ():
         rows_out[name]["launches"] = launches[name]
-    if save_to is not None:
-        torch.save({"model": model.state_dict()}, save_to)
     steady = history[1:]  # epoch 0 holds the first-call set-up
     ms = 1e3 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
     result = {"phase": "slice", "model": model_name, "input_size": size, "patch_size": patch,
@@ -1218,13 +1240,113 @@ def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str, da
               "ms_per_step": ms, "samples_per_s": batch * 1e3 / ms,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}
     emit(result)
+    if output_dir is not None:
+        phase_checkpoint(args, model, opt, output_dir, len(history), per_step)
     return result
+
+
+def phase_checkpoint(args, model, opt, output_dir: Path, epochs: int, per_step: dict) -> None:
+    """The slice's last checkpoint, loaded from disk into a fresh model and
+    AdamW, equals the in-memory ones bit for bit; then ``main_pretrain.main``
+    with one epoch more on the same directory auto-resumes after it, runs
+    that one epoch (with the slice's launches a step) and leaves the newest
+    two checkpoints."""
+    import torch
+
+    from mmearth_tpu_torch import main_pretrain
+    from mmearth_tpu_torch.checkpoints import pth_io
+    from mmearth_tpu_torch.train.optim import AdamW
+    from mmearth_tpu_torch.train.pretrain import build_model
+
+    t0 = time.time()
+    last = output_dir / f"checkpoint-{epochs - 1}.pth"
+    cfg = main_pretrain.config_from_args(args)
+    fresh = build_model(cfg, args.device)
+    fresh_opt = AdamW(fresh.named_parameters(), opt.lr_schedule)
+    if pth_io.restore(last, fresh, fresh_opt) != epochs - 1:
+        raise AssertionError(f"{last}: not the epoch {epochs - 1} checkpoint")
+    loaded = fresh.state_dict()
+    pairs = [(f"model.{k}", v, loaded[k]) for k, v in model.state_dict().items()]
+    theirs = fresh_opt.state_dict()
+    for key, mine in opt.state_dict().items():
+        if isinstance(mine, dict):
+            pairs += [(f"optimizer.{key}.{k}", v, theirs[key][k]) for k, v in mine.items()]
+        elif mine != theirs[key]:
+            raise AssertionError(f"checkpoint optimizer.{key}: {theirs[key]} != {mine}")
+    unequal = [k for k, a, b in pairs if not torch.equal(a, b)]
+    if unequal:
+        raise AssertionError(f"{last} differs from the run's memory at {unequal[:5]}")
+    args.epochs = epochs + 1
+    reset_launches()
+    _, history, resumed_opt = main_pretrain.main(args)
+    launches = read_launches()
+    if [e["epoch"] for e in history] != [epochs]:
+        raise AssertionError(f"resume ran epochs {[e['epoch'] for e in history]}, not [{epochs}]")
+    steps = history[0]["steps"]
+    check_launches("resumed wholeblock slice", launches, per_step, steps)
+    kept = [e for e, _ in pth_io.numbered_checkpoints(output_dir)]
+    if kept != [epochs - 1, epochs]:
+        raise AssertionError(f"checkpoints kept after the resume: {kept}, expected "
+                             f"{[epochs - 1, epochs]} (--save_ckpt_num 2)")
+    emit({"phase": "checkpoint", "file": str(last.relative_to(ROOT)), "tensors_equal": len(pairs),
+          "resumed_epochs": [e["epoch"] for e in history], "resumed_steps": steps,
+          "optimizer_count": resumed_opt.count, "kept": kept,
+          "losses": history[0]["step_losses"], "seconds": round(time.time() - t0, 2)})
+
+
+def phase_bench(card: str) -> dict:
+    """``scripts/torch_bench.py`` short (2 rounds of 10 steps) as a user runs
+    it, reusing the kernels built in ``build/kernels``: its last line is the
+    result, for the card this smoke test runs on."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_bench.py"), "--config",
+                        "atto56", "--rounds", "2", "--steps", "10"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    last = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    if r.returncode != 0:
+        raise AssertionError(f"torch_bench.py exited {r.returncode}: {last}\n{r.stderr[-3000:]}")
+    line = json.loads(last)
+    want = {"metric", "value", "unit", "ms_per_step", "peak_mem_gib", "block_impl", "auto_value",
+            "card"}
+    if not (want <= set(line) and line["value"] > 0 and line["auto_value"] > 0
+            and line["card"] == card
+            and line["metric"] == "mpmae_atto_mmearth64_pretrain_samples_per_sec_per_chip"):
+        raise AssertionError(f"torch_bench.py line: {line}")
+    emit({"phase": "bench", "seconds": round(time.time() - t0, 2), **line})
+    return line
+
+
+GATE_STEPS, BENCH_ROUNDS, BENCH_STEPS = 500, 4, 30
+
+
+def phase_gate() -> dict:
+    """The synthetic convergence gate of ``scripts/torch_convergence_gate.py``
+    at its full 500 steps: the loss must drop by more than half; its
+    samples/s against the bench's own rate is printed (the script alone
+    fails on it).  Its bench run and its steps launch the wholeblock
+    slice's kernels a step."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_convergence_gate as gate
+
+    t0 = time.time()
+    reset_launches()
+    report = gate.gate_synthetic(torch.device("cuda"), GATE_STEPS, ATTO56[3], BENCH_ROUNDS,
+                                 BENCH_STEPS)
+    per_step, _ = expected_launches("gathered", "wholeblock", ATTO56)
+    check_launches("convergence gate (its bench run included)", read_launches(), per_step,
+                   GATE_STEPS + (BENCH_ROUNDS + 1) * BENCH_STEPS)
+    if not report["loss_drop"] > gate.LOSS_DROP:
+        raise AssertionError(f"convergence gate: loss drop {report['loss_drop']:.4f} "
+                             f"<= {gate.LOSS_DROP}")
+    emit({"phase": "gate", "seconds": round(time.time() - t0, 2), **report,
+          "sps_within_tolerance": abs(report["sps_deviation"]) <= gate.SPS_TOLERANCE})
+    return report
 
 
 def phase_geobench_data() -> Path:
     """Synthetic packed m-eurosat for the finetune slices, written anew."""
-    import shutil
-
     from mmearth_tpu_torch.data.geobench import generate_synthetic_geobench
 
     data = ROOT / "build" / "smoke_geobench"
@@ -1386,15 +1508,19 @@ def main() -> int:
     rows_out.update(phase_masked_kernels())
     rows_out.update(phase_dwconv_kernel())
     data = phase_data()
-    checkpoint = ROOT / "build" / "smoke_pretrain.pth"
+    # wiped first: auto-resume would otherwise continue a previous run's checkpoints
+    pretrain_out = ROOT / "build" / "smoke_pretrain_out"
+    shutil.rmtree(pretrain_out, ignore_errors=True)
     for sparse_impl, block_impl in SLICES:
         phase_slice(rows_out, card, sparse_impl, block_impl, data,
-                    checkpoint if block_impl == "wholeblock" else None)
+                    pretrain_out if block_impl == "wholeblock" else None)
     phase_slice(rows_out, card, "gathered", "wholeblock",
                 phase_data("smoke_data128", n=292, tile=128), config=PICO112)
     geobench = phase_geobench_data()
     for probe in (False, True):
-        phase_finetune(rows_out, card, geobench, checkpoint, probe)
+        phase_finetune(rows_out, card, geobench, pretrain_out / "checkpoint-2.pth", probe)
+    phase_bench(card)
+    phase_gate()
     for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),
                                     ("masked_dense", "fused")):
         phase_reference(sparse_impl, block_impl)

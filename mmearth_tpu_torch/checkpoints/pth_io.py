@@ -1,0 +1,144 @@
+"""Checkpoint save and resume in upstream's ``.pth`` layout (the port's
+counterpart of ``mmearth_tpu/checkpoints/orbax_io.py``; the reference's
+``save_model`` / ``auto_load_model``, helpers.py:529-610).
+
+A run's checkpoints are ``<output_dir>/checkpoint-<epoch>.pth``, each
+``{"model": state_dict, "optimizer": AdamW.state_dict(), "epoch": int,
+"args": dict}`` with ``"ema"`` where the finetune keeps an EMA: tensors and
+plain Python values only, so ``torch.load(..., weights_only=True)`` reads
+them.  A file is written to a temporary name and renamed into place, so a
+run killed mid-write leaves the previous checkpoints whole; only the newest
+``keep`` numbered files are kept.  Loading maps every tensor to the CPU and
+copies it onto the model's device, so a file saved on the card resumes on
+the CPU and the other way round.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import re
+from pathlib import Path
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .load_pretrained import remap_minkowski_keys
+
+_NUMBERED = re.compile(r"checkpoint-(\d+)\.pth")
+
+
+def checkpoint_path(output_dir: str | Path, epoch: int | str) -> Path:
+    return Path(output_dir) / f"checkpoint-{epoch}.pth"
+
+
+def numbered_checkpoints(output_dir: str | Path) -> list[tuple[int, Path]]:
+    """(epoch, path) of every ``checkpoint-<epoch>.pth`` in ``output_dir``,
+    oldest first (``checkpoint-best.pth`` is not numbered)."""
+    found = []
+    for p in Path(output_dir).glob("checkpoint-*.pth"):
+        m = _NUMBERED.fullmatch(p.name)
+        if m:
+            found.append((int(m.group(1)), p))
+    return sorted(found)
+
+
+def latest_checkpoint(output_dir: str | Path) -> Path | None:
+    found = numbered_checkpoints(output_dir)
+    return found[-1][1] if found else None
+
+
+def write(path: str | Path, payload: Mapping) -> Path:
+    """``torch.save`` to a temporary file beside ``path``, then rename."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(dict(payload), tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def save_checkpoint(output_dir: str | Path, epoch: int, model: torch.nn.Module, optimizer,
+                    args: Mapping, ema: Mapping[str, torch.Tensor] | None = None,
+                    keep: int = 3) -> Path:
+    """Write ``checkpoint-<epoch>.pth`` and delete all but the newest
+    ``keep`` numbered checkpoints (``keep`` <= 0 keeps every one)."""
+    payload = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+               "epoch": epoch, "args": dict(args)}
+    if ema is not None:
+        payload["ema"] = dict(ema)
+    path = write(checkpoint_path(output_dir, epoch), payload)
+    if keep > 0:
+        for _, old in numbered_checkpoints(output_dir)[:-keep]:
+            old.unlink(missing_ok=True)
+    return path
+
+
+def load(path: str | Path) -> dict:
+    """A checkpoint's contents, every tensor on the CPU.  Upstream's own
+    files hold an ``argparse.Namespace`` and so cannot be read with
+    ``weights_only``; the port's can, and are."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:  # a global that weights_only refuses
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return ckpt if isinstance(ckpt, dict) and "model" in ckpt else {"model": ckpt}
+
+
+def resolve(path: str | Path) -> Path:
+    """An explicit ``--resume``: a ``.pth`` file, or an output directory
+    (its newest numbered checkpoint)."""
+    path = Path(path)
+    if path.is_dir():
+        latest = latest_checkpoint(path)
+        if latest is None:
+            raise FileNotFoundError(f"--resume {path}: no checkpoint-<epoch>.pth in it")
+        return latest
+    if not path.exists():
+        raise FileNotFoundError(f"--resume {path}: no such file")
+    return path
+
+
+def model_state(sd: Mapping, model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """``sd`` in the model's layout.  An upstream Minkowski checkpoint (its
+    sparse encoder's ``*.kernel`` tensors) has its encoder remapped to the
+    dense layout by :func:`remap_minkowski_keys`; GRN affines and the 1x1
+    stem stored squeezed take the model's shape."""
+    if any(k.startswith("encoder.") and k.endswith("kernel") for k in sd):
+        enc = remap_minkowski_keys({k: _numpy(v) for k, v in sd.items()
+                                    if k.startswith("encoder.")})
+        sd = {**{k: v for k, v in sd.items() if not k.startswith("encoder.")},
+              **{f"encoder.{k}": torch.from_numpy(np.ascontiguousarray(v))
+                 for k, v in enc.items()}}
+    shapes = {k: v.shape for k, v in model.state_dict().items()}
+    out = {}
+    for k, v in sd.items():
+        v = torch.as_tensor(v)
+        if k in shapes and (".grn." in k or k.endswith("stem.0.weight")):
+            v = v.reshape(shapes[k])
+        out[k] = v
+    return out
+
+
+def _numpy(v) -> np.ndarray:
+    return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def restore(path: str | Path, model: torch.nn.Module, optimizer=None,
+            ema: dict[str, torch.Tensor] | None = None) -> int | None:
+    """Load the checkpoint at ``path`` into ``model`` (strictly), and into
+    ``optimizer`` and ``ema`` where it holds their state.  Returns its epoch,
+    or None for a file that holds the model alone, or an optimizer state of
+    another layout (upstream's ``torch.optim`` one): the caller then keeps
+    its ``--start_epoch``, as the JAX drivers' ``.pth`` resume does."""
+    ckpt = load(path)
+    model.load_state_dict(model_state(ckpt["model"], model))
+    opt_state = ckpt.get("optimizer")
+    if not (isinstance(opt_state, Mapping) and "mu" in opt_state and "epoch" in ckpt):
+        return None
+    if optimizer is not None:
+        optimizer.load_state_dict(opt_state)
+    if ema is not None and "ema" in ckpt:
+        for name, t in ema.items():
+            t.copy_(ckpt["ema"][name])
+    return int(ckpt["epoch"])

@@ -106,6 +106,13 @@ class RunConfig:
     seed: int = 0
     output_dir: str = ""
     resume: str = ""
+    # with an output_dir: resume from its newest checkpoint-<epoch>.pth, and
+    # save one every save_ckpt_freq epochs (and the last), keeping the newest
+    # save_ckpt_num
+    auto_resume: bool = True
+    save_ckpt: bool = True
+    save_ckpt_freq: int = 1
+    save_ckpt_num: int = 3
     loss_aggr: str = "uncertainty"  # or "unweighted"
     loss_full: bool = False  # recon loss on all patches, not just masked
     use_bf16: bool = True  # bf16 compute over f32 params

@@ -129,6 +129,28 @@ def synthetic_batch(n: int, tile: int, seed: int = 0) -> dict[str, np.ndarray]:
     return transformed(raw_arrays(n, tile, seed), range(n))
 
 
+def bench_batch(n: int, tile: int, seed: int = 0) -> dict[str, np.ndarray]:
+    """The i.i.d. batch the benchmark and the convergence gate train on: the
+    arrays of ``__graft_entry__.py::_synthetic_batch``, drawn in its order
+    (standard normals, categorical maps with -1 for no data, one-hot biome
+    and eco-region), NHWC, no transform."""
+    rng = np.random.default_rng(seed)
+    return {
+        "sentinel2": rng.normal(size=(n, tile, tile, 12)).astype(np.float32),
+        "sentinel1": rng.normal(size=(n, tile, tile, 8)).astype(np.float32),
+        "aster": rng.normal(size=(n, tile, tile, 2)).astype(np.float32),
+        "canopy_height_eth": rng.normal(size=(n, tile, tile, 2)).astype(np.float32),
+        "dynamic_world": rng.integers(-1, 9, size=(n, tile, tile, 1)).astype(np.int32),
+        "esa_worldcover": rng.integers(-1, 11, size=(n, tile, tile, 1)).astype(np.int32),
+        "era5": rng.normal(size=(n, 12)).astype(np.float32),
+        "lat": rng.normal(size=(n, 2)).astype(np.float32),
+        "lon": rng.normal(size=(n, 2)).astype(np.float32),
+        "month": rng.normal(size=(n, 2)).astype(np.float32),
+        "biome": np.eye(14, dtype=np.int32)[rng.integers(0, 14, n)],
+        "eco_region": np.eye(846, dtype=np.int32)[rng.integers(0, 846, n)],
+    }
+
+
 def generate_packed(out_dir: Path | str, n: int = 64, tile: int = 64, seed: int = 0,
                     splits: Sequence[str] = ("train", "val")) -> Path:
     """Write the mmpack splits of a synthetic dataset under ``out_dir``."""

@@ -150,7 +150,9 @@ def config_from_args(args) -> FinetuneConfig:
         ),
         run=RunConfig(
             epochs=args.epochs, start_epoch=args.start_epoch, seed=args.seed,
-            output_dir=args.output_dir, resume=args.resume, loss_aggr="unweighted",
+            output_dir=args.output_dir, resume=args.resume, auto_resume=args.auto_resume,
+            save_ckpt=args.save_ckpt, save_ckpt_freq=args.save_ckpt_freq,
+            save_ckpt_num=args.save_ckpt_num, loss_aggr="unweighted",
             use_bf16=args.use_bf16,
         ),
         data_set=args.data_set, partition=args.partition,
@@ -171,7 +173,8 @@ def main(args, loaders=None, task=None):
     per-epoch history and the final scores)."""
     from .train.finetune import run_finetune
 
-    return run_finetune(config_from_args(args), loaders=loaders, task=task, device=args.device)
+    return run_finetune(config_from_args(args), loaders=loaders, task=task, device=args.device,
+                        args=vars(args))
 
 
 if __name__ == "__main__":

@@ -135,7 +135,9 @@ def config_from_args(args) -> PretrainConfig:
         ),
         run=RunConfig(
             epochs=args.epochs, start_epoch=args.start_epoch, seed=args.seed,
-            output_dir=args.output_dir, resume=args.resume, loss_aggr=args.loss_aggr,
+            output_dir=args.output_dir, resume=args.resume, auto_resume=args.auto_resume,
+            save_ckpt=args.save_ckpt, save_ckpt_freq=args.save_ckpt_freq,
+            save_ckpt_num=args.save_ckpt_num, loss_aggr=args.loss_aggr,
             loss_full=args.loss_full, use_bf16=args.use_bf16,
         ),
     )
@@ -144,7 +146,7 @@ def config_from_args(args) -> PretrainConfig:
 def main(args):
     from .train.pretrain import run_pretrain
 
-    return run_pretrain(config_from_args(args), device=args.device)
+    return run_pretrain(config_from_args(args), device=args.device, args=vars(args))
 
 
 if __name__ == "__main__":

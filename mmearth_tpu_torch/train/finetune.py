@@ -6,23 +6,27 @@ The dense ConvNeXtV2 classifier, bootstrapped from a pretraining ``.pth``
 (encoder trunk overlaid, head re-initialised), trains with AdamW under
 layer-wise lr decay; the probe freezes all but the head.  Eval metrics are
 dataset-overall, from per-batch sufficient statistics summed on the device
-and read once per split.  Without an output directory the final test eval
-scores the in-memory params, the JAX package's documented path
-(train/finetune.py:360-372).
+and read once per split.  With an output directory the run appends each
+epoch's record to ``log.txt``, saves ``checkpoint-<epoch>.pth`` every epoch
+and resumes from the newest (``checkpoints/pth_io.py``), writes the best val
+epoch's params to ``checkpoint-best.pth``, and scores the final test on the
+newest checkpoint reloaded from disk; without one it scores the in-memory
+params, the JAX package's documented path (train/finetune.py:276-377).
 
 Not ported yet (queued in ROADMAP.md): U-Net segmentation and its staged
-unfreeze, the ResNet baselines and their foreign checkpoints, checkpoint
-saving and resuming.
+unfreeze, the ResNet baselines and their foreign checkpoints.
 """
 from __future__ import annotations
 
 import copy
+import json
 import time
 from pathlib import Path
 
 import torch
 
 from ..checkpoints import load_pretrained as lp
+from ..checkpoints import pth_io
 from ..configs.config import FinetuneConfig, model_size
 from ..data.geobench import NUM_CLASSES, TASK_CLASS, get_geobench_dataloaders
 from ..eval.metrics import batch_stats_fn, metric_for
@@ -30,7 +34,7 @@ from ..losses.finetune import criterion_fn
 from ..models.convnextv2 import ConvNeXtV2
 from .ema import init_ema, update_ema
 from .optim import AdamW, finetune_wd_mask, layer_lr_scales
-from .pretrain import PRINT_FREQ, _check_finite, resolve_device
+from .pretrain import PRINT_FREQ, _check_finite, resolve_device, resume
 from .schedule import warmup_cosine
 from .step import fold_in, to_device
 
@@ -138,14 +142,13 @@ def _with_params(model: ConvNeXtV2, params: dict) -> ConvNeXtV2:
     return out
 
 
-def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda") -> dict:
+def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
+                 args: dict | None = None) -> dict:
     """Finetune (or probe); returns the per-epoch ``history`` (loss, steps,
     train and eval seconds, step losses, the val score), the best val score,
-    the final test score and the model."""
-    if cfg.run.resume:
-        raise NotImplementedError("--resume: checkpoint save/resume is not ported yet")
-    if cfg.run.output_dir:
-        raise NotImplementedError("--output_dir: checkpoint saving is not ported yet")
+    the final test score, where its params came from, the model and the
+    optimizer.  ``args`` (the CLI's flags) is stored in every
+    checkpoint."""
     if cfg.optim.opt.lower() != "adamw":
         raise NotImplementedError(f"--opt {cfg.optim.opt}: only adamw is ported; the other "
                                   "optimizer families are queued in ROADMAP.md")
@@ -177,10 +180,15 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda") ->
     def eval_model():
         return _with_params(model, ema) if (ema is not None and cfg.model_ema_eval) else model
 
+    out_dir = Path(cfg.run.output_dir) if cfg.run.output_dir else None
+    ckpt_dir = out_dir if (out_dir and cfg.run.save_ckpt) else None
+    # a resumed run's best val starts again from -inf, as JAX's does
+    start_epoch = resume(cfg.run, model, opt, ckpt_dir, ema)
+    ckpt_args = dict(args or {})
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
-    history, best_val = [], -float("inf")
-    step = cfg.run.start_epoch * len(train_loader)
-    for epoch in range(cfg.run.start_epoch, cfg.run.epochs):
+    history, best_val, best = [], -float("inf"), None
+    step = start_epoch * len(train_loader)  # fold_in(gen, step) continues the run's draws
+    for epoch in range(start_epoch, cfg.run.epochs):
         t0 = time.time()
         train_loader.set_epoch(epoch)
         step_losses = []
@@ -204,11 +212,39 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda") ->
                         "step_losses": losses, f"val_{metric_name}": val_score})
         print(f"epoch {epoch}  loss {mean:.4f}  val {metric_name} {val_score:.4f}  "
               f"~{len(losses) * cfg.batch_size / max(train_seconds, 1e-9):.0f} samples/s")
-        best_val = max(best_val, val_score)
+        if out_dir is not None:
+            # the reference's log_stats keys (main_finetune.py:680-704; its
+            # val pass is "test_stats")
+            log_stats = {"train_loss": mean, "train_lr": opt.lr_schedule(opt.count),
+                         f"test_{metric_name}": val_score, "epoch": epoch,
+                         "n_parameters": n_trainable}
+            out_dir.mkdir(parents=True, exist_ok=True)
+            with open(out_dir / "log.txt", "a", encoding="utf-8") as f:
+                f.write(json.dumps(log_stats) + "\n")
+        if val_score >= best_val:
+            best_val = val_score
+            if out_dir is not None:
+                best = (epoch, {k: v.detach().cpu().clone()
+                                for k, v in model.state_dict().items()})
+        if ckpt_dir is not None:
+            pth_io.save_checkpoint(ckpt_dir, epoch, model, opt, ckpt_args, ema,
+                                   keep=cfg.run.save_ckpt_num)
 
-    test_score = (evaluate(eval_model(), test_loader, stats_fn, metric, dev, bgr_to_rgb)
+    # the final test reloads the newest checkpoint from disk, as the
+    # reference does (main_finetune.py:712-758), which also checks the file
+    test_model, test_from = eval_model(), "memory"
+    latest = pth_io.latest_checkpoint(ckpt_dir) if ckpt_dir is not None else None
+    if latest is not None:
+        saved = pth_io.load(latest)
+        params = saved["ema"] if (ema is not None and cfg.model_ema_eval) else saved["model"]
+        test_model, test_from = _with_params(model, params), f"disk (epoch {saved['epoch']})"
+    test_score = (evaluate(test_model, test_loader, stats_fn, metric, dev, bgr_to_rgb)
                   if test_loader is not None else None)
-    print(f"final test {metric_name}: {test_score}  (params from memory)")
+    print(f"final test {metric_name}: {test_score}  (params from {test_from})")
     print(f"best val {metric_name}: {best_val}")
+    if best is not None:
+        pth_io.write(out_dir / "checkpoint-best.pth",
+                     {"model": best[1], "epoch": best[0], "args": ckpt_args})
     return {"history": history, f"best_val_{metric_name}": best_val,
-            f"test_{metric_name}": test_score, "test_params_from": "memory", "model": model}
+            f"test_{metric_name}": test_score, "test_params_from": test_from, "model": model,
+            "optimizer": opt}

@@ -98,6 +98,7 @@ class AdamW:
                  lr_scales: Mapping[str, float] | None = None):
         named = [(n, p) for n, p in named_params if p.requires_grad]
         decay = pretrain_wd_mask(named) if wd_mask is None else wd_mask
+        self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.decay = [decay[n] for n, _ in named]
         self.scales = None if lr_scales is None else [lr_scales[n] for n, _ in named]
@@ -109,6 +110,27 @@ class AdamW:
         self.acc = [torch.zeros_like(p) for p in self.params] if update_freq > 1 else None
         self.count = 0  # applied updates
         self.mini_step = 0
+
+    def state_dict(self) -> dict:
+        """The moments (and the accumulated gradient mean under
+        ``update_freq`` > 1) keyed by param name, the update count and the
+        micro-step within the accumulation: tensors and ints only."""
+        per_name = lambda ts: None if ts is None else dict(zip(self.names, ts))
+        return {"mu": per_name(self.mu), "nu": per_name(self.nu), "acc": per_name(self.acc),
+                "count": self.count, "mini_step": self.mini_step}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        """Copy ``state`` (from :meth:`state_dict`, on any device) into this
+        optimizer's tensors, which stay on their params' device."""
+        for key, mine in (("mu", self.mu), ("nu", self.nu), ("acc", self.acc)):
+            theirs = state[key]
+            if (mine is None) != (theirs is None) or (
+                    mine is not None and set(theirs) != set(self.names)):
+                raise ValueError(f"optimizer state {key!r} does not match the params "
+                                 f"(update_freq {self.update_freq})")
+            for name, t in zip(self.names, mine or ()):
+                t.copy_(theirs[name])
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
 
     def zero_grad(self) -> None:
         for p in self.params:

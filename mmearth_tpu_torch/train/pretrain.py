@@ -5,6 +5,9 @@ The loader feeds mmpack batches; every step adds its loss to an on-device
 ``loss_sum`` and keeps its loss tensor, and both are read once at the end of
 the epoch: the epoch loss is the exact mean over all steps, with no per-step
 host synchronisation.  A non-finite loss stops the run (engine_pretrain.py:83-85).
+With an output directory the run saves ``checkpoint-<epoch>.pth`` files and
+resumes from the newest (``checkpoints/pth_io.py``; JAX
+train/pretrain.py:177-215,304-306).
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from pathlib import Path
 
 import torch
 
-from ..configs.config import PretrainConfig, model_size
+from ..checkpoints import pth_io
+from ..configs.config import PretrainConfig, RunConfig, model_size
 from ..data.loader import PackedDataset, PackedLoader
 from ..models.fcmae import FCMAE
 from .optim import AdamW
@@ -71,13 +75,11 @@ def get_dataloader(cfg: PretrainConfig, split: str = "train"):
     return ds, loader
 
 
-def run_pretrain(cfg: PretrainConfig, device="cuda"):
-    """Train; returns (model, history), one history entry per epoch with the
-    exact mean ``loss``, ``steps``, wall ``seconds`` and ``step_losses``."""
-    if cfg.run.resume:
-        raise NotImplementedError("--resume: checkpoint save/resume is not ported yet")
-    if cfg.run.output_dir:
-        raise NotImplementedError("--output_dir: checkpoint saving is not ported yet")
+def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
+    """Train; returns (model, history, optimizer), one history entry per epoch
+    run with the exact mean ``loss``, ``steps``, wall ``seconds`` and
+    ``step_losses``.  ``args`` (the CLI's flags) is stored in every
+    checkpoint."""
     dev = resolve_device(device)
     model = build_model(cfg, dev)
     ds, loader = get_dataloader(cfg)
@@ -94,10 +96,13 @@ def run_pretrain(cfg: PretrainConfig, device="cuda"):
     print(f"device {dev}  effective batch size: {eff_batch}  actual lr: {lr:.2e}  "
           f"updates/epoch: {updates_per_epoch}  params: {n_params} (encoder: {n_enc})")
 
+    ckpt_dir = cfg.run.output_dir if (cfg.run.output_dir and cfg.run.save_ckpt) else None
+    start_epoch = resume(cfg.run, model, opt, ckpt_dir)
+    ckpt_args = dict(args or {})
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
     history = []
-    step = cfg.run.start_epoch * len(loader)
-    for epoch in range(cfg.run.start_epoch, cfg.run.epochs):
+    step = start_epoch * len(loader)  # fold_in(gen, step) continues the run's draws
+    for epoch in range(start_epoch, cfg.run.epochs):
         t0 = time.time()
         loader.set_epoch(epoch)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -121,7 +126,28 @@ def run_pretrain(cfg: PretrainConfig, device="cuda"):
                         "seconds": seconds, "step_losses": losses})
         print(f"epoch {epoch} done  avg loss {mean:.4f}  "
               f"~{len(losses) * cfg.data.batch_size / max(seconds, 1e-9):.0f} samples/s")
-    return model, history
+        if ckpt_dir and ((epoch + 1) % cfg.run.save_ckpt_freq == 0 or epoch + 1 == cfg.run.epochs):
+            pth_io.save_checkpoint(ckpt_dir, epoch, model, opt, ckpt_args,
+                                   keep=cfg.run.save_ckpt_num)
+    return model, history, opt
+
+
+def resume(run: RunConfig, model, opt, ckpt_dir, ema=None) -> int:
+    """Restore ``--resume`` (a ``.pth`` or an output directory), else with
+    ``--auto_resume`` the newest checkpoint in ``ckpt_dir``; returns the
+    epoch to start from: the checkpoint's epoch + 1, or ``--start_epoch``
+    (nothing to resume, or a file that holds the model alone)."""
+    path = (pth_io.resolve(run.resume) if run.resume
+            else pth_io.latest_checkpoint(ckpt_dir) if (ckpt_dir and run.auto_resume)
+            else None)
+    if path is None:
+        return run.start_epoch
+    epoch = pth_io.restore(path, model, opt, ema)
+    if epoch is None:
+        print(f"resumed the params from {path}; epoch {run.start_epoch} from --start_epoch")
+        return run.start_epoch
+    print(f"resumed from {path} (epoch {epoch})")
+    return epoch + 1
 
 
 def _check_finite(loss: float) -> None:

@@ -399,8 +399,6 @@ def test_main_finetune_runs_on_cpu(geobench_dir, data_set, metric, probe):
     (["--model", "convnextv2_unet_atto"], "U-Net"),
     (["--model", "resnet18"], "ResNet"),
     (["--opt", "sgd"], "ROADMAP"),
-    (["--output_dir", "out"], "saving"),
-    (["--resume", "x.pth"], "resume"),
     (["--use_orig_stem", "True"], "original stem"),
 ])
 def test_not_ported_options_raise(geobench_dir, extra, match):

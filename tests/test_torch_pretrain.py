@@ -36,7 +36,7 @@ def test_main_pretrain_runs_two_steps_on_cpu(data):
     """The atto 56/8 configuration in bf16 on the CPU (the kernels' plain
     versions): finite losses, the exact epoch mean, no kernel launched."""
     before = {**patch_select.LAUNCHES, **wholeblock.LAUNCHES}
-    model, history = main_pretrain.main(_args(data))
+    model, history, _ = main_pretrain.main(_args(data))
     assert [e["steps"] for e in history] == [2]
     losses = history[0]["step_losses"]
     assert all(math.isfinite(v) for v in losses)
@@ -47,8 +47,6 @@ def test_main_pretrain_runs_two_steps_on_cpu(data):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--resume", "x.pth"], "resume"),
-    (["--output_dir", "out"], "saving"),
     (["--gelu_approx", "True"], "tanh GELU"),
     (["--block_impl", "remat"], "rematerialized"),
     (["--block_impl", "folded"], "norm-folded"),
@@ -64,7 +62,7 @@ def test_main_pretrain_masked_dense_fused_runs_two_steps_on_cpu(data):
     finite losses, no kernel launched."""
     launches = lambda: {**patch_select.LAUNCHES, **wholeblock.LAUNCHES, **fused_block.LAUNCHES}
     before = launches()
-    model, history = main_pretrain.main(_args(data, "--sparse_impl", "masked_dense",
+    model, history, _ = main_pretrain.main(_args(data, "--sparse_impl", "masked_dense",
                                               "--block_impl", "fused"))
     assert [e["steps"] for e in history] == [2]
     assert all(math.isfinite(v) for v in history[0]["step_losses"])
@@ -78,7 +76,7 @@ def test_main_pretrain_wholeblock_runs_two_steps_on_cpu(data):
     version, finite losses, no kernel launched."""
     launches = lambda: {**patch_select.LAUNCHES, **wholeblock.LAUNCHES, **fused_block.LAUNCHES}
     before = launches()
-    model, history = main_pretrain.main(_args(data, "--block_impl", "wholeblock"))
+    model, history, _ = main_pretrain.main(_args(data, "--block_impl", "wholeblock"))
     assert [e["steps"] for e in history] == [2]
     assert all(math.isfinite(v) for v in history[0]["step_losses"])
     assert launches() == before
@@ -95,23 +93,31 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
         main_pretrain.main(args)
 
 
+SCRIPTS = ("torch_bench", "torch_convergence_gate")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every module of the port (and chip_smoke.py) loads no jax,
-    flax, optax or mmearth_tpu module; the sources name none of them."""
+    """Importing every module of the port, chip_smoke.py and the port's bench
+    and gate scripts loads no jax, flax, optax, mmearth_tpu or
+    __graft_entry__ module; the sources name none of them."""
     code = (
         "import importlib, pkgutil, sys, mmearth_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(mmearth_tpu_torch.__path__, 'mmearth_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "sys.path.insert(0, 'scripts')\n"
+        f"for m in {SCRIPTS!r}:\n"
+        "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
-        " 'mmearth_tpu')]\n"
+        " 'mmearth_tpu', '__graft_entry__')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
-    for src in [ROOT / "chip_smoke.py", *(ROOT / "mmearth_tpu_torch").rglob("*.py")]:
+    for src in [ROOT / "chip_smoke.py", *(ROOT / "scripts" / f"{m}.py" for m in SCRIPTS),
+                *(ROOT / "mmearth_tpu_torch").rglob("*.py")]:
         for line in src.read_text().splitlines():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
-                assert words[1].split(".")[0] not in ("jax", "flax", "optax", "mmearth_tpu"), \
-                    f"{src}: {line}"
+                assert words[1].split(".")[0] not in ("jax", "flax", "optax", "mmearth_tpu",
+                                                      "__graft_entry__"), f"{src}: {line}"
 
 
 def test_chip_smoke_refuses_without_a_gpu_and_outside_the_repo(tmp_path):
@@ -135,7 +141,7 @@ def test_main_pretrain_defaults_run_two_steps_on_cpu(tmp_path):
         "--warmup_epochs", "1"])
     assert (args.model, args.input_size, args.patch_size) == ("convnextv2_pico", 112, 16)
     before = {**patch_select.LAUNCHES, **wholeblock.LAUNCHES}
-    model, history = main_pretrain.main(args)
+    model, history, _ = main_pretrain.main(args)
     assert [e["steps"] for e in history] == [2]
     assert all(math.isfinite(v) for v in history[0]["step_losses"])
     assert {**patch_select.LAUNCHES, **wholeblock.LAUNCHES} == before
