@@ -114,14 +114,29 @@ Phases, each of which exits non-zero on failure:
    epochs of synthetic m-eurosat 512/128/128), once finetuning (12 dW
    launches a step, no other kernel) and once as the linear probe (no
    launch at all), with finite losses and accuracies in [0, 1].
-4. bench and gate: ``scripts/torch_bench.py --config atto56 --rounds 2
-   --steps 10`` as a subprocess (the built kernels reused), whose last line
-   must carry the metric's keys, a rate above 0 and this card; then the
-   synthetic convergence gate of ``scripts/torch_convergence_gate.py`` at
-   its full 500 steps (batch 256, ``wholeblock``, after its own bench run
-   of 4 rounds of 30 steps), whose loss must drop by more than half, with
-   the slice's launches a step; its samples/s against the bench's is
-   printed, not held (the script alone holds it).
+4. graphs, bench and gate: 16 steps of ``pretrain_step`` run eagerly twice
+   and as 2 replays of an 8-step ``train/step.py::ChainedStep`` graph from
+   the same state, for atto-56/8 ``wholeblock`` and masked-dense ``fused``
+   at batch 256 and pico-112/16 ``wholeblock`` at batch 64 with
+   ``update_freq`` 2: the losses' largest difference from the first eager
+   run, and the share of its params that differ and their median ulps, at
+   most twice the second eager run's (bitwise where the two agree); the
+   launches a captured step (the capture's record) and one profiled
+   replay's kernels by symbol (``KERNEL_SYMBOLS``) against the slice's
+   counts; eager and replay ms/step, capture seconds, peak GiB and the
+   replay's idle share printed.  Then ``main_pretrain.main`` with ``--steps_per_dispatch 8`` on
+   the atto ``wholeblock`` data at batch 96 (10 steps an epoch: one
+   dispatch and a tail of 2 single steps), 2 epochs into
+   ``build/smoke_graph_out``, then resumed for a third.  Then
+   ``scripts/torch_bench.py --config atto56 --rounds 2 --steps 10`` as a
+   subprocess (the built kernels reused), whose last line must carry the
+   metric's keys, rates above 0 and this card; then the synthetic
+   convergence gate of ``scripts/torch_convergence_gate.py`` at its full
+   500 steps (batch 256, ``wholeblock``, 50-step graph replays, after its
+   own bench run of 4 replays of 30 steps), whose loss must drop by more
+   than half and whose samples/s must lie within 10% of its bench's, with
+   the slice's launches a step on the counters (warm-ups and captures) and
+   in the replays (``ChainedStep.replayed``).
 5. reference: a small f32 FCMAE step on the GPU against the same step on the
    CPU (plain versions), loss and grads, for dwg, wholeblock and
    masked_dense fused, wholeblock at pico widths 112/16 (one block a
@@ -1178,7 +1193,9 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    return {k: v for d in launch_counters() for k, v in d.items()}
+    from mmearth_tpu_torch import ops
+
+    return ops.launch_counts()
 
 
 # (model, input size, patch size, batch) of the pretraining slices: atto 56/8
@@ -1294,6 +1311,246 @@ def phase_checkpoint(args, model, opt, output_dir: Path, epochs: int, per_step: 
           "losses": history[0]["step_losses"], "seconds": round(time.time() - t0, 2)})
 
 
+# kernel symbols (as the profiler names them) -> the launch keys that run them
+KERNEL_SYMBOLS = (
+    (r"patch_copy_(bulk|reg)<.*\bfalse>", ("gather_patches",)),
+    (r"patch_copy_(bulk|reg)<.*\btrue>", ("scatter_patches",)),
+    (r"\bdw7_fwd_kernel<", ("dwconv7_gathered_fwd",)),
+    (r"\bdw7_bwd_kernel<", ("dwconv7_gathered_bwd",)),
+    (r"\bdw7_wgrad_kernel<", ("dw_weight_grad",)),
+    (r"\bfwd_stat_kernel<.*SpillRows", ("spillg_fwd_a",)),
+    (r"\bspillg_fwd_b_kernel<", ("spillg_fwd_b",)),
+    (r"\bspillg_bwd_c_kernel<", ("spillg_bwd_c",)),
+    (r"\bbwd_dv_kernel<.*SpillRows", ("spillg_bwd_d",)),
+    (r"\bspillg_atb_kernel<[^,]+, false>", ("spillg_bwd_c_dw2", "spillg_bwd_d_dw1")),
+    (r"\bmasked_fwd_rows_kernel<", ("masked_rows",)),
+    (r"\bfwd_stat_kernel<.*KeptRows", ("masked_fwd_stat",)),
+    (r"\bmasked_fwd_apply_kernel<", ("masked_fwd_apply",)),
+    (r"\bmasked_bwd_stat_kernel<", ("masked_bwd_stat",)),
+    (r"\bbwd_dv_kernel<.*KeptRows", ("masked_bwd_dv",)),
+    (r"\bspillg_atb_kernel<[^,]+, true>", ("masked_bwd_stat_dw2", "masked_bwd_dv_dw1")),
+)
+
+
+def profiled_launches(run) -> tuple[dict, dict]:
+    """Kernels the card ran during ``run()``, by their launch keys (keys that
+    share a kernel symbol share its count), from one torch.profiler trace;
+    and the window's host wall ms, the union of its device activity in ms
+    (kernels, copies, sets) and the count of its device events."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    names = [e.name for e in device]
+    counts = {keys: sum(1 for n in names if re.search(pattern, n))
+              for pattern, keys in KERNEL_SYMBOLS}
+    return counts, {"wall_ms": wall, "busy_ms": busy / 1e3, "idle_share": 1 - busy / 1e3 / wall,
+                    "device_events": len(device)}
+
+
+def ulps_apart(a, b):
+    """Element by element, how many representable f32 values lie between
+    ``a`` and ``b`` (their bit patterns mapped to integers in the order of
+    the values), flattened."""
+    import torch
+
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs().flatten()
+
+
+def check_replay(what: str, chained, per_step: dict) -> dict:
+    """The launches a ChainedStep's capture recorded, per captured step, and
+    its replays' sum, against ``per_step``."""
+    k = chained.k
+    for pattern, rec in chained.recorded.items():
+        check_launches(f"{what}, captured {pattern}", rec, per_step, k)
+    check_launches(f"{what}, replays", chained.replayed, per_step, chained.steps["replayed"])
+    return {key: n // k for key, n in next(iter(chained.recorded.values())).items()}
+
+
+def check_profiled(what: str, counts: dict, per_step: dict, steps: int) -> None:
+    for keys, n in counts.items():
+        want = sum(per_step[key] for key in keys) * steps
+        if n != want:
+            raise AssertionError(f"{what}: the profiled replay ran {n} kernels of "
+                                 f"{'/'.join(keys)}, expected {want}")
+
+
+GRAPH_K, GRAPH_STEPS = 8, 16
+
+
+def phase_graph(card: str, sparse_impl: str, block_impl: str, config: tuple = ATTO56,
+                update_freq: int = 1) -> dict:
+    """Graph against eager: GRAPH_STEPS steps of ``pretrain_step`` from one
+    initial state on the bench's resident batch (each step its own crop and
+    mask), twice (E1, E2), then the same steps as replays of a ChainedStep of
+    GRAPH_K (G).  Atomics reorder f32 sums between any two runs, so G is
+    held against the spread of E2 from E1, printed: the losses' largest
+    difference, and of the final params the share of elements that differ
+    and the median ulps (f32 values between) of those that do, each at most
+    twice E2's; where E1 and E2 agree bitwise, G must too.  (On an H100 the
+    share and the median hold steady between runs, where the largest ulps
+    or |difference| vary threefold.)
+    The wrappers' counters must have recorded the path's launches a step
+    during the warm-up and the capture, the replays must have run them (the
+    capture's record), and one profiled replay must show each kernel the
+    path's count of times."""
+    import torch
+
+    from mmearth_tpu_torch.configs.config import (DataConfig, ModelConfig, OptimConfig,
+                                                  PretrainConfig, RunConfig)
+    from mmearth_tpu_torch.data.synthetic import bench_batch
+    from mmearth_tpu_torch.train.optim import AdamW
+    from mmearth_tpu_torch.train.pretrain import build_model
+    from mmearth_tpu_torch.train.schedule import warmup_cosine
+    from mmearth_tpu_torch.train.step import ChainedStep, pretrain_step, to_device
+
+    model_name, size, patch, batch = config
+    cfg = PretrainConfig(
+        model=ModelConfig(model=model_name, img_size=size, patch_size=patch,
+                          block_impl=block_impl, sparse_impl=sparse_impl),
+        optim=OptimConfig(update_freq=update_freq), data=DataConfig(batch_size=batch),
+        run=RunConfig(seed=0))
+    data = to_device(bench_batch(batch, size + 8), "cuda")
+    schedule = warmup_cosine(1.5e-4 * batch / 256, 0.0, 200, 40, 1000)
+
+    def fresh():
+        model = build_model(cfg, "cuda")
+        return model, AdamW(model.named_parameters(), schedule, update_freq=update_freq)
+
+    def state(model, opt):
+        return list(model.state_dict().values())
+
+    runs, out = {}, {"phase": "graph", "model": model_name, "input_size": size,
+                     "patch_size": patch, "batch": batch, "sparse_impl": sparse_impl,
+                     "block_impl": block_impl, "update_freq": update_freq, "k": GRAPH_K,
+                     "steps": GRAPH_STEPS, "card": card}
+    for name in ("E1", "E2"):
+        model, opt = fresh()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = torch.stack([pretrain_step(model, opt, data, i, gen)["loss"]
+                              for i in range(GRAPH_STEPS)]).float()
+        torch.cuda.synchronize()
+        out[f"eager_ms_per_step_{name}"] = 1e3 * (time.perf_counter() - t0) / GRAPH_STEPS
+        out["eager_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[name] = (losses, state(model, opt))
+        del model, opt
+    model, opt = fresh()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    chained = ChainedStep(model, opt, {k: v.expand(GRAPH_K, *v.shape) for k, v in data.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    first = chained(0, gen)[1]
+    torch.cuda.synchronize()
+    recorded = read_launches()
+    t0 = time.perf_counter()
+    losses = [first]
+    for i in range(GRAPH_K, GRAPH_STEPS, GRAPH_K):
+        losses.append(chained(i, gen)[1])
+    torch.cuda.synchronize()
+    out["graph_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / (GRAPH_STEPS - GRAPH_K)
+    out["graph_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["capture_s"] = list(chained.capture_seconds.values())
+    runs["G"] = (torch.cat(losses), state(model, opt))
+
+    def distance(a, b) -> dict:
+        apart = torch.cat([ulps_apart(x, y) for x, y in zip(a[1], b[1])])
+        differ = apart[apart > 0].double()
+        return {"loss_max_abs": float((a[0] - b[0]).abs().max()),
+                "param_share_differing": differ.numel() / apart.numel(),
+                "param_median_ulps": float(differ.median()) if differ.numel() else 0.0,
+                "param_max_ulps": int(apart.max()),
+                "param_max_abs": max(float((x - y).abs().max()) for x, y in zip(a[1], b[1]))}
+
+    held = ("loss_max_abs", "param_share_differing", "param_median_ulps")
+    spread, dist = distance(runs["E2"], runs["E1"]), distance(runs["G"], runs["E1"])
+    out.update(eager_spread=spread, graph_vs_eager=dist,
+               tolerance=f"{', '.join(held)}: at most twice the eager spread (0: bitwise)",
+               losses_E1=runs["E1"][0].tolist(), losses_G=runs["G"][0].tolist())
+    per_step, _ = expected_launches(sparse_impl, block_impl, config)
+    try:  # the line is printed whatever fails
+        for key in held:
+            if dist[key] > 2 * spread[key]:
+                raise AssertionError(f"graph against eager, {key}: {dist[key]} from E1, "
+                                     f"E2 {spread[key]}")
+        check_launches(f"{model_name} {block_impl} graph, warm-up and capture", recorded,
+                       per_step, 2 * GRAPH_K)
+        out["launches_per_captured_step"] = check_replay(f"{model_name} {block_impl} graph",
+                                                         chained, per_step)
+        profiled, window = profiled_launches(lambda: chained(GRAPH_STEPS, gen))
+        out["profiled_replay"] = {**window, "launches": {"/".join(keys): n
+                                                         for keys, n in profiled.items() if n}}
+        check_profiled(f"{model_name} {block_impl} graph", profiled, per_step, GRAPH_K)
+    finally:
+        emit(out)
+    return out
+
+
+def phase_cli_graph(card: str, data: Path) -> dict:
+    """``main_pretrain.main`` with ``--steps_per_dispatch 8`` on the atto
+    ``wholeblock`` smoke data at batch 96: 10 steps an epoch (1,024
+    samples), one dispatch of 8 and a tail of 2 single steps, 2 epochs into
+    ``build/smoke_graph_out``; finite losses, the tail's and the warm-up's
+    and the capture's launches on the counters; then ``--epochs 3`` on the
+    same directory resumes after epoch 1 and runs epoch 2 alone."""
+    import math
+
+    from mmearth_tpu_torch import main_pretrain
+    from mmearth_tpu_torch.checkpoints import pth_io
+
+    out_dir = ROOT / "build" / "smoke_graph_out"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    config = ATTO56[:3] + (96,)
+    per_step, _ = expected_launches("gathered", "wholeblock", config)
+    t0 = time.time()
+    result = {"phase": "cli_graph", "steps_per_dispatch": GRAPH_K, "batch": config[3],
+              "card": card}
+    for epochs, want in ((2, [0, 1]), (3, [2])):
+        args = slice_args("gathered", "wholeblock", data, config, "--steps_per_dispatch",
+                          str(GRAPH_K), "--epochs", str(epochs), "--output_dir", str(out_dir),
+                          "--save_ckpt_num", "2")
+        reset_launches()
+        _, history, opt = main_pretrain.main(args)
+        launches = read_launches()
+        losses = [x for e in history for x in e["step_losses"]]
+        if [e["epoch"] for e in history] != want or any(
+                (e["steps"], e["chained_steps"]) != (10, GRAPH_K) for e in history):
+            runs = [(e["epoch"], e["steps"], e["chained_steps"]) for e in history]
+            raise AssertionError(f"main_pretrain under graph: (epoch, steps, chained) {runs}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"main_pretrain under graph: losses {losses}")
+        singles = sum(e["steps"] - e["chained_steps"] for e in history)
+        # every single step, the chain's warm-up and its capture (one pattern)
+        check_launches("main_pretrain under graph", launches, per_step, singles + 2 * GRAPH_K)
+        result[f"epochs_{epochs}"] = {"epochs": want, "losses": losses,
+                                      "epoch_loss": [e["loss"] for e in history],
+                                      "optimizer_count": opt.count}
+    result["kept"] = [e for e, _ in pth_io.numbered_checkpoints(out_dir)]
+    if result["kept"] != [1, 2]:
+        raise AssertionError(f"main_pretrain under graph: checkpoints kept {result['kept']}")
+    result["seconds"] = round(time.time() - t0, 2)
+    emit(result)
+    return result
+
+
 def phase_bench(card: str) -> dict:
     """``scripts/torch_bench.py`` short (2 rounds of 10 steps) as a user runs
     it, reusing the kernels built in ``build/kernels``: its last line is the
@@ -1307,8 +1564,9 @@ def phase_bench(card: str) -> dict:
         raise AssertionError(f"torch_bench.py exited {r.returncode}: {last}\n{r.stderr[-3000:]}")
     line = json.loads(last)
     want = {"metric", "value", "unit", "ms_per_step", "peak_mem_gib", "block_impl", "auto_value",
-            "card"}
+            "eager_value", "card"}
     if not (want <= set(line) and line["value"] > 0 and line["auto_value"] > 0
+            and line["eager_value"] > 0
             and line["card"] == card
             and line["metric"] == "mpmae_atto_mmearth64_pretrain_samples_per_sec_per_chip"):
         raise AssertionError(f"torch_bench.py line: {line}")
@@ -1321,10 +1579,12 @@ GATE_STEPS, BENCH_ROUNDS, BENCH_STEPS = 500, 4, 30
 
 def phase_gate() -> dict:
     """The synthetic convergence gate of ``scripts/torch_convergence_gate.py``
-    at its full 500 steps: the loss must drop by more than half; its
-    samples/s against the bench's own rate is printed (the script alone
-    fails on it).  Its bench run and its steps launch the wholeblock
-    slice's kernels a step."""
+    at its full 500 steps, held as the script holds it: the loss must drop
+    by more than half, and its samples/s must lie within ``SPS_TOLERANCE``
+    of its own bench run's.  Its bench run and its chunks are graph
+    replays: the counters must hold the wholeblock slice's launches a step
+    for the steps their warm-ups ran and their captures recorded, and the
+    replays must have run them for every replayed step."""
     import torch
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -1335,13 +1595,17 @@ def phase_gate() -> dict:
     report = gate.gate_synthetic(torch.device("cuda"), GATE_STEPS, ATTO56[3], BENCH_ROUNDS,
                                  BENCH_STEPS)
     per_step, _ = expected_launches("gathered", "wholeblock", ATTO56)
-    check_launches("convergence gate (its bench run included)", read_launches(), per_step,
-                   GATE_STEPS + (BENCH_ROUNDS + 1) * BENCH_STEPS)
-    if not report["loss_drop"] > gate.LOSS_DROP:
-        raise AssertionError(f"convergence gate: loss drop {report['loss_drop']:.4f} "
-                             f"<= {gate.LOSS_DROP}")
+    graphs = report["graphs"]
+    check_launches("convergence gate, warm-ups and captures (its bench run's included)",
+                   read_launches(), per_step,
+                   sum(g["steps"]["eager"] + g["steps"]["recorded"] for g in graphs))
+    replayed = {key: sum(g["replayed_launches"][key] for g in graphs) for key in per_step}
+    check_launches("convergence gate, replays (its bench run's included)", replayed, per_step,
+                   sum(g["steps"]["replayed"] for g in graphs))
     emit({"phase": "gate", "seconds": round(time.time() - t0, 2), **report,
           "sps_within_tolerance": abs(report["sps_deviation"]) <= gate.SPS_TOLERANCE})
+    if report["failures"]:
+        raise AssertionError(f"convergence gate: {report['failures']}")
     return report
 
 
@@ -1519,6 +1783,10 @@ def main() -> int:
     geobench = phase_geobench_data()
     for probe in (False, True):
         phase_finetune(rows_out, card, geobench, pretrain_out / "checkpoint-2.pth", probe)
+    for sparse_impl, block_impl in (("gathered", "wholeblock"), ("masked_dense", "fused")):
+        phase_graph(card, sparse_impl, block_impl)
+    phase_graph(card, "gathered", "wholeblock", PICO112, update_freq=2)
+    phase_cli_graph(card, data)
     phase_bench(card)
     phase_gate()
     for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),

@@ -116,6 +116,9 @@ class RunConfig:
     loss_aggr: str = "uncertainty"  # or "unweighted"
     loss_full: bool = False  # recon loss on all patches, not just masked
     use_bf16: bool = True  # bf16 compute over f32 params
+    # pretraining steps a dispatch: k > 1 runs groups of k batches as one
+    # replay of a captured CUDA graph (train/step.py::ChainedStep)
+    steps_per_dispatch: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

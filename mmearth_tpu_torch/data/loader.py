@@ -33,8 +33,21 @@ class PackedDataset:
     def __len__(self):
         return self.count
 
-    def gather(self, rows: np.ndarray) -> dict[str, np.ndarray]:
-        return {name: np.take(arr, rows, axis=0) for name, arr in self.arrays.items()}
+    def gather(self, rows: np.ndarray, pin: bool = False) -> dict:
+        """The ``rows`` of every field: numpy arrays, or with ``pin`` torch
+        tensors in pinned host memory, gathered straight into it (one copy;
+        ``rows`` must be valid indices)."""
+        if not pin:
+            return {name: np.take(arr, rows, axis=0) for name, arr in self.arrays.items()}
+        import torch
+
+        out = {}
+        for name, arr in self.arrays.items():
+            t = torch.empty((len(rows), *arr.shape[1:]), pin_memory=True,
+                            dtype=torch.from_numpy(np.empty(0, arr.dtype)).dtype)
+            np.take(arr, rows, axis=0, out=t.numpy(), mode="clip")  # "raise" would buffer
+            out[name] = t
+        return out
 
 
 class PackedLoader:
@@ -47,6 +60,9 @@ class PackedLoader:
     bounding how far reads stray from sequential once the pack exceeds the
     page cache), ``sequential`` no shuffle.  ``shuffle`` is the boolean
     shorthand (True == random).  ``drop_last`` for training.
+    ``pin_memory`` (for a loader that feeds a card): the worker thread
+    gathers each batch into pinned host memory and yields torch tensors, so
+    the training thread only issues the copy to the device.
     """
 
     def __init__(
@@ -60,6 +76,7 @@ class PackedLoader:
         order: str | None = None,
         chunk_size: int = 128,
         window_chunks: int = 16,
+        pin_memory: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -73,6 +90,7 @@ class PackedLoader:
         self.window_chunks = window_chunks
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.pin_memory = pin_memory
         self.seed = seed
         self.base_indices = (
             np.arange(getattr(dataset, "count", len(dataset)))
@@ -116,8 +134,10 @@ class PackedLoader:
     def __len__(self):
         return len(self._epoch_batches())
 
-    def _gather_batch(self, rows: np.ndarray) -> dict[str, np.ndarray]:
+    def _gather_batch(self, rows: np.ndarray) -> dict:
         # sorted gather = sequential-ish reads from the memmap
+        if self.pin_memory:
+            return self.dataset.gather(np.sort(rows), pin=True)
         return self.dataset.gather(np.sort(rows))
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:

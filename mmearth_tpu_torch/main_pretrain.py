@@ -66,7 +66,9 @@ def get_args_parser():
     p.add_argument("--debug", type=str2bool, default=False)
     p.add_argument("--use_bf16", type=str2bool, default=True,
                    help="bf16 compute over f32 params (replaces --use_mixed/AMP)")
-    p.add_argument("--steps_per_dispatch", type=int, default=1)
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="pretraining steps a dispatch: k > 1 replays a CUDA graph of k steps "
+                        "(the CPU runs them one after another), as the JAX CLI's lax.scan")
     p.add_argument("--block_impl", default="auto",
                    choices=["auto", "xla", "fused", "spillg", "remat", "folded", "dwg",
                             "wholeblock"],
@@ -104,7 +106,6 @@ _NOT_PORTED = {
     "use_orig_stem": (False, "the original 4x4 stem"),
     "sparse": (True, "the dense (leaky) encoder path"),
     "loader": ("mmpack", "the grain and HDF5 loaders"),
-    "steps_per_dispatch": (1, "chained steps"),
     "log_dir": (None, "TensorBoard logging"),
     "wandb": (False, "wandb logging"),
     "distributed": (False, "multi-GPU training"),
@@ -139,6 +140,7 @@ def config_from_args(args) -> PretrainConfig:
             save_ckpt=args.save_ckpt, save_ckpt_freq=args.save_ckpt_freq,
             save_ckpt_num=args.save_ckpt_num, loss_aggr=args.loss_aggr,
             loss_full=args.loss_full, use_bf16=args.use_bf16,
+            steps_per_dispatch=args.steps_per_dispatch,
         ),
     )
 

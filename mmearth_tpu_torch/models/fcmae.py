@@ -39,10 +39,17 @@ def gen_random_mask(n: int, num_patches: int, mask_ratio: float, generator: torc
                     device=None) -> torch.Tensor:
     """(N, L) float mask, 1 = removed, exactly ``int(L*(1-ratio))`` zeros per
     row (reference fcmae.py:214-231: noise + double argsort)."""
-    len_keep = int(num_patches * (1 - mask_ratio))
     noise = torch.randn(n, num_patches, generator=generator, device=device)
+    return mask_from_noise(noise, mask_ratio)
+
+
+def mask_from_noise(noise: torch.Tensor, mask_ratio: float) -> torch.Tensor:
+    """The mask of :func:`gen_random_mask` from its (N, L) noise: the
+    ``int(L*(1-ratio))`` patches of lowest noise in each row are kept."""
+    n, num_patches = noise.shape
+    len_keep = int(num_patches * (1 - mask_ratio))
     ids_restore = torch.argsort(torch.argsort(noise, dim=1), dim=1)
-    base = (torch.arange(num_patches, device=device) >= len_keep).float()
+    base = (torch.arange(num_patches, device=noise.device) >= len_keep).float()
     return torch.gather(base.expand(n, num_patches), 1, ids_restore)
 
 
@@ -181,17 +188,24 @@ class FCMAE(nn.Module):
         return loss, loss_dict, None, weighted
 
     def forward(self, imgs_dict: Mapping[str, torch.Tensor], mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
         """imgs_dict: the cropped, NaN-zeroed NHWC modality dict.  ``mask``
-        (N, L), 1 = removed; when None one is drawn from ``generator``.  A mask
-        that keeps ``num_visible`` patches in every row runs the configured
-        ``sparse_impl``; any other runs the masked-dense encoder.  Returns
-        (loss, preds, mask, loss_dict, log_vars, weighted_losses)."""
+        (N, L), 1 = removed; when None it is made from ``noise`` (N, L), or
+        from noise drawn from ``generator`` (:func:`gen_random_mask`), and
+        keeps ``num_visible`` patches in every row by construction.  A given
+        mask is checked on the host: one that keeps ``num_visible`` patches
+        in every row runs the configured ``sparse_impl``; any other runs the
+        masked-dense encoder.  A captured step passes ``noise``, so no host
+        read is needed.  Returns (loss, preds, mask, loss_dict, log_vars,
+        weighted_losses)."""
         imgs = imgs_dict["sentinel2"].to(self.dtype)
         k = self.num_visible
         if mask is None:
-            mask = gen_random_mask(imgs.shape[0], self.num_patches, self.mask_ratio, generator,
-                                   imgs.device)
+            if noise is None:
+                noise = torch.randn(imgs.shape[0], self.num_patches, generator=generator,
+                                    device=imgs.device)
+            mask = mask_from_noise(noise, self.mask_ratio)
         elif not bool(((mask == 0).sum(1) == k).all()):
             k = None
         x = self.encoder.encode(imgs, mask, k)

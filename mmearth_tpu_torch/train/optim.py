@@ -10,6 +10,12 @@ micro-steps are averaged (a running mean, as ``optax.MultiSteps``) and the
 update is applied on the k-th.  Frozen params (``requires_grad`` off, the
 linear probe's trunk) are left out: no update and no decay, as JAX's
 ``mask_updates`` with the decay mask cut by the trainable mask.
+
+The schedule and the accumulation's branch stay on the host, a function of
+the update count and the micro-step (:meth:`AdamW.plan`); the lr and the
+bias corrections reach the update as a device tensor that the host writes
+before each step, so a CUDA graph of steps reads them anew on every replay,
+and the eager and the captured step run the same tensor arithmetic.
 """
 from __future__ import annotations
 
@@ -110,6 +116,10 @@ class AdamW:
         self.acc = [torch.zeros_like(p) for p in self.params] if update_freq > 1 else None
         self.count = 0  # applied updates
         self.mini_step = 0
+        # lr, 1 - b1^t and 1 - b2^t of the next update, written by the host
+        # before each step (device tensors, so a captured step reads them anew)
+        self.hyper = torch.zeros(3, dtype=torch.float32,
+                                 device=self.params[0].device if self.params else None)
 
     def state_dict(self) -> dict:
         """The moments (and the accumulated gradient mean under
@@ -139,18 +149,51 @@ class AdamW:
     def _grads(self) -> list[torch.Tensor]:
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
 
+    def plan(self, n: int) -> list[tuple[int, bool, list[float]]]:
+        """The next ``n`` steps from the host's state, which does not change:
+        each step's micro-step within the accumulation, whether it applies
+        an update, and that update's lr (the schedule at the update count)
+        and bias corrections ``1 - b1^t``, ``1 - b2^t`` (zeros where it
+        applies none)."""
+        b1, b2 = self.betas
+        period = self.update_freq if self.acc is not None else 1
+        mini, count, out = self.mini_step, self.count, []
+        for _ in range(n):
+            applies = mini + 1 == period
+            out.append((mini, applies, [self.lr_schedule(count), 1 - b1 ** (count + 1),
+                                        1 - b2 ** (count + 1)] if applies else [0.0] * 3))
+            mini, count = (mini + 1) % period, count + applies
+        return out
+
+    def advance(self, applies: bool) -> None:
+        """The host's count after one step (see :meth:`plan`)."""
+        if self.acc is not None:
+            self.mini_step = (self.mini_step + 1) % self.update_freq
+        self.count += applies
+
     @torch.no_grad()
     def step(self) -> bool:
         """Consume the current ``.grad``s; returns True when params changed."""
+        ((mini, applies, hyper),) = self.plan(1)
+        if applies:
+            write_host_values(self.hyper, hyper)
+        self.update(self.hyper, mini, applies)
+        self.advance(applies)
+        return applies
+
+    @torch.no_grad()
+    def update(self, hyper: torch.Tensor, mini: int, applies: bool) -> None:
+        """The tensor work of one step, with no host synchronisation: fold the
+        ``.grad``s into the running mean as micro-step ``mini``, and where
+        ``applies``, the update with ``hyper``'s lr and bias corrections.
+        :meth:`step` runs it eagerly; ``train/step.py::ChainedStep`` captures
+        it with each step's micro-step, kind and ``hyper`` row."""
         grads = self._grads()
         if self.acc is not None:
-            n = self.mini_step
             for a, g in zip(self.acc, grads):
-                a.add_((g - a) / (n + 1))
-            self.mini_step += 1
-            if self.mini_step < self.update_freq:
-                return False
-            self.mini_step = 0
+                a.add_((g - a) / (mini + 1))
+            if not applies:
+                return
             grads = [a.clone() for a in self.acc]
             for a in self.acc:
                 a.zero_()
@@ -160,14 +203,13 @@ class AdamW:
                                 self.clip_grad / norm)
             torch._foreach_mul_(grads, scale)
         b1, b2 = self.betas
-        lr = self.lr_schedule(self.count)
-        self.count += 1
+        lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - b1)
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
-        mu_hat = torch._foreach_div(self.mu, 1 - b1 ** self.count)
-        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, 1 - b2 ** self.count))
+        mu_hat = torch._foreach_div(self.mu, bc1)
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mu_hat, denom)
         dec = [i for i, d in enumerate(self.decay) if d]
@@ -176,8 +218,18 @@ class AdamW:
                                 alpha=self.weight_decay)
         if self.scales is not None:
             torch._foreach_mul_(upd, self.scales)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
-        return True
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(self.params, upd)
+
+
+def write_host_values(dst: torch.Tensor, values) -> None:
+    """``dst`` = ``values`` (host numbers) without waiting for the device: on
+    a card through pinned memory, copied in stream order (the pinned block is
+    not reused before the copy has run)."""
+    src = torch.tensor(values, dtype=dst.dtype)
+    if dst.is_cuda:
+        src = src.pin_memory()
+    dst.copy_(src, non_blocking=True)
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -24,25 +24,38 @@ Configurations (``bench.py:60-63,479-510``, at their published widths):
   smoothing 0.2 (the m-eurosat recipe, ``bench.py:495-503``).
 - ``--input mmpack``: the atto56 step fed from disk: 4,096 synthetic samples
   written by ``data/synthetic.py::generate_packed`` under ``build/`` ->
-  ``PackedLoader(order="quasi_random")`` -> ``train/step.py::to_device`` ->
-  ``pretrain_step``, one step at a time, with the host-only loader rate and
-  the pinned host-to-device copy rate beside it (``bench.py:338-460``).
+  ``PackedLoader(order="quasi_random")``, pinning in its worker thread ->
+  ``train/step.py::device_batches`` (the copy one batch ahead on a side
+  stream) -> the pretraining loop's ``train/pretrain.py::Dispatcher`` at 8
+  steps a dispatch (``bench.py:339-420``; the epoch's tail of fewer than 8
+  batches runs as single steps, as the pretraining loop runs it, where
+  ``bench.py`` skips it), and the same at 1 step a dispatch (``eager_*``),
+  with the host-only loader rate (numpy, and pinned on a card) and the
+  pinned host-to-device copy rate beside it.
 - ``--config seg`` and ``--input grain|hdf5`` raise ``NotImplementedError``:
   the U-Net, the Grain pipeline and the HDF5 reader are not ported yet.
 
 The pretraining and finetune configurations train on one synthetic batch
 (``data/synthetic.py::bench_batch``, the arrays ``bench.py`` trains on), put
 on the device once.  After a warm-up round, the time is the best of
-``--rounds`` (4) rounds of ``--steps`` (30) eager steps, each round closed by
-one ``torch.cuda.synchronize()`` (``bench.py:241,267-270``); every step
-draws a new crop and mask (``fold_in(gen, step)``, as ``bench.py:247``).
+``--rounds`` (4) rounds of ``--steps`` (30) steps, each round closed by one
+``torch.cuda.synchronize()`` (``bench.py:241,267-270``); every step draws a
+new crop and mask (``fold_in(gen, step)``, as ``bench.py:247``).  A
+pretraining round is one dispatch of ``train/step.py::ChainedStep`` over the
+round's steps: on a card one replay of a CUDA graph of 30 steps, as
+``bench.py:237-253`` chains K = 30 steps in one jit (its warm-up round
+holds the warm-up and the capture, ``capture_s``).  The same rounds of eager
+steps are timed beside it (``eager_*``).  The finetune rounds are eager
+steps, as JAX's finetune has no chained dispatch.
 ``--rounds``, ``--steps`` and ``--batch_size`` exist so that tests can run
 the script short; the published numbers use their defaults.
 
 The last line of the output is one compact JSON object under ``bench.py``'s
 metric name: ``value`` (samples/s), ``ms_per_step`` (the best round's;
 every round's in ``round_ms_per_step``), ``unit``, ``peak_mem_gib``
-(``torch.cuda.max_memory_allocated``), ``block_impl``, and ``card``
+(``torch.cuda.max_memory_allocated``), ``block_impl``, the eager rounds'
+``eager_value``, ``eager_ms_per_step``, ``eager_round_ms_per_step`` and
+``eager_peak_mem_gib`` on the pretraining configurations, and ``card``
 (``nvidia-smi --query-gpu=name,power.limit``).  On an error it is
 ``{"value": 0.0, "error": ...}`` and the exit code is 1.  MFU is not
 reported: it waits for the port of ``utils/flops.py``.  ``--record`` (on a
@@ -74,6 +87,7 @@ PRETRAIN_CONFIGS = {
     "atto56": ("convnextv2_atto", 56, 8, 256),
     "tiny112": ("convnextv2_tiny", 112, 16, 64),
 }
+MMPACK_STEPS_PER_DISPATCH = 8  # bench.py:339
 FINETUNE = {"model": "convnextv2_atto", "img": 112, "patch": 16, "bands": 13, "classes": 10,
             "batch": 64}
 METRICS = {
@@ -122,17 +136,18 @@ def peak_gib(dev: torch.device) -> float | None:
     return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else None
 
 
-def round_ms_per_step(step, rounds: int, steps: int, dev: torch.device) -> list[float]:
-    """``step(i)`` for a warm-up round, then ``rounds`` rounds of ``steps``
-    calls, each closed by one device sync; returns each timed round's
-    ms/step (the result is their best).  ``i`` counts every call, so each
-    step draws anew."""
+def round_ms_per_step(dispatch, rounds: int, steps: int, dev: torch.device,
+                      per_call: int = 1) -> list[float]:
+    """A warm-up round, then ``rounds`` rounds of ``steps`` steps, each closed
+    by one device sync; ``dispatch(i)`` runs ``per_call`` steps from step
+    ``i`` (``i`` counts every step, so each draws anew).  Returns each timed
+    round's ms/step (the result is their best)."""
     i, out = 0, []
     for r in range(rounds + 1):
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step(i)
-            i += 1
+        for _ in range(steps // per_call):
+            dispatch(i)
+            i += per_call
         sync(dev)
         if r > 0:  # round 0 is the warm-up
             out.append(1e3 * (time.perf_counter() - t0) / steps)
@@ -169,10 +184,13 @@ def device_batch(n: int, tile: int, dev: torch.device) -> dict[str, torch.Tensor
 
 
 def bench_pretrain(config: str, dev: torch.device, block_impl: str = "wholeblock",
-                   batch: int | None = None, rounds: int = 4, steps: int = 30) -> dict:
+                   batch: int | None = None, rounds: int = 4, steps: int = 30,
+                   chained: bool = True) -> dict:
     """ms/step, samples/s and peak GiB of one pretraining configuration on
-    its resident synthetic batch."""
-    from mmearth_tpu_torch.train.step import pretrain_step
+    its resident synthetic batch, a round one ``ChainedStep`` dispatch of
+    ``steps`` steps (or, with ``chained`` off, ``steps`` eager steps).  A
+    chained run also gives ``graph``, ``ChainedStep.report()``."""
+    from mmearth_tpu_torch.train.step import ChainedStep, pretrain_step
 
     name, img, patch, default_batch = PRETRAIN_CONFIGS[config]
     batch = batch or default_batch
@@ -180,9 +198,17 @@ def bench_pretrain(config: str, dev: torch.device, block_impl: str = "wholeblock
     model, opt = pretrain_setup(name, img, patch, batch, block_impl, dev)
     data = device_batch(batch, img + 8, dev)  # crop headroom: 64 for 56, 120 for 112
     gen = torch.Generator(device=dev).manual_seed(0)
-    ms = round_ms_per_step(lambda i: pretrain_step(model, opt, data, i, gen), rounds, steps, dev)
+    graph = None
+    if chained:
+        ch = ChainedStep(model, opt, {k: v.expand(steps, *v.shape) for k, v in data.items()})
+        ms = round_ms_per_step(lambda i: ch(i, gen), rounds, steps, dev, per_call=steps)
+        graph = ch.report()
+    else:
+        ms = round_ms_per_step(lambda i: pretrain_step(model, opt, data, i, gen), rounds, steps,
+                               dev)
     return {"ms_per_step": min(ms), "value": batch * 1e3 / min(ms), "round_ms_per_step": ms,
-            "peak_mem_gib": peak_gib(dev), "batch": batch, "block_impl": block_impl}
+            "peak_mem_gib": peak_gib(dev), "batch": batch, "block_impl": block_impl,
+            "graph": graph}
 
 
 def bench_finetune(dev: torch.device, batch: int | None = None, rounds: int = 4,
@@ -251,45 +277,66 @@ def write_pack(path: Path, n_samples: int) -> Path:
 def bench_mmpack(dev: torch.device, batch: int | None = None, n_samples: int = 4096,
                  epochs: int = 3, pack_dir: Path = ROOT / "build" / "bench_data") -> dict:
     """The atto56 ``wholeblock`` step fed from disk through ``PackedLoader``
-    (epoch 0 a warm-up, the rest timed), the host-only loader rate, and the
-    pinned host-to-device rate of a batch's bytes."""
+    and the pretraining loop's input path and ``Dispatcher`` (epoch 0 a
+    warm-up, the rest timed) at ``MMPACK_STEPS_PER_DISPATCH`` and, beside
+    it, at 1 (``eager_*``), the host-only loader rate (numpy; pinned on a
+    card), and the pinned host-to-device rate of a batch's bytes."""
     from mmearth_tpu_torch.data.loader import PackedDataset, PackedLoader
-    from mmearth_tpu_torch.train.step import pretrain_step, to_device
+    from mmearth_tpu_torch.train.pretrain import Dispatcher
+    from mmearth_tpu_torch.train.step import device_batches
 
     name, img, patch, default_batch = PRETRAIN_CONFIGS["atto56"]
     batch = batch or default_batch
     ds = PackedDataset(write_pack(pack_dir, n_samples))
-    loader = PackedLoader(ds, batch_size=batch, shuffle=True, drop_last=True,
-                          order="quasi_random")
+
+    def loader_of(pin: bool):
+        return PackedLoader(ds, batch_size=batch, shuffle=True, drop_last=True,
+                            order="quasi_random", pin_memory=pin)
+
+    def host_sps(loader) -> float:
+        t0, n = time.perf_counter(), 0
+        for b in loader:
+            n += len(b["sentinel2"])
+        return n / (time.perf_counter() - t0)
+
+    loader = loader_of(False)
     if len(loader) == 0:
         raise ValueError(f"{ds.count} train samples make no batch of {batch}")
-
-    t0 = time.perf_counter()
-    n_loaded = 0
-    for b in loader:
-        n_loaded += len(b["sentinel2"])
-    loader_sps = n_loaded / (time.perf_counter() - t0)
+    loader_sps = host_sps(loader)
+    b = next(iter(loader))
     sample_bytes = sum(v.nbytes for v in b.values()) // len(b["sentinel2"])
     h2d = pinned_h2d_bytes_per_s(sample_bytes * batch, dev)
+    loader = loader_of(dev.type == "cuda")
+    pinned_sps = host_sps(loader) if dev.type == "cuda" else None
 
-    reset_peak(dev)
-    model, opt = pretrain_setup(name, img, patch, batch, "wholeblock", dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    step, n_timed, t_timed = 0, 0, 0.0
-    for epoch in range(epochs):
-        loader.set_epoch(epoch)
-        t0 = time.perf_counter()
-        for host_batch in loader:
-            pretrain_step(model, opt, to_device(host_batch, dev), step, gen)
-            step += 1
-        sync(dev)
-        if epoch > 0:  # epoch 0 is the warm-up
-            n_timed += len(loader)
-            t_timed += time.perf_counter() - t0
-    ms = 1e3 * t_timed / n_timed
-    return {"ms_per_step": ms, "value": batch * 1e3 / ms, "peak_mem_gib": peak_gib(dev),
+    def timed(k: int) -> tuple[float, float | None]:
+        """ms/step of the epochs after the first at k steps a dispatch, and
+        the peak GiB."""
+        reset_peak(dev)
+        model, opt = pretrain_setup(name, img, patch, batch, "wholeblock", dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        dispatcher = Dispatcher(model, opt, k, gen)
+        step, n_timed, t_timed = 0, 0, 0.0
+        for epoch in range(epochs):
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            for losses in dispatcher.run(device_batches(loader, dev), step):
+                step += len(losses)
+            sync(dev)
+            if epoch > 0:  # epoch 0 is the warm-up
+                n_timed += len(loader)
+                t_timed += time.perf_counter() - t0
+        return 1e3 * t_timed / n_timed, peak_gib(dev)
+
+    eager_ms, eager_peak = timed(1)
+    ms, peak = timed(MMPACK_STEPS_PER_DISPATCH)
+    return {"ms_per_step": ms, "value": batch * 1e3 / ms, "peak_mem_gib": peak,
+            "eager_value": batch * 1e3 / eager_ms, "eager_ms_per_step": eager_ms,
+            "eager_peak_mem_gib": eager_peak,
             "batch": batch, "block_impl": "wholeblock", "input": "mmpack",
-            "loader_only_host_sps": loader_sps, "sample_mbytes": sample_bytes / 1e6,
+            "steps_per_dispatch": MMPACK_STEPS_PER_DISPATCH, "batches_per_epoch": len(loader),
+            "loader_only_host_sps": loader_sps, "loader_pinned_host_sps": pinned_sps,
+            "sample_mbytes": sample_bytes / 1e6,
             "h2d_mbytes_per_sec": None if h2d is None else h2d / 1e6,
             "h2d_bound_sps": None if h2d is None else h2d / sample_bytes,
             "pack_samples": ds.count, "epochs_timed": epochs - 1, "host_cores": os.cpu_count()}
@@ -314,9 +361,14 @@ def run(args) -> dict:
     elif args.config == "finetune":
         out, unit = bench_finetune(dev, args.batch_size, args.rounds, args.steps), "img/s/chip"
     else:
+        eager = bench_pretrain(args.config, dev, "wholeblock", args.batch_size, args.rounds,
+                               args.steps, chained=False)
         out = bench_pretrain(args.config, dev, "wholeblock", args.batch_size, args.rounds,
                              args.steps)
         unit = "samples/s/chip"
+        out.update({f"eager_{key}": eager[key] for key in
+                    ("value", "ms_per_step", "round_ms_per_step", "peak_mem_gib")})
+        out.update(capture_s=out.pop("graph")["capture_s"])
         if args.config == "atto56":
             auto = bench_pretrain(args.config, dev, "auto", args.batch_size, args.rounds,
                                   args.steps)

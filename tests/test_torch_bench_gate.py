@@ -50,7 +50,8 @@ def test_bench_batch_is_the_graft_entry_batch(n, tile, seed):
 @pytest.mark.parametrize("config,metric,extra", [
     ("atto56", "mpmae_atto_mmearth64_pretrain_samples_per_sec_per_chip",
      {"block_impl", "auto_value", "auto_ms_per_step", "auto_round_ms_per_step",
-      "auto_peak_mem_gib"}),
+      "auto_peak_mem_gib", "eager_value", "eager_ms_per_step", "eager_round_ms_per_step",
+      "eager_peak_mem_gib", "capture_s"}),
     ("finetune", "geobench_cls_finetune_atto112_img_per_sec_per_chip", set()),
 ])
 def test_bench_on_cpu_prints_one_json_line_last(capsys, config, metric, extra):
@@ -63,6 +64,8 @@ def test_bench_on_cpu_prints_one_json_line_last(capsys, config, metric, extra):
     assert (line["device"], line["card"], line["peak_mem_gib"]) == ("cpu", "cpu", None)
     if config == "atto56":
         assert line["block_impl"] == "wholeblock" and line["auto_value"] > 0
+        assert line["eager_value"] > 0 and len(line["eager_round_ms_per_step"]) == 1
+        assert line["capture_s"] is None  # nothing is captured on the CPU
 
 
 def test_bench_mmpack_on_cpu(tmp_path):
@@ -129,9 +132,11 @@ def test_gate_on_cpu_prints_passed_last(capsys):
 
 
 def test_gate_mmpack_on_cpu(tmp_path):
-    """From disk: 6 steps of batch 4 over a 5-batch epoch, so two epochs."""
+    """From disk: 6 steps of batch 4 at 2 a dispatch over a 5-batch epoch
+    (two dispatches, the fifth batch a skipped tail), so two epochs."""
     out = gate.gate_mmpack(torch.device("cpu"), steps=6, batch=4, n_samples=24,
-                           pack_dir=tmp_path / "pack")
+                           pack_dir=tmp_path / "pack", k=2)
     assert out["steps"] == 6 and out["epochs_consumed"] == 2 and out["pack_samples"] == 21
+    assert out["graphs"][0]["steps"] == {"eager": 6, "recorded": 0, "replayed": 0}
     assert out["sps_through_loader_per_chip"] > 0 and out["h2d_bound_sps"] is None
     assert np.isfinite(out["loss_drop"])

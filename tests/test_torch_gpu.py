@@ -768,3 +768,79 @@ def test_classifier_step_matches_cpu():
     for k in g_cpu:
         err = float((g_gpu[k] - g_cpu[k]).abs().max() / (g_cpu[k].abs().max() + 1e-12))
         assert err < 1e-3, f"{k}: {err:.2e} of scale"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sparse_impl,block_impl,update_freq", [
+    ("gathered", "wholeblock", 1), ("masked_dense", "fused", 1), ("gathered", "wholeblock", 2)])
+def test_chained_graph_matches_eager_steps_on_gpu(sparse_impl, block_impl, update_freq):
+    """A small f32 FCMAE: 4 eager pretrain steps, then the same 4 steps from
+    the same state as 2 replays of a 2-step ChainedStep graph.  Losses within
+    1e-5 relative and params within 1e-5 (atomics reorder f32 sums between
+    runs; lr 1e-3); the capture recorded an eager step's launches a step,
+    and the replays ran them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from mmearth_tpu_torch import ops
+    from mmearth_tpu_torch.configs import modalities as M
+    from mmearth_tpu_torch.data.synthetic import bench_batch
+    from mmearth_tpu_torch.models.fcmae import FCMAE
+    from mmearth_tpu_torch.train.optim import AdamW
+    from mmearth_tpu_torch.train.step import ChainedStep, pretrain_step, to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(img_size=56, patch_size=8, depths=(1, 1, 1, 1), dims=(40, 80, 160, 320),
+              decoder_embed_dim=64, grn_group=4, block_impl=block_impl,
+              sparse_impl=sparse_impl, inp_modalities=M.INP_MODALITIES,
+              out_modalities=M.OUT_MODALITIES)
+    batch = to_device(bench_batch(4, 64, seed=1), "cuda")
+    runs = []
+    for chained in (False, True):
+        model = FCMAE(**kw).init_weights(torch.Generator().manual_seed(0)).cuda()
+        opt = AdamW(model.named_parameters(), lambda n: 1e-3, update_freq=update_freq)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        before = ops.launch_counts()
+        if chained:
+            ch = ChainedStep(model, opt, {k: v.expand(2, *v.shape) for k, v in batch.items()})
+            losses = torch.cat([ch(0, gen)[1], ch(2, gen)[1]])
+            assert ch.steps == {"eager": 2, "recorded": 2, "replayed": 4}
+            assert len(ch.graphs) == 1 and opt.count == 4 // update_freq
+            ((_, recorded),) = ch.recorded.items()
+            assert {k: 2 * n for k, n in per_step.items()} == recorded
+            assert ch.replayed == {k: 4 * n for k, n in per_step.items()}
+        else:
+            losses = torch.stack([pretrain_step(model, opt, batch, i, gen)["loss"]
+                                  for i in range(4)])
+            after = ops.launch_counts()
+            per_step = {k: (after[k] - before[k]) // 4 for k in after}
+            assert any(per_step.values())
+        runs.append((losses.float().cpu(), [p.detach().cpu() for p in model.parameters()]))
+    (l0, p0), (l1, p1) = runs
+    torch.testing.assert_close(l1, l0, rtol=1e-5, atol=0)
+    for a, b in zip(p1, p0):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_pinned_loader_and_device_batches_on_gpu(tmp_path):
+    """A loader asked to pin yields pinned tensors holding the numpy loader's
+    batches; ``device_batches`` puts them on the card unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from mmearth_tpu_torch.data.loader import PackedDataset, PackedLoader
+    from mmearth_tpu_torch.data.synthetic import generate_packed
+    from mmearth_tpu_torch.train.step import device_batches
+
+    ds = PackedDataset(generate_packed(tmp_path, n=20, tile=16, seed=0) / "train")
+    plain = list(PackedLoader(ds, batch_size=4, seed=1))
+    pinned = list(PackedLoader(ds, batch_size=4, seed=1, pin_memory=True))
+    on_card = list(device_batches(iter(pinned), "cuda"))
+    torch.cuda.synchronize()
+    assert len(plain) == len(pinned) == len(on_card) == 4
+    for a, b, c in zip(plain, pinned, on_card):
+        assert a.keys() == b.keys() == c.keys()
+        for k in a:
+            assert b[k].is_pinned() and c[k].is_cuda
+            np.testing.assert_array_equal(b[k].numpy(), a[k])
+            np.testing.assert_array_equal(c[k].cpu().numpy(), a[k])
