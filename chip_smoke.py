@@ -109,23 +109,41 @@ Phases, each of which exits non-zero on failure:
    optimizer state bit for bit; ``main_pretrain.main`` with ``--epochs 4``
    on the same directory must auto-resume after epoch 2, run epoch 3 alone
    (the slice's launches a step) and leave checkpoints 2 and 3.
+   The encoder options, each a 12-step atto slice through
+   ``main_pretrain.main`` with its flags: ``--sparse False`` (the leaky
+   dense encoder: no gathered or tail launch, the dense dW 13 a step),
+   ``--gelu_approx True`` with ``wholeblock`` (the gathered counts, no
+   spill-g launch: the kernels compute the erf GELU) and with masked-dense
+   ``fused`` (no masked-dense launch), ``--block_impl remat`` and
+   ``folded`` (the gathered counts, no tail launch); then
+   ``--use_orig_stem True`` at pico-112/16 with ``wholeblock`` (the pico
+   slice's counts) into ``build/smoke_orig_stem_out``, its checkpoint held
+   and resumed as above.
    ``main_finetune.main`` runs the GEO-Bench classification recipe from
    that ``checkpoint-2.pth`` (convnextv2_atto at patch 8, batch 32, bf16, 3
    epochs of synthetic m-eurosat 512/128/128), once finetuning (12 dW
    launches a step, no other kernel) and once as the linear probe (no
-   launch at all), with finite losses and accuracies in [0, 1].
+   launch at all), with finite losses and accuracies in [0, 1]; then
+   finetuning pico-112/16 with ``--use_orig_stem True`` from the
+   original-stem slice's ``checkpoint-2.pth``, whose ``stem_orig.*`` the
+   driver's bootstrapped classifier must hold.
 4. graphs, bench and gate: 16 steps of ``pretrain_step`` run eagerly twice
    and as 2 replays of an 8-step ``train/step.py::ChainedStep`` graph from
    the same state, for atto-56/8 ``wholeblock`` and masked-dense ``fused``
-   at batch 256 and pico-112/16 ``wholeblock`` at batch 64 with
-   ``update_freq`` 2: the losses' largest difference from the first eager
-   run, and the share of its params that differ and their median ulps, at
+   at batch 256, pico-112/16 ``wholeblock`` at batch 64 with
+   ``update_freq`` 2, each encoder option's slice (``remat`` with its tail
+   under ``torch.utils.checkpoint`` in the capture) and pico-112/16
+   ``wholeblock`` with the original stem: the losses' largest difference
+   from the first eager run, and the share of its params that differ and
+   their median ulps, at
    most twice the second eager run's (bitwise where the two agree); the
    launches a captured step (the capture's record) and one profiled
    replay's kernels by symbol (``KERNEL_SYMBOLS``) against the slice's
-   counts; eager and replay ms/step, capture seconds, peak GiB and the
-   replay's idle share printed.  Then ``main_pretrain.main`` with ``--steps_per_dispatch 8`` on
-   the atto ``wholeblock`` data at batch 96 (10 steps an epoch: one
+   counts (a trace short of some kernel and over on none has lost events:
+   it is printed, and the next replay's trace must hold alone); eager and replay ms/step, capture seconds, peak GiB and the
+   replay's idle share printed.  Then ``main_pretrain.main`` with
+   ``--steps_per_dispatch 8`` on the atto ``wholeblock`` data at batch 96
+   (10 steps an epoch: one
    dispatch and a tail of 2 single steps), 2 epochs into
    ``build/smoke_graph_out``, then resumed for a third.  Then
    ``scripts/torch_bench.py --config atto56 --rounds 2 --steps 10`` as a
@@ -140,7 +158,9 @@ Phases, each of which exits non-zero on failure:
 5. reference: a small f32 FCMAE step on the GPU against the same step on the
    CPU (plain versions), loss and grads, for dwg, wholeblock and
    masked_dense fused, wholeblock at pico widths 112/16 (one block a
-   stage), and a small f32 classifier step.
+   stage), each encoder option's slice, wholeblock with the original stem
+   (at 56/8 and at pico 112/16) and with the stem on the gathered rows
+   (``stem_gathered``, both stems), and a small f32 classifier step.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -1144,26 +1164,38 @@ GATHERED_KERNELS = ("gather_patches", "scatter_patches", "dwconv7_gathered_fwd",
                     "dwconv7_gathered_bwd")
 SLICES = (("gathered", "dwg"), ("gathered", "wholeblock"), ("masked_dense", "auto"),
           ("masked_dense", "fused"))
+# the encoder options' atto slices: the leaky encoder, the tanh GELU on both
+# kernel-tail paths, the rematerialized and the norm-folded tails
+OPTION_SLICES = (("gathered", "auto", {"sparse": False}),
+                 ("gathered", "wholeblock", {"gelu_approx": True}),
+                 ("masked_dense", "fused", {"gelu_approx": True}),
+                 ("gathered", "remat", {}), ("gathered", "folded", {}))
 
 
-def expected_launches(sparse_impl: str, block_impl: str, config: tuple) -> tuple[dict, tuple]:
-    """Launches a step of every kernel on a pretraining slice of ``config``,
-    and the kernels whose row of the kernels line takes its count from this
-    slice (each from its own path: rows 1-4 from dwg, 7-10 from wholeblock,
-    5-6 from masked_dense fused; row 11 from the finetune slice).  Spill-g
-    C's separate dW2 pass runs in the blocks of the stages whose C does not
-    fold dW2 (its plan's ``fold``).  The dense dwconv's dW runs in the
-    decoder Block (1 a step) and, on masked-dense, in the 12 encoder blocks
-    too."""
+def expected_launches(sparse_impl: str, block_impl: str, config: tuple, sparse: bool = True,
+                      gelu_approx: bool = False, use_orig_stem: bool = False
+                      ) -> tuple[dict, tuple]:
+    """Launches a step of every kernel on a pretraining slice of ``config``
+    (and its encoder options), and the kernels whose row of the kernels line
+    takes its count from this slice (each from its own path: rows 1-4 from
+    dwg, 7-10 from wholeblock, 5-6 from masked_dense fused; row 11 from the
+    finetune slice).  Spill-g C's separate dW2 pass runs in the blocks of
+    the stages whose C does not fold dW2 (its plan's ``fold``).  The dense
+    dwconv's dW runs in the decoder Block (1 a step) and, on masked-dense
+    and the leaky encoder (``sparse`` False, no gathered launch), in the 12
+    encoder blocks too.  The kernel tails compute
+    the erf GELU, so under ``gelu_approx`` no tail kernel runs; ``remat``
+    and ``folded`` compose their tails around the gathered dwconv.  The
+    original stem changes no count (its output is gathered as the stem's)."""
     import torch
 
     from mmearth_tpu_torch.configs.config import model_size
     from mmearth_tpu_torch.ops import fused_block as fb
 
-    gathered = sparse_impl == "gathered"
+    gathered = sparse and sparse_impl == "gathered"
     per_step = dict(zip(GATHERED_KERNELS, (2, 2, 12, 12) if gathered else (0, 0, 0, 0)))
-    spillg = gathered and block_impl == "wholeblock"
-    masked = not gathered and block_impl == "fused"
+    spillg = gathered and block_impl == "wholeblock" and not gelu_approx
+    masked = sparse and not gathered and block_impl == "fused" and not gelu_approx
     per_step.update(dict.fromkeys(fb.SPILLG_LAUNCHES, 12 if spillg else 0))
     depths, dims = model_size(config[0])
     per_step[SPILLG_WIDE_DW2] = sum(
@@ -1204,6 +1236,11 @@ ATTO56 = ("convnextv2_atto", 56, 8, 256)
 PICO112 = ("convnextv2_pico", 112, 16, PICO_N)
 
 
+def option_flags(options: dict) -> list[str]:
+    """CLI flags of encoder options, e.g. {"sparse": False} -> --sparse False."""
+    return [x for key, value in options.items() for x in (f"--{key}", str(value))]
+
+
 def slice_args(sparse_impl: str, block_impl: str, data: Path, config: tuple, *extra):
     from mmearth_tpu_torch import main_pretrain
 
@@ -1223,17 +1260,20 @@ def check_launches(what: str, launches: dict, per_step: dict, steps: int) -> Non
 
 
 def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str, data: Path,
-                output_dir: Path | None = None, config: tuple = ATTO56) -> dict:
-    """A pretraining slice through ``main_pretrain.main`` (saving its
-    checkpoints in ``output_dir`` when given, the newest two kept); its
-    launches set the rows' counts only on the atto configuration."""
+                output_dir: Path | None = None, config: tuple = ATTO56,
+                options: dict | None = None) -> dict:
+    """A pretraining slice through ``main_pretrain.main`` with the encoder
+    ``options`` as flags (saving its checkpoints in ``output_dir`` when
+    given, the newest two kept); its launches set the rows' counts only on
+    the atto configuration without options."""
     import torch
 
     from mmearth_tpu_torch import main_pretrain
 
     model_name, size, patch, batch = config
+    options = options or {}
     extra = ["--output_dir", str(output_dir), "--save_ckpt_num", "2"] if output_dir else []
-    args = slice_args(sparse_impl, block_impl, data, config, *extra)
+    args = slice_args(sparse_impl, block_impl, data, config, *extra, *option_flags(options))
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     model, history, opt = main_pretrain.main(args)
@@ -1244,15 +1284,17 @@ def phase_slice(rows_out: dict, card: str, sparse_impl: str, block_impl: str, da
         raise AssertionError(f"slice ran {steps} steps")
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         raise AssertionError(f"non-finite loss in {losses}")
-    per_step, own = expected_launches(sparse_impl, block_impl, config)
-    check_launches(f"{model_name} {sparse_impl} {block_impl} slice", launches, per_step, steps)
-    for name in own if config == ATTO56 else ():
+    per_step, own = expected_launches(sparse_impl, block_impl, config, **options)
+    check_launches(f"{model_name} {sparse_impl} {block_impl} {options} slice", launches,
+                   per_step, steps)
+    for name in own if (config == ATTO56 and not options) else ():
         rows_out[name]["launches"] = launches[name]
     steady = history[1:]  # epoch 0 holds the first-call set-up
     ms = 1e3 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
     result = {"phase": "slice", "model": model_name, "input_size": size, "patch_size": patch,
-              "sparse_impl": sparse_impl, "block_impl": block_impl,
-              "steps": steps, "epochs": len(history), "launches": launches,
+              "sparse_impl": sparse_impl, "block_impl": block_impl, "options": options,
+              "launches_per_step": per_step, "steps": steps, "epochs": len(history),
+              "launches": launches,
               "losses": losses, "epoch_loss": [e["loss"] for e in history],
               "ms_per_step": ms, "samples_per_s": batch * 1e3 / ms,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}
@@ -1300,7 +1342,7 @@ def phase_checkpoint(args, model, opt, output_dir: Path, epochs: int, per_step: 
     if [e["epoch"] for e in history] != [epochs]:
         raise AssertionError(f"resume ran epochs {[e['epoch'] for e in history]}, not [{epochs}]")
     steps = history[0]["steps"]
-    check_launches("resumed wholeblock slice", launches, per_step, steps)
+    check_launches("resumed slice", launches, per_step, steps)
     kept = [e for e, _ in pth_io.numbered_checkpoints(output_dir)]
     if kept != [epochs - 1, epochs]:
         raise AssertionError(f"checkpoints kept after the resume: {kept}, expected "
@@ -1382,6 +1424,13 @@ def check_replay(what: str, chained, per_step: dict) -> dict:
     return {key: n // k for key, n in next(iter(chained.recorded.values())).items()}
 
 
+def short_trace(counts: dict, per_step: dict, steps: int) -> bool:
+    """Whether a profiled window shows fewer of some kernel, and more of
+    none, than ``steps`` steps launch: the sign of a trace that lost events."""
+    diffs = [n - sum(per_step[key] for key in keys) * steps for keys, n in counts.items()]
+    return min(diffs) < 0 and max(diffs) <= 0
+
+
 def check_profiled(what: str, counts: dict, per_step: dict, steps: int) -> None:
     for keys, n in counts.items():
         want = sum(per_step[key] for key in keys) * steps
@@ -1394,7 +1443,7 @@ GRAPH_K, GRAPH_STEPS = 8, 16
 
 
 def phase_graph(card: str, sparse_impl: str, block_impl: str, config: tuple = ATTO56,
-                update_freq: int = 1) -> dict:
+                update_freq: int = 1, options: dict | None = None) -> dict:
     """Graph against eager: GRAPH_STEPS steps of ``pretrain_step`` from one
     initial state on the bench's resident batch (each step its own crop and
     mask), twice (E1, E2), then the same steps as replays of a ChainedStep of
@@ -1408,7 +1457,7 @@ def phase_graph(card: str, sparse_impl: str, block_impl: str, config: tuple = AT
     The wrappers' counters must have recorded the path's launches a step
     during the warm-up and the capture, the replays must have run them (the
     capture's record), and one profiled replay must show each kernel the
-    path's count of times."""
+    path's count of times.  ``options``: encoder options of ModelConfig."""
     import torch
 
     from mmearth_tpu_torch.configs.config import (DataConfig, ModelConfig, OptimConfig,
@@ -1420,9 +1469,10 @@ def phase_graph(card: str, sparse_impl: str, block_impl: str, config: tuple = AT
     from mmearth_tpu_torch.train.step import ChainedStep, pretrain_step, to_device
 
     model_name, size, patch, batch = config
+    options = options or {}
     cfg = PretrainConfig(
         model=ModelConfig(model=model_name, img_size=size, patch_size=patch,
-                          block_impl=block_impl, sparse_impl=sparse_impl),
+                          block_impl=block_impl, sparse_impl=sparse_impl, **options),
         optim=OptimConfig(update_freq=update_freq), data=DataConfig(batch_size=batch),
         run=RunConfig(seed=0))
     data = to_device(bench_batch(batch, size + 8), "cuda")
@@ -1437,7 +1487,8 @@ def phase_graph(card: str, sparse_impl: str, block_impl: str, config: tuple = AT
 
     runs, out = {}, {"phase": "graph", "model": model_name, "input_size": size,
                      "patch_size": patch, "batch": batch, "sparse_impl": sparse_impl,
-                     "block_impl": block_impl, "update_freq": update_freq, "k": GRAPH_K,
+                     "block_impl": block_impl, "options": options,
+                     "update_freq": update_freq, "k": GRAPH_K,
                      "steps": GRAPH_STEPS, "card": card}
     for name in ("E1", "E2"):
         model, opt = fresh()
@@ -1485,7 +1536,7 @@ def phase_graph(card: str, sparse_impl: str, block_impl: str, config: tuple = AT
     out.update(eager_spread=spread, graph_vs_eager=dist,
                tolerance=f"{', '.join(held)}: at most twice the eager spread (0: bitwise)",
                losses_E1=runs["E1"][0].tolist(), losses_G=runs["G"][0].tolist())
-    per_step, _ = expected_launches(sparse_impl, block_impl, config)
+    per_step, _ = expected_launches(sparse_impl, block_impl, config, **options)
     try:  # the line is printed whatever fails
         for key in held:
             if dist[key] > 2 * spread[key]:
@@ -1496,6 +1547,14 @@ def phase_graph(card: str, sparse_impl: str, block_impl: str, config: tuple = AT
         out["launches_per_captured_step"] = check_replay(f"{model_name} {block_impl} graph",
                                                          chained, per_step)
         profiled, window = profiled_launches(lambda: chained(GRAPH_STEPS, gen))
+        if short_trace(profiled, per_step, GRAPH_K):
+            # A graph replays every kernel it recorded, but a trace has
+            # been seen to lose a step's events (1,989 fewer device events
+            # than another run of the same graph): that trace is printed and
+            # the next replay's, which must hold on its own, is checked.
+            out["profiled_replay_short"] = {**window, "launches": {
+                "/".join(keys): n for keys, n in profiled.items() if n}}
+            profiled, window = profiled_launches(lambda: chained(GRAPH_STEPS + GRAPH_K, gen))
         out["profiled_replay"] = {**window, "launches": {"/".join(keys): n
                                                          for keys, n in profiled.items() if n}}
         check_profiled(f"{model_name} {block_impl} graph", profiled, per_step, GRAPH_K)
@@ -1622,24 +1681,31 @@ def phase_geobench_data() -> Path:
 
 
 def phase_finetune(rows_out: dict, card: str, data: Path, checkpoint: Path,
-                   probe: bool) -> dict:
+                   probe: bool, config: tuple = ATTO56, options: dict | None = None) -> dict:
     """The GEO-Bench classification recipe (TRAINING.md) from the pretraining
-    checkpoint: finetune, or the linear probe.  Finite losses, accuracies in
-    [0, 1], 12 dW launches a step (none under the probe, whose trunk is
-    frozen) and no other launch."""
+    checkpoint, with ``config``'s model, input and patch size and the
+    encoder ``options`` as flags: finetune, or the linear probe.  Finite
+    losses, accuracies in [0, 1], 12 dW launches a step (none under the
+    probe, whose trunk is frozen) and no other launch.  With the original
+    stem, the classifier the driver bootstraps holds the checkpoint's
+    ``stem_orig.*``."""
     import math
 
     import torch
 
     from mmearth_tpu_torch import main_finetune
 
+    options = options or {}
+    model_name, size, patch, _ = config
     args = main_finetune.get_args_parser().parse_args([
-        "--model", "convnextv2_atto", "--input_size", "56", "--patch_size", "8",
+        "--model", model_name, "--input_size", str(size), "--patch_size", str(patch),
         "--data_set", "m-eurosat", "--finetune", str(checkpoint), "--processed_dir", str(data),
         "--batch_size", str(FT_BATCH), "--epochs", "3", "--blr", "1e-2" if probe else "2e-4",
         "--layer_decay", "0.9", "--weight_decay", "0.3", "--drop_path", "0.1",
         "--smoothing", "0.2", "--use_bf16", "True", "--seed", "0", "--device", "cuda",
-        "--linear_probe", str(probe)])
+        "--linear_probe", str(probe), *option_flags(options)])
+    if options.get("use_orig_stem"):
+        check_orig_stem_bootstrap(args, checkpoint)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     out = main_finetune.main(args)
@@ -1657,11 +1723,12 @@ def phase_finetune(rows_out: dict, card: str, data: Path, checkpoint: Path,
         if n != want:
             raise AssertionError(f"finetune (probe={probe}), {name}: {n} launches in {steps} "
                                  f"steps, expected {want}")
-    if not probe:
+    if not (probe or options):
         rows_out["dw_weight_grad"]["launches"] = launches["dw_weight_grad"]
     steady = history[1:]
     ms = 1e3 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
     result = {"phase": "finetune", "mode": "linear_probe" if probe else "finetune",
+              "model": model_name, "input_size": size, "patch_size": patch, "options": options,
               "steps": steps, "epochs": len(history), "launches": launches,
               "epoch_loss": [e["loss"] for e in history], "val_accuracy": scores[:-1],
               "test_accuracy": scores[-1], "ms_per_step": ms,
@@ -1672,9 +1739,31 @@ def phase_finetune(rows_out: dict, card: str, data: Path, checkpoint: Path,
     return result
 
 
+def check_orig_stem_bootstrap(args, checkpoint: Path) -> None:
+    """The classifier that ``main_finetune`` builds and bootstraps from an
+    original-stem pretraining checkpoint holds its ``stem_orig.*`` tensors."""
+    import torch
+
+    from mmearth_tpu_torch import main_finetune
+    from mmearth_tpu_torch.checkpoints import pth_io
+    from mmearth_tpu_torch.train.finetune import bootstrap, build_finetune_model
+
+    cfg = main_finetune.config_from_args(args)
+    model = build_finetune_model(cfg, 12, 10)
+    bootstrap(model, checkpoint, cfg.run.seed)
+    saved = pth_io.load(checkpoint)["model"]
+    keys = [k for k in model.state_dict() if k.startswith("stem_orig.")]
+    if len(keys) != 4 or not all(torch.equal(model.state_dict()[k], saved[f"encoder.{k}"])
+                                 for k in keys):
+        raise AssertionError(f"finetune bootstrap from {checkpoint}: stem_orig keys {keys} "
+                             "not loaded from the checkpoint")
+
+
 def phase_reference(sparse_impl: str, block_impl: str, size: int = 56, patch: int = 8,
-                    dims=(40, 80, 160, 320), depths=(2, 2, 6, 2)) -> None:
-    """A small f32 step on the GPU (kernels) against the CPU (plain versions)."""
+                    dims=(40, 80, 160, 320), depths=(2, 2, 6, 2), **options) -> None:
+    """A small f32 step on the GPU (kernels) against the CPU (plain
+    versions), with the FCMAE ``options`` (``sparse``, ``use_orig_stem``,
+    ``gelu_approx``, ``stem_gathered``)."""
     import numpy as np
     import torch
 
@@ -1686,7 +1775,7 @@ def phase_reference(sparse_impl: str, block_impl: str, size: int = 56, patch: in
     torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(img_size=size, patch_size=patch, depths=depths, dims=dims,
               grn_group=8, block_impl=block_impl, sparse_impl=sparse_impl,
-              inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES)
+              inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES, **options)
     cpu = FCMAE(**kw).init_weights(torch.Generator().manual_seed(1))
     gpu = FCMAE(**kw).cuda()
     gpu.load_state_dict(cpu.state_dict())
@@ -1706,10 +1795,11 @@ def phase_reference(sparse_impl: str, block_impl: str, size: int = 56, patch: in
                 for k in g_cpu)
     # f32 on both sides; differences are summation order only
     if not (rel < 1e-4 and worst < 1e-3 and np.isfinite(l_gpu)):
-        raise AssertionError(f"{sparse_impl} {block_impl} GPU vs CPU step: loss rel {rel:.2e}, "
-                             f"worst grad {worst:.2e}")
+        raise AssertionError(f"{sparse_impl} {block_impl} {options} GPU vs CPU step: loss rel "
+                             f"{rel:.2e}, worst grad {worst:.2e}")
     emit({"phase": "reference", "sparse_impl": sparse_impl, "block_impl": block_impl,
-          "input_size": size, "patch_size": patch, "dims": list(dims), "loss_cpu": l_cpu,
+          "options": options, "input_size": size, "patch_size": patch, "dims": list(dims),
+          "loss_cpu": l_cpu,
           "loss_gpu": l_gpu, "loss_rel": rel, "worst_grad_rel": worst})
 
 
@@ -1778,21 +1868,39 @@ def main() -> int:
     for sparse_impl, block_impl in SLICES:
         phase_slice(rows_out, card, sparse_impl, block_impl, data,
                     pretrain_out if block_impl == "wholeblock" else None)
-    phase_slice(rows_out, card, "gathered", "wholeblock",
-                phase_data("smoke_data128", n=292, tile=128), config=PICO112)
+    for sparse_impl, block_impl, options in OPTION_SLICES:
+        phase_slice(rows_out, card, sparse_impl, block_impl, data, options=options)
+    data128 = phase_data("smoke_data128", n=292, tile=128)
+    phase_slice(rows_out, card, "gathered", "wholeblock", data128, config=PICO112)
+    orig_out = ROOT / "build" / "smoke_orig_stem_out"
+    shutil.rmtree(orig_out, ignore_errors=True)
+    phase_slice(rows_out, card, "gathered", "wholeblock", data128, orig_out, PICO112,
+                {"use_orig_stem": True})
     geobench = phase_geobench_data()
     for probe in (False, True):
         phase_finetune(rows_out, card, geobench, pretrain_out / "checkpoint-2.pth", probe)
+    phase_finetune(rows_out, card, geobench, orig_out / "checkpoint-2.pth", False, PICO112,
+                   {"use_orig_stem": True})
     for sparse_impl, block_impl in (("gathered", "wholeblock"), ("masked_dense", "fused")):
         phase_graph(card, sparse_impl, block_impl)
     phase_graph(card, "gathered", "wholeblock", PICO112, update_freq=2)
+    for sparse_impl, block_impl, options in OPTION_SLICES:
+        phase_graph(card, sparse_impl, block_impl, options=options)
+    phase_graph(card, "gathered", "wholeblock", PICO112, options={"use_orig_stem": True})
     phase_cli_graph(card, data)
     phase_bench(card)
     phase_gate()
     for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),
                                     ("masked_dense", "fused")):
         phase_reference(sparse_impl, block_impl)
-    phase_reference("gathered", "wholeblock", 112, 16, (64, 128, 256, 512), (1, 1, 1, 1))
+    pico = (112, 16, (64, 128, 256, 512), (1, 1, 1, 1))
+    phase_reference("gathered", "wholeblock", *pico)
+    for sparse_impl, block_impl, options in (
+            *OPTION_SLICES, ("gathered", "wholeblock", {"use_orig_stem": True}),
+            ("gathered", "wholeblock", {"stem_gathered": True}),
+            ("gathered", "wholeblock", {"stem_gathered": True, "use_orig_stem": True})):
+        phase_reference(sparse_impl, block_impl, **options)
+    phase_reference("gathered", "wholeblock", *pico, use_orig_stem=True)
     phase_reference_classifier()
     print(card, flush=True)
     emit({"kernels": list(rows_out.values())})

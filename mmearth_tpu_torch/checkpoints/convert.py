@@ -43,13 +43,19 @@ def _block(tree: Mapping, prefix: str, sd: dict) -> None:
 
 def from_jax_encoder(enc: Mapping, depths: Sequence[int], prefix: str = "") -> dict:
     """JAX ConvNeXtV2 encoder params -> state dict of the port's ConvNeXtV2
-    (numpy values, keys under ``prefix``)."""
+    (numpy values, keys under ``prefix``).  The original stem (``stem_orig_*``
+    in JAX) takes upstream's ``stem_orig.{0,1}`` keys."""
     sd: dict[str, np.ndarray] = {}
     p = prefix
-    for name, key in (("initial_conv_conv", "initial_conv.0"), ("stem_conv", "stem.0")):
+    orig = "stem_orig_conv" in enc
+    convs = ((("stem_orig_conv", "stem_orig.0"),) if orig else
+             (("initial_conv_conv", "initial_conv.0"), ("stem_conv", "stem.0")))
+    norms = ((("stem_orig_norm", "stem_orig.1"),) if orig else
+             (("initial_conv_norm", "initial_conv.1"), ("stem_norm", "stem.1")))
+    for name, key in convs:
         sd[f"{p}{key}.weight"] = _oihw(enc[name]["kernel"])
         sd[f"{p}{key}.bias"] = enc[name]["bias"]
-    for name, key in (("initial_conv_norm", "initial_conv.1"), ("stem_norm", "stem.1")):
+    for name, key in norms:
         sd[f"{p}{key}.weight"] = enc[name]["scale"]
         sd[f"{p}{key}.bias"] = enc[name]["bias"]
     for i in range(3):

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 _DECODER_SIDE = ("decoder", "mask_token", "proj", "pred", "loss_fn")
-_TRUNK = ("initial_conv.", "stem.", "downsample_layers.", "stages.")
+_TRUNK = ("initial_conv.", "stem.", "stem_orig.", "downsample_layers.", "stages.")
 
 
 def load_pth(path) -> dict[str, np.ndarray]:
@@ -84,10 +84,11 @@ def remap_minkowski_keys(sd: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 def encoder_state_from_checkpoint(path: str | Path,
                                   depths: Sequence[int]) -> dict[str, torch.Tensor]:
-    """The encoder trunk of a pretraining checkpoint (stem, downsamples and
-    the blocks of ``depths``) as a dense state dict: GRN affines (1, 1, 1, C)
-    and a 1x1 depthwise stem (C, 1, 1, 1) whatever shape they were stored in,
-    as JAX ``encoder_tree_from_checkpoint`` + ``torch_encoder_to_flax`` read
+    """The encoder trunk of a pretraining checkpoint (stem or original stem,
+    downsamples and the blocks of ``depths``) as a dense state dict: GRN
+    affines (1, 1, 1, C) and a 1x1 stem conv (depthwise (C, 1, 1, 1), or the
+    original stem's (C, in, 1, 1)) whatever shape they were stored in, as
+    JAX ``encoder_tree_from_checkpoint`` + ``torch_encoder_to_flax`` read
     them."""
     path = Path(path)
     if path.suffix not in (".pth", ".pt"):
@@ -108,7 +109,7 @@ def encoder_state_from_checkpoint(path: str | Path,
             continue
         if ".grn." in k:
             v = v.reshape(1, 1, 1, -1)
-        elif k == "stem.0.weight" and v.ndim == 2:  # 1x1 depthwise stored squeezed
+        elif k in ("stem.0.weight", "stem_orig.0.weight") and v.ndim == 2:  # 1x1, squeezed
             v = v.reshape(*v.shape, 1, 1)
         out[k] = torch.from_numpy(np.array(v, dtype=np.float32))
     return out

@@ -102,8 +102,9 @@ def resolve(path: str | Path) -> Path:
 def model_state(sd: Mapping, model: torch.nn.Module) -> dict[str, torch.Tensor]:
     """``sd`` in the model's layout.  An upstream Minkowski checkpoint (its
     sparse encoder's ``*.kernel`` tensors) has its encoder remapped to the
-    dense layout by :func:`remap_minkowski_keys`; GRN affines and the 1x1
-    stem stored squeezed take the model's shape."""
+    dense layout by :func:`remap_minkowski_keys`; GRN affines and a 1x1
+    stem conv (the depthwise stem's or the original stem's) stored squeezed
+    take the model's shape."""
     if any(k.startswith("encoder.") and k.endswith("kernel") for k in sd):
         enc = remap_minkowski_keys({k: _numpy(v) for k, v in sd.items()
                                     if k.startswith("encoder.")})
@@ -114,7 +115,7 @@ def model_state(sd: Mapping, model: torch.nn.Module) -> dict[str, torch.Tensor]:
     out = {}
     for k, v in sd.items():
         v = torch.as_tensor(v)
-        if k in shapes and (".grn." in k or k.endswith("stem.0.weight")):
+        if k in shapes and (".grn." in k or k.endswith(("stem.0.weight", "stem_orig.0.weight"))):
             v = v.reshape(shapes[k])
         out[k] = v
     return out

@@ -50,14 +50,22 @@ class ModelConfig:
     grn_scope: str = "per_device"
     # masked-block implementation of the block tail (models/convnextv2.py):
     # "spillg"/"wholeblock" take the spill-g kernels on the gathered path,
-    # "fused" the masked-dense kernels on the masked-dense path; every other
-    # value, and every value on the other path, composes the tail
+    # "fused" the masked-dense kernels on the masked-dense path, "folded"
+    # folds the norms into the products on the gathered path, "remat"
+    # composes the tail under torch.utils.checkpoint; every other value, and
+    # every value on another path, composes the tail
     block_impl: str = "auto"
     # sparse-encoder strategy: "gathered" computes every site-local op on the
     # visible patches only; "masked_dense" runs the full grid with re-masking.
     # Both compute the same function.
     sparse_impl: str = "gathered"
     use_orig_stem: bool = False
+    # sparse=True reproduces the MinkowskiEngine semantics; sparse=False the
+    # reference's "leaky" dense path (mask applied to the input only)
+    sparse: bool = True
+    # tanh-approximate GELU everywhere (opt-in; the reference's is the exact
+    # erf GELU, which the kernel tails compute, so this composes the tails)
+    gelu_approx: bool = False
     # the classifier's padding: "same" everywhere, or "reference" (upstream's
     # dense model: VALID initial conv, stride//2-padded stem; dense only)
     padding_mode: str = "same"

@@ -75,11 +75,12 @@ def get_args_parser():
                    help="the block tail: on the gathered encoder (every block's dwconv "
                         "through the dwconv7_gathered kernel) spillg and wholeblock (the "
                         "same code in this port) run it through the spill-g kernels (every "
-                        "stage width, convnextv2_huge's included); on the "
-                        "masked-dense encoder fused runs it through the masked-dense "
-                        "kernels; every other choice, and every choice on the other "
-                        "encoder, composes it from torch ops; remat and folded are not "
-                        "ported yet")
+                        "stage width, convnextv2_huge's included) and folded folds the two "
+                        "norms into the two products; on the masked-dense encoder fused "
+                        "runs it through the masked-dense kernels; remat composes it "
+                        "under torch.utils.checkpoint on every encoder; every other "
+                        "choice composes it from torch ops; under --gelu_approx the "
+                        "kernel tails compose too (they compute the erf GELU)")
     p.add_argument("--sparse_impl", choices=["gathered", "masked_dense"], default="gathered",
                    help="gathered: the encoder on the visible patches only; masked_dense: "
                         "on the full grid with re-masking (the same function)")
@@ -102,9 +103,6 @@ def get_args_parser():
 
 # flag -> (value the port runs, what a different value would need)
 _NOT_PORTED = {
-    "gelu_approx": (False, "the tanh GELU"),
-    "use_orig_stem": (False, "the original 4x4 stem"),
-    "sparse": (True, "the dense (leaky) encoder path"),
     "loader": ("mmpack", "the grain and HDF5 loaders"),
     "log_dir": (None, "TensorBoard logging"),
     "wandb": (False, "wandb logging"),
@@ -123,7 +121,8 @@ def config_from_args(args) -> PretrainConfig:
             mask_ratio=args.mask_ratio, decoder_depth=args.decoder_depth,
             decoder_embed_dim=args.decoder_embed_dim, norm_pix_loss=args.norm_pix_loss,
             grn_scope=args.grn_scope, block_impl=args.block_impl,
-            sparse_impl=args.sparse_impl,
+            sparse_impl=args.sparse_impl, use_orig_stem=args.use_orig_stem,
+            sparse=args.sparse, gelu_approx=args.gelu_approx,
         ),
         optim=OptimConfig(
             blr=args.blr, lr=args.lr, min_lr=args.min_lr, weight_decay=args.weight_decay,

@@ -1,9 +1,12 @@
 """NHWC ConvNeXtV2 with the sparse encoders of pretraining and the dense
 classifier of finetuning (port of ``mmearth_tpu/models/convnextv2.py``).
 
-The dense classifier (``sparse=False``) runs every block on the full grid,
-its depthwise 7x7 conv through :func:`dwconv7x7` (the hand-written weight
-gradient), with per-block drop path, then GAP -> LN -> head.
+The dense classifier (``sparse=False`` with ``num_classes`` > 0) runs every
+block on the full grid, its depthwise 7x7 conv through :func:`dwconv7x7`
+(the hand-written weight gradient), with per-block drop path, then GAP ->
+LN -> head.  The same dense trunk is the "leaky" pretraining encoder
+(``sparse=False`` in FCMAE, JAX :803-806): the mask is applied to the input
+only, then the dense stem and stages run (no norm, no head).
 
 The masked encoder reproduces the MinkowskiEngine sparse encoder in one of two
 ways (``sparse_impl``), which compute the same function:
@@ -13,26 +16,41 @@ ways (``sparse_impl``), which compute the same function:
   visible patches, every block's depthwise 7x7 conv runs through
   :func:`dwconv7_gathered` (at every stage: p = 8/4/2/1 at 56/8, 16/8/4/2 at
   112/16) and its
-  site-local tail (LN -> Linear -> erf GELU -> MaskedGRN over all rows ->
+  site-local tail (LN -> Linear -> GELU -> MaskedGRN over all rows ->
   Linear -> residual) on the rows, the 2x2 stride-2 downsamples on the rows,
   and stage 4 is scattered back to the dense grid with zeros at removed
-  patches.  It needs the same visible count K in every sample.
+  patches.  It needs the same visible count K in every sample.  With
+  ``stem_gathered`` the stem's site-local part runs on the gathered rows
+  too (JAX :751-766): the initial conv's output is gathered (the original
+  stem, patch-local, gathers the raw input) and the rest of the stem runs
+  on the rows.
 * ``masked_dense``: every op on the full grid, re-masked with the upsampled
   keep mask after the stem, each downsample and each block's tail (JAX
   ``_stages``, :679-696); the MaskedGRN statistic is over the kept sites.
   Every block's depthwise conv runs through :func:`dwconv7x7`.  Any mask.
 
+The stem is the 3x3 initial conv -> LN -> GELU -> depthwise stride-s conv ->
+LN, or with ``use_orig_stem`` upstream's original stem, one s x s stride-s
+conv -> LN (JAX :600-606), s = patch / 8.  The GELU is the exact erf one, or
+the tanh one with ``gelu_approx`` (stem, block tails; JAX :56-60).
+
 SAME padding, as the JAX package (the classifier also takes upstream's
 ``padding_mode="reference"``).
 
 ``block_impl``, as JAX routes it: on the gathered path ``auto``, ``xla``,
-``dwg`` and ``fused`` run the block tail as composed torch ops, and ``spillg``
+``dwg`` and ``fused`` run the block tail as composed torch ops, ``spillg``
 and ``wholeblock`` run it through :func:`fused_block_mlp_spillg` (the spill-g
 kernels; in JAX ``wholeblock`` differs from ``spillg`` by also taking the
-Pallas dwconv, which every gathered block of the port already runs).  On the
-masked-dense path ``fused`` runs the tail through :func:`fused_block_mlp`
-(the masked-dense kernels) and every other value composes it.  The param tree
-is the same for every ``block_impl`` and ``sparse_impl``.
+Pallas dwconv, which every gathered block of the port already runs), and
+``folded`` folds LN into the first product and the GRN affine into the
+second (JAX ``_folded_tail``, :183-260).  On the masked-dense path ``fused``
+runs the tail through :func:`fused_block_mlp` (the masked-dense kernels) and
+every other value composes it.  The kernels hard-code the erf GELU, so under
+``gelu_approx`` the blocks compose their tails instead, as JAX declines its
+kernels (:326-327,347-348).  ``remat`` composes the tail under
+``torch.utils.checkpoint`` in every form (JAX :370-412), the depthwise conv
+outside it.  The param tree is the same for every ``block_impl`` and
+``sparse_impl``.
 
 Params are f32 in upstream's dense layout and key names (OIHW convs, (out,
 in) Linears, (1, 1, 1, C) GRN affines); each layer casts them to its compute
@@ -46,20 +64,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.dwconv import dwconv7x7
 from ..ops.fused_block import fused_block_mlp, fused_block_mlp_spillg
 from ..ops.patch_select import gather_patches, scatter_patches
 from ..ops.wholeblock import dwconv7_gathered
-from .norm import GRN, LayerNorm, MaskedGRN
+from .norm import GRN, LayerNorm, MaskedGRN, _safe_l2
 
-BLOCK_IMPLS = ("auto", "xla", "dwg", "spillg", "wholeblock", "fused")
+BLOCK_IMPLS = ("auto", "xla", "dwg", "spillg", "wholeblock", "fused", "remat", "folded")
 SPILLG_IMPLS = ("spillg", "wholeblock")
 SPARSE_IMPLS = ("gathered", "masked_dense")
-_LATER_SLICE = {
-    "remat": "the rematerialized block tail",
-    "folded": "the norm-folded block tail",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -101,8 +116,10 @@ def init_param(t: torch.Tensor, kind: str, generator: torch.Generator) -> None:
 # ---------------------------------------------------------------------------
 # shared helpers
 # ---------------------------------------------------------------------------
-def gelu(x):
-    return F.gelu(x)  # exact erf GELU, torch nn.GELU() default
+def gelu(x, approximate: bool = False):
+    """The exact erf GELU (torch nn.GELU()'s default, the reference's), or
+    the tanh one (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def dense(x, weight, bias, dtype):
@@ -159,22 +176,28 @@ class DropPath(nn.Module):
 
 
 class Block(nn.Module):
-    """ConvNeXtV2 block.  Dense form on an NHWC map (the decoder and the
-    classifier); gathered form on ``(N, K, p, p, C)`` visible rows when
-    ``gather`` = ``(kept_ids, inv_ids, grid)`` is given; masked-dense form on
-    an NHWC map whose masked sites are zero when ``keep`` (N, H, W, 1), 1 =
-    visible, is given (JAX ``Block``, :506-543: the GRN statistic over the
-    kept sites and the tail re-masked before the residual).  The dense and
-    masked-dense forms run their depthwise conv through :func:`dwconv7x7`,
-    the gathered form through :func:`dwconv7_gathered`.  With ``spillg`` the
-    gathered tail runs through :func:`fused_block_mlp_spillg`; with ``fused``
-    the masked-dense tail runs through :func:`fused_block_mlp`.  The composed
-    tail ends in :class:`DropPath` (``drop_path`` > 0 only in the classifier,
-    whose blocks take neither kernel tail)."""
+    """ConvNeXtV2 block.  Dense form on an NHWC map (the decoder, the
+    classifier and the leaky encoder); gathered form on ``(N, K, p, p, C)``
+    visible rows when ``gather`` = ``(kept_ids, inv_ids, grid)`` is given;
+    masked-dense form on an NHWC map whose masked sites are zero when
+    ``keep`` (N, H, W, 1), 1 = visible, is given (JAX ``Block``, :506-543:
+    the GRN statistic over the kept sites and the tail re-masked before the
+    residual).  The dense and masked-dense forms run their depthwise conv
+    through :func:`dwconv7x7`, the gathered form through
+    :func:`dwconv7_gathered`.  The tail after it: with ``spillg`` the
+    gathered tail runs through :func:`fused_block_mlp_spillg`, with
+    ``fused`` the masked-dense tail through :func:`fused_block_mlp`, with
+    ``folded`` the gathered tail folds the norms into the products
+    (:meth:`_folded_tail`); every other tail is composed, under
+    ``torch.utils.checkpoint`` with ``remat``.  Under ``gelu_approx`` (the
+    tanh GELU) neither kernel tail is taken, as the kernels compute the erf
+    GELU.  The tail ends in :class:`DropPath` (``drop_path`` > 0 only in the
+    classifier, whose blocks take neither kernel tail)."""
 
     def __init__(self, dim: int, sparse: bool = False, dw_init: str | None = None,
                  pw_init: str | None = None, grn_group: int = 0, dtype=torch.float32,
-                 spillg: bool = False, fused: bool = False, drop_path: float = 0.0):
+                 spillg: bool = False, fused: bool = False, drop_path: float = 0.0,
+                 gelu_approx: bool = False, remat: bool = False, folded: bool = False):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = LayerNorm(dim, dtype=dtype)
@@ -183,8 +206,11 @@ class Block(nn.Module):
         self.pwconv2 = nn.Linear(4 * dim, dim)
         self.drop_path = DropPath(drop_path)
         self.dtype = dtype
-        self.spillg = spillg and sparse
-        self.fused = fused and sparse
+        self.gelu_approx = gelu_approx
+        self.spillg = spillg and sparse and not gelu_approx
+        self.fused = fused and sparse and not gelu_approx
+        self.folded = folded and sparse
+        self.remat = remat
         default = "trunc1" if sparse else "normal02"
         self.inits = {"dwconv.weight": dw_init or default, "pwconv1.weight": pw_init or default,
                       "pwconv2.weight": pw_init or default}
@@ -196,15 +222,60 @@ class Block(nn.Module):
                                  self.dwconv.weight, self.dwconv.bias, grid)
             if self.spillg:
                 return self._spillg_tail(x, t)
+            if self.folded:
+                return x + self.drop_path(self._folded_tail(t), generator)
         else:
             t = dwconv7x7(x.to(self.dtype), self.dwconv.weight, self.dwconv.bias)
             if keep is not None and self.fused:
                 return self._fused_tail(x, t, keep)
-        u = gelu(dense(self.norm(t), self.pwconv1.weight, self.pwconv1.bias, self.dtype))
+        if self.remat:
+            # The branch draws nothing (drop path is applied after it), so
+            # its recompute needs no saved RNG state, and a CUDA graph can
+            # capture it (preserve_rng_state would read the generator).
+            out = checkpoint(self._branch, t, keep, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = self._branch(t, keep)
+        return x + self.drop_path(out, generator)
+
+    def _branch(self, t, keep=None):
+        """The composed tail before drop path: LN -> pw1 -> GELU -> GRN ->
+        pw2, re-masked with ``keep`` when given."""
+        u = gelu(dense(self.norm(t), self.pwconv1.weight, self.pwconv1.bias, self.dtype),
+                 self.gelu_approx)
         u = self.grn(u) if keep is None else self.grn(u, keep)  # gathered: every row visible
         out = dense(u, self.pwconv2.weight, self.pwconv2.bias, self.dtype)
-        out = out if keep is None else out * keep.to(out.dtype)
-        return x + self.drop_path(out, generator)
+        return out if keep is None else out * keep.to(out.dtype)
+
+    def _folded_tail(self, t):
+        """The gathered tail with the two norms folded into the products
+        (JAX ``_folded_tail``, :183-260): LN as ``t (W1 diag(ln_w))^T``
+        corrected per row by the mean and the inverse deviation in f32, and
+        the GRN affine of each GRN group as the columns of W2 scaled by
+        ``gamma * nx + 1``.  The Linear weights are (out, in), the transposes
+        of JAX's kernels, so the scales fall on their columns.  As in JAX the
+        first product's output is in the compute dtype, upcast in the f32
+        correction."""
+        f32, dt = torch.float32, self.dtype
+        n, c4 = t.shape[0], self.pwconv1.weight.shape[0]
+        tf = t.float()
+        mu = tf.mean(-1, keepdim=True)
+        inv = torch.rsqrt((tf - mu).square().mean(-1, keepdim=True) + self.norm.eps)
+        w1 = self.pwconv1.weight.float()
+        w1p = w1 * self.norm.weight.float()
+        bias1 = F.linear(self.norm.bias.float(), w1, self.pwconv1.bias.float())
+        z = F.linear(t.to(dt), w1p.to(dt))
+        g = gelu((z.to(f32) - mu * w1p.sum(1)) * inv + bias1, self.gelu_approx).to(dt)
+        grp = self.grn.group_size(n, stacklevel=4)
+        gg = g.reshape(n // grp, -1, c4)
+        gx = _safe_l2(gg.to(f32).square().sum(1))  # (groups, 4C)
+        nx = gx / (gx.mean(-1, keepdim=True) + 1e-6)
+        w2 = self.pwconv2.weight.float()
+        a = self.grn.gamma.reshape(c4).float() * nx + 1.0
+        bias2 = F.linear(self.grn.beta.reshape(c4).float(), w2, self.pwconv2.bias.float())
+        w2p = (a[:, None, :] * w2).to(dt)  # (groups, C, 4C)
+        out = torch.matmul(gg, w2p.transpose(1, 2)) + bias2.to(dt)
+        return out.to(dt).reshape(t.shape)
 
     def _fused_tail(self, x, t, keep):
         """The masked tail on the N*H*W sites, GRN grouped as ``MaskedGRN``
@@ -233,23 +304,24 @@ class Block(nn.Module):
 
 class ConvNeXtV2(nn.Module):
     """ConvNeXtV2: the masked encoder of FCMAE pretraining (``sparse``, the
-    default) or the dense classifier that GEO-Bench finetuning trains
-    (``sparse=False``: dense stem and stages, GAP -> LN -> ``head``, JAX
+    default), the leaky dense encoder (``sparse=False``, no head), or the
+    dense classifier that GEO-Bench finetuning trains (``sparse=False`` and
+    ``num_classes`` > 0: dense stem and stages, GAP -> LN -> ``head``, JAX
     :817-826).  ``padding_mode`` "same" pads every conv SAME; "reference"
     (dense only) runs the initial 3x3 conv VALID and pads the stem s//2 on
-    each side, as upstream's dense model (JAX :607-623)."""
+    each side, as upstream's dense model (JAX :607-623); the original stem
+    (``use_orig_stem``) is VALID in both."""
 
     def __init__(self, patch_size: int = 8, img_size: int = 56, in_chans: int = 12,
                  depths=(2, 2, 6, 2), dims=(40, 80, 160, 320), grn_group: int = 0,
                  block_impl: str = "auto", sparse_impl: str = "gathered", dtype=torch.float32,
                  sparse: bool = True, num_classes: int = 0, drop_path_rate: float = 0.0,
                  head_init_scale: float = 1.0, padding_mode: str = "same",
-                 use_orig_stem: bool = False):
+                 use_orig_stem: bool = False, gelu_approx: bool = False,
+                 stem_gathered: bool = False):
         super().__init__()
         if block_impl not in BLOCK_IMPLS:
-            later = _LATER_SLICE.get(block_impl, "no slice")
-            raise ValueError(f"block_impl={block_impl!r} is not in this port yet: it needs "
-                             f"{later}, queued in ROADMAP.md; use one of {BLOCK_IMPLS}")
+            raise ValueError(f"block_impl={block_impl!r}: use one of {BLOCK_IMPLS}")
         if sparse_impl not in SPARSE_IMPLS:
             raise ValueError(f"sparse_impl={sparse_impl!r}: use one of {SPARSE_IMPLS}")
         if padding_mode not in ("same", "reference"):
@@ -257,22 +329,25 @@ class ConvNeXtV2(nn.Module):
         if padding_mode == "reference" and sparse:
             raise ValueError("padding_mode='reference' is dense-only (masked path needs SAME "
                              "alignment)")
-        if use_orig_stem:
-            raise NotImplementedError("use_orig_stem: the original stem is not ported yet "
-                                      "(ROADMAP.md)")
         self.sparse, self.sparse_impl = sparse, sparse_impl
         self.patch_size, self.img_size = patch_size, img_size
         self.depths, self.dims = tuple(depths), tuple(dims)
         self.head_init_scale = head_init_scale
         self.dtype = dtype
+        self.use_orig_stem, self.gelu_approx = use_orig_stem, gelu_approx
+        self.stem_gathered = stem_gathered
         s = self.stem_stride
-        ref_pad = padding_mode == "reference"
-        self.initial_conv = nn.Sequential(
-            nn.Conv2d(in_chans, dims[0], 3, padding=0 if ref_pad else 1),
-            LayerNorm(dims[0], dtype=dtype))
-        self.stem = nn.Sequential(nn.Conv2d(dims[0], dims[0], s, stride=s, groups=dims[0],
-                                            padding=s // 2 if ref_pad else 0),
-                                  LayerNorm(dims[0], dtype=dtype))
+        if use_orig_stem:
+            self.stem_orig = nn.Sequential(nn.Conv2d(in_chans, dims[0], s, stride=s),
+                                           LayerNorm(dims[0], dtype=dtype))
+        else:
+            ref_pad = padding_mode == "reference"
+            self.initial_conv = nn.Sequential(
+                nn.Conv2d(in_chans, dims[0], 3, padding=0 if ref_pad else 1),
+                LayerNorm(dims[0], dtype=dtype))
+            self.stem = nn.Sequential(nn.Conv2d(dims[0], dims[0], s, stride=s, groups=dims[0],
+                                                padding=s // 2 if ref_pad else 0),
+                                      LayerNorm(dims[0], dtype=dtype))
         self.downsample_layers = nn.ModuleList(
             nn.Sequential(LayerNorm(dims[i], dtype=dtype),
                           nn.Conv2d(dims[i], dims[i + 1], 2, stride=2))
@@ -281,10 +356,13 @@ class ConvNeXtV2(nn.Module):
         self.stages = nn.ModuleList(
             nn.Sequential(*[Block(dims[i], sparse=sparse, grn_group=grn_group, dtype=dtype,
                                   spillg=block_impl in SPILLG_IMPLS,
-                                  fused=block_impl == "fused", drop_path=next(rates))
+                                  fused=block_impl == "fused", drop_path=next(rates),
+                                  gelu_approx=gelu_approx, remat=block_impl == "remat",
+                                  folded=block_impl == "folded")
                             for _ in range(depths[i])])
             for i in range(4))
-        if not sparse:
+        self.classifier = not sparse and num_classes > 0
+        if self.classifier:
             self.norm = LayerNorm(dims[-1], dtype=dtype)
             self.head = nn.Linear(dims[-1], num_classes)
 
@@ -301,7 +379,7 @@ class ConvNeXtV2(nn.Module):
                 init_param(prm, self._init_kind(name), generator)
             elif name.endswith(".bias"):
                 init_param(prm, "zeros", generator)
-        if not self.sparse:
+        if self.classifier:
             with torch.no_grad():
                 self.head.weight.mul_(self.head_init_scale)
 
@@ -311,16 +389,39 @@ class ConvNeXtV2(nn.Module):
         if name.startswith("stages."):
             i, j, rest = name.split(".", 3)[1:]
             return self.stages[int(i)][int(j)].inits[rest]
-        return "normal02"  # initial conv, downsamples, head
+        return "normal02"  # initial conv, original stem, downsamples, head
 
     def _stem(self, x, keep_pixel=None, keep_stem=None):
-        """initial conv -> LN -> GELU -> depthwise stem -> LN, re-masked with
-        the keep masks when given (the masked encoder)."""
-        x = self.initial_conv[1](conv_nhwc(x, self.initial_conv[0], self.dtype))
-        if keep_pixel is not None:
-            x = x * keep_pixel.to(x.dtype)
-        x = self.stem[1](conv_nhwc(gelu(x), self.stem[0], self.dtype))
+        """initial conv -> LN -> GELU -> depthwise stem -> LN (or the
+        original stem's conv -> LN), re-masked with the keep masks when given
+        (the masked encoder)."""
+        if self.use_orig_stem:
+            x = self.stem_orig[1](conv_nhwc(x, self.stem_orig[0], self.dtype))
+        else:
+            x = self.initial_conv[1](conv_nhwc(x, self.initial_conv[0], self.dtype))
+            if keep_pixel is not None:
+                x = x * keep_pixel.to(x.dtype)
+            x = self.stem[1](conv_nhwc(gelu(x, self.gelu_approx), self.stem[0], self.dtype))
         return x if keep_stem is None else x * keep_stem.to(x.dtype)
+
+    def _stem_rows(self, x, kept_ids, inv_ids, grid: int):
+        """The stem with its site-local part on the gathered rows
+        (``stem_gathered``, JAX :751-766): the original stem, patch-local,
+        on the gathered input; else the initial conv on the dense grid, then
+        LN -> GELU -> depthwise stem -> LN on its gathered rows.  Returns
+        (N, K, p0, p0, dims[0])."""
+        p_in, s = self.img_size // grid, self.stem_stride
+        if self.use_orig_stem:
+            conv, norm = self.stem_orig
+            xg = gather_patches(x.contiguous(), kept_ids, inv_ids, p_in, grid)
+        else:
+            y = conv_nhwc(x, self.initial_conv[0], self.dtype).contiguous()
+            xg = gelu(self.initial_conv[1](gather_patches(y, kept_ids, inv_ids, p_in, grid)),
+                      self.gelu_approx)
+            conv, norm = self.stem
+        n, k = xg.shape[:2]
+        y = norm(conv_nhwc(xg.reshape(n * k, p_in, p_in, xg.shape[-1]), conv, self.dtype))
+        return y.reshape(n, k, p_in // s, p_in // s, y.shape[-1])
 
     def _downsample(self, xg, i: int):
         """LN then the 2x2 stride-2 conv on (N, K, p, p, C) rows, as a Linear
@@ -352,21 +453,28 @@ class ConvNeXtV2(nn.Module):
     def encode(self, x, mask, num_visible: int | None = None):
         """Masked encoding: ``x`` (N, H, W, in_chans), ``mask`` (N, L) with 1 =
         removed.  Returns the dense stage-4 map (N, grid, grid, dims[-1]), zero
-        at masked sites.  ``num_visible``: the visible count of every row; the
-        gathered path needs it, and without it (or with ``sparse_impl =
-        "masked_dense"``) the masked-dense path runs, as in JAX (:808-815)."""
+        at masked sites on the sparse paths.  ``num_visible``: the visible
+        count of every row; the gathered path needs it, and without it (or
+        with ``sparse_impl = "masked_dense"``) the masked-dense path runs, as
+        in JAX (:808-815).  The leaky encoder (``sparse=False``) masks the
+        input only and runs the dense stem and stages (JAX :803-806)."""
         grid = self.img_size // self.patch_size
         h = self.img_size // self.stem_stride
         keep_flat = 1.0 - mask.float()
         keep_pixel = upsample_mask(keep_flat, grid, self.img_size)
         x = x * keep_pixel.to(x.dtype)
+        if not self.sparse:
+            return self._stages(self._stem(x))
         if num_visible is None or self.sparse_impl == "masked_dense":
             keeps = [upsample_mask(keep_flat, grid, h >> i) for i in range(len(self.stages))]
             return self._stages(self._stem(x, keep_pixel, keeps[0]), keeps)
         kept_ids, inv_ids = visible_ids(mask, num_visible)
         ctx = (kept_ids, inv_ids, grid)
-        y = self._stem(x, keep_pixel, upsample_mask(keep_flat, grid, h)).contiguous()
-        xg = gather_patches(y, kept_ids, inv_ids, h // grid, grid)
+        if self.stem_gathered:
+            xg = self._stem_rows(x, kept_ids, inv_ids, grid)
+        else:
+            y = self._stem(x, keep_pixel, upsample_mask(keep_flat, grid, h)).contiguous()
+            xg = gather_patches(y, kept_ids, inv_ids, h // grid, grid)
         for i, stage in enumerate(self.stages):
             if i:
                 xg = self._downsample(xg, i - 1)

@@ -4,7 +4,10 @@
   * encoder: the sparse ConvNeXtV2 (models/convnextv2.py), gathered or
     masked-dense (``sparse_impl``); an explicit mask whose rows do not all
     keep the generated visible count takes the masked-dense path, as in JAX
-    (fcmae.py:214-226);
+    (fcmae.py:214-226).  ``sparse=False`` is the reference's leaky dense
+    encoder instead (the mask on the input only), ``use_orig_stem`` the
+    original stem, ``stem_gathered`` the stem on the gathered rows and
+    ``gelu_approx`` the tanh GELU in the encoder and the decoder Block;
   * 1x1 projection to the decoder dim and a learnable mask token blended into
     the masked sites (reference fcmae.py:113-118, 252-255);
   * decoder: upstream registers one list of Blocks under every modality name
@@ -104,7 +107,8 @@ class FCMAE(nn.Module):
                  norm_pix_loss: bool = False, grn_group: int = 0, block_impl: str = "auto",
                  sparse_impl: str = "gathered", loss_aggr: str = "uncertainty",
                  loss_full: bool = False, inp_modalities=None, out_modalities=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, sparse: bool = True, use_orig_stem: bool = False,
+                 gelu_approx: bool = False, stem_gathered: bool = False):
         super().__init__()
         inp_modalities = dict(inp_modalities or M.INP_MODALITIES)
         out_modalities = dict(out_modalities or M.OUT_MODALITIES)
@@ -116,11 +120,14 @@ class FCMAE(nn.Module):
         d = decoder_embed_dim
         self.encoder = ConvNeXtV2(patch_size, img_size,
                                   len(M.resolve_bands(inp_modalities)["sentinel2"]),
-                                  depths, dims, grn_group, block_impl, sparse_impl, dtype)
+                                  depths, dims, grn_group, block_impl, sparse_impl, dtype,
+                                  sparse=sparse, use_orig_stem=use_orig_stem,
+                                  gelu_approx=gelu_approx, stem_gathered=stem_gathered)
         self.proj = nn.Conv2d(dims[-1], d, 1)
         self.mask_token = nn.Parameter(torch.zeros(1, d, 1, 1))
         decoder = nn.Sequential(*[Block(d, sparse=False, dw_init="trunc1", pw_init="normal02",
-                                        dtype=dtype) for _ in range(decoder_depth)])
+                                        dtype=dtype, gelu_approx=gelu_approx)
+                                  for _ in range(decoder_depth)])
         self.decoder_dict = nn.ModuleDict({name: decoder for name in self.out_modalities})
         self.pred_dict = nn.ModuleDict({
             name: nn.Conv2d(d, patch_size ** 2 * self.out_chans[name], 1)

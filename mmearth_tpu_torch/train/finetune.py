@@ -76,7 +76,7 @@ def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_tr
     params, scheduled for ``n_train`` samples an epoch."""
     model = build_finetune_model(cfg, in_channels, nb_classes)
     if cfg.finetune:
-        if cfg.model.padding_mode == "same":
+        if cfg.model.padding_mode == "same" and not cfg.model.use_orig_stem:
             print("note: finetuning a .pth with padding_mode='same'; upstream's dense model "
                   "pads as --padding_mode reference does (VALID initial conv, stride//2 "
                   "stem padding)")

@@ -57,7 +57,8 @@ def build_model(cfg: PretrainConfig, device="cuda") -> FCMAE:
         mask_ratio=cfg.model.mask_ratio, norm_pix_loss=cfg.model.norm_pix_loss,
         grn_group=cfg.data.batch_size if cfg.model.grn_scope == "per_device" else 0,
         block_impl=cfg.model.block_impl, sparse_impl=cfg.model.sparse_impl,
-        loss_aggr=cfg.run.loss_aggr,
+        sparse=cfg.model.sparse, use_orig_stem=cfg.model.use_orig_stem,
+        gelu_approx=cfg.model.gelu_approx, loss_aggr=cfg.run.loss_aggr,
         loss_full=cfg.run.loss_full, inp_modalities=cfg.data.inp_modalities,
         out_modalities=cfg.data.out_modalities,
         dtype=torch.bfloat16 if cfg.run.use_bf16 else torch.float32,

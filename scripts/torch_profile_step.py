@@ -10,7 +10,9 @@
 ``mmearth_tpu_torch.main_pretrain`` with the given encoder (``--sparse_impl
 gathered`` or ``masked_dense``) and block tail (``--block_impl``:
 ``dwg``/``auto``, composed; ``wholeblock``, the spill-g kernels on the
-gathered encoder; ``fused``, the masked-dense kernels) on synthetic 64-px
+gathered encoder; ``fused``, the masked-dense kernels; ``remat`` and
+``folded``) and encoder options (``--sparse False``, ``--gelu_approx True``,
+``--use_orig_stem True``, as the driver takes them) on synthetic 64-px
 mmpack data.  ``--task finetune`` and ``probe`` run the GEO-Bench recipe of
 ``mmearth_tpu_torch.main_finetune`` (the dense convnextv2_atto classifier at
 patch 8, bf16, drop path 0.1, layer decay 0.9; the probe trains the head
@@ -98,7 +100,8 @@ def pretrain_stepper(args, data: Path, n_steps: int, dev):
         "--model", "convnextv2_atto", "--input_size", "56", "--patch_size", "8",
         "--batch_size", str(args.batch_size), "--use_bf16", "True", "--processed_dir", str(data),
         "--epochs", "1", "--warmup_epochs", "1", "--sparse_impl", args.sparse_impl,
-        "--block_impl", args.block_impl]))
+        "--block_impl", args.block_impl, "--sparse", str(args.sparse),
+        "--gelu_approx", str(args.gelu_approx), "--use_orig_stem", str(args.use_orig_stem)]))
     model = build_model(cfg, dev)
     _, loader = get_dataloader(cfg)
     opt = AdamW(model.named_parameters(), warmup_cosine(1.5e-4, 0.0, 1, 1, n_steps),
@@ -145,7 +148,12 @@ def main() -> int:
                     help="time the steps alone, their batches already on the card")
     ap.add_argument("--sparse_impl", default="gathered", choices=["gathered", "masked_dense"])
     ap.add_argument("--block_impl", default="dwg", choices=["auto", "xla", "dwg", "spillg",
-                                                            "wholeblock", "fused"])
+                                                            "wholeblock", "fused", "remat",
+                                                            "folded"])
+    for flag, default in (("--sparse", True), ("--gelu_approx", False),
+                          ("--use_orig_stem", False)):
+        ap.add_argument(flag, default=default, type=lambda v: str(v).lower() in ("true", "1"),
+                        help="the pretraining driver's flag")
     args = ap.parse_args()
     if args.batch_size is None:
         args.batch_size = 256 if args.task == "pretrain" else 32
@@ -167,7 +175,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     head = {"card": smi, "task": args.task,
-            **({"sparse_impl": args.sparse_impl, "block_impl": args.block_impl}
+            **({"sparse_impl": args.sparse_impl, "block_impl": args.block_impl,
+                "sparse": args.sparse, "gelu_approx": args.gelu_approx,
+                "use_orig_stem": args.use_orig_stem}
                if args.task == "pretrain" else {}),
             "batch_size": args.batch_size, "steps": args.steps}
 

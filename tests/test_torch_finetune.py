@@ -56,10 +56,11 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _classifier(padding_mode="same", patch_size=8, seed=0):
+def _classifier(padding_mode="same", patch_size=8, seed=0, use_orig_stem=False):
     """The port's classifier and the same weights as a JAX param tree (GRN
     affines randomized: they init to zero, which hides GRN bugs)."""
-    kw = dict(patch_size=patch_size, img_size=56, in_chans=12, depths=DEPTHS, dims=DIMS)
+    kw = dict(patch_size=patch_size, img_size=56, in_chans=12, depths=DEPTHS, dims=DIMS,
+              use_orig_stem=use_orig_stem)
     tm = ConvNeXtV2(**kw, sparse=False, num_classes=NCLS, head_init_scale=0.5,
                     padding_mode=padding_mode)
     tm.init_weights(torch.Generator().manual_seed(seed))
@@ -67,7 +68,8 @@ def _classifier(padding_mode="same", patch_size=8, seed=0):
     # memory, which the port's optimizer later updates in place
     sd = {k: v.numpy().copy() for k, v in tm.state_dict().items()}
     params = randomize_grn(jax.tree_util.tree_map(
-        jnp.asarray, jtc.torch_encoder_to_flax(sd, DEPTHS, include_head=True)), seed)
+        jnp.asarray, jtc.torch_encoder_to_flax(sd, DEPTHS, use_orig_stem, include_head=True)),
+        seed)
     tm.load_state_dict(from_jax_classifier(np_tree(params), DEPTHS), strict=True)
     jm = jcnx.ConvNeXtV2(**kw, num_classes=NCLS, sparse=False, padding_mode=padding_mode)
     return tm, jm, params
@@ -104,9 +106,30 @@ def test_classifier_matches_jax(padding_mode, patch_size, size):
     assert_grads_close(tm, from_jax_classifier(np_tree(g_ref), DEPTHS), RTOL)
 
 
+@pytest.mark.parametrize("patch_size,size", [(8, 64), (16, 48)])
+def test_orig_stem_classifier_matches_jax(patch_size, size):
+    """The classifier with the original stem (s = 1 at patch 8, 2 at patch
+    16): logits and every param grad against JAX, as above."""
+    n = 2
+    rng = np.random.default_rng(size)
+    x = rng.normal(size=(n, size, size, 12)).astype(np.float32)
+    r = rng.normal(size=(n, NCLS)).astype(np.float32)
+    tm, jm, params = _classifier(patch_size=patch_size, use_orig_stem=True)
+    assert tm.stem_orig[0].weight.shape[-1] == patch_size // 8
+
+    @jax.jit
+    def loss(p):
+        logits = jm.apply({"params": p}, jnp.asarray(x))
+        return jnp.sum(logits * r), logits
+
+    (_, ref), g_ref = jax.value_and_grad(loss, has_aux=True)(params)
+    logits = tm(torch.from_numpy(x))
+    (logits * torch.from_numpy(r)).sum().backward()
+    _close(logits.detach().numpy(), ref, "logits")
+    assert_grads_close(tm, from_jax_classifier(np_tree(g_ref), DEPTHS), RTOL)
+
+
 def test_classifier_refusals():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ConvNeXtV2(sparse=False, num_classes=3, use_orig_stem=True)
     with pytest.raises(ValueError, match="dense-only"):
         ConvNeXtV2(padding_mode="reference")
 
@@ -399,7 +422,6 @@ def test_main_finetune_runs_on_cpu(geobench_dir, data_set, metric, probe):
     (["--model", "convnextv2_unet_atto"], "U-Net"),
     (["--model", "resnet18"], "ResNet"),
     (["--opt", "sgd"], "ROADMAP"),
-    (["--use_orig_stem", "True"], "original stem"),
 ])
 def test_not_ported_options_raise(geobench_dir, extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -772,13 +772,15 @@ def test_classifier_step_matches_cpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sparse_impl,block_impl,update_freq", [
-    ("gathered", "wholeblock", 1), ("masked_dense", "fused", 1), ("gathered", "wholeblock", 2)])
+    ("gathered", "wholeblock", 1), ("masked_dense", "fused", 1), ("gathered", "wholeblock", 2),
+    ("gathered", "remat", 1)])
 def test_chained_graph_matches_eager_steps_on_gpu(sparse_impl, block_impl, update_freq):
     """A small f32 FCMAE: 4 eager pretrain steps, then the same 4 steps from
     the same state as 2 replays of a 2-step ChainedStep graph.  Losses within
     1e-5 relative and params within 1e-5 (atomics reorder f32 sums between
     runs; lr 1e-3); the capture recorded an eager step's launches a step,
-    and the replays ran them."""
+    and the replays ran them.  ``remat`` captures its block tails under
+    ``torch.utils.checkpoint``, recomputed in the captured backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from mmearth_tpu_torch import ops
@@ -820,6 +822,47 @@ def test_chained_graph_matches_eager_steps_on_gpu(sparse_impl, block_impl, updat
     torch.testing.assert_close(l1, l0, rtol=1e-5, atol=0)
     for a, b in zip(p1, p0):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("img_size,patch_size,dims", [(56, 8, (40, 80, 160, 320)),
+                                                      (112, 16, (64, 128, 256, 512))])
+def test_orig_stem_fcmae_step_matches_cpu(img_size, patch_size, dims):
+    """A small f32 FCMAE step with the original stem (s = 1 at 56/8, 2 at
+    112/16) and the spill-g tail, one block a stage, two GRN groups: loss
+    within 1e-4 relative and every param grad within 1e-3 of its scale of
+    the same step on the CPU (summation order only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import copy
+
+    from mmearth_tpu_torch.configs import modalities as M
+    from mmearth_tpu_torch.data.synthetic import synthetic_batch
+    from mmearth_tpu_torch.models.fcmae import FCMAE, gen_random_mask, zero_nan_inputs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = FCMAE(img_size=img_size, patch_size=patch_size, depths=(1, 1, 1, 1), dims=dims,
+                decoder_embed_dim=64, grn_group=2, block_impl="wholeblock", use_orig_stem=True,
+                inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES)
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    batch = zero_nan_inputs({k: torch.from_numpy(v)
+                             for k, v in synthetic_batch(4, img_size, seed=1).items()})
+    mask = gen_random_mask(4, GRID * GRID, 0.6, torch.Generator().manual_seed(2))
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        loss = model({k: v.to(dev) for k, v in batch.items()}, mask=mask.to(dev))[0]
+        loss.backward()
+        out[name] = (float(loss.detach()), {k: p.grad.cpu() for k, p in model.named_parameters()
+                                            if p.grad is not None})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["gpu"]
+    assert abs(l_gpu - l_cpu) < 1e-4 * abs(l_cpu)
+    assert "encoder.stem_orig.0.weight" in g_cpu and g_cpu.keys() == g_gpu.keys()
+    for k in g_cpu:
+        err = float((g_gpu[k] - g_cpu[k]).abs().max() / (g_cpu[k].abs().max() + 1e-12))
+        assert err < 1e-3, f"{k}: {err:.2e} of scale"
 
 
 @pytest.mark.gpu
