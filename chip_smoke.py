@@ -77,8 +77,9 @@ Phases, each of which exits non-zero on failure:
    only), with the all-sites count beside it (``bound_ms_all_sites``), and
    each launch gives the bytes it moves once (``launch_bytes``).  Row 11, the dense dwconv's weight
    gradient, against its plain version in bf16 and f32 at the finetune
-   step's four stage shapes, the decoder's (256, 7, 7, 512) and the four
-   masked-dense stage shapes, within 1e-3 * |p| + 1e-4 * max|p| (atomics and
+   step's four stage shapes, the decoder's (256, 7, 7, 512), the four
+   masked-dense stage shapes and the segmentation U-Net's four (batch 16,
+   grids 56/28/14/7 at C = 40/80/160/320; the row's ``seg``), within 1e-3 * |p| + 1e-4 * max|p| (atomics and
    tiling reorder sums of up to 8e5 terms); its yardstick is cuDNN's dW
    (``aten.convolution_backward``), its bound takes the bf16 rate for bf16
    inputs, and each shape also gives the whole conv's cost per call, port
@@ -127,6 +128,22 @@ Phases, each of which exits non-zero on failure:
    finetuning pico-112/16 with ``--use_orig_stem True`` from the
    original-stem slice's ``checkpoint-2.pth``, whose ``stem_orig.*`` the
    driver's bootstrapped classifier must hold.
+   GEO-Bench segmentation: an atto 112/16 pretraining slice (batch 64, the
+   wholeblock counts, checkpointed into ``build/smoke_seg_pretrain_out``
+   and resumed) writes the checkpoint whose stem (stride 2) fits the
+   recipe; synthetic m-cashew-plant (256/64/64, 12 bands) at 112 px and at
+   64 px; then ``run_finetune`` from the CLI's config at the recipe
+   (``convnextv2_unet_atto`` 112/16, batch 16, bf16) as the linear probe
+   unfrozen at epoch 1 of 3: the bootstrapped U-Net must hold the
+   checkpoint's trunk, row 11 must launch 0 times a step in the probe epoch
+   and 12 after the unfreeze and nothing else may launch, losses finite,
+   Jaccard in [0, 1], ms/step and peak GiB printed.  The ResNet baselines
+   through ``main_finetune.main`` from foreign files written to
+   ``build/smoke_foreign``: ``resnet18`` finetuned on m-eurosat from a
+   SeCo-style ``.pth`` and ``resnet18_unet`` as the probe on the 64-px
+   m-cashew-plant from a Satlas-style one, each bootstrapped model holding
+   the file's backbone, no kernel launched, losses finite, scores in
+   [0, 1].
 4. graphs, bench and gate: 16 steps of ``pretrain_step`` run eagerly twice
    and as 2 replays of an 8-step ``train/step.py::ChainedStep`` graph from
    the same state, for atto-56/8 ``wholeblock`` and masked-dense ``fused``
@@ -146,9 +163,10 @@ Phases, each of which exits non-zero on failure:
    (10 steps an epoch: one
    dispatch and a tail of 2 single steps), 2 epochs into
    ``build/smoke_graph_out``, then resumed for a third.  Then
-   ``scripts/torch_bench.py --config atto56 --rounds 2 --steps 10`` as a
-   subprocess (the built kernels reused), whose last line must carry the
-   metric's keys, rates above 0 and this card; then the synthetic
+   ``scripts/torch_bench.py --config atto56 --rounds 2 --steps 10`` and
+   ``--config seg`` the same way as subprocesses (the built kernels
+   reused), whose last lines must carry the metrics' keys, rates above 0
+   and this card; then the synthetic
    convergence gate of ``scripts/torch_convergence_gate.py`` at its full
    500 steps (batch 256, ``wholeblock``, 50-step graph replays, after its
    own bench run of 4 replays of 30 steps), whose loss must drop by more
@@ -160,7 +178,9 @@ Phases, each of which exits non-zero on failure:
    masked_dense fused, wholeblock at pico widths 112/16 (one block a
    stage), each encoder option's slice, wholeblock with the original stem
    (at 56/8 and at pico 112/16) and with the stem on the gathered rows
-   (``stem_gathered``, both stems), and a small f32 classifier step.
+   (``stem_gathered``, both stems), a small f32 classifier step, and
+   small f32 steps of the U-Net (the dW kernel), ResNet-18 and the
+   ResNet-18 U-Net (with their BN running statistics).
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -182,6 +202,8 @@ DENSE_GEOMS = ((56, 40, 2), (28, 80, 2), (14, 160, 6), (7, 320, 2))  # (grid sid
 FT_BATCH = 32  # the finetune recipe's batch
 FT_GEOMS = ((64, 40, 2), (32, 80, 2), (16, 160, 6), (8, 320, 2))  # 64-px tiles at stride 1
 DECODER_GEOM = (7, 512, 1)
+SEG_BATCH = 16  # the segmentation recipe's batch (bench.py:507-529)
+SEG_GEOMS = ((56, 40, 2), (28, 80, 2), (14, 160, 6), (7, 320, 2))  # atto 112/16, stem stride 2
 PICO_N, PICO_P16 = 64, (16, 64, 2)  # pico 112/16 at batch 64: stage 0's (p, C, blocks)
 PICO_STAGE3 = (2, 512, 2)  # and stage 3's, where spill-g C's dW2 does not fold
 WIDE_C, WIDE_ROWS = 2816, 64  # huge's last stage; 64 rows in two GRN groups
@@ -1076,10 +1098,12 @@ def dwconv_call_ms(x, dy, iters: int = 40) -> dict:
 
 def phase_dwconv_kernel() -> dict:
     """Row 11: the dense dwconv's weight-gradient kernel against its plain
-    version at the finetune, decoder and masked-dense shapes, in bf16 and
-    f32; times in bf16, with the whole conv's cost per call beside
-    (:func:`dwconv_call_ms`).  The row's numbers are the finetune step's;
-    ``masked_dense_step`` and ``decoder`` give the other paths' sums."""
+    version at the finetune, decoder, masked-dense and segmentation U-Net
+    shapes, in bf16 and f32; times in bf16, with the whole conv's cost per
+    call beside (:func:`dwconv_call_ms`).  The row's numbers are the
+    finetune step's; ``masked_dense_step``, ``decoder`` and ``seg`` (the
+    U-Net's 12 encoder Blocks at batch 16, 112/16) give the other paths'
+    sums."""
     import torch
 
     from mmearth_tpu_torch.ops import dwconv
@@ -1092,7 +1116,8 @@ def phase_dwconv_kernel() -> dict:
            "max_err_over_scale": 0.0, "library": "aten.convolution_backward, dW only (cuDNN)"}
     paths = {"finetune": [(FT_BATCH, *g) for g in FT_GEOMS],
              "masked_dense_step": [(N, *g) for g in DENSE_GEOMS] + [(N, *DECODER_GEOM)],
-             "decoder": [(N, *DECODER_GEOM)]}
+             "decoder": [(N, *DECODER_GEOM)],
+             "seg": [(SEG_BATCH, *g) for g in SEG_GEOMS]}
     sums = {}
     for path, geoms in paths.items():
         tot = sums.setdefault(path, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -1143,6 +1168,7 @@ def phase_dwconv_kernel() -> dict:
                                                   "bound_by")})
     row["masked_dense_step"] = sums["masked_dense_step"]
     row["decoder"] = sums["decoder"]
+    row["seg"] = {**sums["seg"], "launches": 0}  # launches: the seg probe's run
     return {"dw_weight_grad": row}
 
 
@@ -1610,26 +1636,33 @@ def phase_cli_graph(card: str, data: Path) -> dict:
     return result
 
 
-def phase_bench(card: str) -> dict:
-    """``scripts/torch_bench.py`` short (2 rounds of 10 steps) as a user runs
-    it, reusing the kernels built in ``build/kernels``: its last line is the
-    result, for the card this smoke test runs on."""
+BENCH_LINES = {  # config -> (metric, keys its line must carry past the common ones)
+    "atto56": ("mpmae_atto_mmearth64_pretrain_samples_per_sec_per_chip",
+               ("block_impl", "auto_value", "eager_value")),
+    "seg": ("geobench_seg_finetune_unet_atto112_img_per_sec_per_chip", ()),
+}
+
+
+def phase_bench(card: str, config: str = "atto56") -> dict:
+    """``scripts/torch_bench.py --config config`` short (2 rounds of 10
+    steps) as a user runs it, reusing the kernels built in
+    ``build/kernels``: its last line is the result, for the card this smoke
+    test runs on."""
     t0 = time.time()
     r = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_bench.py"), "--config",
-                        "atto56", "--rounds", "2", "--steps", "10"], cwd=ROOT,
+                        config, "--rounds", "2", "--steps", "10"], cwd=ROOT,
                        capture_output=True, text=True, timeout=600)
     last = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
     if r.returncode != 0:
         raise AssertionError(f"torch_bench.py exited {r.returncode}: {last}\n{r.stderr[-3000:]}")
     line = json.loads(last)
-    want = {"metric", "value", "unit", "ms_per_step", "peak_mem_gib", "block_impl", "auto_value",
-            "eager_value", "card"}
-    if not (want <= set(line) and line["value"] > 0 and line["auto_value"] > 0
-            and line["eager_value"] > 0
-            and line["card"] == card
-            and line["metric"] == "mpmae_atto_mmearth64_pretrain_samples_per_sec_per_chip"):
+    metric, extra = BENCH_LINES[config]
+    want = {"metric", "value", "unit", "ms_per_step", "peak_mem_gib", "card", *extra}
+    if not (want <= set(line) and line["value"] > 0 and line["card"] == card
+            and all(line[k] > 0 for k in extra if k.endswith("value"))
+            and line["metric"] == metric):
         raise AssertionError(f"torch_bench.py line: {line}")
-    emit({"phase": "bench", "seconds": round(time.time() - t0, 2), **line})
+    emit({"phase": "bench", "config": config, "seconds": round(time.time() - t0, 2), **line})
     return line
 
 
@@ -1759,6 +1792,270 @@ def check_orig_stem_bootstrap(args, checkpoint: Path) -> None:
                              "not loaded from the checkpoint")
 
 
+# --------------------------------------------------------------------------
+# GEO-Bench segmentation and the ResNet baselines
+# --------------------------------------------------------------------------
+ATTO112 = ("convnextv2_atto", 112, 16, PICO_N)  # a pretraining checkpoint whose stem fits 112/16
+
+
+def phase_seg_data() -> tuple[Path, Path]:
+    """Synthetic packed m-cashew-plant (256/64/64, 12 bands), written anew:
+    112-px tiles for the U-Net recipe and 64-px ones for the ResNet-UNet,
+    whose input sides must be multiples of 32."""
+    from mmearth_tpu_torch.data.geobench import generate_synthetic_geobench
+
+    t0 = time.time()
+    dirs = []
+    for name, size in (("smoke_geobench_seg", 112), ("smoke_geobench_seg64", 64)):
+        data = ROOT / "build" / name
+        shutil.rmtree(data, ignore_errors=True)
+        generate_synthetic_geobench(data, "m-cashew-plant", (256, 64, 64), seed=0, size=size)
+        dirs.append(data)
+    emit({"phase": "seg_data", "seconds": round(time.time() - t0, 2),
+          "paths": [str(d) for d in dirs]})
+    return dirs[0], dirs[1]
+
+
+def seg_args(data: Path, checkpoint: Path, model: str = "convnextv2_unet_atto",
+             size: int = 112, patch: int = 16):
+    from mmearth_tpu_torch import main_finetune
+
+    return main_finetune.get_args_parser().parse_args([
+        "--model", model, "--input_size", str(size), "--patch_size", str(patch),
+        "--data_set", "m-cashew-plant", "--finetune", str(checkpoint),
+        "--processed_dir", str(data), "--batch_size", str(SEG_BATCH), "--epochs", "3",
+        "--blr", "2e-4", "--layer_decay", "0.9", "--weight_decay", "0.3", "--drop_path", "0.1",
+        "--smoothing", "0.0", "--use_bf16", "True", "--seed", "0", "--device", "cuda",
+        "--linear_probe", "True"])
+
+
+def check_seg_run(what: str, out: dict, per_epoch_dw: list[int]) -> list[dict]:
+    """Every epoch's losses finite, its Jaccard and the test's in [0, 1], and
+    its training steps' launches: the dense dW ``per_epoch_dw[e]`` a step,
+    every other kernel none.  Returns the epochs' summaries."""
+    import math
+
+    history = out["history"]
+    scores = [e["val_Jaccard"] for e in history] + [out["test_Jaccard"]]
+    if not all(isinstance(v, float) and 0.0 <= v <= 1.0 for v in scores):
+        raise AssertionError(f"{what}: Jaccard {scores}")
+    rows = []
+    for e, dw in zip(history, per_epoch_dw, strict=True):
+        if not (e["steps"] > 0 and all(map(math.isfinite, e["step_losses"]))):
+            raise AssertionError(f"{what}, epoch {e['epoch']}: losses {e['step_losses']}")
+        for name, n in e["launches"].items():
+            want = dw * e["steps"] if name == "dw_weight_grad" else 0
+            if n != want:
+                raise AssertionError(f"{what}, epoch {e['epoch']}, {name}: {n} launches in "
+                                     f"{e['steps']} steps, expected {want}")
+        rows.append({"epoch": e["epoch"], "steps": e["steps"], "loss": e["loss"],
+                     "val_jaccard": e["val_Jaccard"], "lr": e["lr"],
+                     "ms_per_step": 1e3 * e["seconds"] / e["steps"],
+                     "dw_launches_per_step": e["launches"]["dw_weight_grad"] / e["steps"]})
+    return rows
+
+
+def phase_seg(rows_out: dict, card: str, data: Path, checkpoint: Path) -> dict:
+    """The segmentation recipe (bench.py:507-529) through the CLI's config and
+    ``run_finetune``: ``convnextv2_unet_atto`` at 112/16 (stem stride 2,
+    encoder grids 56/28/14/7), batch 16, bf16, the linear probe unfrozen at
+    epoch 1 of 3 (``FinetuneConfig.unfreeze_epoch``, which has no flag),
+    bootstrapped from the atto 112/16 pretraining checkpoint, whose trunk the
+    U-Net must hold.  Row 11 launches 0 times a step in the probe epoch and
+    12 (the encoder's Blocks) after the unfreeze; no other kernel runs."""
+    import dataclasses
+
+    import torch
+
+    from mmearth_tpu_torch import main_finetune
+    from mmearth_tpu_torch.checkpoints import pth_io
+    from mmearth_tpu_torch.train.finetune import bootstrap, build_finetune_model, run_finetune
+
+    cfg = dataclasses.replace(main_finetune.config_from_args(seg_args(data, checkpoint)),
+                              unfreeze_epoch=1)
+    model = build_finetune_model(cfg, 12, 7)
+    bootstrap(model, checkpoint, cfg.run.seed)
+    saved, held = pth_io.load(checkpoint)["model"], model.state_dict()
+    trunk = [k for k in held if k.startswith(("initial_conv.", "stem.", "downsample_layers.",
+                                              "stages."))]
+    # 8 stem tensors, 12 of the downsamples, 10 a Block
+    if len(trunk) != 8 + 12 + 10 * sum(model.depths) or not all(
+            torch.equal(held[k], saved[f"encoder.{k}"].reshape(held[k].shape)) for k in trunk):
+        raise AssertionError(f"seg bootstrap from {checkpoint}: the U-Net does not hold its trunk")
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_finetune(cfg, device="cuda")
+    epochs = check_seg_run("seg probe", out, [0, 12, 12])
+    dw = sum(e["launches"]["dw_weight_grad"] for e in out["history"])
+    rows_out["dw_weight_grad"]["seg"]["launches"] = dw
+    result = {"phase": "seg", "model": cfg.model.model, "input_size": 112, "patch_size": 16,
+              "batch": SEG_BATCH, "unfreeze_epoch": cfg.unfreeze_epoch, "epochs": epochs,
+              "trunk_tensors_held": len(trunk), "dw_launches": dw,
+              "test_jaccard": out["test_Jaccard"],
+              "probe_ms_per_step": epochs[0]["ms_per_step"],
+              "unfrozen_ms_per_step": epochs[2]["ms_per_step"],
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "seconds": round(time.time() - t0, 2), "card": card}
+    emit(result)
+    return result
+
+
+def random_resnet18_state() -> dict:
+    """A random 12-band ResNet-18 backbone under torchvision's keys (``fc``
+    left out), BN statistics drawn too."""
+    import torch
+
+    from mmearth_tpu_torch.models.resnet import build_resnet
+
+    gen = torch.Generator().manual_seed(5)
+    sd = build_resnet("resnet18", num_classes=10, in_chans=12).init_weights(gen).state_dict()
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("fc."):
+            continue
+        if k.endswith(("running_var", "bn2.weight")):  # positive; bn2's init is zero
+            v = torch.rand(v.shape, generator=gen) + 0.5
+        elif v.is_floating_point():
+            v = v + 0.1 * torch.randn(v.shape, generator=gen)
+        out[k] = v
+    return out
+
+
+def phase_baselines(card: str, eurosat: Path, cashew64: Path) -> list[dict]:
+    """The ResNet baselines through ``main_finetune.main`` from foreign
+    files written here: ``resnet18`` finetuned on m-eurosat (3 epochs,
+    batch 32) from a SeCo-style ``.pth`` (MoCo ``encoder_q.`` keys and
+    momentum-encoder and queue entries that the remap drops), and
+    ``resnet18_unet`` as the probe on 64-px m-cashew-plant (3 epochs, batch
+    16) from a Satlas-style one (foreign key names, renamed by position).
+    Each bootstrapped model holds the file's backbone; losses are finite,
+    scores in [0, 1], and no kernel of the port runs."""
+    import math
+
+    import torch
+
+    from mmearth_tpu_torch import main_finetune
+    from mmearth_tpu_torch.train.finetune import bootstrap, build_finetune_model
+
+    foreign = ROOT / "build" / "smoke_foreign"
+    shutil.rmtree(foreign, ignore_errors=True)
+    foreign.mkdir(parents=True)
+    backbone = random_resnet18_state()
+    seco = {f"encoder_q.{k}": v for k, v in backbone.items()}
+    seco.update({"encoder_k.conv1.weight": torch.zeros(64, 12, 7, 7), "queue": torch.zeros(128, 8),
+                 "queue_ptr": torch.zeros((), dtype=torch.long)})
+    torch.save({"state_dict": seco}, foreign / "seco_resnet18.pth")
+    torch.save({f"backbone.body.{i}": v for i, v in enumerate(backbone.values())},
+               foreign / "satlas_resnet18.pth")
+    results = []
+    for model_name, data_set, data, path, probe, batch in (
+            ("resnet18", "m-eurosat", eurosat, foreign / "seco_resnet18.pth", False, FT_BATCH),
+            ("resnet18_unet", "m-cashew-plant", cashew64, foreign / "satlas_resnet18.pth", True,
+             SEG_BATCH)):
+        args = main_finetune.get_args_parser().parse_args([
+            "--model", model_name, "--data_set", data_set, "--finetune", str(path),
+            "--processed_dir", str(data), "--batch_size", str(batch), "--epochs", "3",
+            "--blr", "2e-4", "--layer_decay", "0.9", "--weight_decay", "0.3",
+            "--smoothing", "0.0", "--use_bf16", "True", "--seed", "0", "--device", "cuda",
+            "--linear_probe", str(probe)])
+        cfg = main_finetune.config_from_args(args)
+        model = build_finetune_model(cfg, 12, 10 if data_set == "m-eurosat" else 7)
+        bootstrap(model, path, cfg.run.seed)
+        prefix = "encoder." if probe else ""
+        held = model.state_dict()
+        if not all(torch.equal(held[prefix + k], v.to(held[prefix + k].dtype))
+                   for k, v in backbone.items()):
+            raise AssertionError(f"{model_name} from {path.name}: the backbone is not the file's")
+        t0 = time.time()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out = main_finetune.main(args)
+        metric = "Jaccard" if probe else "Accuracy"
+        history = out["history"]
+        scores = [e[f"val_{metric}"] for e in history] + [out[f"test_{metric}"]]
+        losses = [x for e in history for x in e["step_losses"]]
+        if (not losses or not all(map(math.isfinite, losses))
+                or not all(isinstance(v, float) and 0.0 <= v <= 1.0 for v in scores)):
+            raise AssertionError(f"{model_name}: losses {losses}, {metric} {scores}")
+        if any(read_launches().values()):
+            raise AssertionError(f"{model_name}: launched {read_launches()}")
+        steady = history[1:]
+        result = {"phase": "baseline", "model": model_name, "data_set": data_set,
+                  "finetune": path.name, "mode": "linear_probe" if probe else "finetune",
+                  "steps": len(losses), "epoch_loss": [e["loss"] for e in history],
+                  f"val_{metric.lower()}": scores[:-1], f"test_{metric.lower()}": scores[-1],
+                  "ms_per_step": 1e3 * sum(e["seconds"] for e in steady)
+                  / sum(e["steps"] for e in steady),
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                  "seconds": round(time.time() - t0, 2), "card": card}
+        emit(result)
+        results.append(result)
+    return results
+
+
+def phase_reference_seg() -> None:
+    """Small f32 steps on the GPU against the CPU (TF32 off): the U-Net
+    (depths 1/1/1/1 at atto widths, 112/16, drop path 0) through the dW
+    kernel, loss and every grad within 1e-4 / 1e-3 of their scale; and
+    ResNet-18 and its U-Net in train mode, loss within 1e-4, every grad
+    within 1e-3 in relative L2 norm (flax's E[x^2] - E[x]^2 variance
+    cancels, so a few deep channels carry more rounding), the BN running
+    statistics within 1e-4 of their scale."""
+    import copy
+
+    import torch
+
+    from mmearth_tpu_torch.losses.finetune import criterion_fn
+    from mmearth_tpu_torch.models.resnet import build_resnet
+    from mmearth_tpu_torch.models.unet import ConvNeXtV2Unet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(2)
+    cases = (
+        ("unet", ConvNeXtV2Unet(patch_size=16, img_size=112, in_chans=12, num_classes=7,
+                                depths=(1, 1, 1, 1), dims=(40, 80, 160, 320), head_init_scale=1.0
+                                ).init_weights(torch.Generator().manual_seed(1)),
+         torch.randn(4, 112, 112, 12, generator=gen), torch.randint(0, 7, (4, 112, 112),
+                                                                     generator=gen), 4),
+        ("resnet18", build_resnet("resnet18", num_classes=10, in_chans=12).init_weights(
+            torch.Generator().manual_seed(1)), torch.randn(8, 64, 64, 12, generator=gen),
+         torch.randint(0, 10, (8,), generator=gen), 0),
+        ("resnet18_unet", build_resnet("resnet18_unet", num_classes=7, in_chans=12).init_weights(
+            torch.Generator().manual_seed(1)), torch.randn(4, 64, 64, 12, generator=gen),
+         torch.randint(0, 7, (4, 64, 64), generator=gen), 0))
+    for name, cpu, x, y, dw in cases:
+        crit = criterion_fn("m-eurosat" if name == "resnet18" else "m-cashew-plant", 0.0)
+        gpu = copy.deepcopy(cpu).cuda()
+        reset_launches()
+        out = {}
+        for key, model in (("cpu", cpu), ("gpu", gpu)):
+            dev = next(model.parameters()).device
+            loss = crit(model(x.to(dev)), y.to(dev))
+            loss.backward()
+            grads = {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}
+            out[key] = (float(loss.detach()), grads,
+                        {k: b.cpu() for k, b in model.named_buffers()})
+        if read_launches()["dw_weight_grad"] != dw:
+            raise AssertionError(f"{name} reference step: {read_launches()}, expected {dw} dW")
+        (l_cpu, g_cpu, b_cpu), (l_gpu, g_gpu, b_gpu) = out["cpu"], out["gpu"]
+        rel = abs(l_cpu - l_gpu) / abs(l_cpu)
+        if name == "unet":
+            worst = max(float((g_gpu[k] - g_cpu[k]).abs().max() / (g_cpu[k].abs().max() + 1e-12))
+                        for k in g_cpu)
+        else:
+            worst = max(float((g_gpu[k] - g_cpu[k]).norm() / (g_cpu[k].norm() + 1e-12))
+                        for k in g_cpu)
+        stats = max((float((b_gpu[k].double() - b_cpu[k].double()).abs().max()
+                           / max(float(b_cpu[k].double().abs().max()), 1.0)) for k in b_cpu),
+                    default=0.0)
+        if not (rel < 1e-4 and worst < 1e-3 and stats < 1e-4 and set(g_cpu) == set(g_gpu)):
+            raise AssertionError(f"{name} GPU vs CPU step: loss rel {rel:.2e}, worst grad "
+                                 f"{worst:.2e}, running stats {stats:.2e}")
+        emit({"phase": "reference", "model": name, "loss_cpu": l_cpu, "loss_gpu": l_gpu,
+              "loss_rel": rel, "worst_grad_rel": worst, "running_stats_rel": stats})
+
+
 def phase_reference(sparse_impl: str, block_impl: str, size: int = 56, patch: int = 8,
                     dims=(40, 80, 160, 320), depths=(2, 2, 6, 2), **options) -> None:
     """A small f32 step on the GPU (kernels) against the CPU (plain
@@ -1881,6 +2178,12 @@ def main() -> int:
         phase_finetune(rows_out, card, geobench, pretrain_out / "checkpoint-2.pth", probe)
     phase_finetune(rows_out, card, geobench, orig_out / "checkpoint-2.pth", False, PICO112,
                    {"use_orig_stem": True})
+    seg_out = ROOT / "build" / "smoke_seg_pretrain_out"
+    shutil.rmtree(seg_out, ignore_errors=True)
+    phase_slice(rows_out, card, "gathered", "wholeblock", data128, seg_out, ATTO112)
+    cashew, cashew64 = phase_seg_data()
+    phase_seg(rows_out, card, cashew, seg_out / "checkpoint-3.pth")
+    phase_baselines(card, geobench, cashew64)
     for sparse_impl, block_impl in (("gathered", "wholeblock"), ("masked_dense", "fused")):
         phase_graph(card, sparse_impl, block_impl)
     phase_graph(card, "gathered", "wholeblock", PICO112, update_freq=2)
@@ -1889,6 +2192,7 @@ def main() -> int:
     phase_graph(card, "gathered", "wholeblock", PICO112, options={"use_orig_stem": True})
     phase_cli_graph(card, data)
     phase_bench(card)
+    phase_bench(card, "seg")
     phase_gate()
     for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),
                                     ("masked_dense", "fused")):
@@ -1902,6 +2206,7 @@ def main() -> int:
         phase_reference(sparse_impl, block_impl, **options)
     phase_reference("gathered", "wholeblock", *pico, use_orig_stem=True)
     phase_reference_classifier()
+    phase_reference_seg()
     print(card, flush=True)
     emit({"kernels": list(rows_out.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

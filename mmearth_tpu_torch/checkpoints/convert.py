@@ -1,5 +1,5 @@
-"""Weights carried across: a JAX FCMAE or classifier param tree -> the port's
-state dict.
+"""Weights carried across: a JAX FCMAE, classifier, U-Net or ResNet param tree
+-> the port's state dict.
 
 ``from_jax_fcmae`` takes the flax param tree as nested dicts of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``) and returns upstream's dense
@@ -105,3 +105,84 @@ def from_jax_fcmae(tree: Mapping, depths: Sequence[int], out_modalities: Sequenc
     if "log_vars" in tree:
         sd["loss_fn.log_vars"] = tree["log_vars"]
     return to_tensors(sd)
+
+
+def from_jax_unet(tree: Mapping, depths: Sequence[int],
+                  use_orig_stem: bool = False) -> dict[str, torch.Tensor]:
+    """JAX ConvNeXtV2Unet params -> state dict of the port's (upstream's)
+    U-Net, the keys JAX ``flax_unet_to_torch(..., dims=dims)`` emits: the
+    trunk, ``upsample_layers.{i}.{conv,norm}.*``,
+    ``initial_conv_upsample.{0,1}.*``, the 1x1 ``head`` and upstream's
+    unused final ``norm`` at its defaults (LN = 1/0)."""
+    if use_orig_stem != ("stem_orig_conv" in tree):
+        raise ValueError(f"use_orig_stem={use_orig_stem} but the tree's stem is "
+                         f"{'the original' if 'stem_orig_conv' in tree else 'the dense'} one")
+    sd = from_jax_encoder(tree, depths)
+    for i in range(4):
+        up = tree[f"upsample_layers_{i}"]
+        sd[f"upsample_layers.{i}.conv.weight"] = _oihw(up["conv"]["kernel"])
+        sd[f"upsample_layers.{i}.conv.bias"] = up["conv"]["bias"]
+        sd[f"upsample_layers.{i}.norm.weight"] = up["norm"]["scale"]
+        sd[f"upsample_layers.{i}.norm.bias"] = up["norm"]["bias"]
+    sd["initial_conv_upsample.0.weight"] = _oihw(tree["initial_conv_upsample_conv"]["kernel"])
+    sd["initial_conv_upsample.0.bias"] = tree["initial_conv_upsample_conv"]["bias"]
+    sd["initial_conv_upsample.1.weight"] = tree["initial_conv_upsample_norm"]["scale"]
+    sd["initial_conv_upsample.1.bias"] = tree["initial_conv_upsample_norm"]["bias"]
+    sd["head.weight"] = _oihw(tree["head"]["kernel"])
+    sd["head.bias"] = tree["head"]["bias"]
+    last = np.shape(tree["downsample_convs_2"]["kernel"])[-1]
+    sd["norm.weight"] = np.ones(last, np.float32)
+    sd["norm.bias"] = np.zeros(last, np.float32)
+    return to_tensors(sd)
+
+
+def _bn(params: Mapping, stats: Mapping, prefix: str, sd: dict) -> None:
+    sd[f"{prefix}.weight"] = params["scale"]
+    sd[f"{prefix}.bias"] = params["bias"]
+    sd[f"{prefix}.running_mean"] = stats["mean"]
+    sd[f"{prefix}.running_var"] = stats["var"]
+    sd[f"{prefix}.num_batches_tracked"] = None
+
+
+def _resnet(params: Mapping, stats: Mapping, stage_sizes: Sequence[int], bottleneck: bool,
+            prefix: str, sd: dict) -> None:
+    sd[f"{prefix}conv1.weight"] = _oihw(params["stem_conv"]["kernel"])
+    _bn(params["stem_norm"], stats["stem_norm"], f"{prefix}bn1", sd)
+    for i, n_blocks in enumerate(stage_sizes):
+        for j in range(n_blocks):
+            p, s, key = params[f"stage{i}_{j}"], stats[f"stage{i}_{j}"], f"{prefix}layer{i + 1}.{j}"
+            for c in range(3 if bottleneck else 2):
+                sd[f"{key}.conv{c + 1}.weight"] = _oihw(p[f"Conv_{c}"]["kernel"])
+                _bn(p[f"BatchNorm_{c}"], s[f"BatchNorm_{c}"], f"{key}.bn{c + 1}", sd)
+            if "downsample_conv" in p:
+                sd[f"{key}.downsample.0.weight"] = _oihw(p["downsample_conv"]["kernel"])
+                _bn(p["downsample_norm"], s["downsample_norm"], f"{key}.downsample.1", sd)
+    if "fc" in params:
+        sd[f"{prefix}fc.weight"] = _t(params["fc"]["kernel"])
+        sd[f"{prefix}fc.bias"] = params["fc"]["bias"]
+
+
+def from_jax_resnet(params: Mapping, batch_stats: Mapping, stage_sizes: Sequence[int],
+                    bottleneck: bool) -> dict[str, torch.Tensor]:
+    """JAX ResNet or ResNetUnet params and ``batch_stats`` -> the port's
+    torchvision-keyed state dict (the reverse of JAX ``torch_resnet_to_flax``,
+    foreign.py:118-152); the U-Net's encoder under ``encoder.``, its decoder
+    blocks as ``decoder.{k}.{conv,norm}{0,1}.*`` and its
+    ``segmentation_head``.  ``num_batches_tracked``, which flax does not
+    keep, is 0."""
+    sd: dict = {}
+    if "encoder" in params:
+        _resnet(params["encoder"], batch_stats["encoder"], stage_sizes, bottleneck, "encoder.", sd)
+        k = 0
+        while f"decoder_{k}" in params:
+            p, s = params[f"decoder_{k}"], batch_stats[f"decoder_{k}"]
+            for c in range(2):
+                sd[f"decoder.{k}.conv{c}.weight"] = _oihw(p[f"conv{c}"]["kernel"])
+                _bn(p[f"norm{c}"], s[f"norm{c}"], f"decoder.{k}.norm{c}", sd)
+            k += 1
+        sd["segmentation_head.weight"] = _oihw(params["segmentation_head"]["kernel"])
+        sd["segmentation_head.bias"] = params["segmentation_head"]["bias"]
+    else:
+        _resnet(params, batch_stats, stage_sizes, bottleneck, "", sd)
+    return {k: torch.zeros((), dtype=torch.long) if v is None
+            else torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}

@@ -8,7 +8,11 @@ model's state dict, re-init the head, and freeze per mode:
 
   * classifier finetune: everything trainable;
   * classifier linear probe: only the (new) head trains (helpers.py:984-1000);
-    the final LayerNorm stays at init, as the reference freezes it untrained.
+    the final LayerNorm stays at init, as the reference freezes it untrained;
+  * U-Net probe: the decoder and the head train, the encoder is frozen
+    (helpers.py:941-955) until the staged unfreeze (main_finetune.py:598-619);
+  * ResNet baselines (from :mod:`.foreign`): the probe trains ``fc``, or
+    the ResNet-UNet's decoder and segmentation head.
 
 Sources: a ``.pth``/``.pt`` holding ``{"model": state_dict}`` or a bare state
 dict, with the encoder under ``encoder.*`` (an FCMAE checkpoint, dense or raw
@@ -115,32 +119,44 @@ def encoder_state_from_checkpoint(path: str | Path,
     return out
 
 
-def load_encoder_into(state: dict[str, torch.Tensor],
-                      encoder: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """Overlay encoder weights onto a freshly initialised model's state dict
-    (the classifier shares the trunk's key names).  Every shape must match;
-    keys the model does not have are printed and skipped."""
+def load_encoder_into(state: dict[str, torch.Tensor], encoder: Mapping[str, torch.Tensor],
+                      where: str = "") -> dict[str, torch.Tensor]:
+    """Overlay encoder weights onto a freshly initialised model's state dict:
+    at the top (the classifier and the U-Net share the trunk's key names,
+    the ResNet classifier the backbone's) or under ``where`` (``"encoder"``:
+    the ResNet-UNet's backbone).  Every shape must match; keys the model
+    does not have are printed and skipped."""
     state = dict(state)
+    prefix = f"{where}." if where else ""
     for k, v in encoder.items():
-        if k not in state:
-            print(f"skipping unexpected checkpoint key {k}")
+        key = prefix + k
+        if key not in state:
+            print(f"skipping unexpected checkpoint key {key}")
             continue
-        if tuple(state[k].shape) != tuple(v.shape):
-            raise ValueError(f"{k}: model {tuple(state[k].shape)} vs checkpoint {tuple(v.shape)}")
-        state[k] = v.to(state[k].dtype)
+        if tuple(state[key].shape) != tuple(v.shape):
+            raise ValueError(f"{key}: model {tuple(state[key].shape)} vs checkpoint "
+                             f"{tuple(v.shape)}")
+        state[key] = v.to(state[key].dtype)
     return state
 
 
 def reinit_head(state: dict[str, torch.Tensor], seed: int = 0) -> dict[str, torch.Tensor]:
     """Head re-init for finetune/probe (helpers.py:857-867, 993-1000): normal
-    std 2e-5 (trunc-normal at this scale), zero bias.  Drawn with numpy in
-    the JAX (in, out) kernel shape and transposed, so the weights are
+    std 2e-5 (trunc-normal at this scale), zero bias, for ``head`` (the
+    classifier's Linear, the U-Net's 1x1 conv) and ``fc`` (the ResNet
+    classifier's).  Drawn with numpy in the JAX kernel's shape ((in, out),
+    or (1, 1, in, out) for the conv) and transposed, so the weights are
     bit-identical to the JAX package's."""
     state = dict(state)
-    out_dim, in_dim = state["head.weight"].shape
-    w = (np.random.default_rng(seed).standard_normal((in_dim, out_dim)) * 2e-5).astype(np.float32)
-    state["head.weight"] = torch.from_numpy(np.ascontiguousarray(w.T))
-    state["head.bias"] = torch.zeros_like(state["head.bias"])
+    for name in ("head", "fc"):
+        if f"{name}.weight" not in state:
+            continue
+        shape = tuple(state[f"{name}.weight"].shape)  # (out, in) or (out, in, 1, 1)
+        order = (1, 0) if len(shape) == 2 else (2, 3, 1, 0)
+        draw = np.random.default_rng(seed).standard_normal(tuple(shape[i] for i in order))
+        w = (draw * 2e-5).astype(np.float32).transpose(np.argsort(order))
+        state[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
+        state[f"{name}.bias"] = torch.zeros_like(state[f"{name}.bias"])
     return state
 
 
@@ -149,6 +165,27 @@ def reinit_head(state: dict[str, torch.Tensor], seed: int = 0) -> dict[str, torc
 # ---------------------------------------------------------------------------
 def classifier_probe_trainable(name: str) -> bool:
     return name.startswith("head")
+
+
+def unet_probe_trainable(name: str) -> bool:
+    """The U-Net probe trains the decoder and the head (helpers.py:941-955)."""
+    return name.startswith(("head", "upsample_layers", "initial_conv_upsample"))
+
+
+def unet_trainable(name: str) -> bool:
+    """Every U-Net param but upstream's final ``norm``, which the forward
+    never reads (the JAX model has none)."""
+    return not name.startswith("norm.")
+
+
+def resnet_probe_trainable(name: str) -> bool:
+    """The ResNet classifier's probe trains ``fc`` (helpers.py:968-983)."""
+    return name.startswith("fc")
+
+
+def resnet_unet_probe_trainable(name: str) -> bool:
+    """The ResNet-UNet's probe trains all but the encoder (helpers.py:957-966)."""
+    return not name.startswith("encoder")
 
 
 def all_trainable(name: str) -> bool:

@@ -163,6 +163,10 @@ class FinetuneConfig:
     head_init_scale: float = 0.001
     batch_size: int = 32
     num_workers: int = 10
+    # segmentation's staged unfreeze (reference main_finetune.py:598-619): the
+    # U-Net probe trains its whole model from this epoch on (no CLI flag, as
+    # in the JAX package)
+    unfreeze_epoch: int = 50
     # model EMA (reference --model_ema / --model_ema_decay / --model_ema_eval,
     # main_finetune.py:96-101; defined but unused by the published recipes)
     model_ema: bool = False

@@ -174,13 +174,16 @@ class _Items:
 
 
 def generate_synthetic_geobench(out_dir: Path | str, dataset_name: str,
-                                n_per_split=(16, 8, 8), seed=0, n_channels=12) -> dict:
+                                n_per_split=(16, 8, 8), seed=0, n_channels=12,
+                                size: int | None = None) -> dict:
     """Synthetic packed GEO-Bench splits (no download): the same arrays, in
-    the same numpy draw order, as the JAX package's generator."""
+    the same numpy draw order, as the JAX package's generator, whose tiles
+    are ``min(IMG_SIZE, 64)`` px; ``size`` sets another side (the
+    segmentation recipe's 112 px)."""
     out_dir = Path(out_dir)
     rng = np.random.default_rng(seed)
     ncls = NUM_CLASSES[dataset_name]
-    size = min(IMG_SIZE[dataset_name], 64)
+    size = size or min(IMG_SIZE[dataset_name], 64)
     paths = {}
     for split, n in zip(("train", "val", "test"), n_per_split):
         x = rng.normal(size=(n, size, size, n_channels)).astype(np.float32)

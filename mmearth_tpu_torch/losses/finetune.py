@@ -7,7 +7,8 @@ main_finetune.py:40-57, custom_loss.py:33-63).
   m-cashew-plant / m-SA-crop-type: plain CE over pixels, logits reshaped
     NHWC -> (N*H*W, C) (engine_finetune.py:104-119).
 
-Every loss is computed in f32 whatever the logits' dtype.
+Every loss is computed in f32 whatever the logits' dtype.  ``dice_loss`` is
+upstream's ``DiceLoss`` (custom_loss.py:54-63), which no main uses.
 """
 from __future__ import annotations
 
@@ -38,6 +39,27 @@ def segmentation_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> to
     """logits: (N, H, W, C); labels: (N, H, W) or (N, 1, H, W) int."""
     labels = labels.reshape(logits.shape[:3])
     return smoothed_cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), 0.0)
+
+
+def dice_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """1 - macro Dice over hard (argmax) predictions, upstream's ``DiceLoss``
+    (custom_loss.py:54-63: softmax -> argmax -> torchmetrics ``Dice(average=
+    "macro")``); no main uses it.  The argmax makes it an eval-style
+    criterion with no gradient.  Per class c: 2 TP / (2 TP + FP + FN),
+    averaged over the classes with a nonzero denominator."""
+    pred = logits.float().argmax(-1).reshape(-1)
+    t = target.reshape(-1).long()
+    classes = torch.arange(num_classes, device=logits.device)
+    p1 = pred[:, None] == classes
+    t1 = t[:, None] == classes
+    tp = (p1 & t1).sum(0).float()
+    fp = (p1 & ~t1).sum(0).float()
+    fn = (~p1 & t1).sum(0).float()
+    denom = 2.0 * tp + fp + fn
+    support = denom > 0
+    score = torch.where(support, 2.0 * tp / torch.where(support, denom, torch.ones_like(denom)),
+                        torch.zeros_like(denom))
+    return 1.0 - score.sum() / support.sum().float().clamp(min=1.0)
 
 
 def criterion_fn(dataset: str, smoothing: float):

@@ -8,10 +8,22 @@ main_finetune.py:59-424).
         --batch_size 32 --epochs 100 --blr 2e-4 --layer_decay 0.9 --weight_decay 0.3 \\
         --drop_path 0.1 --smoothing 0.2 --processed_dir <packed GEO-Bench dir>
 
-``--linear_probe True --blr 1e-2`` trains the head alone.  ``--device``
-(default ``cuda``) is honoured; asking for CUDA without a card raises.  Flags
-whose non-default values select code this port does not have yet are
-accepted and refused with an error naming what is missing.
+``--linear_probe True --blr 1e-2`` trains the head alone.  Segmentation
+(``--data_set m-cashew-plant`` or ``m-SA-crop-type``) trains a
+``convnextv2_unet_*`` U-Net as the probe with the staged unfreeze, from
+``FinetuneConfig.unfreeze_epoch`` (50) on the whole model:
+
+    python -m mmearth_tpu_torch.main_finetune --device cuda --model convnextv2_unet_atto \
+        --input_size 112 --patch_size 16 --data_set m-cashew-plant --linear_probe True \
+        --finetune <pretrain .pth> --batch_size 16 --epochs 100 --layer_decay 0.9 \
+        --weight_decay 0.3 --processed_dir <packed GEO-Bench dir>
+
+The baselines are ``--model resnet18|resnet50`` (classification) and
+``resnet18_unet|resnet50_unet`` (segmentation) from a foreign ``.pth`` whose
+path names its source (``seco``, ``gassl``, ``satlas``; else torchvision
+keys).  ``--device`` (default ``cuda``) is honoured; asking for CUDA without
+a card raises.  Flags whose non-default values select code this port does
+not have yet are accepted and refused with an error naming what is missing.
 """
 from __future__ import annotations
 
@@ -35,7 +47,9 @@ def get_args_parser():
     p.add_argument("--epochs", default=100, type=int)
     p.add_argument("--update_freq", default=1, type=int)
 
-    p.add_argument("--model", default="convnextv2_atto", type=str)
+    p.add_argument("--model", default="convnextv2_atto", type=str,
+                   help="convnextv2_<size>, convnextv2_unet_<size>, resnet18, resnet50, "
+                        "resnet18_unet or resnet50_unet")
     p.add_argument("--input_size", default=56, type=int)
     p.add_argument("--patch_size", default=8, type=int)
     p.add_argument("--use_orig_stem", type=str2bool, default=False)
@@ -58,7 +72,8 @@ def get_args_parser():
     p.add_argument("--clip_grad", type=float, default=None)
     p.add_argument("--smoothing", type=float, default=0.2)
 
-    p.add_argument("--finetune", default="", help="pretrain checkpoint (.pth)")
+    p.add_argument("--finetune", default="",
+                   help="pretrain checkpoint (.pth); a foreign ResNet .pth for the baselines")
     p.add_argument("--use_imnet_weights", type=str2bool, default=False)
     p.add_argument("--linear_probe", type=str2bool, default=False)
     p.add_argument("--data_set", default="m-eurosat", choices=GEO_BENCH_DATASETS)

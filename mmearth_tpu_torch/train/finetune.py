@@ -2,19 +2,35 @@
 ``mmearth_tpu/train/finetune.py``; reference main_finetune.py:427-806 +
 engine_finetune.py:56-300) on one device.
 
-The dense ConvNeXtV2 classifier, bootstrapped from a pretraining ``.pth``
-(encoder trunk overlaid, head re-initialised), trains with AdamW under
-layer-wise lr decay; the probe freezes all but the head.  Eval metrics are
-dataset-overall, from per-batch sufficient statistics summed on the device
-and read once per split.  With an output directory the run appends each
-epoch's record to ``log.txt``, saves ``checkpoint-<epoch>.pth`` every epoch
-and resumes from the newest (``checkpoints/pth_io.py``), writes the best val
-epoch's params to ``checkpoint-best.pth``, and scores the final test on the
-newest checkpoint reloaded from disk; without one it scores the in-memory
-params, the JAX package's documented path (train/finetune.py:276-377).
+Models: the dense ConvNeXtV2 classifier and the ConvNeXtV2 U-Net, each
+bootstrapped from a pretraining ``.pth`` (encoder trunk overlaid, head
+re-initialised), and the ResNet baselines (``resnet18/50`` and their U-Nets)
+from a foreign ``.pth`` (``checkpoints/foreign.py``: SeCo, GASSL, Satlas or
+ImageNet; ``fc`` re-initialised).  They train with AdamW under layer-wise lr
+decay (every ResNet param takes the top layer id, as in JAX).  The probe
+freezes all but the head (the ResNet-UNet: all but its encoder).  The
+ResNets' BatchNorm normalises with the batch's statistics and updates its
+running ones in the training steps and uses the running ones in evaluation;
+the EMA covers the params alone, as JAX's ``ema_params``.
 
-Not ported yet (queued in ROADMAP.md): U-Net segmentation and its staged
-unfreeze, the ResNet baselines and their foreign checkpoints.
+Segmentation (``m-cashew-plant``, ``m-SA-crop-type``) runs the probe with the
+staged unfreeze (reference main_finetune.py:598-619): from
+``unfreeze_epoch`` on the whole model trains, under a fresh AdamW whose
+update count, and so its warmup-cosine schedule, starts again from 0, with
+the step count that draws drop path; the EMA is kept.  That fresh optimizer
+is the JAX package's documented deviation (train/finetune.py:11-13: torch's
+``add_param_group`` would keep the decoder's moments), which the port
+follows.  A U-Net run without ``--linear_probe True`` raises, as JAX's does.
+
+Eval metrics are dataset-overall, from per-batch sufficient statistics
+summed on the device and read once per split.  With an output directory the
+run appends each epoch's record to ``log.txt``, saves
+``checkpoint-<epoch>.pth`` every epoch and resumes from the newest
+(``checkpoints/pth_io.py``), writes the best val epoch's params to
+``checkpoint-best.pth``, and scores the final test on the newest checkpoint
+reloaded from disk; without one it scores the in-memory params, the JAX
+package's documented path (train/finetune.py:276-377).  Each epoch's record
+in the history also counts the kernel launches of its training steps.
 """
 from __future__ import annotations
 
@@ -24,89 +40,139 @@ import time
 from pathlib import Path
 
 import torch
+from torch import nn
 
+from .. import ops
 from ..checkpoints import load_pretrained as lp
 from ..checkpoints import pth_io
+from ..checkpoints.foreign import load_foreign_resnet
 from ..configs.config import FinetuneConfig, model_size
 from ..data.geobench import NUM_CLASSES, TASK_CLASS, get_geobench_dataloaders
 from ..eval.metrics import batch_stats_fn, metric_for
 from ..losses.finetune import criterion_fn
 from ..models.convnextv2 import ConvNeXtV2
+from ..models.resnet import ResNet, ResNetUnet, build_resnet
+from ..models.unet import ConvNeXtV2Unet
 from .ema import init_ema, update_ema
 from .optim import AdamW, finetune_wd_mask, layer_lr_scales
 from .pretrain import PRINT_FREQ, _check_finite, resolve_device, resume
 from .schedule import warmup_cosine
 from .step import fold_in, to_device
 
+# the depths JAX's run_finetune gives the ResNets' layer decay (:171); every
+# ResNet param takes the top layer id, so each scale is 1
+RESNET_DEPTHS = (2, 2, 2, 2)
 
-def build_finetune_model(cfg: FinetuneConfig, in_channels: int, nb_classes: int) -> ConvNeXtV2:
-    """The dense classifier for ``cfg``, initialised on the CPU from
-    ``cfg.run.seed``."""
+
+def build_finetune_model(cfg: FinetuneConfig, in_channels: int, nb_classes: int) -> nn.Module:
+    """The model for ``cfg.model.model`` (the dense classifier, a
+    ``convnextv2_unet_*`` U-Net, or a ResNet baseline), initialised on the
+    CPU from ``cfg.run.seed``."""
     name = cfg.model.model
+    dtype = torch.bfloat16 if cfg.run.use_bf16 else torch.float32
     if name.startswith("resnet"):
-        raise NotImplementedError(f"--model {name}: the ResNet baselines are not ported yet "
-                                  "(ROADMAP.md)")
-    if "unet" in name:
-        raise NotImplementedError(f"--model {name}: U-Net segmentation is not ported yet "
-                                  "(ROADMAP.md)")
-    depths, dims = model_size(name)
-    model = ConvNeXtV2(
-        patch_size=cfg.model.patch_size, img_size=cfg.model.img_size, in_chans=in_channels,
-        depths=depths, dims=dims, dtype=torch.bfloat16 if cfg.run.use_bf16 else torch.float32,
-        sparse=False, num_classes=nb_classes, drop_path_rate=cfg.drop_path,
-        head_init_scale=cfg.head_init_scale, padding_mode=cfg.model.padding_mode,
-        use_orig_stem=cfg.model.use_orig_stem)
+        model = build_resnet(name, num_classes=nb_classes, in_chans=in_channels, dtype=dtype)
+    elif "unet" in name:
+        depths, dims = model_size(name)
+        model = ConvNeXtV2Unet(
+            patch_size=cfg.model.patch_size, img_size=cfg.model.img_size, in_chans=in_channels,
+            num_classes=nb_classes, depths=depths, dims=dims, drop_path_rate=cfg.drop_path,
+            head_init_scale=cfg.head_init_scale, use_orig_stem=cfg.model.use_orig_stem,
+            dtype=dtype)
+    else:
+        depths, dims = model_size(name)
+        model = ConvNeXtV2(
+            patch_size=cfg.model.patch_size, img_size=cfg.model.img_size, in_chans=in_channels,
+            depths=depths, dims=dims, dtype=dtype, sparse=False, num_classes=nb_classes,
+            drop_path_rate=cfg.drop_path, head_init_scale=cfg.head_init_scale,
+            padding_mode=cfg.model.padding_mode, use_orig_stem=cfg.model.use_orig_stem)
     model.init_weights(torch.Generator().manual_seed(cfg.run.seed))
     return model
 
 
-def bootstrap(model: ConvNeXtV2, path: str | Path, seed: int) -> None:
-    """Overlay the encoder of the pretraining checkpoint at ``path`` onto
-    ``model`` and re-initialise its head (JAX run_finetune :181-199)."""
-    enc = lp.encoder_state_from_checkpoint(path, model.depths)
-    state = lp.reinit_head(lp.load_encoder_into(model.state_dict(), enc), seed)
+def bootstrap(model: nn.Module, path: str | Path, seed: int) -> None:
+    """Load the checkpoint at ``path`` into ``model`` (JAX run_finetune
+    :181-222): a pretraining checkpoint's encoder trunk onto the classifier
+    or the U-Net, a foreign ResNet's backbone onto the ResNet or under the
+    ResNet-UNet's ``encoder``; the head (``head`` or ``fc``) re-initialised,
+    the ResNet-UNet's decoder kept as initialised."""
+    if isinstance(model, ResNetUnet):
+        enc = load_foreign_resnet(path, model.encoder.stage_sizes, model.encoder.bottleneck)
+        state = lp.load_encoder_into(model.state_dict(), enc, where="encoder")
+    else:
+        if isinstance(model, ResNet):
+            enc = load_foreign_resnet(path, model.stage_sizes, model.bottleneck)
+        else:
+            enc = lp.encoder_state_from_checkpoint(path, model.depths)
+        state = lp.reinit_head(lp.load_encoder_into(model.state_dict(), enc), seed)
     model.load_state_dict(state)
 
 
-def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_train: int,
-                    device: torch.device) -> tuple[ConvNeXtV2, AdamW]:
-    """The classifier on ``device``, bootstrapped from ``cfg.finetune`` when
-    set, all but the head frozen under ``cfg.linear_probe``, and its AdamW
+def probe_trainable(model: nn.Module):
+    """Which params the linear probe trains, by name."""
+    if isinstance(model, ResNetUnet):
+        return lp.resnet_unet_probe_trainable
+    if isinstance(model, ResNet):
+        return lp.resnet_probe_trainable
+    if isinstance(model, ConvNeXtV2Unet):
+        return lp.unet_probe_trainable
+    return lp.classifier_probe_trainable
+
+
+def full_trainable(model: nn.Module):
+    """Which params a finetune (or the staged unfreeze) trains, by name."""
+    return lp.unet_trainable if isinstance(model, ConvNeXtV2Unet) else lp.all_trainable
+
+
+def make_optimizer(cfg: FinetuneConfig, model: nn.Module, trainable, n_train: int) -> AdamW:
+    """Set ``requires_grad`` by ``trainable`` and return a fresh AdamW
     (layer-decayed lr scales, the finetune decay mask) over the trainable
     params, scheduled for ``n_train`` samples an epoch."""
-    model = build_finetune_model(cfg, in_channels, nb_classes)
-    if cfg.finetune:
-        if cfg.model.padding_mode == "same" and not cfg.model.use_orig_stem:
-            print("note: finetuning a .pth with padding_mode='same'; upstream's dense model "
-                  "pads as --padding_mode reference does (VALID initial conv, stride//2 "
-                  "stem padding)")
-        bootstrap(model, cfg.finetune, cfg.run.seed)
-    model.to(device)
-    trainable = lp.classifier_probe_trainable if cfg.linear_probe else lp.all_trainable
     for name, prm in model.named_parameters():
         prm.requires_grad_(trainable(name))
-
     eff_batch = cfg.batch_size * cfg.optim.update_freq
     updates_per_epoch = max(n_train // eff_batch, 1)
     schedule = warmup_cosine(cfg.optim.absolute_lr(eff_batch), cfg.optim.min_lr, cfg.run.epochs,
                              cfg.optim.warmup_epochs, updates_per_epoch)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    scales = (layer_lr_scales(named, cfg.optim.layer_decay, model.depths,
-                              cfg.optim.layer_decay_type)
+    scales = (layer_lr_scales(named, cfg.optim.layer_decay,
+                              getattr(model, "depths", RESNET_DEPTHS), cfg.optim.layer_decay_type)
               if cfg.optim.layer_decay != 1.0 else None)
-    opt = AdamW(named, schedule, cfg.optim.weight_decay, cfg.optim.betas, eps=cfg.optim.opt_eps,
-                update_freq=cfg.optim.update_freq, clip_grad=cfg.optim.clip_grad,
-                wd_mask=finetune_wd_mask(named), lr_scales=scales)
-    return model, opt
+    return AdamW(named, schedule, cfg.optim.weight_decay, cfg.optim.betas, eps=cfg.optim.opt_eps,
+                 update_freq=cfg.optim.update_freq, clip_grad=cfg.optim.clip_grad,
+                 wd_mask=finetune_wd_mask(named), lr_scales=scales)
 
 
-def finetune_step(model: ConvNeXtV2, opt: AdamW, batch, criterion, generator: torch.Generator,
+def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_train: int,
+                    device: torch.device) -> tuple[nn.Module, AdamW]:
+    """The model on ``device``, bootstrapped from ``cfg.finetune`` when set,
+    frozen as ``cfg.linear_probe`` says, and its AdamW over the trainable
+    params (:func:`make_optimizer`)."""
+    name = cfg.model.model
+    if "unet" in name and not cfg.linear_probe:
+        raise ValueError("U-Net runs use --linear_probe True (the staged unfreeze); see "
+                         "helpers.py:800-804")
+    model = build_finetune_model(cfg, in_channels, nb_classes)
+    if cfg.finetune:
+        if (isinstance(model, ConvNeXtV2) and cfg.model.padding_mode == "same"
+                and not cfg.model.use_orig_stem):
+            print("note: finetuning a .pth with padding_mode='same'; upstream's dense model "
+                  "pads as --padding_mode reference does (VALID initial conv, stride//2 "
+                  "stem padding)")
+        bootstrap(model, cfg.finetune, cfg.run.seed)
+    model.to(device)
+    trainable = probe_trainable(model) if cfg.linear_probe else full_trainable(model)
+    return model, make_optimizer(cfg, model, trainable, n_train)
+
+
+def finetune_step(model: nn.Module, opt: AdamW, batch, criterion, generator: torch.Generator,
                   bgr_to_rgb: bool = False, ema: dict | None = None,
                   ema_decay: float = 0.9999) -> torch.Tensor:
     """One training step (JAX make_finetune_step :73-119): forward with drop
-    path drawn from ``generator``, loss, backward, update, EMA (decay 1.0 on
-    an accumulation-only step).  Returns the detached loss, with no host
-    synchronisation."""
+    path drawn from ``generator`` (a ResNet in train mode normalises with the
+    batch's statistics and updates its running ones), loss, backward,
+    update, EMA (decay 1.0 on an accumulation-only step).  Returns the
+    detached loss, with no host synchronisation."""
     x = batch["input"]
     if bgr_to_rgb:
         # imnet-pretrained weights expect RGB (reference engine_finetune.py:92-95)
@@ -121,9 +187,11 @@ def finetune_step(model: ConvNeXtV2, opt: AdamW, batch, criterion, generator: to
 
 
 @torch.no_grad()
-def evaluate(model: ConvNeXtV2, loader, stats_fn, metric, device, bgr_to_rgb: bool = False):
-    """The split's metric: each batch's statistics summed on the device, read
-    once at the end."""
+def evaluate(model: nn.Module, loader, stats_fn, metric, device, bgr_to_rgb: bool = False):
+    """The split's metric, in eval mode (the ResNets' running statistics):
+    each batch's statistics summed on the device, read once at the end."""
+    training = model.training
+    model.eval()
     metric.reset()
     sums = {}
     for host_batch in loader:
@@ -131,12 +199,14 @@ def evaluate(model: ConvNeXtV2, loader, stats_fn, metric, device, bgr_to_rgb: bo
         x = batch["input"][..., [2, 1, 0]] if bgr_to_rgb else batch["input"]
         for k, v in stats_fn(model(x).float(), batch["label"]).items():
             sums[k] = sums[k] + v if k in sums else v
+    model.train(training)
     metric.update_stats({k: v.cpu().numpy() for k, v in sums.items()})
     return metric.compute()
 
 
-def _with_params(model: ConvNeXtV2, params: dict) -> ConvNeXtV2:
-    """A copy of ``model`` holding ``params`` (the EMA weights)."""
+def _with_params(model: nn.Module, params: dict) -> nn.Module:
+    """A copy of ``model`` holding ``params`` (the EMA weights; the buffers,
+    the ResNets' running statistics, are the model's)."""
     out = copy.deepcopy(model)
     out.load_state_dict({**out.state_dict(), **params})
     return out
@@ -145,16 +215,14 @@ def _with_params(model: ConvNeXtV2, params: dict) -> ConvNeXtV2:
 def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
                  args: dict | None = None) -> dict:
     """Finetune (or probe); returns the per-epoch ``history`` (loss, steps,
-    train and eval seconds, step losses, the val score), the best val score,
-    the final test score, where its params came from, the model and the
-    optimizer.  ``args`` (the CLI's flags) is stored in every
+    train and eval seconds, step losses, the val score, the kernel launches
+    of the epoch's steps), the best val score, the final test score, where
+    its params came from, the model and the optimizer (after a staged
+    unfreeze, the fresh one).  ``args`` (the CLI's flags) is stored in every
     checkpoint."""
     if cfg.optim.opt.lower() != "adamw":
         raise NotImplementedError(f"--opt {cfg.optim.opt}: only adamw is ported; the other "
                                   "optimizer families are queued in ROADMAP.md")
-    if TASK_CLASS[cfg.data_set] == "segmentation":
-        raise NotImplementedError(f"--data_set {cfg.data_set}: segmentation needs the U-Net, "
-                                  "which is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
     if loaders is None:
         processed = (Path(cfg.processed_dir) if cfg.processed_dir
@@ -165,8 +233,11 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
     train_loader, val_loader, test_loader = loaders
     in_channels = next(iter(train_loader))["input"].shape[-1]
     nb_classes = task.num_classes if task is not None else NUM_CLASSES[cfg.data_set]
+    n_train = len(train_loader.dataset)
+    # the staged unfreeze (JAX :307-316): segmentation probes only
+    staged = TASK_CLASS[cfg.data_set] == "segmentation" and cfg.linear_probe
 
-    model, opt = build_trainable(cfg, in_channels, nb_classes, len(train_loader.dataset), dev)
+    model, opt = build_trainable(cfg, in_channels, nb_classes, n_train, dev)
     eff_batch = cfg.batch_size * cfg.optim.update_freq
     ema = init_ema(model) if cfg.model_ema else None
     criterion = criterion_fn(cfg.data_set, cfg.smoothing)
@@ -182,15 +253,34 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
 
     out_dir = Path(cfg.run.output_dir) if cfg.run.output_dir else None
     ckpt_dir = out_dir if (out_dir and cfg.run.save_ckpt) else None
-    # a resumed run's best val starts again from -inf, as JAX's does
-    start_epoch = resume(cfg.run, model, opt, ckpt_dir, ema)
+    # a resumed run's best val starts again from -inf, as JAX's does.  A
+    # staged run's checkpoint from after the unfreeze holds the unfrozen
+    # model's optimizer: the params and the EMA are restored first, to learn
+    # the epoch, then the optimizer of that phase.  (JAX restores the state
+    # and then unfreezes again, a fresh optimizer at the first resumed
+    # epoch; the port resumes where the run stopped.)
+    start_epoch = resume(cfg.run, model, None if staged else opt, ckpt_dir, ema)
+    unfrozen = staged and start_epoch > cfg.unfreeze_epoch
+    if unfrozen:
+        opt = make_optimizer(cfg, model, full_trainable(model), n_train)
+    if staged:
+        start_epoch = resume(cfg.run, model, opt, ckpt_dir, ema)
     ckpt_args = dict(args or {})
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
     history, best_val, best = [], -float("inf"), None
-    step = start_epoch * len(train_loader)  # fold_in(gen, step) continues the run's draws
+    # fold_in(gen, step) continues the run's draws; the unfreeze restarts
+    # the count, as JAX's fresh TrainState restarts the step its keys fold in
+    step = (start_epoch - (cfg.unfreeze_epoch if unfrozen else 0)) * len(train_loader)
     for epoch in range(start_epoch, cfg.run.epochs):
+        if staged and not unfrozen and epoch >= cfg.unfreeze_epoch:
+            unfrozen = True
+            opt = make_optimizer(cfg, model, full_trainable(model), n_train)
+            step = 0
+            print(f"epoch {epoch}: unfreezing the full model (main_finetune.py:598-619), "
+                  f"{sum(p.numel() for p in opt.params)} params now train")
         t0 = time.time()
         train_loader.set_epoch(epoch)
+        launched = ops.launch_counts()
         step_losses = []
         for i, host_batch in enumerate(train_loader):
             loss = finetune_step(model, opt, to_device(host_batch, dev), criterion,
@@ -202,6 +292,7 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
         losses = torch.stack(step_losses).float().tolist() if step_losses else []
         for v in losses:
             _check_finite(v)
+        launched = {k: n - launched[k] for k, n in ops.launch_counts().items()}
         train_seconds = time.time() - t0
         t1 = time.time()
         val_score = (evaluate(eval_model(), val_loader, stats_fn, metric, dev, bgr_to_rgb)
@@ -209,7 +300,8 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
         mean = sum(losses) / max(len(losses), 1)
         history.append({"epoch": epoch, "loss": mean, "steps": len(losses),
                         "seconds": train_seconds, "eval_seconds": time.time() - t1,
-                        "step_losses": losses, f"val_{metric_name}": val_score})
+                        "step_losses": losses, f"val_{metric_name}": val_score,
+                        "lr": opt.lr_schedule(opt.count), "launches": launched})
         print(f"epoch {epoch}  loss {mean:.4f}  val {metric_name} {val_score:.4f}  "
               f"~{len(losses) * cfg.batch_size / max(train_seconds, 1e-9):.0f} samples/s")
         if out_dir is not None:

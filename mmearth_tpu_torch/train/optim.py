@@ -45,7 +45,12 @@ def _stage_block(name: str) -> tuple[str, int, int]:
     ``downsample_layers.i.*``, or "other" (the stem modules ``initial_conv``
     and ``stem``, ``norm``, ``head``), as JAX ``_parse_stage_block``
     (optim.py:64-86).  The stem matches neither prefix of the reference's
-    layer-id functions and so takes the top layer id, as the head does."""
+    layer-id functions and so takes the top layer id, as the head does.  So
+    do the U-Net's decoder (``upsample_layers``, ``initial_conv_upsample``)
+    and every ResNet name: torchvision's ``layer1.0...``,
+    ``layer2.0.downsample.0...`` and the ResNet-UNet's ``encoder.layer...``
+    and ``decoder...`` start with neither prefix, as JAX's ``stage0_1``
+    does not."""
     parts = name.split(".")
     if parts[0] == "encoder":
         parts = parts[1:]

@@ -5,6 +5,7 @@ counterpart of ``bench.py``).
     python3 scripts/torch_bench.py                      # atto56, the headline
     python3 scripts/torch_bench.py --config tiny112
     python3 scripts/torch_bench.py --config finetune
+    python3 scripts/torch_bench.py --config seg
     python3 scripts/torch_bench.py --input mmpack
     python3 scripts/torch_bench.py --device cpu --batch_size 4 --rounds 1 --steps 2
 
@@ -22,6 +23,12 @@ Configurations (``bench.py:60-63,479-510``, at their published widths):
 - ``finetune``: the dense atto classifier at 112/16, 13 bands, 10 classes,
   batch 64, drop path 0.1, layer decay 0.9, weight decay 0.3, label
   smoothing 0.2 (the m-eurosat recipe, ``bench.py:495-503``).
+- ``seg``: the ``convnextv2_unet_atto`` U-Net at 112/16 (stem stride 2,
+  encoder grids 56/28/14/7), 3 bands, 7 classes, batch 16, drop path 0.1,
+  the per-pixel cross-entropy, layer decay 0.9, weight decay 0.3 (the
+  m-cashew-plant recipe, ``bench.py:505-529``): every param trains, as in
+  ``bench.py``'s step, so the 12 encoder Blocks launch the dense dwconv's
+  dW kernel.
 - ``--input mmpack``: the atto56 step fed from disk: 4,096 synthetic samples
   written by ``data/synthetic.py::generate_packed`` under ``build/`` ->
   ``PackedLoader(order="quasi_random")``, pinning in its worker thread ->
@@ -32,8 +39,8 @@ Configurations (``bench.py:60-63,479-510``, at their published widths):
   ``bench.py`` skips it), and the same at 1 step a dispatch (``eager_*``),
   with the host-only loader rate (numpy, and pinned on a card) and the
   pinned host-to-device copy rate beside it.
-- ``--config seg`` and ``--input grain|hdf5`` raise ``NotImplementedError``:
-  the U-Net, the Grain pipeline and the HDF5 reader are not ported yet.
+- ``--input grain|hdf5`` raise ``NotImplementedError``: the Grain pipeline
+  and the HDF5 reader are not ported yet.
 
 The pretraining and finetune configurations train on one synthetic batch
 (``data/synthetic.py::bench_batch``, the arrays ``bench.py`` trains on), put
@@ -45,8 +52,8 @@ pretraining round is one dispatch of ``train/step.py::ChainedStep`` over the
 round's steps: on a card one replay of a CUDA graph of 30 steps, as
 ``bench.py:237-253`` chains K = 30 steps in one jit (its warm-up round
 holds the warm-up and the capture, ``capture_s``).  The same rounds of eager
-steps are timed beside it (``eager_*``).  The finetune rounds are eager
-steps, as JAX's finetune has no chained dispatch.
+steps are timed beside it (``eager_*``).  The finetune and seg rounds are
+eager steps, as JAX's finetune has no chained dispatch.
 ``--rounds``, ``--steps`` and ``--batch_size`` exist so that tests can run
 the script short; the published numbers use their defaults.
 
@@ -88,8 +95,14 @@ PRETRAIN_CONFIGS = {
     "tiny112": ("convnextv2_tiny", 112, 16, 64),
 }
 MMPACK_STEPS_PER_DISPATCH = 8  # bench.py:339
-FINETUNE = {"model": "convnextv2_atto", "img": 112, "patch": 16, "bands": 13, "classes": 10,
-            "batch": 64}
+# the finetune steps of bench.py:479-529: classification (m-eurosat) and
+# segmentation (m-cashew-plant)
+FINETUNE = {
+    "finetune": {"model": "convnextv2_atto", "img": 112, "patch": 16, "bands": 13,
+                 "classes": 10, "batch": 64, "data_set": "m-eurosat", "smoothing": 0.2},
+    "seg": {"model": "convnextv2_unet_atto", "img": 112, "patch": 16, "bands": 3, "classes": 7,
+            "batch": 16, "data_set": "m-cashew-plant", "smoothing": 0.0},
+}
 METRICS = {
     "atto56": "mpmae_atto_mmearth64_pretrain_samples_per_sec_per_chip",
     "tiny112": "mpmae_tiny_mmearth128_pretrain_samples_per_sec_per_chip",
@@ -97,7 +110,6 @@ METRICS = {
     "seg": "geobench_seg_finetune_unet_atto112_img_per_sec_per_chip",
 }
 NOT_PORTED = {
-    "seg": "the U-Net (mmearth_tpu/models/unet.py; ROADMAP.md queue 1, item 7)",
     "grain": "the Grain pipeline (mmearth_tpu/data/grain_pipeline.py; ROADMAP.md queue 1, "
              "item 5)",
     "hdf5": "the HDF5 reader (mmearth_tpu/data/mmearth.py; ROADMAP.md queue 1, item 5)",
@@ -211,33 +223,38 @@ def bench_pretrain(config: str, dev: torch.device, block_impl: str = "wholeblock
             "graph": graph}
 
 
-def bench_finetune(dev: torch.device, batch: int | None = None, rounds: int = 4,
+def bench_finetune(config: str, dev: torch.device, batch: int | None = None, rounds: int = 4,
                    steps: int = 30) -> dict:
-    """The m-eurosat classification step (``bench.py:495-503``) on one
-    resident batch of random 13-band images and labels."""
+    """The finetune step of ``config`` (``FINETUNE``) on one resident batch
+    of random images and labels (per-pixel for ``seg``), every param
+    trainable as in ``bench.py``'s step."""
     import numpy as np
 
     from mmearth_tpu_torch.configs.config import (FinetuneConfig, ModelConfig, OptimConfig,
                                                   RunConfig)
     from mmearth_tpu_torch.losses.finetune import criterion_fn
-    from mmearth_tpu_torch.train.finetune import build_trainable, finetune_step
+    from mmearth_tpu_torch.train.finetune import (build_finetune_model, finetune_step,
+                                                  full_trainable, make_optimizer)
     from mmearth_tpu_torch.train.step import fold_in, to_device
 
-    f = FINETUNE
+    f = FINETUNE[config]
     batch = batch or f["batch"]
     cfg = FinetuneConfig(
         model=ModelConfig(model=f["model"], img_size=f["img"], patch_size=f["patch"]),
         optim=OptimConfig(blr=2e-4, min_lr=1e-6, weight_decay=0.3, warmup_epochs=5,
                           betas=(0.9, 0.999), layer_decay=0.9),
         run=RunConfig(epochs=100, seed=0, loss_aggr="unweighted"),
-        data_set="m-eurosat", drop_path=0.1, smoothing=0.2, batch_size=batch)
+        data_set=f["data_set"], drop_path=0.1, smoothing=f["smoothing"], batch_size=batch)
     reset_peak(dev)
+    model = build_finetune_model(cfg, f["bands"], f["classes"]).to(dev)
     # bench.py:514's warmup_cosine(2e-4 * B / 256, 1e-6, 100, 5, 100): 100 updates an epoch
-    model, opt = build_trainable(cfg, f["bands"], f["classes"], 100 * batch, dev)
+    opt = make_optimizer(cfg, model, full_trainable(model), 100 * batch)
     rng = np.random.default_rng(0)
+    img = f["img"]
+    labels = (batch, img, img) if config == "seg" else (batch,)
     data = to_device({
-        "input": rng.normal(size=(batch, f["img"], f["img"], f["bands"])).astype(np.float32),
-        "label": rng.integers(0, f["classes"], size=(batch,)).astype(np.int32)}, dev)
+        "input": rng.normal(size=(batch, img, img, f["bands"])).astype(np.float32),
+        "label": rng.integers(0, f["classes"], size=labels).astype(np.int32)}, dev)
     criterion = criterion_fn(cfg.data_set, cfg.smoothing)
     gen = torch.Generator(device=dev).manual_seed(0)
     ms = round_ms_per_step(
@@ -344,9 +361,6 @@ def bench_mmpack(dev: torch.device, batch: int | None = None, n_samples: int = 4
 
 def run(args) -> dict:
     """The result line of ``args`` (raises on any failure)."""
-    if args.config in NOT_PORTED:
-        raise NotImplementedError(f"--config {args.config} needs {NOT_PORTED[args.config]}, "
-                                  "which the PyTorch port does not have yet")
     if args.input in NOT_PORTED:
         raise NotImplementedError(f"--input {args.input} needs {NOT_PORTED[args.input]}, "
                                   "which the PyTorch port does not have yet")
@@ -358,8 +372,9 @@ def run(args) -> dict:
     timing = {"rounds": args.rounds, "steps": args.steps}
     if args.input == "mmpack":
         out, unit, timing = bench_mmpack(dev, args.batch_size), "samples/s/chip", {}
-    elif args.config == "finetune":
-        out, unit = bench_finetune(dev, args.batch_size, args.rounds, args.steps), "img/s/chip"
+    elif args.config in FINETUNE:
+        out = bench_finetune(args.config, dev, args.batch_size, args.rounds, args.steps)
+        unit = "img/s/chip"
     else:
         eager = bench_pretrain(args.config, dev, "wholeblock", args.batch_size, args.rounds,
                                args.steps, chained=False)
@@ -396,7 +411,7 @@ def get_args_parser():
     p.add_argument("--rounds", type=int, default=4, help="timed rounds (best is kept)")
     p.add_argument("--steps", type=int, default=30, help="steps a round")
     p.add_argument("--batch_size", type=int, default=None,
-                   help="the configuration's batch by default (256, 64, 64)")
+                   help="the configuration's batch by default (256, 64, 64, 16)")
     p.add_argument("--record", action="store_true",
                    help="write the line into H100_BENCH.json under its configuration")
     return p

@@ -2,7 +2,8 @@
 the dense classifier (both padding modes), the losses, the metrics, the
 finetune weight-decay mask and layer-decay scales, a 3-update f32 finetune
 trajectory and a head-only probe, the ``.pth`` bootstrap, and
-``mmearth_tpu_torch.main_finetune`` end to end with its refusals.  Small
+``mmearth_tpu_torch.main_finetune`` end to end (classification, the U-Net
+and the ResNet baselines) with its refusals.  Small
 widths, seeded numpy inputs, f32; each tolerance is stated where it is used.
 """
 import math
@@ -40,6 +41,7 @@ from mmearth_tpu_torch.train.finetune import finetune_step
 from mmearth_tpu_torch.train.schedule import warmup_cosine
 
 from _torch_parity import assert_grads_close, np_tree, randomize_grn
+from test_baselines import fake_torch_resnet_sd
 
 DEPTHS, DIMS, NCLS = (1, 1, 2, 1), (8, 16, 24, 32), 10
 RTOL = 1e-4
@@ -359,14 +361,24 @@ def test_minkowski_remap_matches_jax():
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def geobench_dir(tmp_path_factory):
-    """Synthetic packed m-eurosat and m-bigearthnet (12 train, 4 val, 4 test)
-    and a pretraining .pth of convnextv2_atto."""
+    """Synthetic packed m-eurosat, m-bigearthnet and m-cashew-plant (12
+    train, 4 val, 4 test), a pretraining .pth of convnextv2_atto, and two
+    foreign ResNet-18 .pth files of random 12-band weights: SeCo's (MoCo
+    ``encoder_q.`` keys) and Satlas's (foreign names), renamed by position
+    when loaded."""
     d = tmp_path_factory.mktemp("geobench")
-    for ds in ("m-eurosat", "m-bigearthnet"):
+    for ds in ("m-eurosat", "m-bigearthnet", "m-cashew-plant"):
         gb.generate_synthetic_geobench(d, ds, (12, 4, 4))
     fc = FCMAE(img_size=56, patch_size=8, depths=(2, 2, 6, 2), dims=(40, 80, 160, 320))
     torch.save({"model": fc.init_weights(torch.Generator().manual_seed(0)).state_dict()},
                d / "pt.pth")
+    backbone = {k: torch.from_numpy(v) for k, v in fake_torch_resnet_sd(
+        (2, 2, 2, 2), False, in_ch=12, seed=2).items() if not k.startswith("fc.")}
+    torch.save({"state_dict": {f"encoder_q.{k}": v for k, v in backbone.items()}},
+               d / "seco_r18.pth")
+    torch.save({f"backbone.{i}": v for i, v in enumerate(backbone.values())},
+               d / "satlas_r18.pth")
+    torch.save(backbone, d / "backbone_r18.pth")
     return d
 
 
@@ -417,12 +429,43 @@ def test_main_finetune_runs_on_cpu(geobench_dir, data_set, metric, probe):
                                                                               "head.bias"]
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--data_set", "m-cashew-plant"], "U-Net"),
-    (["--model", "convnextv2_unet_atto"], "U-Net"),
-    (["--model", "resnet18"], "ResNet"),
-    (["--opt", "sgd"], "ROADMAP"),
+@pytest.mark.parametrize("model,data_set,checkpoint,metric", [
+    ("convnextv2_unet_atto", "m-cashew-plant", "pt.pth", "Jaccard"),
+    ("resnet18", "m-eurosat", "seco_r18.pth", "Accuracy"),
+    ("resnet18_unet", "m-cashew-plant", "satlas_r18.pth", "Jaccard"),
 ])
+def test_main_finetune_runs_seg_and_baselines_on_cpu(geobench_dir, model, data_set, checkpoint,
+                                                     metric):
+    """Segmentation and the baselines through the CLI on the CPU in bf16, 2
+    epochs of 3 steps at batch 4: the atto U-Net and the ResNet-18 U-Net as
+    the probe (its encoder, bootstrapped, stays as the checkpoint holds it),
+    the ResNet-18 classifier finetuned from a SeCo file (its backbone
+    bootstrapped, then trained).  Finite losses, val and test scores in
+    [0, 1], no kernel launched."""
+    before = _launches()
+    seg = data_set == "m-cashew-plant"
+    out = main_finetune.main(_args(geobench_dir, "--model", model, "--data_set", data_set,
+                                   "--finetune", str(geobench_dir / checkpoint), "--epochs", "2",
+                                   "--linear_probe", str(seg)))
+    history = out["history"]
+    assert [e["steps"] for e in history] == [3, 3]
+    assert all(math.isfinite(v) for e in history for v in e["step_losses"])
+    assert all(0.0 <= e[f"val_{metric}"] <= 1.0 for e in history)
+    assert 0.0 <= out[f"test_{metric}"] <= 1.0
+    assert _launches() == before and all(not any(e["launches"].values()) for e in history)
+    sd = out["model"].state_dict()
+    if model == "convnextv2_unet_atto":
+        enc = lp.encoder_state_from_checkpoint(geobench_dir / "pt.pth", (2, 2, 6, 2))
+        assert all(torch.equal(sd[k], v) for k, v in enc.items())
+        assert sd["head.weight"].shape == (gb.NUM_CLASSES[data_set], 20, 1, 1)
+    else:
+        conv1 = torch.load(geobench_dir / "backbone_r18.pth")["conv1.weight"]
+        got = sd["encoder.conv1.weight" if seg else "conv1.weight"]
+        assert torch.equal(got, conv1) == seg  # frozen under the probe, trained otherwise
+        assert (got - conv1).abs().max() < 1e-2
+
+
+@pytest.mark.parametrize("extra,match", [(["--opt", "sgd"], "ROADMAP")])
 def test_not_ported_options_raise(geobench_dir, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         main_finetune.main(_args(geobench_dir, *extra))

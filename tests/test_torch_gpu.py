@@ -770,6 +770,112 @@ def test_classifier_step_matches_cpu():
         assert err < 1e-3, f"{k}: {err:.2e} of scale"
 
 
+def _grad_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.float() - ref.float()).norm() / (ref.float().norm() + 1e-12))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unet_step_matches_cpu(dtype):
+    """A step of the segmentation U-Net (two blocks a stage at atto widths,
+    112 px at patch 16, 7 classes, drop path 0, TF32 off) on the card
+    against the CPU: f32 with the loss within 1e-4 relative and every grad
+    within 1e-3 of its scale (summation order only); bf16 (activations
+    rounded to 8 bits in another order on each side) with the loss within
+    1e-2 relative and each grad within 5e-2 in relative L2 norm.  The
+    backward launches the dW kernel once per encoder block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import copy
+
+    from mmearth_tpu_torch.losses.finetune import segmentation_cross_entropy
+    from mmearth_tpu_torch.models.unet import ConvNeXtV2Unet
+    from mmearth_tpu_torch.ops import dwconv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    cpu = ConvNeXtV2Unet(patch_size=16, img_size=112, in_chans=3, num_classes=7,
+                         depths=(2, 2, 2, 2), dims=(40, 80, 160, 320), head_init_scale=1.0,
+                         dtype=dt).init_weights(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 112, 112, 3, generator=gen)
+    y = torch.randint(0, 7, (4, 112, 112), generator=gen)
+    before = dwconv.LAUNCHES["dw_weight_grad"]
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        loss = segmentation_cross_entropy(model(x.to(dev)), y.to(dev))
+        loss.backward()
+        out[name] = (float(loss.detach()), {k: p.grad.cpu() for k, p in model.named_parameters()
+                                            if p.grad is not None})
+    assert dwconv.LAUNCHES["dw_weight_grad"] == before + 8
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["gpu"]
+    assert set(g_cpu) == set(g_gpu) and "norm.weight" not in g_cpu
+    if dt == torch.float32:
+        assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+        for k in g_cpu:
+            err = float((g_gpu[k] - g_cpu[k]).abs().max() / (g_cpu[k].abs().max() + 1e-12))
+            assert err < 1e-3, f"{k}: {err:.2e} of scale"
+    else:
+        assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
+        for k in g_cpu:
+            assert _grad_rel(g_gpu[k], g_cpu[k]) < 5e-2, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["resnet18", "resnet18_unet"])
+def test_resnet_step_matches_cpu(name):
+    """A train-mode f32 step of a ResNet baseline (TF32 off) on the card
+    against the CPU, both held against the same step in f64 on the CPU:
+    flax's E[x^2] - E[x]^2 variance cancels in f32 where a deep layer sees
+    few values a channel, so the f32 grads of either device may stray from
+    the f64 ones, and the card's must stray no further than twice the
+    CPU's (plus 1e-4), in relative L2 norm; the loss within 1e-4 relative,
+    the running statistics within 1e-4 of their scale; no kernel of the
+    port runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import copy
+
+    from mmearth_tpu_torch import ops
+    from mmearth_tpu_torch.losses.finetune import criterion_fn
+    from mmearth_tpu_torch.models.resnet import build_resnet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = build_resnet(name, num_classes=7, in_chans=12).init_weights(
+        torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    exact = copy.deepcopy(cpu).double()
+    for m in exact.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float64
+    gen = torch.Generator().manual_seed(1)
+    seg = "unet" in name
+    x = torch.randn(8, 64, 64, 12, generator=gen)
+    y = torch.randint(0, 7, (8, 64, 64) if seg else (8,), generator=gen)
+    crit = criterion_fn("m-cashew-plant" if seg else "m-eurosat", 0.0)
+    before = ops.launch_counts()
+    out = {}
+    for key, model in (("cpu", cpu), ("gpu", gpu), ("f64", exact)):
+        dev = next(model.parameters()).device
+        xin = x.double() if key == "f64" else x
+        loss = crit(model(xin.to(dev)), y.to(dev))
+        loss.backward()
+        out[key] = (float(loss.detach()), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                    {k: b.cpu() for k, b in model.named_buffers()})
+    assert ops.launch_counts() == before
+    (l_cpu, g_cpu, b_cpu), (l_gpu, g_gpu, b_gpu), (_, g_64, _) = out["cpu"], out["gpu"], out["f64"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k in g_cpu:
+        assert _grad_rel(g_gpu[k], g_64[k]) <= 2 * _grad_rel(g_cpu[k], g_64[k]) + 1e-4, k
+    for k in b_cpu:
+        err = float((b_gpu[k].double() - b_cpu[k].double()).abs().max())
+        assert err <= 1e-4 * max(float(b_cpu[k].double().abs().max()), 1.0), k
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sparse_impl,block_impl,update_freq", [
     ("gathered", "wholeblock", 1), ("masked_dense", "fused", 1), ("gathered", "wholeblock", 2),
