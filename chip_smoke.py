@@ -85,7 +85,11 @@ Phases, each of which exits non-zero on failure:
    inputs, and each shape also gives the whole conv's cost per call, port
    against PyTorch's autograd conv, on the card and on the host, and the
    kernel's launch plan.
-3. slices: 1,170 samples of synthetic 64-px mmpack data, then the port's
+3. slices: 1,170 samples of synthetic 64-px mmpack data; the native row
+   gather (``data/native``, built with g++ into ``build/native``) gathers
+   its shuffled epoch (batches of 256) into pinned memory byte-identical to
+   ``np.take``, with samples/s as the driver's loader calls it, at one
+   thread and for numpy's pinned gather; then the port's
    ``main_pretrain.main`` at convnextv2_atto 56/8, batch 256, bf16 for 12
    steps over 3 epochs, four times: the gathered encoder with
    ``--block_impl dwg`` and with ``wholeblock``, and ``--sparse_impl
@@ -143,7 +147,10 @@ Phases, each of which exits non-zero on failure:
    SeCo-style ``.pth`` and ``resnet18_unet`` as the probe on the 64-px
    m-cashew-plant from a Satlas-style one, each bootstrapped model holding
    the file's backbone, no kernel launched, losses finite, scores in
-   [0, 1].
+   [0, 1].  ``main_finetune --opt lamb`` at the finetune recipe (dense atto
+   112/16, batch 32) from the atto 112/16 slice's checkpoint on 112-px
+   synthetic m-eurosat: 2 epochs (12 row-11 launches a step), then resumed
+   for a third under the restored LAMB state.
 4. graphs, bench and gate: 16 steps of ``pretrain_step`` run eagerly twice
    and as 2 replays of an 8-step ``train/step.py::ChainedStep`` graph from
    the same state, for atto-56/8 ``wholeblock`` and masked-dense ``fused``
@@ -162,7 +169,8 @@ Phases, each of which exits non-zero on failure:
    ``--steps_per_dispatch 8`` on the atto ``wholeblock`` data at batch 96
    (10 steps an epoch: one
    dispatch and a tail of 2 single steps), 2 epochs into
-   ``build/smoke_graph_out``, then resumed for a third.  Then
+   ``build/smoke_graph_out``, then resumed for a third, its loader
+   gathering through the native core (its calls counted).  Then
    ``scripts/torch_bench.py --config atto56 --rounds 2 --steps 10`` and
    ``--config seg`` the same way as subprocesses (the built kernels
    reused), whose last lines must carry the metrics' keys, rates above 0
@@ -180,7 +188,13 @@ Phases, each of which exits non-zero on failure:
    (at 56/8 and at pico 112/16) and with the stem on the gathered rows
    (``stem_gathered``, both stems), a small f32 classifier step, and
    small f32 steps of the U-Net (the dW kernel), ResNet-18 and the
-   ResNet-18 U-Net (with their BN running statistics).
+   ResNet-18 U-Net (with their BN running statistics); and 3 f32 steps of
+   that classifier under every ``--opt`` family, GPU against CPU at the
+   classifier step's tolerances, with ms a step.
+6. optional packages: ``--loader hdf5`` (h5py), ``--loader grain``
+   (array_record) and ``--log_dir`` (tensorboardX) through
+   ``main_pretrain.main``: refused before the first step, naming the
+   package, where it is missing; 2 steps where it is present.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -188,6 +202,7 @@ with a row per kernel, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -1186,6 +1201,68 @@ def phase_data(name: str = "smoke_data", n: int = 1170, tile: int = 64) -> Path:
     return data
 
 
+def phase_native_gather(card: str, data: Path) -> dict:
+    """The native row gather (``data/native``): built with g++ into
+    ``build/native``, then the atto smoke pack's shuffled epoch (1,024
+    samples, batches of 256, each batch's rows sorted as the loader sorts
+    them) gathered into pinned memory as the driver's loader gathers it (up
+    to ``--num_workers`` 10 threads, ``threads_for``'s rule) and on one
+    thread, every field byte-identical to ``np.take`` into the same pinned
+    buffers; samples/s of each, best of 3 passes."""
+    import numpy as np
+
+    from mmearth_tpu_torch.configs.config import DataConfig
+    from mmearth_tpu_torch.data import native
+    from mmearth_tpu_torch.data.loader import PackedDataset, PackedLoader, pinned_empty
+
+    t0 = time.time()
+    lib = native.build()
+    build_s = time.time() - t0
+    ds = PackedDataset(data / "train")
+    batches = [np.sort(r) for r in PackedLoader(ds, batch_size=N, seed=0)._epoch_batches()]
+
+    def numpy_pass():
+        out = []
+        for rows in batches:
+            b = {}
+            for name, arr in ds.arrays.items():
+                b[name] = pinned_empty((len(rows), *arr.shape[1:]), arr.dtype)
+                native.take_rows(arr, rows, out=b[name].numpy())
+            out.append(b)
+        return out
+
+    threads = DataConfig().num_workers
+    passes = {"native_loader": lambda: [ds.gather(r, pin=True, n_threads=threads)
+                                        for r in batches],
+              "native_1_thread": lambda: [ds.gather(r, pin=True, n_threads=1) for r in batches],
+              "numpy_pinned": numpy_pass}
+    ref = numpy_pass()
+    for name, run in passes.items():
+        for got, want in zip(run(), ref):
+            for key, t in want.items():
+                if got[key].numpy().tobytes() != t.numpy().tobytes():
+                    raise AssertionError(f"native gather ({name}), {key}: not np.take's bytes")
+    sps = {}
+    for name, run in passes.items():
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            best = min(best, time.perf_counter() - t0)
+        sps[name] = len(batches) * N / best
+    sample_bytes = sum(a[0].nbytes for a in ds.arrays.values())
+    result = {"phase": "native_gather", "library": str(lib.relative_to(ROOT)),
+              "build_s": round(build_s, 2), "batches": len(batches), "batch": N,
+              "sample_mbytes": sample_bytes / 1e6, "byte_identical": True,
+              "loader_threads": {k: native.threads_for(a[0].nbytes * N, threads)
+                                 for k, a in ds.arrays.items()},
+              "readahead": ds.readahead,
+              **{f"{k}_sps": v for k, v in sps.items()}, "host_cores": os.cpu_count(),
+              "card": card}
+    emit(result)
+    return result
+
+
 GATHERED_KERNELS = ("gather_patches", "scatter_patches", "dwconv7_gathered_fwd",
                     "dwconv7_gathered_bwd")
 SLICES = (("gathered", "dwg"), ("gathered", "wholeblock"), ("masked_dense", "auto"),
@@ -1595,11 +1672,13 @@ def phase_cli_graph(card: str, data: Path) -> dict:
     samples), one dispatch of 8 and a tail of 2 single steps, 2 epochs into
     ``build/smoke_graph_out``; finite losses, the tail's and the warm-up's
     and the capture's launches on the counters; then ``--epochs 3`` on the
-    same directory resumes after epoch 1 and runs epoch 2 alone."""
+    same directory resumes after epoch 1 and runs epoch 2 alone.  The
+    driver's loader gathers through the native core: its calls are counted."""
     import math
 
     from mmearth_tpu_torch import main_pretrain
     from mmearth_tpu_torch.checkpoints import pth_io
+    from mmearth_tpu_torch.data import native
 
     out_dir = ROOT / "build" / "smoke_graph_out"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1613,9 +1692,15 @@ def phase_cli_graph(card: str, data: Path) -> dict:
                           str(GRAPH_K), "--epochs", str(epochs), "--output_dir", str(out_dir),
                           "--save_ckpt_num", "2")
         reset_launches()
+        gathers = native.CALLS["gather_rows"]
         _, history, opt = main_pretrain.main(args)
         launches = read_launches()
+        gathers = native.CALLS["gather_rows"] - gathers
         losses = [x for e in history for x in e["step_losses"]]
+        # a native call a field a batch: every batch of the run (the first
+        # probe's included) went through the core
+        if gathers < 12 * sum(e["steps"] for e in history):
+            raise AssertionError(f"main_pretrain under graph: {gathers} native gathers")
         if [e["epoch"] for e in history] != want or any(
                 (e["steps"], e["chained_steps"]) != (10, GRAPH_K) for e in history):
             runs = [(e["epoch"], e["steps"], e["chained_steps"]) for e in history]
@@ -1627,7 +1712,8 @@ def phase_cli_graph(card: str, data: Path) -> dict:
         check_launches("main_pretrain under graph", launches, per_step, singles + 2 * GRAPH_K)
         result[f"epochs_{epochs}"] = {"epochs": want, "losses": losses,
                                       "epoch_loss": [e["loss"] for e in history],
-                                      "optimizer_count": opt.count}
+                                      "optimizer_count": opt.count, "gather": "native",
+                                      "native_gather_calls": gathers}
     result["kept"] = [e for e, _ in pth_io.numbered_checkpoints(out_dir)]
     if result["kept"] != [1, 2]:
         raise AssertionError(f"main_pretrain under graph: checkpoints kept {result['kept']}")
@@ -1993,6 +2079,192 @@ def phase_baselines(card: str, eurosat: Path, cashew64: Path) -> list[dict]:
     return results
 
 
+OPT_FAMILIES = ("adamw", "adam", "nadam", "radam", "sgd", "nesterov", "momentum", "adadelta",
+                "adafactor", "rmsprop", "rmsproptf", "novograd", "nvnovograd", "lamb")
+FAMILY_LR, FAMILY_STEPS = 1e-4, 3
+
+
+def phase_families(card: str) -> list[dict]:
+    """Every ``--opt`` family: 3 f32 finetune steps (TF32 off, drop path 0)
+    of the small dense classifier of ``phase_reference_classifier`` on the
+    GPU (row 11 in its 4 Blocks a step) against the same steps on the CPU,
+    at that phase's tolerances: each step's loss within 1e-4 relative, and
+    every param within 1e-3 of the model's largest (the lr, 1e-4, bounds
+    what an update moves a param, so a gradient that rounds to the other
+    sign near 0 moves the params by less than that); ms a step on the GPU
+    (the last two steps)."""
+    import torch
+
+    from mmearth_tpu_torch.losses.finetune import criterion_fn
+    from mmearth_tpu_torch.models.convnextv2 import ConvNeXtV2
+    from mmearth_tpu_torch.train.finetune import finetune_step
+    from mmearth_tpu_torch.train.optim import Optimizer, finetune_wd_mask
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(depths=(1, 1, 1, 1), dims=(16, 32, 48, 64), sparse=False, num_classes=10,
+              head_init_scale=1.0)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 64, 64, 12, generator=gen)
+    y = torch.randint(0, 10, (4,), generator=gen)
+    criterion = criterion_fn("m-eurosat", 0.2)
+    rows = []
+    for name in OPT_FAMILIES:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = ConvNeXtV2(**kw)
+            model.init_weights(torch.Generator().manual_seed(1))
+            model.to(dev)
+            named = list(model.named_parameters())
+            opt = Optimizer(named, lambda n: FAMILY_LR, 0.05, (0.9, 0.999),
+                            wd_mask=finetune_wd_mask(named), opt=name)
+            batch = {"input": x.to(dev), "label": y.to(dev)}
+            draws = torch.Generator(device=dev).manual_seed(0)
+            reset_launches()
+            losses, ms = [], []
+            for _ in range(FAMILY_STEPS):
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(finetune_step(model, opt, batch, criterion, draws)))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            runs[dev] = (losses, {k: p.detach().cpu() for k, p in model.named_parameters()},
+                         read_launches()["dw_weight_grad"], ms)
+        (l_cpu, p_cpu, _, _), (l_gpu, p_gpu, launches, ms) = runs["cpu"], runs["cuda"]
+        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_gpu))
+        scale = max(float(t.abs().max()) for t in p_cpu.values())
+        worst = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu) / scale
+        row = {"phase": "opt_family", "opt": name, "steps": FAMILY_STEPS,
+               "loss_cpu": l_cpu, "loss_gpu": l_gpu, "loss_rel": loss_rel,
+               "worst_param_rel": worst, "dw_weight_grad_launches": launches,
+               "ms_per_step": statistics.mean(ms[1:]), "card": card}
+        emit(row)
+        if not (loss_rel < 1e-4 and worst < 1e-3 and launches == 4 * FAMILY_STEPS):
+            raise AssertionError(f"--opt {name}: GPU against CPU {row}")
+        rows.append(row)
+    return rows
+
+
+def phase_finetune_lamb(card: str, checkpoint: Path) -> dict:
+    """``main_finetune --opt lamb`` at the finetune recipe (the dense atto
+    classifier at 112/16, batch 32, bf16) from the atto 112/16 pretraining
+    slice's checkpoint on 112-px synthetic m-eurosat (128/32/32) into
+    ``build/smoke_lamb_out``: 2 epochs with 12 row-11 launches a step and no
+    other, then ``--epochs 3`` on the same directory resumes and runs epoch
+    2 alone under the restored LAMB state."""
+    import math
+
+    from mmearth_tpu_torch import main_finetune
+    from mmearth_tpu_torch.data.geobench import generate_synthetic_geobench
+
+    data, out_dir = ROOT / "build" / "smoke_geobench112", ROOT / "build" / "smoke_lamb_out"
+    for d in (data, out_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.time()
+    generate_synthetic_geobench(data, "m-eurosat", (128, 32, 32), seed=0, size=112)
+    result = {"phase": "finetune_lamb", "checkpoint": str(checkpoint.relative_to(ROOT)),
+              "card": card}
+    for epochs, want in ((2, [0, 1]), (3, [2])):
+        args = main_finetune.get_args_parser().parse_args([
+            "--model", "convnextv2_atto", "--input_size", "112", "--patch_size", "16",
+            "--data_set", "m-eurosat", "--finetune", str(checkpoint), "--processed_dir",
+            str(data), "--batch_size", str(FT_BATCH), "--epochs", str(epochs), "--blr", "2e-4",
+            "--layer_decay", "0.9", "--weight_decay", "0.3", "--drop_path", "0.1",
+            "--smoothing", "0.2", "--use_bf16", "True", "--seed", "0", "--device", "cuda",
+            "--opt", "lamb", "--output_dir", str(out_dir)])
+        reset_launches()
+        out = main_finetune.main(args)
+        launches = read_launches()
+        history = out["history"]
+        steps = sum(e["steps"] for e in history)
+        losses = [x for e in history for x in e["step_losses"]]
+        if [e["epoch"] for e in history] != want or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"--opt lamb, --epochs {epochs}: epochs "
+                                 f"{[e['epoch'] for e in history]}, losses {losses}")
+        for name, n in launches.items():
+            if n != (12 * steps if name == "dw_weight_grad" else 0):
+                raise AssertionError(f"--opt lamb: {name} launched {n} times in {steps} steps")
+        opt = out["optimizer"]
+        if opt.opt != "lamb" or opt.count != 4 * epochs:
+            raise AssertionError(f"--opt lamb: optimizer {opt.opt} at {opt.count} updates")
+        result[f"epochs_{epochs}"] = {"epochs": want, "steps": steps, "launches": launches,
+                                      "epoch_loss": [e["loss"] for e in history],
+                                      "val_accuracy": [e["val_Accuracy"] for e in history],
+                                      "ms_per_step": 1e3 * sum(e["seconds"] for e in history)
+                                      / steps}
+    result["seconds"] = round(time.time() - t0, 2)
+    emit(result)
+    return result
+
+
+# the packages the drivers import only on their paths, and the flags whose
+# paths need them
+OPTIONAL_PACKAGES = (("h5py", ("--loader", "hdf5")), ("array_record", ("--loader", "grain")),
+                     ("tensorboardX", ("--log_dir",)))
+
+
+def phase_optional_packages(card: str) -> list[dict]:
+    """``--loader hdf5`` (h5py), ``--loader grain`` (array_record) and
+    ``--log_dir`` (tensorboardX) through ``main_pretrain.main``: where the
+    package is missing the run must raise before its first step (no kernel
+    launched), naming the package; where it is present, the path runs 2
+    atto 56/8 steps at batch 8 on 24 synthetic samples in
+    ``build/smoke_optional``."""
+    import importlib.util
+    import math
+
+    from mmearth_tpu_torch import main_pretrain
+    from mmearth_tpu_torch.data.loader import PackedDataset
+    from mmearth_tpu_torch.data.synthetic import generate_packed
+
+    root = ROOT / "build" / "smoke_optional"
+    shutil.rmtree(root, ignore_errors=True)
+    rows = []
+    for package, flag in OPTIONAL_PACKAGES:
+        present = importlib.util.find_spec(package) is not None
+        run = root / package
+        extra = [*flag, str(run / "tb")] if flag == ("--log_dir",) else [*flag]
+        if present:
+            if package == "h5py":
+                from mmearth_tpu_torch.data.synthetic import generate
+
+                generate(run / "h5", n=24, tile=64, seed=0)
+            else:
+                generate_packed(run / "proc", n=24, tile=64, seed=0, splits=("train",))
+            if package == "array_record":
+                from mmearth_tpu_torch.data.grain_pipeline import pack_arrayrecord
+
+                ds = PackedDataset(run / "proc" / "train")
+                items = [{"id": str(i), **{k: a[i] for k, a in ds.arrays.items()}}
+                         for i in range(ds.count)]
+                pack_arrayrecord(items, run / "proc" / "train_arrayrecord")
+        args = slice_args("gathered", "wholeblock", run / "proc", ATTO56[:3] + (8,), *extra,
+                          "--data_dir", str(run / "h5"), "--epochs", "1")
+        reset_launches()
+        row = {"phase": "optional_package", "package": package, "flag": " ".join(flag),
+               "present": present, "card": card}
+        try:
+            _, history, _ = main_pretrain.main(args)
+        except ImportError as e:
+            if present or package not in str(e):
+                raise
+            if any(read_launches().values()):
+                raise AssertionError(f"{package} missing: a step ran before the refusal")
+            row.update(outcome="refused", message=str(e))
+        else:
+            if not present:
+                raise AssertionError(f"{' '.join(flag)} ran without {package}")
+            losses = history[0]["step_losses"]
+            if history[0]["steps"] != 2 or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"{' '.join(flag)}: {history}")
+            row.update(outcome="ran", steps=2, losses=losses)
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def phase_reference_seg() -> None:
     """Small f32 steps on the GPU against the CPU (TF32 off): the U-Net
     (depths 1/1/1/1 at atto widths, 112/16, drop path 0) through the dW
@@ -2159,6 +2431,7 @@ def main() -> int:
     rows_out.update(phase_masked_kernels())
     rows_out.update(phase_dwconv_kernel())
     data = phase_data()
+    phase_native_gather(card, data)
     # wiped first: auto-resume would otherwise continue a previous run's checkpoints
     pretrain_out = ROOT / "build" / "smoke_pretrain_out"
     shutil.rmtree(pretrain_out, ignore_errors=True)
@@ -2183,6 +2456,7 @@ def main() -> int:
     phase_slice(rows_out, card, "gathered", "wholeblock", data128, seg_out, ATTO112)
     cashew, cashew64 = phase_seg_data()
     phase_seg(rows_out, card, cashew, seg_out / "checkpoint-3.pth")
+    phase_finetune_lamb(card, seg_out / "checkpoint-3.pth")
     phase_baselines(card, geobench, cashew64)
     for sparse_impl, block_impl in (("gathered", "wholeblock"), ("masked_dense", "fused")):
         phase_graph(card, sparse_impl, block_impl)
@@ -2206,7 +2480,9 @@ def main() -> int:
         phase_reference(sparse_impl, block_impl, **options)
     phase_reference("gathered", "wholeblock", *pico, use_orig_stem=True)
     phase_reference_classifier()
+    phase_families(card)
     phase_reference_seg()
+    phase_optional_packages(card)
     print(card, flush=True)
     emit({"kernels": list(rows_out.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,11 @@ counterpart of ``mmearth_tpu/checkpoints/orbax_io.py``; the reference's
 ``save_model`` / ``auto_load_model``, helpers.py:529-610).
 
 A run's checkpoints are ``<output_dir>/checkpoint-<epoch>.pth``, each
-``{"model": state_dict, "optimizer": AdamW.state_dict(), "epoch": int,
-"args": dict}`` with ``"ema"`` where the finetune keeps an EMA: tensors and
-plain Python values only, so ``torch.load(..., weights_only=True)`` reads
+``{"model": state_dict, "optimizer": Optimizer.state_dict(), "epoch": int,
+"args": dict}`` with ``"ema"`` where the finetune keeps an EMA and
+``"loader_state"`` (the stream position of ``--loader grain``, its bytes as
+a uint8 tensor) where the pretraining stream keeps one: tensors and plain
+Python values only, so ``torch.load(..., weights_only=True)`` reads
 them.  A file is written to a temporary name and renamed into place, so a
 run killed mid-write leaves the previous checkpoints whole; only the newest
 ``keep`` numbered files are kept.  Loading maps every tensor to the CPU and
@@ -60,13 +62,15 @@ def write(path: str | Path, payload: Mapping) -> Path:
 
 def save_checkpoint(output_dir: str | Path, epoch: int, model: torch.nn.Module, optimizer,
                     args: Mapping, ema: Mapping[str, torch.Tensor] | None = None,
-                    keep: int = 3) -> Path:
+                    keep: int = 3, loader_state: bytes | None = None) -> Path:
     """Write ``checkpoint-<epoch>.pth`` and delete all but the newest
     ``keep`` numbered checkpoints (``keep`` <= 0 keeps every one)."""
     payload = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
                "epoch": epoch, "args": dict(args)}
     if ema is not None:
         payload["ema"] = dict(ema)
+    if loader_state is not None:
+        payload["loader_state"] = torch.frombuffer(bytearray(loader_state), dtype=torch.uint8)
     path = write(checkpoint_path(output_dir, epoch), payload)
     if keep > 0:
         for _, old in numbered_checkpoints(output_dir)[:-keep]:
@@ -121,6 +125,12 @@ def model_state(sd: Mapping, model: torch.nn.Module) -> dict[str, torch.Tensor]:
     return out
 
 
+def loader_state(path: str | Path) -> bytes | None:
+    """The loader position stored in the checkpoint at ``path``, if any."""
+    state = load(path).get("loader_state")
+    return None if state is None else state.numpy().tobytes()
+
+
 def _numpy(v) -> np.ndarray:
     return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
@@ -135,7 +145,7 @@ def restore(path: str | Path, model: torch.nn.Module, optimizer=None,
     ckpt = load(path)
     model.load_state_dict(model_state(ckpt["model"], model))
     opt_state = ckpt.get("optimizer")
-    if not (isinstance(opt_state, Mapping) and "mu" in opt_state and "epoch" in ckpt):
+    if not (isinstance(opt_state, Mapping) and "mini_step" in opt_state and "epoch" in ckpt):
         return None
     if optimizer is not None:
         optimizer.load_state_dict(opt_state)

@@ -83,8 +83,8 @@ class OptimConfig:
     layer_decay: float = 1.0
     layer_decay_type: str = "single"  # or "group"
     clip_grad: float | None = None
-    # reference --opt family (optim_factory.py:149-252); finetune only, and
-    # only adamw in this port
+    # reference --opt family (optim_factory.py:149-252; train/optim.py::
+    # FAMILIES); finetune only
     opt: str = "adamw"
     opt_eps: float = 1e-8
     momentum: float = 0.9
@@ -103,8 +103,20 @@ class DataConfig:
     inp_modalities: Mapping[str, Any] = dataclasses.field(default_factory=lambda: dict(M.INP_MODALITIES))
     out_modalities: Mapping[str, Any] = dataclasses.field(default_factory=lambda: dict(M.OUT_MODALITIES))
     debug: bool = False  # 10-sample subset, mirrors reference --debug
-    # train-split sampling order: random | quasi_random | sequential
+    # the most threads of the native row gather (data/native::threads_for)
+    num_workers: int = 10
+    # mmpack (packed, memory-mapped), grain (ArrayRecord shards) or hdf5
+    # (streamed from the MMEarth HDF5); a missing split is packed from
+    # data_dir first (mmpack, grain)
+    loader: str = "mmpack"
+    # train-split sampling order for mmpack: random | quasi_random | sequential
     order: str | None = None
+
+    @property
+    def modalities(self) -> dict[str, Any]:
+        """Union of input and output modalities, input first (reference
+        main_pretrain.py:175-181)."""
+        return {**self.inp_modalities, **self.out_modalities}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +125,7 @@ class RunConfig:
     start_epoch: int = 0
     seed: int = 0
     output_dir: str = ""
+    log_dir: str | None = None  # TensorBoard event files (needs tensorboardX)
     resume: str = ""
     # with an output_dir: resume from its newest checkpoint-<epoch>.pth, and
     # save one every save_ckpt_freq epochs (and the last), keeping the newest

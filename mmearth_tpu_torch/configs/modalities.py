@@ -145,3 +145,15 @@ def out_channels(out_modalities: Mapping[str, Sequence[str] | str]) -> dict[str,
             chans[name] = len(bands)
     return chans
 
+
+
+RGB_MODALITIES: dict[str, list[str] | str] = {"sentinel2": ["B2", "B3", "B4"]}
+
+
+def modality_preset(name: str) -> dict:
+    """Named modality configurations for the packing CLIs."""
+    return {
+        "default": {**INP_MODALITIES, **OUT_MODALITIES},
+        "rgb": RGB_MODALITIES,
+        "inp_only": INP_MODALITIES,
+    }[name]

@@ -1,11 +1,10 @@
-"""Synthetic MMEarth data written straight to the mmpack layout.
-
-The same arrays, drawn in the same numpy order, as
-``mmearth_tpu/data/synthetic.py::generate`` (which writes an HDF5 file), put
-through the transforms of ``MMEarthDataset.get_rows`` (band selection, label
-remaps, no-data -> NaN, per-band z-norm with the per-tile l2a/l1c sentinel2
-statistics, categorical -> int with -1 for NaN, NHWC) and written as
-``mmearth_tpu/data/pack.py`` packs a split::
+"""Synthetic MMEarth data: in the reference's HDF5 layout (:func:`generate`,
+the arrays of ``mmearth_tpu/data/synthetic.py::generate``, drawn in the same
+numpy order), or written straight to the mmpack layout (:func:`generate_packed`):
+the same arrays put through the transforms of ``MMEarthDataset.get_rows``
+(:func:`.mmearth.transform`: band selection, label remaps, no-data -> NaN,
+per-band z-norm with the per-tile l2a/l1c sentinel2 statistics, categorical ->
+int with -1 for NaN, NHWC) and written as :mod:`.pack` packs a split::
 
     <out>/<split>/meta.json        {"count": N, "fields": {name: {shape, dtype}}}
     <out>/<split>/<modality>.bin   .npy-format [N, *shape] array (labels int32)
@@ -14,7 +13,7 @@ statistics, categorical -> int with -1 for NaN, NHWC) and written as
 So ``generate_packed`` gives, with no HDF5 in between, exactly what
 ``generate`` + ``pack_mmearth`` give.
 
-    python -m mmearth_tpu_torch.data.synthetic --out <dir> --n 1170 --tile 64
+    python -m mmearth_tpu_torch.data.synthetic --out <dir> --n 1170 --tile 64 [--hdf5]
 """
 from __future__ import annotations
 
@@ -26,8 +25,9 @@ from typing import Mapping, Sequence
 import numpy as np
 
 from ..configs import modalities as M
+from .mmearth import require_h5py, transform
 
-_STATS = {
+_STATS = {  # the generator's band statistics: (mean, std, bands)
     "sentinel2_l2a": (2000, 800, 13),
     "sentinel2_l1c": (2100, 850, 13),
     "sentinel1": (-10, 4, 8),
@@ -38,6 +38,9 @@ _STATS = {
     "lon": (0, 0.7, 2),
     "month": (0, 0.7, 2),
 }
+# as the generator's ``*_band_stats.json`` holds them
+BAND_STATS = {key: {"mean": [float(mean)] * k, "std": [float(std)] * k}
+              for key, (mean, std, k) in _STATS.items()}
 _ESA_VALS = np.array([0, 10, 20, 30, 40, 50, 60, 70, 80, 90, 95, 100], dtype=np.uint8)
 
 
@@ -65,50 +68,6 @@ def raw_arrays(n: int, tile: int, seed: int) -> dict[str, np.ndarray]:
     return raw
 
 
-def transform(modality: str, raw: np.ndarray, sel: Sequence[int], l2a: np.ndarray) -> np.ndarray:
-    """``MMEarthDataset.get_rows``'s transform of one modality (rows of ``raw``
-    already selected; ``l2a`` marks the rows whose sentinel2 is l2a)."""
-    data = raw.astype(np.float64)
-    if modality not in ("biome", "eco_region"):
-        data = data[:, sel, ...]
-    no_data = M.NO_DATA_VAL[modality]
-    if modality == "dynamic_world":
-        data = np.where(data == no_data, np.nan, data)
-        data = np.where((data >= 1) & (data <= 9), data - 1.0, data)
-        data = np.where(data > 8, np.nan, data)
-    elif modality == "esa_worldcover":
-        data = np.where(data == no_data, np.nan, data)
-        remapped = np.where(data == 95, 9.0, np.where(data == 100, 10.0, data / 10.0 - 1.0))
-        data = np.where(np.isin(data, [10, 20, 30, 40, 50, 60, 70, 80, 90, 95, 100]), remapped, data)
-        data = np.where(data > 10, np.nan, data)
-    else:
-        data = np.where(data == no_data, np.nan, data)
-
-    if modality not in ("biome", "eco_region", "dynamic_world", "esa_worldcover"):
-        def stat(key, i):
-            mean, std, k = _STATS[key]
-            return np.array([float((mean, std)[i])] * k)[sel]
-
-        if modality == "sentinel2":
-            means = np.where(l2a[:, None], stat("sentinel2_l2a", 0)[None], stat("sentinel2_l1c", 0)[None])
-            stds = np.where(l2a[:, None], stat("sentinel2_l2a", 1)[None], stat("sentinel2_l1c", 1)[None])
-        else:
-            means = stat(modality, 0)[None]
-            stds = stat(modality, 1)[None]
-        if modality in ("era5", "lat", "lon", "month"):
-            data = (data - means) / stds
-        else:
-            data = (data - means[..., None, None]) / stds[..., None, None]
-
-    if M.MODALITY_TASK[modality] in ("classification", "segmentation"):
-        data = np.where(np.isnan(data), -1, data).astype(np.int64).astype(np.int32)
-    else:
-        data = data.astype(np.float32)
-    if data.ndim == 4:
-        data = np.ascontiguousarray(data.transpose(0, 2, 3, 1))
-    return data
-
-
 def splits_of(n: int) -> dict[str, list[int]]:
     n_val = max(1, n // 8)
     return {"train": list(range(n - n_val)), "val": list(range(n - n_val, n))}
@@ -121,7 +80,8 @@ def transformed(raw: Mapping[str, np.ndarray], rows: Sequence[int]) -> dict[str,
     rows = np.asarray(rows)
     l2a = rows % 2 == 0  # the generator's tile_info: even tiles are l2a
     band_idx = M.band_indices(modalities)
-    return {m: transform(m, raw[m][rows], band_idx[m], l2a) for m in modalities}
+    out = {m: transform(m, raw[m][rows], band_idx[m], l2a, BAND_STATS) for m in modalities}
+    return {m: v.astype(np.int32) if v.dtype == np.int64 else v for m, v in out.items()}
 
 
 def synthetic_batch(n: int, tile: int, seed: int = 0) -> dict[str, np.ndarray]:
@@ -151,6 +111,28 @@ def bench_batch(n: int, tile: int, seed: int = 0) -> dict[str, np.ndarray]:
     }
 
 
+def generate(out_dir: Path | str, n: int = 64, tile: int = 64, seed: int = 0,
+             name: str = "data_synth") -> Path:
+    """Write a synthetic MMEarth dataset in the reference's on-disk layout
+    (mmearth_dataset.py:163-177): ``<name>.h5`` with a dataset per modality
+    and ``metadata``, and the splits, tile-info and band-stats JSON files
+    beside it.  Needs ``h5py``."""
+    h5py = require_h5py()
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    names = [f"tile_{i:06d}" for i in range(n)]
+    with h5py.File(out_dir / f"{name}.h5", "w") as f:
+        for modality, arr in raw_arrays(n, tile, seed).items():
+            f[modality] = arr
+        f["metadata"] = np.array([(s.encode(),) for s in names],
+                                 dtype=np.dtype([("name", "S32")]))
+    (out_dir / f"{name}_splits.json").write_text(json.dumps(splits_of(n)))
+    tile_info = {s: {"S2_type": "l2a" if i % 2 == 0 else "l1c"} for i, s in enumerate(names)}
+    (out_dir / f"{name}_tile_info.json").write_text(json.dumps(tile_info))
+    (out_dir / f"{name}_band_stats.json").write_text(json.dumps(BAND_STATS))
+    return out_dir
+
+
 def generate_packed(out_dir: Path | str, n: int = 64, tile: int = 64, seed: int = 0,
                     splits: Sequence[str] = ("train", "val")) -> Path:
     """Write the mmpack splits of a synthetic dataset under ``out_dir``."""
@@ -176,13 +158,16 @@ def generate_packed(out_dir: Path | str, n: int = 64, tile: int = 64, seed: int 
 
 
 def main():
-    ap = argparse.ArgumentParser(description="Write a synthetic MMEarth dataset as mmpack splits")
+    ap = argparse.ArgumentParser(description="Write a synthetic MMEarth dataset as mmpack "
+                                             "splits, or with --hdf5 in the HDF5 layout")
     ap.add_argument("--out", required=True)
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--tile", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--hdf5", action="store_true", help="write the HDF5 layout (needs h5py)")
     args = ap.parse_args()
-    print(f"wrote {generate_packed(args.out, n=args.n, tile=args.tile, seed=args.seed)}")
+    write = generate if args.hdf5 else generate_packed
+    print(f"wrote {write(args.out, n=args.n, tile=args.tile, seed=args.seed)}")
 
 
 if __name__ == "__main__":

@@ -66,7 +66,9 @@ def get_args_parser():
     p.add_argument("--layer_decay_type", choices=["single", "group"], default="single")
     p.add_argument("--opt_betas", nargs=2, type=float, default=[0.9, 0.999])
     p.add_argument("--opt", default="adamw", type=str,
-                   help="optimizer family; only adamw is ported")
+                   help="optimizer family: adamw, adam, nadam, radam, sgd, nesterov, momentum, "
+                        "adadelta, adafactor, rmsprop, rmsproptf, novograd, nvnovograd, lamb "
+                        "(a fused prefix maps to the plain family)")
     p.add_argument("--opt_eps", default=1e-8, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--clip_grad", type=float, default=None)
@@ -82,7 +84,7 @@ def get_args_parser():
     p.add_argument("--processed_dir", default=None, type=str)
     p.add_argument("--nb_classes", default=None, type=int)
     p.add_argument("--output_dir", default="")
-    p.add_argument("--log_dir", default=None)
+    p.add_argument("--log_dir", default=None, help="TensorBoard events (needs tensorboardX)")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--resume", default="")
     p.add_argument("--auto_resume", type=str2bool, default=True)
@@ -91,7 +93,7 @@ def get_args_parser():
     p.add_argument("--save_ckpt_num", default=3, type=int)
     p.add_argument("--start_epoch", default=0, type=int)
     p.add_argument("--num_workers", default=10, type=int,
-                   help="accepted; the port's numpy row gather runs in one thread")
+                   help="the most threads of the native row gather (0: half the cores)")
     p.add_argument("--use_bf16", type=str2bool, default=True,
                    help="bf16 compute over f32 params (replaces --use_mixed/AMP)")
     p.add_argument("--debug", type=str2bool, default=False)
@@ -140,7 +142,6 @@ def get_args_parser():
 
 # flag -> (value the port runs, what a different value would need)
 _NOT_PORTED = {
-    "log_dir": (None, "TensorBoard logging"),
     "wandb": (False, "wandb logging"),
     "distributed": (False, "multi-GPU training"),
 }
@@ -165,7 +166,8 @@ def config_from_args(args) -> FinetuneConfig:
         ),
         run=RunConfig(
             epochs=args.epochs, start_epoch=args.start_epoch, seed=args.seed,
-            output_dir=args.output_dir, resume=args.resume, auto_resume=args.auto_resume,
+            output_dir=args.output_dir, log_dir=args.log_dir, resume=args.resume,
+            auto_resume=args.auto_resume,
             save_ckpt=args.save_ckpt, save_ckpt_freq=args.save_ckpt_freq,
             save_ckpt_num=args.save_ckpt_num, loss_aggr="unweighted",
             use_bf16=args.use_bf16,

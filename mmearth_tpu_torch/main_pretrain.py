@@ -53,7 +53,7 @@ def get_args_parser():
     p.add_argument("--processed_dir", default=None, type=str)
     p.add_argument("--random_crop", type=str2bool, default=True)
     p.add_argument("--output_dir", default="")
-    p.add_argument("--log_dir", default=None)
+    p.add_argument("--log_dir", default=None, help="TensorBoard events (needs tensorboardX)")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--resume", default="")
     p.add_argument("--auto_resume", type=str2bool, default=True)
@@ -62,7 +62,8 @@ def get_args_parser():
     p.add_argument("--save_ckpt_num", default=3, type=int)
     p.add_argument("--start_epoch", default=0, type=int)
     p.add_argument("--num_workers", default=10, type=int,
-                   help="accepted; the port's numpy row gather runs in one thread")
+                   help="the most threads of the native row gather (mmpack; 0: half the "
+                        "cores)")
     p.add_argument("--debug", type=str2bool, default=False)
     p.add_argument("--use_bf16", type=str2bool, default=True,
                    help="bf16 compute over f32 params (replaces --use_mixed/AMP)")
@@ -86,7 +87,10 @@ def get_args_parser():
                         "on the full grid with re-masking (the same function)")
     p.add_argument("--grn_scope", choices=["global", "per_device"], default="per_device")
     p.add_argument("--gelu_approx", type=str2bool, default=False)
-    p.add_argument("--loader", choices=["mmpack", "grain", "hdf5"], default="mmpack")
+    p.add_argument("--loader", choices=["mmpack", "grain", "hdf5"], default="mmpack",
+                   help="mmpack: packed memory-mapped splits; grain: ArrayRecord shards "
+                        "(needs array_record); hdf5: streamed from the MMEarth HDF5 (needs "
+                        "h5py); a missing mmpack or grain split is packed from --data_dir")
     p.add_argument("--order", choices=["random", "quasi_random", "sequential"], default=None)
 
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -103,8 +107,6 @@ def get_args_parser():
 
 # flag -> (value the port runs, what a different value would need)
 _NOT_PORTED = {
-    "loader": ("mmpack", "the grain and HDF5 loaders"),
-    "log_dir": (None, "TensorBoard logging"),
     "wandb": (False, "wandb logging"),
     "distributed": (False, "multi-GPU training"),
 }
@@ -130,12 +132,13 @@ def config_from_args(args) -> PretrainConfig:
         ),
         data=DataConfig(
             data_dir=args.data_dir, processed_dir=args.processed_dir,
-            batch_size=args.batch_size,
+            batch_size=args.batch_size, num_workers=args.num_workers, loader=args.loader,
             random_crop=args.random_crop, debug=args.debug, order=args.order,
         ),
         run=RunConfig(
             epochs=args.epochs, start_epoch=args.start_epoch, seed=args.seed,
-            output_dir=args.output_dir, resume=args.resume, auto_resume=args.auto_resume,
+            output_dir=args.output_dir, log_dir=args.log_dir, resume=args.resume,
+            auto_resume=args.auto_resume,
             save_ckpt=args.save_ckpt, save_ckpt_freq=args.save_ckpt_freq,
             save_ckpt_num=args.save_ckpt_num, loss_aggr=args.loss_aggr,
             loss_full=args.loss_full, use_bf16=args.use_bf16,

@@ -6,7 +6,8 @@ Models: the dense ConvNeXtV2 classifier and the ConvNeXtV2 U-Net, each
 bootstrapped from a pretraining ``.pth`` (encoder trunk overlaid, head
 re-initialised), and the ResNet baselines (``resnet18/50`` and their U-Nets)
 from a foreign ``.pth`` (``checkpoints/foreign.py``: SeCo, GASSL, Satlas or
-ImageNet; ``fc`` re-initialised).  They train with AdamW under layer-wise lr
+ImageNet; ``fc`` re-initialised).  They train with the ``--opt`` family
+(``train/optim.py::Optimizer``, AdamW by default) under layer-wise lr
 decay (every ResNet param takes the top layer id, as in JAX).  The probe
 freezes all but the head (the ResNet-UNet: all but its encoder).  The
 ResNets' BatchNorm normalises with the batch's statistics and updates its
@@ -15,8 +16,9 @@ the EMA covers the params alone, as JAX's ``ema_params``.
 
 Segmentation (``m-cashew-plant``, ``m-SA-crop-type``) runs the probe with the
 staged unfreeze (reference main_finetune.py:598-619): from
-``unfreeze_epoch`` on the whole model trains, under a fresh AdamW whose
-update count, and so its warmup-cosine schedule, starts again from 0, with
+``unfreeze_epoch`` on the whole model trains, under a fresh optimizer of the
+same family whose update count, and so its warmup-cosine schedule, starts
+again from 0, with
 the step count that draws drop path; the EMA is kept.  That fresh optimizer
 is the JAX package's documented deviation (train/finetune.py:11-13: torch's
 ``add_param_group`` would keep the decoder's moments), which the port
@@ -29,7 +31,8 @@ run appends each epoch's record to ``log.txt``, saves
 (``checkpoints/pth_io.py``), writes the best val epoch's params to
 ``checkpoint-best.pth``, and scores the final test on the newest checkpoint
 reloaded from disk; without one it scores the in-memory params, the JAX
-package's documented path (train/finetune.py:276-377).  Each epoch's record
+package's documented path (train/finetune.py:276-377).  With ``--log_dir``
+each epoch's record also goes to TensorBoard.  Each epoch's record
 in the history also counts the kernel launches of its training steps.
 """
 from __future__ import annotations
@@ -54,7 +57,8 @@ from ..models.convnextv2 import ConvNeXtV2
 from ..models.resnet import ResNet, ResNetUnet, build_resnet
 from ..models.unet import ConvNeXtV2Unet
 from .ema import init_ema, update_ema
-from .optim import AdamW, finetune_wd_mask, layer_lr_scales
+from ..utils.logging import MetricLogger, TensorboardWriter
+from .optim import Optimizer, family, finetune_wd_mask, layer_lr_scales
 from .pretrain import PRINT_FREQ, _check_finite, resolve_device, resume
 from .schedule import warmup_cosine
 from .step import fold_in, to_device
@@ -124,10 +128,11 @@ def full_trainable(model: nn.Module):
     return lp.unet_trainable if isinstance(model, ConvNeXtV2Unet) else lp.all_trainable
 
 
-def make_optimizer(cfg: FinetuneConfig, model: nn.Module, trainable, n_train: int) -> AdamW:
-    """Set ``requires_grad`` by ``trainable`` and return a fresh AdamW
-    (layer-decayed lr scales, the finetune decay mask) over the trainable
-    params, scheduled for ``n_train`` samples an epoch."""
+def make_optimizer(cfg: FinetuneConfig, model: nn.Module, trainable, n_train: int) -> Optimizer:
+    """Set ``requires_grad`` by ``trainable`` and return a fresh optimizer of
+    the ``--opt`` family (layer-decayed lr scales, the finetune decay mask)
+    over the trainable params, scheduled for ``n_train`` samples an epoch
+    (JAX ``make_finetune_optimizer``)."""
     for name, prm in model.named_parameters():
         prm.requires_grad_(trainable(name))
     eff_batch = cfg.batch_size * cfg.optim.update_freq
@@ -138,16 +143,17 @@ def make_optimizer(cfg: FinetuneConfig, model: nn.Module, trainable, n_train: in
     scales = (layer_lr_scales(named, cfg.optim.layer_decay,
                               getattr(model, "depths", RESNET_DEPTHS), cfg.optim.layer_decay_type)
               if cfg.optim.layer_decay != 1.0 else None)
-    return AdamW(named, schedule, cfg.optim.weight_decay, cfg.optim.betas, eps=cfg.optim.opt_eps,
-                 update_freq=cfg.optim.update_freq, clip_grad=cfg.optim.clip_grad,
-                 wd_mask=finetune_wd_mask(named), lr_scales=scales)
+    return Optimizer(named, schedule, cfg.optim.weight_decay, cfg.optim.betas,
+                     eps=cfg.optim.opt_eps, update_freq=cfg.optim.update_freq,
+                     clip_grad=cfg.optim.clip_grad, wd_mask=finetune_wd_mask(named),
+                     lr_scales=scales, opt=cfg.optim.opt, momentum=cfg.optim.momentum)
 
 
 def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_train: int,
-                    device: torch.device) -> tuple[nn.Module, AdamW]:
+                    device: torch.device) -> tuple[nn.Module, Optimizer]:
     """The model on ``device``, bootstrapped from ``cfg.finetune`` when set,
-    frozen as ``cfg.linear_probe`` says, and its AdamW over the trainable
-    params (:func:`make_optimizer`)."""
+    frozen as ``cfg.linear_probe`` says, and its optimizer over the
+    trainable params (:func:`make_optimizer`)."""
     name = cfg.model.model
     if "unet" in name and not cfg.linear_probe:
         raise ValueError("U-Net runs use --linear_probe True (the staged unfreeze); see "
@@ -165,7 +171,7 @@ def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_tr
     return model, make_optimizer(cfg, model, trainable, n_train)
 
 
-def finetune_step(model: nn.Module, opt: AdamW, batch, criterion, generator: torch.Generator,
+def finetune_step(model: nn.Module, opt: Optimizer, batch, criterion, generator: torch.Generator,
                   bgr_to_rgb: bool = False, ema: dict | None = None,
                   ema_decay: float = 0.9999) -> torch.Tensor:
     """One training step (JAX make_finetune_step :73-119): forward with drop
@@ -220,16 +226,17 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
     its params came from, the model and the optimizer (after a staged
     unfreeze, the fresh one).  ``args`` (the CLI's flags) is stored in every
     checkpoint."""
-    if cfg.optim.opt.lower() != "adamw":
-        raise NotImplementedError(f"--opt {cfg.optim.opt}: only adamw is ported; the other "
-                                  "optimizer families are queued in ROADMAP.md")
+    family(cfg.optim.opt)  # an unsupported --opt raises before any work
     dev = resolve_device(device)
+    # made first: a missing tensorboardX stops the run before any work
+    tb = TensorboardWriter(cfg.run.log_dir) if cfg.run.log_dir else None
     if loaders is None:
         processed = (Path(cfg.processed_dir) if cfg.processed_dir
                      else Path(cfg.finetune).parent / "geobench_proc")
         loaders, task = get_geobench_dataloaders(
             cfg.data_set, processed, cfg.batch_size, partition=cfg.partition,
-            geobench_bands_type=cfg.geobench_bands_type, seed=cfg.run.seed)
+            geobench_bands_type=cfg.geobench_bands_type, seed=cfg.run.seed,
+            num_workers=cfg.num_workers)
     train_loader, val_loader, test_loader = loaders
     in_channels = next(iter(train_loader))["input"].shape[-1]
     nb_classes = task.num_classes if task is not None else NUM_CLASSES[cfg.data_set]
@@ -282,13 +289,16 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
         train_loader.set_epoch(epoch)
         launched = ops.launch_counts()
         step_losses = []
-        for i, host_batch in enumerate(train_loader):
+        logger = MetricLogger(PRINT_FREQ, header=f"Epoch: [{epoch}]")
+        for i, host_batch in logger.log_every(train_loader, total=len(train_loader)):
             loss = finetune_step(model, opt, to_device(host_batch, dev), criterion,
                                  fold_in(gen, step), bgr_to_rgb, ema, cfg.model_ema_decay)
             step_losses.append(loss)
             step += 1
             if i % PRINT_FREQ == 0:
-                _check_finite(float(loss))
+                value = float(loss)
+                _check_finite(value)
+                logger.update(loss=value)
         losses = torch.stack(step_losses).float().tolist() if step_losses else []
         for v in losses:
             _check_finite(v)
@@ -304,12 +314,15 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
                         "lr": opt.lr_schedule(opt.count), "launches": launched})
         print(f"epoch {epoch}  loss {mean:.4f}  val {metric_name} {val_score:.4f}  "
               f"~{len(losses) * cfg.batch_size / max(train_seconds, 1e-9):.0f} samples/s")
+        # the reference's log_stats keys (main_finetune.py:680-704; its val
+        # pass is "test_stats")
+        log_stats = {"train_loss": mean, "train_lr": opt.lr_schedule(opt.count),
+                     f"test_{metric_name}": val_score, "epoch": epoch,
+                     "n_parameters": n_trainable}
+        if tb is not None:
+            tb.log(log_stats, epoch + 1)
+            tb.flush()
         if out_dir is not None:
-            # the reference's log_stats keys (main_finetune.py:680-704; its
-            # val pass is "test_stats")
-            log_stats = {"train_loss": mean, "train_lr": opt.lr_schedule(opt.count),
-                         f"test_{metric_name}": val_score, "epoch": epoch,
-                         "n_parameters": n_trainable}
             out_dir.mkdir(parents=True, exist_ok=True)
             with open(out_dir / "log.txt", "a", encoding="utf-8") as f:
                 f.write(json.dumps(log_stats) + "\n")
@@ -332,6 +345,8 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
         test_model, test_from = _with_params(model, params), f"disk (epoch {saved['epoch']})"
     test_score = (evaluate(test_model, test_loader, stats_fn, metric, dev, bgr_to_rgb)
                   if test_loader is not None else None)
+    if tb is not None:
+        tb.close()
     print(f"final test {metric_name}: {test_score}  (params from {test_from})")
     print(f"best val {metric_name}: {best_val}")
     if best is not None:

@@ -1,26 +1,31 @@
-"""AdamW for pretraining and finetuning (port of ``mmearth_tpu/train/optim.py``).
+"""The optimizers of pretraining and finetuning (port of
+``mmearth_tpu/train/optim.py``): AdamW, and for finetuning every ``--opt``
+family of the reference (:data:`FAMILIES`) with optax's semantics.
 
-AdamW in the order of the optax chains the JAX package builds
-(``optim.py:230-251,254-306``): optional clip of the raw gradients by global
-norm, Adam moments with bias correction, decoupled weight decay on the
-masked params, the learning rate of the schedule at the update count, then
-each param's layer-decay lr scale, which multiplies the whole update (Adam
-step and decay alike).  With ``update_freq = k`` the gradients of k
+Each in the order of the optax chains the JAX package builds
+(``optim.py:171-306``): optional clip of the raw gradients by global norm,
+the family's scaling (AdamW: Adam moments with bias correction, then
+decoupled weight decay on the masked params; the other families decay as
+:meth:`Optimizer.update` says), the learning rate of the schedule at the
+update count, then each param's layer-decay lr scale, which multiplies the
+whole update (step and decay alike).  With ``update_freq = k`` the gradients of k
 micro-steps are averaged (a running mean, as ``optax.MultiSteps``) and the
 update is applied on the k-th.  Frozen params (``requires_grad`` off, the
 linear probe's trunk) are left out: no update and no decay, as JAX's
 ``mask_updates`` with the decay mask cut by the trainable mask.
 
 The schedule and the accumulation's branch stay on the host, a function of
-the update count and the micro-step (:meth:`AdamW.plan`); the lr and the
-bias corrections reach the update as a device tensor that the host writes
+the update count and the micro-step (:meth:`Optimizer.plan`); the lr and the
+family's step-dependent factors reach the update as a device tensor that the host writes
 before each step, so a CUDA graph of steps reads them anew on every replay,
 and the eager and the captured step run the same tensor arithmetic.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Iterable, Mapping, Sequence
 
+import numpy as np
 import torch
 
 
@@ -98,15 +103,82 @@ def layer_lr_scales(named_params: Iterable[tuple[str, torch.Tensor]], layer_deca
     return {name: layer_decay ** (num_layers + 1 - lid(name)) for name, _ in named_params}
 
 
-class AdamW:
-    """``wd_mask`` (name -> decay?) defaults to :func:`pretrain_wd_mask`;
-    ``lr_scales`` (name -> factor), when given, scales each param's update."""
+# the reference's --opt names (optim_factory.py:149-252) -> the family whose
+# update they run (JAX optim.py::_opt_scaler); a "fused" prefix (apex) maps
+# to the plain family
+FAMILIES = {"adamw": "adamw", "adam": "adam", "nadam": "nadam", "radam": "radam",
+            "sgd": "sgd", "nesterov": "sgd", "momentum": "momentum", "adadelta": "adadelta",
+            "adafactor": "adafactor", "rmsprop": "rmsprop", "rmsproptf": "rmsprop",
+            "novograd": "novograd", "nvnovograd": "novograd", "lamb": "lamb"}
+# the families whose weight decay enters the gradient before their
+# statistics (torch's L2 of every family but AdamW); adamw and lamb decay
+# the scaled update, novograd its normalised gradient
+COUPLED = ("adam", "nadam", "radam", "sgd", "momentum", "adadelta", "adafactor", "rmsprop")
+# each family's state tensors a param
+SLOTS = {"adamw": ("mu", "nu"), "adam": ("mu", "nu"), "nadam": ("mu", "nu"),
+         "radam": ("mu", "nu"), "lamb": ("mu", "nu"), "sgd": ("trace",),
+         "momentum": ("trace",), "adadelta": ("e_g", "e_x"),
+         "adafactor": ("v_row", "v_col", "v"), "rmsprop": ("nu", "trace"),
+         "novograd": ("mu", "nu")}
+RADAM_THRESHOLD = 5.0
+ADADELTA_RHO = 0.9
+RMSPROP_DECAY = 0.9
+ADAFACTOR = {"decay_rate": 0.8, "min_dim_size_to_factor": 128, "epsilon": 1e-30}
+
+
+def family(opt: str) -> str:
+    """The family of an ``--opt`` name; adamp, sgdp, adahessian and unknown
+    names raise ``ValueError``, as JAX's ``_opt_scaler`` does."""
+    o = opt.lower()
+    if o.startswith("fused"):
+        o = o[len("fused"):]
+    if o not in FAMILIES:
+        raise ValueError(f"Optimizer {opt!r} not supported (reference optim_factory.py:252)")
+    return FAMILIES[o]
+
+
+def flax_axes(p: torch.Tensor) -> tuple[int, ...]:
+    """The param's axes in the JAX package's layout order: a Linear's (out,
+    in) is flax's (in, out), a conv's OIHW flax's HWIO."""
+    return {2: (1, 0), 4: (2, 3, 1, 0)}.get(p.ndim, tuple(range(p.ndim)))
+
+
+def factored_dims(p: torch.Tensor, min_dim: int = ADAFACTOR["min_dim_size_to_factor"]):
+    """optax ``_factored_dims`` on the flax layout, as the port's axes: (d1,
+    d0), the second largest and the largest dim (ties broken in flax's
+    order), or None where the second is under ``min_dim``."""
+    if p.ndim < 2:
+        return None
+    axes = flax_axes(p)
+    order = np.argsort([p.shape[a] for a in axes])
+    if p.shape[axes[order[-2]]] < min_dim:
+        return None
+    return axes[order[-2]], axes[order[-1]]
+
+
+class Optimizer:
+    """One optimizer of the reference's ``--opt`` families with optax's
+    semantics (JAX ``make_finetune_optimizer``).  ``wd_mask`` (name ->
+    decay?) defaults to :func:`pretrain_wd_mask`; ``lr_scales`` (name ->
+    factor), when given, scales each param's update; ``momentum`` is sgd's,
+    nesterov's, momentum's and rmsprop's trace decay.
+
+    Every family shares the machinery: the gradients of ``update_freq``
+    micro-steps averaged, the optional clip by their global norm (over the
+    trainable params), the family's update of its state tensors, the lr of
+    the schedule at the update count, then the lr scales.  The host's part
+    (:meth:`plan`) gives each update's lr and the family's step-dependent
+    factors (bias corrections, RAdam's rectification, Adafactor's decay
+    rate, NovoGrad's first step) as one device tensor (``hyper``), so the
+    tensor work of a step runs unchanged from a CUDA graph."""
 
     def __init__(self, named_params, lr_schedule: Callable[[int], float],
                  weight_decay: float = 0.05, betas: tuple[float, float] = (0.9, 0.95),
                  eps: float = 1e-8, update_freq: int = 1, clip_grad: float | None = None,
                  wd_mask: Mapping[str, bool] | None = None,
-                 lr_scales: Mapping[str, float] | None = None):
+                 lr_scales: Mapping[str, float] | None = None, opt: str = "adamw",
+                 momentum: float = 0.9):
+        self.opt = family(opt)
         named = [(n, p) for n, p in named_params if p.requires_grad]
         decay = pretrain_wd_mask(named) if wd_mask is None else wd_mask
         self.names = [n for n, _ in named]
@@ -115,29 +187,62 @@ class AdamW:
         self.scales = None if lr_scales is None else [lr_scales[n] for n, _ in named]
         self.lr_schedule = lr_schedule
         self.weight_decay, self.betas, self.eps = weight_decay, betas, eps
+        self.momentum = momentum
         self.update_freq, self.clip_grad = update_freq, clip_grad
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.slots = {key: [self._slot(key, p) for p in self.params]
+                      for key in SLOTS[self.opt]}
         self.acc = [torch.zeros_like(p) for p in self.params] if update_freq > 1 else None
         self.count = 0  # applied updates
         self.mini_step = 0
-        # lr, 1 - b1^t and 1 - b2^t of the next update, written by the host
-        # before each step (device tensors, so a captured step reads them anew)
-        self.hyper = torch.zeros(3, dtype=torch.float32,
+        # the host's values of the next update (see _hyper), written before
+        # each step into a device tensor, so a captured step reads them anew
+        self.hyper = torch.zeros(len(self._hyper(0)), dtype=torch.float32,
                                  device=self.params[0].device if self.params else None)
 
+    def _slot(self, key: str, p: torch.Tensor) -> torch.Tensor:
+        if self.opt == "novograd" and key == "nu":
+            return torch.zeros((), dtype=p.dtype, device=p.device)  # a norm a tensor
+        if self.opt == "adafactor":
+            dims = factored_dims(p)
+            if dims is None:
+                return torch.zeros_like(p) if key == "v" else p.new_zeros(1)
+            d1, d0 = dims
+            drop = {"v_row": d0, "v_col": d1}.get(key)
+            if drop is None:
+                return p.new_zeros(1)
+            return p.new_zeros([n for i, n in enumerate(p.shape) if i != drop])
+        return torch.zeros_like(p)
+
+    @property
+    def mu(self):
+        return self.slots.get("mu")
+
+    @property
+    def nu(self):
+        return self.slots.get("nu")
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a step changes besides the grads: params, state
+        slots and the accumulated gradient."""
+        return [*self.params, *(t for ts in self.slots.values() for t in ts), *(self.acc or [])]
+
     def state_dict(self) -> dict:
-        """The moments (and the accumulated gradient mean under
-        ``update_freq`` > 1) keyed by param name, the update count and the
-        micro-step within the accumulation: tensors and ints only."""
+        """Each state slot (``mu`` and ``nu`` for the Adam families) and the
+        accumulated gradient mean under ``update_freq`` > 1, keyed by param
+        name, the family, the update count and the micro-step within the
+        accumulation: tensors, strings and ints only."""
         per_name = lambda ts: None if ts is None else dict(zip(self.names, ts))
-        return {"mu": per_name(self.mu), "nu": per_name(self.nu), "acc": per_name(self.acc),
-                "count": self.count, "mini_step": self.mini_step}
+        return {**{key: per_name(ts) for key, ts in self.slots.items()},
+                "acc": per_name(self.acc), "opt": self.opt, "count": self.count,
+                "mini_step": self.mini_step}
 
     def load_state_dict(self, state: Mapping) -> None:
         """Copy ``state`` (from :meth:`state_dict`, on any device) into this
         optimizer's tensors, which stay on their params' device."""
-        for key, mine in (("mu", self.mu), ("nu", self.nu), ("acc", self.acc)):
+        theirs_opt = state.get("opt", "adamw")
+        if theirs_opt != self.opt:
+            raise ValueError(f"optimizer state of --opt {theirs_opt} given to --opt {self.opt}")
+        for key, mine in (*self.slots.items(), ("acc", self.acc)):
             theirs = state[key]
             if (mine is None) != (theirs is None) or (
                     mine is not None and set(theirs) != set(self.names)):
@@ -154,19 +259,41 @@ class AdamW:
     def _grads(self) -> list[torch.Tensor]:
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
 
+    def _hyper(self, count: int) -> list[float]:
+        """The host's values of update ``count`` (0-based): its lr, then the
+        family's factors of the step t = count + 1."""
+        b1, b2 = self.betas
+        t = count + 1
+        lr = self.lr_schedule(count)
+        if self.opt in ("adamw", "adam", "lamb"):
+            return [lr, 1 - b1 ** t, 1 - b2 ** t]
+        if self.opt == "nadam":
+            return [lr, 1 - b1 ** t, 1 - b2 ** t, 1 - b1 ** (t + 1)]
+        if self.opt == "radam":
+            ro_inf = 2.0 / (1.0 - b2) - 1.0
+            ro = ro_inf - 2 * t * b2 ** t / (1 - b2 ** t)
+            rect = ro >= RADAM_THRESHOLD
+            r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                          / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro)) if rect else 0.0
+            return [lr, 1 - b1 ** t, 1 - b2 ** t, r, float(rect)]
+        if self.opt == "adafactor":
+            return [lr, 1.0 - t ** -ADAFACTOR["decay_rate"]]
+        if self.opt == "novograd":
+            return [lr, float(count == 0)]
+        return [lr]
+
     def plan(self, n: int) -> list[tuple[int, bool, list[float]]]:
         """The next ``n`` steps from the host's state, which does not change:
         each step's micro-step within the accumulation, whether it applies
-        an update, and that update's lr (the schedule at the update count)
-        and bias corrections ``1 - b1^t``, ``1 - b2^t`` (zeros where it
-        applies none)."""
-        b1, b2 = self.betas
+        an update, and that update's ``hyper`` values (for the Adam families
+        the lr and the bias corrections ``1 - b1^t``, ``1 - b2^t``; zeros
+        where it applies none)."""
         period = self.update_freq if self.acc is not None else 1
         mini, count, out = self.mini_step, self.count, []
+        width = self.hyper.numel()
         for _ in range(n):
             applies = mini + 1 == period
-            out.append((mini, applies, [self.lr_schedule(count), 1 - b1 ** (count + 1),
-                                        1 - b2 ** (count + 1)] if applies else [0.0] * 3))
+            out.append((mini, applies, self._hyper(count) if applies else [0.0] * width))
             mini, count = (mini + 1) % period, count + applies
         return out
 
@@ -190,9 +317,9 @@ class AdamW:
     def update(self, hyper: torch.Tensor, mini: int, applies: bool) -> None:
         """The tensor work of one step, with no host synchronisation: fold the
         ``.grad``s into the running mean as micro-step ``mini``, and where
-        ``applies``, the update with ``hyper``'s lr and bias corrections.
-        :meth:`step` runs it eagerly; ``train/step.py::ChainedStep`` captures
-        it with each step's micro-step, kind and ``hyper`` row."""
+        ``applies``, the update with ``hyper``'s values.  :meth:`step` runs
+        it eagerly; ``train/step.py::ChainedStep`` captures it with each
+        step's micro-step, kind and ``hyper`` row."""
         grads = self._grads()
         if self.acc is not None:
             for a, g in zip(self.acc, grads):
@@ -207,24 +334,140 @@ class AdamW:
             scale = torch.where(norm < self.clip_grad, torch.ones_like(norm),
                                 self.clip_grad / norm)
             torch._foreach_mul_(grads, scale)
-        b1, b2 = self.betas
-        lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
-        mu_hat = torch._foreach_div(self.mu, bc1)
-        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu_hat, denom)
-        dec = [i for i, d in enumerate(self.decay) if d]
-        if dec and self.weight_decay:
-            torch._foreach_add_([upd[i] for i in dec], [self.params[i] for i in dec],
-                                alpha=self.weight_decay)
+        dec = [i for i, d in enumerate(self.decay) if d] if self.weight_decay else []
+        if self.opt in COUPLED and dec:
+            # torch's L2: the decay enters the gradient before the statistics
+            grads = list(grads)
+            for i in dec:
+                grads[i] = grads[i] + self.weight_decay * self.params[i]
+        upd = getattr(self, f"_{self.opt}")(grads, hyper, dec)
         if self.scales is not None:
             torch._foreach_mul_(upd, self.scales)
-        torch._foreach_mul_(upd, lr)
+        torch._foreach_mul_(upd, hyper[0])
         torch._foreach_sub_(self.params, upd)
+
+    # -- each family's update direction (before the lr), optax's arithmetic --
+    def _adam_moments(self, grads, hyper):
+        b1, b2 = self.betas
+        mu, nu = self.slots["mu"], self.slots["nu"]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+        return torch._foreach_div(mu, hyper[1]), torch._foreach_div(nu, hyper[2])
+
+    def _adam_direction(self, grads, hyper):
+        mu_hat, nu_hat = self._adam_moments(grads, hyper)
+        denom = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(denom, self.eps)
+        return torch._foreach_div(mu_hat, denom)
+
+    def _adamw(self, grads, hyper, dec):
+        upd = self._adam_direction(grads, hyper)
+        if dec:
+            torch._foreach_add_([upd[i] for i in dec], [self.params[i] for i in dec],
+                                alpha=self.weight_decay)
+        return upd
+
+    def _adam(self, grads, hyper, dec):
+        return self._adam_direction(grads, hyper)
+
+    def _nadam(self, grads, hyper, dec):
+        b1 = self.betas[0]
+        _, nu_hat = self._adam_moments(grads, hyper)
+        # Dozat's Nesterov step: mu bias-corrected one step ahead, plus g
+        return [(b1 * (m / hyper[3]) + (1 - b1) * (g / hyper[1])) / (v.sqrt() + self.eps)
+                for m, g, v in zip(self.slots["mu"], grads, nu_hat)]
+
+    def _radam(self, grads, hyper, dec):
+        mu_hat, nu_hat = self._adam_moments(grads, hyper)
+        return [torch.where(hyper[4] > 0, hyper[3] * m / (v.sqrt() + self.eps), m)
+                for m, v in zip(mu_hat, nu_hat)]
+
+    def _lamb(self, grads, hyper, dec):
+        upd = self._adamw(grads, hyper, dec)
+        out = []
+        for u, p in zip(upd, self.params):
+            pn, un = p.norm(), u.norm()
+            ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+            out.append(u * ratio)
+        return out
+
+    def _trace(self, updates, nesterov: bool):
+        trace = self.slots["trace"]
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, updates)
+        if not nesterov:
+            return [t.clone() for t in trace]
+        return [u + self.momentum * t for u, t in zip(updates, trace)]
+
+    def _sgd(self, grads, hyper, dec):
+        return self._trace(grads, nesterov=True)
+
+    def _momentum(self, grads, hyper, dec):
+        return self._trace(grads, nesterov=False)
+
+    def _adadelta(self, grads, hyper, dec):
+        rho, eps, out = ADADELTA_RHO, self.eps, []
+        for g, e_g, e_x in zip(grads, self.slots["e_g"], self.slots["e_x"]):
+            e_g.mul_(rho).add_((1 - rho) * g * g)
+            u = (e_x + eps).sqrt() / (e_g + eps).sqrt() * g
+            e_x.mul_(rho).add_((1 - rho) * u * u)
+            out.append(u)
+        return out
+
+    def _rmsprop(self, grads, hyper, dec):
+        nu = self.slots["nu"]
+        torch._foreach_mul_(nu, RMSPROP_DECAY)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - RMSPROP_DECAY)
+        scaled = [g / (v.sqrt() + self.eps) for g, v in zip(grads, nu)]
+        return self._trace(scaled, nesterov=False)
+
+    def _adafactor(self, grads, hyper, dec):
+        decay, eps, out = hyper[1], ADAFACTOR["epsilon"], []
+        for g, p, v_row, v_col, v in zip(grads, self.params, *(self.slots[k] for k in
+                                                               ("v_row", "v_col", "v"))):
+            sq = g * g + eps
+            dims = factored_dims(p)
+            if dims is None:
+                v.mul_(decay).add_((1 - decay) * sq)
+                out.append(g * v.rsqrt())
+                continue
+            d1, d0 = dims
+            v_row.mul_(decay).add_((1 - decay) * sq.mean(dim=d0))
+            v_col.mul_(decay).add_((1 - decay) * sq.mean(dim=d1))
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+            out.append(g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1))
+        return out
+
+    def _novograd(self, grads, hyper, dec):
+        b1, b2 = self.betas
+        first = hyper[1]
+        decayed, out = set(dec), []
+        for i, (g, p, mu, nu) in enumerate(zip(grads, self.params, self.slots["mu"],
+                                               self.slots["nu"])):
+            n2 = g.square().sum()
+            # the first step takes the norm as it is (optax's init_nu)
+            nu.copy_(torch.where(first > 0, n2, b2 * nu + (1 - b2) * n2))
+            u = g / (nu.sqrt() + self.eps)
+            if i in decayed:
+                u = u + self.weight_decay * p
+            mu.mul_(b1).add_(u)
+            out.append(mu.clone())
+        return out
+
+
+class AdamW(Optimizer):
+    """:class:`Optimizer` of the ``adamw`` family (pretraining's)."""
+
+    def __init__(self, named_params, lr_schedule: Callable[[int], float],
+                 weight_decay: float = 0.05, betas: tuple[float, float] = (0.9, 0.95),
+                 eps: float = 1e-8, update_freq: int = 1, clip_grad: float | None = None,
+                 wd_mask: Mapping[str, bool] | None = None,
+                 lr_scales: Mapping[str, float] | None = None):
+        super().__init__(named_params, lr_schedule, weight_decay, betas, eps, update_freq,
+                         clip_grad, wd_mask, lr_scales, opt="adamw")
 
 
 def write_host_values(dst: torch.Tensor, values) -> None:

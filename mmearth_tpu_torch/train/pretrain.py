@@ -1,8 +1,9 @@
 """Pretraining loop (port of ``mmearth_tpu/train/pretrain.py``; reference
 main_pretrain.py:165-391 + engine_pretrain.py:21-122) on one device.
 
-The loader feeds mmpack batches (pinned in its worker thread when it feeds a
-card, then copied one batch ahead on a side stream: ``step.py::device_batches``).
+The loader (``--loader mmpack``, ``grain`` or ``hdf5``: :func:`get_dataloader`)
+feeds batches (pinned in its worker thread when it feeds a card, then copied
+one batch ahead on a side stream: ``step.py::device_batches``).
 With ``steps_per_dispatch`` k > 1, groups of k batches are stacked
 (``_chunked_batches``, JAX ``pretrain.py:32-43``) and run as one dispatch of
 ``step.py::ChainedStep`` (on a card one replay of a captured CUDA graph); the
@@ -14,10 +15,12 @@ and the non-finite check every ``PRINT_FREQ`` dispatches (a dispatch's every
 step), and a non-finite loss stops the run (engine_pretrain.py:83-85).
 With an output directory the run saves ``checkpoint-<epoch>.pth`` files and
 resumes from the newest (``checkpoints/pth_io.py``; JAX
-train/pretrain.py:177-215,304-306).
+train/pretrain.py:177-215,304-306).  With ``--log_dir`` each epoch's mean
+loss, lr and last per-modality losses go to TensorBoard (``utils/logging.py``).
 """
 from __future__ import annotations
 
+import itertools
 import math
 import sys
 import time
@@ -29,7 +32,10 @@ import torch
 from ..checkpoints import pth_io
 from ..configs.config import PretrainConfig, RunConfig, model_size
 from ..data.loader import PackedDataset, PackedLoader
+from ..data.mmearth import MMEarthDataset
+from ..data.pack import pack_mmearth
 from ..models.fcmae import FCMAE
+from ..utils.logging import MetricLogger, TensorboardWriter
 from .optim import AdamW
 from .schedule import warmup_cosine
 from .step import ChainedStep, device_batches, pretrain_step
@@ -81,22 +87,58 @@ def _chunked_batches(it, k: int):
     yield from buf
 
 
+class SampleCount:
+    """``len()`` of a split: the samples an epoch draws from (the debug
+    subset's 10 under ``--debug``), whatever the loader."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+
 def get_dataloader(cfg: PretrainConfig, split: str = "train", pin_memory: bool = False):
-    """mmpack split ``<processed_dir or data_dir>/<split>``; ``pin_memory``:
-    batches of pinned tensors, for a card."""
-    path = Path(cfg.data.processed_dir or cfg.data.data_dir) / split
-    if not (path / "meta.json").exists():
-        raise FileNotFoundError(
-            f"no mmpack split at {path}: this port reads packed data only (write synthetic "
-            "data with `python -m mmearth_tpu_torch.data.synthetic`, or pack the HDF5 with "
-            "`python -m mmearth_tpu.data.pack`); packing HDF5 in the port is not ported yet")
-    ds = PackedDataset(path)
+    """(samples, loader) of ``split`` for ``cfg.data.loader`` (JAX
+    ``pretrain.py:70-133``): ``mmpack`` the packed split
+    ``<processed_dir or data_dir>/<split>``, packed from the HDF5 at
+    ``data_dir`` first where it is missing; ``grain`` the ArrayRecord pack
+    ``<split>_arrayrecord`` (``_subset`` under ``--debug``), packed likewise;
+    ``hdf5`` the HDF5 streamed.  ``--debug`` trains on the first 10 samples.
+    ``pin_memory``: batches of pinned tensors, for a card."""
+    processed = Path(cfg.data.processed_dir or cfg.data.data_dir)
+    debug = list(range(10)) if cfg.data.debug else None
     is_train = split == "train"
-    loader = PackedLoader(
-        ds, batch_size=cfg.data.batch_size, shuffle=is_train, drop_last=is_train,
-        seed=cfg.run.seed, indices=list(range(min(10, len(ds)))) if cfg.data.debug else None,
-        order=cfg.data.order if is_train else "sequential", pin_memory=pin_memory)
-    return ds, loader
+    common = dict(batch_size=cfg.data.batch_size, shuffle=is_train, drop_last=is_train,
+                  seed=cfg.run.seed, pin_memory=pin_memory)
+    if cfg.data.loader == "grain":
+        from ..data.grain_pipeline import GrainLoader, pack_arrayrecord, require_array_record
+
+        require_array_record()
+        dest = processed / (split + "_arrayrecord" + ("_subset" if debug else ""))
+        if not (dest / "meta.json").exists():
+            src = MMEarthDataset(cfg.data.data_dir, cfg.data.modalities, split=split)
+            print(f"packing split {split!r} -> {dest}")
+            pack_arrayrecord(src, dest, indices=debug)
+        loader = GrainLoader(dest, **common)
+        return SampleCount(loader.count), loader
+    if cfg.data.loader == "hdf5":
+        from ..data.mmearth import HDF5StreamLoader, require_h5py
+
+        require_h5py()
+        ds = MMEarthDataset(cfg.data.data_dir, cfg.data.modalities, split=split)
+        loader = HDF5StreamLoader(ds, indices=debug, **common)
+        return SampleCount(len(loader.base_indices)), loader
+    if cfg.data.loader != "mmpack":
+        raise ValueError(f"unknown loader {cfg.data.loader!r}")
+    path = processed / split
+    if not (path / "meta.json").exists():
+        pack_mmearth(cfg.data.data_dir, processed, cfg.data.modalities, splits=(split,))
+    ds = PackedDataset(path)
+    loader = PackedLoader(ds, indices=None if debug is None else debug[:len(ds)],
+                          order=cfg.data.order if is_train else "sequential",
+                          num_workers=cfg.data.num_workers, **common)
+    return SampleCount(len(loader.base_indices)), loader
 
 
 class Dispatcher:
@@ -108,10 +150,12 @@ class Dispatcher:
                  random_crop: bool = True):
         self.model, self.opt, self.k, self.gen, self.random_crop = model, opt, k, gen, random_crop
         self.chained: ChainedStep | None = None
+        self.last_metrics: dict[str, torch.Tensor] = {}
 
     def run(self, batches, step: int, loss_sum: torch.Tensor | None = None):
         """Yields each dispatch's step losses (n,); ``step`` is the first
-        step's index for ``fold_in``."""
+        step's index for ``fold_in``.  ``last_metrics`` holds the last step's
+        on-device metrics (``loss_<modality>`` among them)."""
         for b in batches if self.k == 1 else _chunked_batches(batches, self.k):
             if b["sentinel2"].ndim == 5:
                 if self.chained is None:
@@ -119,11 +163,12 @@ class Dispatcher:
                                                {key: torch.empty_like(v) for key, v in b.items()},
                                                self.random_crop)
                 self.chained.load(b)
-                losses = self.chained(step, self.gen, loss_sum)[1]
+                self.last_metrics, losses = self.chained(step, self.gen, loss_sum)
             else:
-                losses = pretrain_step(self.model, self.opt, b, step, self.gen,
-                                       random_crop=self.random_crop,
-                                       loss_sum=loss_sum)["loss"].float().reshape(1)
+                self.last_metrics = pretrain_step(self.model, self.opt, b, step, self.gen,
+                                                  random_crop=self.random_crop,
+                                                  loss_sum=loss_sum)
+                losses = self.last_metrics["loss"].float().reshape(1)
             step += len(losses)
             yield losses
 
@@ -132,11 +177,15 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
     """Train; returns (model, history, optimizer), one history entry per epoch
     run with the exact mean ``loss``, ``steps`` (``chained_steps`` of them in
     chained dispatches), wall ``seconds`` and ``step_losses``.  ``args`` (the
-    CLI's flags) is stored in every checkpoint."""
+    CLI's flags) is stored in every checkpoint.  ``--loader grain`` trains
+    off the loader's continuous stream, whose position rides in every
+    checkpoint and is restored on resume (JAX ``pretrain.py:174-220``)."""
     dev = resolve_device(device)
-    model = build_model(cfg, dev)
+    # made first: a missing tensorboardX stops the run before any work
+    tb = TensorboardWriter(cfg.run.log_dir) if cfg.run.log_dir else None
     ds, loader = get_dataloader(cfg, pin_memory=dev.type == "cuda")
-    n_samples = len(loader.base_indices)
+    model = build_model(cfg, dev)
+    n_samples = len(ds)
     eff_batch = cfg.data.batch_size * cfg.optim.update_freq
     updates_per_epoch = max(n_samples // eff_batch, 1)
     lr = cfg.optim.absolute_lr(eff_batch)
@@ -147,12 +196,13 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
     n_params = sum(p.numel() for p in model.parameters())
     n_enc = sum(p.numel() for p in model.encoder.parameters())
     k = max(cfg.run.steps_per_dispatch, 1)
-    print(f"device {dev}  effective batch size: {eff_batch}  actual lr: {lr:.2e}  "
-          f"updates/epoch: {updates_per_epoch}  steps/dispatch: {k}  params: {n_params} "
-          f"(encoder: {n_enc})")
+    print(f"device {dev}  loader {cfg.data.loader}  effective batch size: {eff_batch}  "
+          f"actual lr: {lr:.2e}  updates/epoch: {updates_per_epoch}  steps/dispatch: {k}  "
+          f"params: {n_params} (encoder: {n_enc})")
 
+    grain_stream = cfg.data.loader == "grain"
     ckpt_dir = cfg.run.output_dir if (cfg.run.output_dir and cfg.run.save_ckpt) else None
-    start_epoch = resume(cfg.run, model, opt, ckpt_dir)
+    start_epoch = resume(cfg.run, model, opt, ckpt_dir, loader=loader if grain_stream else None)
     ckpt_args = dict(args or {})
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
     dispatcher = Dispatcher(model, opt, k, gen, cfg.data.random_crop)
@@ -160,18 +210,26 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
     step = start_epoch * len(loader)  # fold_in(gen, step) continues the run's draws
     for epoch in range(start_epoch, cfg.run.epochs):
         t0 = time.time()
-        loader.set_epoch(epoch)
+        logger = MetricLogger(PRINT_FREQ, header=f"Epoch: [{epoch}]")
+        niter = len(loader)
+        if grain_stream:
+            # the continuous stream: len(loader) batches an "epoch", reshuffled
+            # at its own epoch boundaries, its position kept across runs
+            epoch_iter = itertools.islice(loader.iterator(), niter)
+        else:
+            loader.set_epoch(epoch)
+            epoch_iter = iter(loader)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         step_losses = []
-        for i, losses in enumerate(dispatcher.run(device_batches(loader, dev), step, loss_sum)):
+        dispatches = dispatcher.run(device_batches(epoch_iter, dev), step, loss_sum)
+        for i, losses in logger.log_every(dispatches, total=niter // k + niter % k):
             step_losses.append(losses)
             step += len(losses)
             if i % PRINT_FREQ == 0:
                 values = losses.tolist()
                 for v in values:
                     _check_finite(v)
-                print(f"Epoch: [{epoch}] [{sum(map(len, step_losses)) - 1}/{len(loader)}] "
-                      f"loss {values[-1]:.4f} lr {schedule(opt.count):.3e}")
+                logger.update(loss=values[-1], lr=schedule(opt.count))
         losses = torch.cat(step_losses).float().tolist() if step_losses else []
         for v in losses:
             _check_finite(v)
@@ -183,17 +241,28 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
                         "seconds": seconds, "step_losses": losses})
         print(f"epoch {epoch} done  avg loss {mean:.4f}  "
               f"~{len(losses) * cfg.data.batch_size / max(seconds, 1e-9):.0f} samples/s")
+        if tb is not None:
+            # the exact epoch mean, the meters' lr, the last step's losses
+            stats = {**logger.averages(), "loss": mean}
+            stats.update({key: float(v) for key, v in dispatcher.last_metrics.items()
+                          if key.startswith("loss_")})
+            tb.log(stats, epoch + 1)
+            tb.flush()
         if ckpt_dir and ((epoch + 1) % cfg.run.save_ckpt_freq == 0 or epoch + 1 == cfg.run.epochs):
             pth_io.save_checkpoint(ckpt_dir, epoch, model, opt, ckpt_args,
-                                   keep=cfg.run.save_ckpt_num)
+                                   keep=cfg.run.save_ckpt_num,
+                                   loader_state=loader.get_state() if grain_stream else None)
+    if tb is not None:
+        tb.close()
     return model, history, opt
 
 
-def resume(run: RunConfig, model, opt, ckpt_dir, ema=None) -> int:
+def resume(run: RunConfig, model, opt, ckpt_dir, ema=None, loader=None) -> int:
     """Restore ``--resume`` (a ``.pth`` or an output directory), else with
     ``--auto_resume`` the newest checkpoint in ``ckpt_dir``; returns the
     epoch to start from: the checkpoint's epoch + 1, or ``--start_epoch``
-    (nothing to resume, or a file that holds the model alone)."""
+    (nothing to resume, or a file that holds the model alone).  A
+    ``loader`` with a stream position takes the checkpoint's."""
     path = (pth_io.resolve(run.resume) if run.resume
             else pth_io.latest_checkpoint(ckpt_dir) if (ckpt_dir and run.auto_resume)
             else None)
@@ -204,6 +273,10 @@ def resume(run: RunConfig, model, opt, ckpt_dir, ema=None) -> int:
         print(f"resumed the params from {path}; epoch {run.start_epoch} from --start_epoch")
         return run.start_epoch
     print(f"resumed from {path} (epoch {epoch})")
+    state = pth_io.loader_state(path) if loader is not None else None
+    if state is not None:
+        loader.set_state(state)
+        print("restored the loader's stream position (mid-stream resume)")
     return epoch + 1
 
 

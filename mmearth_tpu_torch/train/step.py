@@ -174,7 +174,7 @@ class ChainedStep:
         self.tops = torch.zeros(self.k, n, dtype=torch.long, device=dev)
         self.lefts = torch.zeros_like(self.tops)
         self.noise = torch.zeros(self.k, n, model.num_patches, device=dev)
-        self.hyper = torch.zeros(self.k, 3, device=dev)
+        self.hyper = torch.zeros(self.k, opt.hyper.numel(), device=dev)
         self.loss_sum = torch.zeros((), device=dev)
         self.losses = torch.zeros(self.k, device=dev)
         self.graphs: dict[tuple, tuple] = {}  # pattern -> (graph, static metrics)
@@ -247,7 +247,7 @@ class ChainedStep:
         threads), restore the params, AdamW's state and the loss sum, then
         capture the chain into a graph with its own memory pool."""
         opt = self.opt
-        state = [*opt.params, *opt.mu, *opt.nu, *(opt.acc or []), self.loss_sum]
+        state = [*opt.state_tensors(), self.loss_sum]
         t0 = time.perf_counter()
         with torch.no_grad():
             saved = [t.clone() for t in state]

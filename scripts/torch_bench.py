@@ -37,10 +37,13 @@ Configurations (``bench.py:60-63,479-510``, at their published widths):
   steps a dispatch (``bench.py:339-420``; the epoch's tail of fewer than 8
   batches runs as single steps, as the pretraining loop runs it, where
   ``bench.py`` skips it), and the same at 1 step a dispatch (``eager_*``),
-  with the host-only loader rate (numpy, and pinned on a card) and the
-  pinned host-to-device copy rate beside it.
-- ``--input grain|hdf5`` raise ``NotImplementedError``: the Grain pipeline
-  and the HDF5 reader are not ported yet.
+  with the host-only loader rate (the native row gather at the driver's
+  ``--num_workers`` threads, unpinned, and pinned on a card), the plain
+  numpy gather's rate over the same batches (one thread, pinned on a card:
+  the loader's gather before the native one) and the pinned
+  host-to-device copy rate beside it.
+- ``--input grain|hdf5`` raise ``NotImplementedError``: the bench drives the
+  mmpack input alone (the driver runs the other two loaders).
 
 The pretraining and finetune configurations train on one synthetic batch
 (``data/synthetic.py::bench_batch``, the arrays ``bench.py`` trains on), put
@@ -81,6 +84,7 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -95,6 +99,7 @@ PRETRAIN_CONFIGS = {
     "tiny112": ("convnextv2_tiny", 112, 16, 64),
 }
 MMPACK_STEPS_PER_DISPATCH = 8  # bench.py:339
+GATHER_THREADS = 10  # the drivers' --num_workers default: the native gather's threads
 # the finetune steps of bench.py:479-529: classification (m-eurosat) and
 # segmentation (m-cashew-plant)
 FINETUNE = {
@@ -109,10 +114,11 @@ METRICS = {
     "finetune": "geobench_cls_finetune_atto112_img_per_sec_per_chip",
     "seg": "geobench_seg_finetune_unet_atto112_img_per_sec_per_chip",
 }
-NOT_PORTED = {
-    "grain": "the Grain pipeline (mmearth_tpu/data/grain_pipeline.py; ROADMAP.md queue 1, "
-             "item 5)",
-    "hdf5": "the HDF5 reader (mmearth_tpu/data/mmearth.py; ROADMAP.md queue 1, item 5)",
+NOT_PORTED = {  # the loaders are ported; the bench drives mmpack alone
+    "grain": "a bench of the Grain (ArrayRecord) loader, which the driver runs with "
+             "--loader grain where array_record is installed",
+    "hdf5": "a bench of the HDF5 stream loader, which the driver runs with --loader hdf5 "
+            "where h5py is installed",
 }
 
 
@@ -291,6 +297,24 @@ def write_pack(path: Path, n_samples: int) -> Path:
     return path / "train"
 
 
+def numpy_gather_sps(ds, loader, pin: bool) -> float:
+    """Samples/s of the plain numpy gather (``np.take``, one thread) over
+    the loader's epoch batches, into pinned buffers when ``pin``: the
+    loader's gather before the native core, timed beside it."""
+    from mmearth_tpu_torch.data import native
+    from mmearth_tpu_torch.data.loader import pinned_empty
+
+    t0, n = time.perf_counter(), 0
+    for rows in loader._epoch_batches():
+        rows = np.sort(rows)
+        for arr in ds.arrays.values():
+            shape = (len(rows), *arr.shape[1:])
+            out = pinned_empty(shape, arr.dtype).numpy() if pin else np.empty(shape, arr.dtype)
+            native.take_rows(arr, rows, out=out)
+        n += len(rows)
+    return n / (time.perf_counter() - t0)
+
+
 def bench_mmpack(dev: torch.device, batch: int | None = None, n_samples: int = 4096,
                  epochs: int = 3, pack_dir: Path = ROOT / "build" / "bench_data") -> dict:
     """The atto56 ``wholeblock`` step fed from disk through ``PackedLoader``
@@ -308,7 +332,7 @@ def bench_mmpack(dev: torch.device, batch: int | None = None, n_samples: int = 4
 
     def loader_of(pin: bool):
         return PackedLoader(ds, batch_size=batch, shuffle=True, drop_last=True,
-                            order="quasi_random", pin_memory=pin)
+                            order="quasi_random", pin_memory=pin, num_workers=GATHER_THREADS)
 
     def host_sps(loader) -> float:
         t0, n = time.perf_counter(), 0
@@ -325,6 +349,7 @@ def bench_mmpack(dev: torch.device, batch: int | None = None, n_samples: int = 4
     h2d = pinned_h2d_bytes_per_s(sample_bytes * batch, dev)
     loader = loader_of(dev.type == "cuda")
     pinned_sps = host_sps(loader) if dev.type == "cuda" else None
+    numpy_sps = numpy_gather_sps(ds, loader, dev.type == "cuda")
 
     def timed(k: int) -> tuple[float, float | None]:
         """ms/step of the epochs after the first at k steps a dispatch, and
@@ -353,6 +378,8 @@ def bench_mmpack(dev: torch.device, batch: int | None = None, n_samples: int = 4
             "batch": batch, "block_impl": "wholeblock", "input": "mmpack",
             "steps_per_dispatch": MMPACK_STEPS_PER_DISPATCH, "batches_per_epoch": len(loader),
             "loader_only_host_sps": loader_sps, "loader_pinned_host_sps": pinned_sps,
+            "gather": "native", "gather_threads": GATHER_THREADS,
+            "numpy_gather_host_sps": numpy_sps,
             "sample_mbytes": sample_bytes / 1e6,
             "h2d_mbytes_per_sec": None if h2d is None else h2d / 1e6,
             "h2d_bound_sps": None if h2d is None else h2d / sample_bytes,

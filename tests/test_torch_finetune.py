@@ -465,9 +465,14 @@ def test_main_finetune_runs_seg_and_baselines_on_cpu(geobench_dir, model, data_s
         assert (got - conv1).abs().max() < 1e-2
 
 
-@pytest.mark.parametrize("extra,match", [(["--opt", "sgd"], "ROADMAP")])
-def test_not_ported_options_raise(geobench_dir, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("extra,error,match", [
+    (["--wandb", "True"], NotImplementedError, "wandb"),
+    (["--distributed", "True"], NotImplementedError, "multi-GPU"),
+    (["--opt", "adamp"], ValueError, "adamp")])
+def test_not_ported_options_raise(geobench_dir, extra, error, match):
+    """What the port refuses: wandb, multi-GPU, and the --opt names JAX's
+    optax build refuses too."""
+    with pytest.raises(error, match=match):
         main_finetune.main(_args(geobench_dir, *extra))
 
 

@@ -993,3 +993,55 @@ def test_pinned_loader_and_device_batches_on_gpu(tmp_path):
             assert b[k].is_pinned() and c[k].is_cuda
             np.testing.assert_array_equal(b[k].numpy(), a[k])
             np.testing.assert_array_equal(c[k].cpu().numpy(), a[k])
+
+
+@pytest.mark.gpu
+def test_opt_families_match_cpu_on_gpu():
+    """Every ``--opt`` family: 4 f32 steps of the same grads with update_freq
+    2, a clip, layer scales and a decay mask, on the card against the CPU
+    (the f32 sums of norms and means reorder: 1e-5 of each param's scale)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from mmearth_tpu_torch.train.optim import FAMILIES, Optimizer
+
+    rng = np.random.default_rng(0)
+    shapes = {"lin.weight": (256, 128), "conv.weight": (128, 128, 1, 1), "dw.weight": (8, 1, 7, 7),
+              "norm.weight": (128,), "lin.bias": (256,)}
+    init = {n: rng.normal(size=s).astype(np.float32) for n, s in shapes.items()}
+    grads = [{n: rng.normal(size=s).astype(np.float32) for n, s in shapes.items()}
+             for _ in range(4)]
+    for opt in FAMILIES:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = {n: torch.nn.Parameter(torch.from_numpy(v.copy()).to(dev))
+                      for n, v in init.items()}
+            o = Optimizer(params.items(), lambda n: 1e-2, 0.05, (0.9, 0.999), update_freq=2,
+                          clip_grad=1.0, wd_mask={n: p.ndim > 1 for n, p in params.items()},
+                          lr_scales={n: 0.5 + 0.1 * i for i, n in enumerate(params)}, opt=opt)
+            for g in grads:
+                for n, p in params.items():
+                    p.grad = torch.from_numpy(g[n]).to(dev)
+                o.step()
+            out[dev] = {n: p.detach().cpu() for n, p in params.items()}
+        for n in shapes:
+            scale = float(out["cpu"][n].abs().max())
+            torch.testing.assert_close(out["cuda"][n], out["cpu"][n], rtol=1e-5,
+                                       atol=1e-5 * scale, msg=f"{opt} {n}")
+
+
+@pytest.mark.gpu
+def test_native_gather_into_pinned_memory_on_gpu(tmp_path):
+    """The loader's native gather writes straight into pinned buffers: the
+    bytes of ``np.take``, at 1 and 4 threads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from mmearth_tpu_torch.data.loader import PackedDataset
+    from mmearth_tpu_torch.data.synthetic import generate_packed
+
+    ds = PackedDataset(generate_packed(tmp_path, n=40, tile=16, seed=0) / "train")
+    rows = np.sort(np.random.default_rng(2).permutation(ds.count)[:16])
+    for threads in (1, 4):
+        batch = ds.gather(rows, pin=True, n_threads=threads)
+        for k, arr in ds.arrays.items():
+            assert batch[k].is_pinned()
+            assert batch[k].numpy().tobytes() == np.take(arr, rows, axis=0).tobytes(), k

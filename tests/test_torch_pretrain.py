@@ -83,13 +83,19 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
         main_pretrain.main(args)
 
 
-SCRIPTS = ("torch_bench", "torch_convergence_gate")
+SCRIPTS = ("torch_bench", "torch_convergence_gate", "torch_gather_bench")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every module of the port, chip_smoke.py and the port's bench
-    and gate scripts loads no jax, flax, optax, mmearth_tpu or
-    __graft_entry__ module; the sources name none of them."""
+    """Importing every module of the port (the HDF5, ArrayRecord, native
+    gather and logging modules among them), chip_smoke.py and the port's
+    bench and gate scripts loads no jax, flax, optax, grain, mmearth_tpu or
+    __graft_entry__ module, nor h5py, array_record or tensorboardX (which
+    the card lacks: the port imports them where a path needs them); the
+    sources name none of the first."""
+    new = ("mmearth_tpu_torch.data.mmearth", "mmearth_tpu_torch.data.pack",
+           "mmearth_tpu_torch.data.grain_pipeline", "mmearth_tpu_torch.data.native",
+           "mmearth_tpu_torch.utils.logging")
     code = (
         "import importlib, pkgutil, sys, mmearth_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(mmearth_tpu_torch.__path__, 'mmearth_tpu_torch.'):\n"
@@ -97,8 +103,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "sys.path.insert(0, 'scripts')\n"
         f"for m in {SCRIPTS!r}:\n"
         "    importlib.import_module(m)\n"
+        f"assert all(m in sys.modules for m in {new!r})\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
-        " 'mmearth_tpu', '__graft_entry__')]\n"
+        " 'grain', 'mmearth_tpu', '__graft_entry__', 'h5py', 'array_record', 'tensorboardX')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
     for src in [ROOT / "chip_smoke.py", *(ROOT / "scripts" / f"{m}.py" for m in SCRIPTS),
@@ -106,8 +113,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for line in src.read_text().splitlines():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
-                assert words[1].split(".")[0] not in ("jax", "flax", "optax", "mmearth_tpu",
-                                                      "__graft_entry__"), f"{src}: {line}"
+                assert words[1].split(".")[0] not in ("jax", "flax", "optax", "grain",
+                                                      "mmearth_tpu", "__graft_entry__"), \
+                    f"{src}: {line}"
 
 
 def test_chip_smoke_refuses_without_a_gpu_and_outside_the_repo(tmp_path):
