@@ -181,6 +181,26 @@ Phases, each of which exits non-zero on failure:
    than half and whose samples/s must lie within 10% of its bench's, with
    the slice's launches a step on the counters (warm-ups and captures) and
    in the replays (``ChainedStep.replayed``).
+   Then the tools: ``print_diagnostics()``'s report; ``hub.MPMAE`` from the
+   ``wholeblock`` slice's ``checkpoint-2.pth``, its logits on the card in
+   f32 (TF32 off) within 1e-4 of their scale of the CPU port's on the same
+   file and input, 4 finetune steps of the hub model (row 11 12 times a
+   step, nothing else) and a probe step (no launch); the reconstruction
+   panels' ``run_one_batch`` on 4 samples of the packed data with a CPU
+   run's mask under ``auto`` and ``wholeblock``, the maps within 1e-4 of
+   their scale of the CPU port's in f32 and the forward's launches the
+   forward share of the slice's (``forward_launches``), then
+   ``render_panels`` (one PNG a pixel modality where matplotlib is
+   installed, else its refusal naming it; printed either way); the model
+   FLOPs of an atto56 step counted on the CPU at batch 2 and the MFU
+   of the bench's replayed ms/step (0 < MFU < 1; the bench lines carry
+   ``mfu`` too); ``utils/profiling.py::time_steps`` on the atto56
+   ``wholeblock`` ``ChainedStep`` (every round printed); and
+   ``main_pretrain.main`` with ``--wandb True --distributed True`` for one
+   epoch with wandb hidden (it runs, and says wandb is missing) and, where
+   wandb is installed, with it disabled (``WANDB_MODE``, no network), then
+   with ``WORLD_SIZE=2`` (refused before any step, naming multi-GPU
+   training).
 5. reference: a small f32 FCMAE step on the GPU against the same step on the
    CPU (plain versions), loss and grads, for dwg, wholeblock and
    masked_dense fused, wholeblock at pico widths 112/16 (one block a
@@ -1724,7 +1744,7 @@ def phase_cli_graph(card: str, data: Path) -> dict:
 
 BENCH_LINES = {  # config -> (metric, keys its line must carry past the common ones)
     "atto56": ("mpmae_atto_mmearth64_pretrain_samples_per_sec_per_chip",
-               ("block_impl", "auto_value", "eager_value")),
+               ("block_impl", "auto_value", "eager_value", "auto_mfu", "eager_mfu")),
     "seg": ("geobench_seg_finetune_unet_atto112_img_per_sec_per_chip", ()),
 }
 
@@ -1743,9 +1763,11 @@ def phase_bench(card: str, config: str = "atto56") -> dict:
         raise AssertionError(f"torch_bench.py exited {r.returncode}: {last}\n{r.stderr[-3000:]}")
     line = json.loads(last)
     metric, extra = BENCH_LINES[config]
-    want = {"metric", "value", "unit", "ms_per_step", "peak_mem_gib", "card", *extra}
+    want = {"metric", "value", "unit", "ms_per_step", "peak_mem_gib", "card", "mfu",
+            "step_gflops_per_sample", *extra}
     if not (want <= set(line) and line["value"] > 0 and line["card"] == card
             and all(line[k] > 0 for k in extra if k.endswith("value"))
+            and all(0 < line[k] < 1 for k in want if k.endswith("mfu"))
             and line["metric"] == metric):
         raise AssertionError(f"torch_bench.py line: {line}")
     emit({"phase": "bench", "config": config, "seconds": round(time.time() - t0, 2), **line})
@@ -2415,6 +2437,244 @@ def phase_reference_classifier() -> None:
           "loss_rel": rel, "worst_grad_rel": worst})
 
 
+# the forward's launches a pretraining step makes (the rest run in the
+# backward): half the patch gathers and scatters (the stem's gather and the
+# final scatter; their transposes run in the backward), every forward launch
+FORWARD_HALVES = ("gather_patches", "scatter_patches")
+FORWARD_KERNELS = ("dwconv7_gathered_fwd", "spillg_fwd_a", "spillg_fwd_b", "masked_rows",
+                   "masked_fwd_stat", "masked_fwd_apply")
+TOOLS_FT_STEPS = 4
+
+
+def forward_launches(block_impl: str) -> dict:
+    """The forward share of ``expected_launches``: the launches of one
+    forward pass of the gathered atto56 FCMAE."""
+    per_step, _ = expected_launches("gathered", block_impl, ATTO56)
+    return {key: (n // 2 if key in FORWARD_HALVES else n if key in FORWARD_KERNELS else 0)
+            for key, n in per_step.items()}
+
+
+def tools_hub(checkpoint: Path) -> dict:
+    """``hub.MPMAE`` from the pretraining ``checkpoint``: logits on the card
+    in f32 (TF32 off) against the CPU port on the same file and input;
+    then ``TOOLS_FT_STEPS`` finetune steps of the hub model (row 11 12 times
+    a step, nothing else) and one probe step (no launch)."""
+    import math
+
+    import torch
+
+    from mmearth_tpu_torch import hub
+    from mmearth_tpu_torch.configs.config import FinetuneConfig, ModelConfig, RunConfig
+    from mmearth_tpu_torch.losses.finetune import criterion_fn
+    from mmearth_tpu_torch.train.finetune import finetune_step, make_optimizer
+    from mmearth_tpu_torch.train.step import fold_in
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(FT_BATCH, 56, 56, 12, generator=gen)
+    y = torch.randint(0, 10, (FT_BATCH,), generator=gen)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        model, _ = hub.MPMAE(ckpt_path=checkpoint, num_classes=10, device=dev)
+        with torch.no_grad():
+            logits[dev] = model(x.to(dev)).cpu()
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    scale = float(logits["cpu"].abs().max())
+    if not err <= 1e-4 * scale:  # f32 on both sides: summation order only
+        raise AssertionError(f"hub logits, card against CPU: {err:.3e} of scale {scale:.3e}")
+    cfg = FinetuneConfig(model=ModelConfig(img_size=56, patch_size=8), batch_size=FT_BATCH,
+                         run=RunConfig(epochs=100, seed=0, loss_aggr="unweighted"))
+    criterion = criterion_fn("m-eurosat", 0.2)
+    batch = {"input": x.cuda(), "label": y.cuda()}
+    steps = {}
+    for probe, n_steps in ((False, TOOLS_FT_STEPS), (True, 1)):
+        model, trainable = hub.MPMAE(ckpt_path=checkpoint, num_classes=10, linear_probe=probe,
+                                     drop_path_rate=0.1)
+        opt = make_optimizer(cfg, model, trainable, 100 * FT_BATCH)
+        dgen = torch.Generator(device="cuda").manual_seed(0)
+        reset_launches()
+        losses = [float(finetune_step(model, opt, batch, criterion, fold_in(dgen, i)))
+                  for i in range(n_steps)]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        for name, n in launches.items():
+            want = 12 * n_steps if (name == "dw_weight_grad" and not probe) else 0
+            if n != want:
+                raise AssertionError(f"hub {'probe' if probe else 'finetune'}, {name}: {n} "
+                                     f"launches in {n_steps} steps, expected {want}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"hub finetune losses {losses}")
+        steps["probe" if probe else "finetune"] = {
+            "steps": n_steps, "losses": losses,
+            "dw_weight_grad_launches": launches["dw_weight_grad"]}
+    return {"logits_max_abs_err": err, "logits_scale": scale, **steps}
+
+
+def tools_panels(data: Path, checkpoint: Path) -> dict:
+    """``run_one_batch`` on the card on 4 samples of the smoke's packed data
+    with a CPU run's mask, ``auto`` and ``wholeblock``: the maps in f32
+    against the CPU port's and the forward's launches against
+    ``forward_launches``; then ``render_panels``: one PNG a pixel modality
+    where matplotlib is installed, else the refusal naming it."""
+    import numpy as np
+    import torch
+
+    from mmearth_tpu_torch.configs import modalities as M
+    from mmearth_tpu_torch.eval import visualize
+    from mmearth_tpu_torch.models.fcmae import FCMAE
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = visualize.load_batch(str(data / "train"), 56)
+    out = {}
+    for block_impl in ("auto", "wholeblock"):
+        maps, mask = {}, None
+        for dev in ("cpu", "cuda"):
+            model = FCMAE(img_size=56, patch_size=8, depths=(2, 2, 6, 2),
+                          dims=(40, 80, 160, 320), loss_aggr="unweighted", block_impl=block_impl,
+                          inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES)
+            visualize.load_fcmae(model, checkpoint)
+            model.to(dev).eval()
+            reset_launches()
+            maps[dev], mask = visualize.run_one_batch(model, batch, mask=mask)
+            launches = read_launches()
+        want = forward_launches(block_impl)
+        check_launches(f"panels forward ({block_impl})", launches, want, 1)
+        errs = {}
+        for k, ref in maps["cpu"].items():
+            err, scale = float(np.abs(maps["cuda"][k] - ref).max()), float(np.abs(ref).max())
+            if not err <= 1e-4 * scale:  # f32 on both sides: summation order only
+                raise AssertionError(f"panels ({block_impl}) {k}: {err:.3e} of scale {scale:.3e}")
+            errs[k] = err / scale
+        out[block_impl] = {"forward_launches": {k: n for k, n in launches.items() if n},
+                           "max_rel_err": errs}
+    panels = ROOT / "build" / "smoke_panels"
+    shutil.rmtree(panels, ignore_errors=True)
+    try:
+        visualize.render_panels(model, batch, maps["cuda"], mask, panels)
+    except ImportError as e:
+        if "matplotlib" not in str(e) or panels.exists():
+            raise
+        out["render"] = f"refused: {e}"
+    else:
+        pngs = sorted(p.stem for p in panels.glob("*.png"))
+        if pngs != sorted(maps["cuda"]):
+            raise AssertionError(f"panels written {pngs}, expected {sorted(maps['cuda'])}")
+        out["render"] = f"wrote {len(pngs)} PNGs to {panels}"
+    print(f"render_panels: {out['render']}", flush=True)
+    return out
+
+
+def tools_time_steps() -> dict:
+    """``utils/profiling.py::time_steps`` on the atto56 ``wholeblock``
+    ``ChainedStep`` (2 rounds of one 10-step replay after a warm-up)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_bench
+
+    from mmearth_tpu_torch.train.step import ChainedStep
+    from mmearth_tpu_torch.utils.profiling import time_steps
+
+    dev = torch.device("cuda")
+    model, opt = torch_bench.pretrain_setup(*ATTO56[:3], ATTO56[3], "wholeblock", dev)
+    data = torch_bench.device_batch(ATTO56[3], 64, dev)
+    ch = ChainedStep(model, opt, {k: v.expand(10, *v.shape) for k, v in data.items()})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    best, rounds = time_steps(lambda i: ch(i, gen), dev, k=10, rounds=2, per_call=10)
+    print(f"time_steps rounds (ms/step): {rounds}", flush=True)
+    return {"ms_per_step": best, "round_ms_per_step": rounds, "steps": ch.report()["steps"]}
+
+
+def tools_wandb_distributed(data: Path) -> dict:
+    """A one-epoch atto pretraining run through ``main_pretrain.main`` with
+    ``--wandb True --distributed True``, with wandb hidden: it runs to its
+    end on the card and says that wandb is missing; where wandb is
+    installed, the same run with it, disabled (``WANDB_MODE``: no
+    network); then with ``WORLD_SIZE=2`` in the environment it refuses,
+    naming multi-GPU training, before any step."""
+    import contextlib
+    import importlib.util
+    import io
+    import math
+
+    from mmearth_tpu_torch import main_pretrain
+
+    args = slice_args("gathered", "wholeblock", data, ATTO56, "--epochs", "1", "--wandb", "True",
+                      "--distributed", "True")
+    present = importlib.util.find_spec("wandb") is not None
+    out = {"wandb_present": present}
+    for hidden in (True, False) if present else (True,):
+        buf = io.StringIO()
+        saved = sys.modules.get("wandb")
+        if hidden:
+            sys.modules["wandb"] = None  # import wandb raises ImportError
+        else:
+            os.environ["WANDB_MODE"] = "disabled"
+        try:
+            with contextlib.redirect_stdout(buf):
+                _, history, _ = main_pretrain.main(args)
+        finally:
+            if not hidden:
+                del os.environ["WANDB_MODE"]
+            elif saved is None:
+                del sys.modules["wandb"]
+            else:
+                sys.modules["wandb"] = saved
+        said = "wandb not installed; continuing without it" in buf.getvalue()
+        losses = history[0]["step_losses"]
+        if len(history) != 1 or not losses or not all(map(math.isfinite, losses)) \
+                or said != hidden:
+            raise AssertionError(f"--wandb True --distributed True (wandb hidden {hidden}): "
+                                 f"{history}, said missing {said}")
+        out["hidden" if hidden else "disabled"] = {"said_missing": said, "steps": len(losses),
+                                                   "losses": losses}
+    os.environ["WORLD_SIZE"] = "2"
+    reset_launches()
+    try:
+        main_pretrain.main(args)
+    except NotImplementedError as e:
+        if "multi-GPU training" not in str(e) or any(read_launches().values()):
+            raise
+        out["world_size_2"] = str(e)
+    else:
+        raise AssertionError("WORLD_SIZE=2 ran")
+    finally:
+        del os.environ["WORLD_SIZE"]
+    return out
+
+
+def phase_tools(card: str, data: Path, checkpoint: Path, bench_line: dict) -> dict:
+    """The tools on the card: the diagnostics' report, the hub
+    (:func:`tools_hub`), the reconstruction panels (:func:`tools_panels`),
+    the model FLOPs of an atto56 step (on the CPU, at batch 2, scaled) and
+    the MFU of the bench phase's replayed ms/step, the step
+    timer (:func:`tools_time_steps`), and ``--wandb True --distributed
+    True`` (:func:`tools_wandb_distributed`)."""
+    from mmearth_tpu_torch.utils import flops
+    from mmearth_tpu_torch.utils.diagnostics import print_diagnostics
+
+    t0 = time.time()
+    print_diagnostics()
+    out = {"phase": "tools", "card": card, "hub": tools_hub(checkpoint),
+           "panels": tools_panels(data, checkpoint)}
+    t1 = time.time()
+    per_sample = flops.pretrain_step_flops(*ATTO56[:3], 2) / 2
+    mfu = flops.mfu(per_sample * ATTO56[3], bench_line["ms_per_step"])
+    if not 0.0 < mfu < 1.0:
+        raise AssertionError(f"MFU {mfu} of {per_sample / 1e9} GFLOP/sample at "
+                             f"{bench_line['ms_per_step']} ms/step")
+    out["flops"] = {"step_gflops_per_sample": per_sample / 1e9, "count_seconds": time.time() - t1,
+                    "bench_ms_per_step": bench_line["ms_per_step"], "mfu": mfu,
+                    "bench_mfu": bench_line["mfu"]}
+    out["time_steps"] = tools_time_steps()
+    out["wandb_distributed"] = tools_wandb_distributed(data)
+    out["seconds"] = round(time.time() - t0, 2)
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2465,9 +2725,10 @@ def main() -> int:
         phase_graph(card, sparse_impl, block_impl, options=options)
     phase_graph(card, "gathered", "wholeblock", PICO112, options={"use_orig_stem": True})
     phase_cli_graph(card, data)
-    phase_bench(card)
+    bench_line = phase_bench(card)
     phase_bench(card, "seg")
     phase_gate()
+    phase_tools(card, data, pretrain_out / "checkpoint-2.pth", bench_line)
     for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),
                                     ("masked_dense", "fused")):
         phase_reference(sparse_impl, block_impl)

@@ -8,9 +8,22 @@ these dataclasses.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Mapping
 
 from . import modalities as M
+
+
+def check_world_size() -> None:
+    """The port trains in one process: ``--distributed True`` runs at world
+    size 1, as the JAX CLIs run it (its pretraining parses the flag and
+    never reads it, its finetuning keeps it as a no-op).  A ``WORLD_SIZE``
+    above 1, as ``torchrun`` sets it, is refused."""
+    n = int(os.environ.get("WORLD_SIZE") or 1)
+    if n > 1:
+        raise NotImplementedError(f"WORLD_SIZE={n}: multi-GPU training (DDP) is not in the "
+                                  "PyTorch port yet; run one process")
+
 
 # Model size table (reference models/fcmae.py:459-496, convnextv2.py:210-247).
 MODEL_SIZES: dict[str, tuple[tuple[int, ...], tuple[int, ...]]] = {
@@ -140,6 +153,11 @@ class RunConfig:
     # pretraining steps a dispatch: k > 1 runs groups of k batches as one
     # replay of a captured CUDA graph (train/step.py::ChainedStep)
     steps_per_dispatch: int = 1
+    # Weights & Biases logging (utils/logging.py::maybe_wandb); training goes
+    # on without it where the package is missing
+    wandb: bool = False
+    wandb_project: str = "global-lr"
+    wandb_run_name: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,6 +33,14 @@ def patchify(imgs: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(n, (h // p) * (w // p), p * p * c)
 
 
+def unpatchify(x: torch.Tensor, patch_size: int, img_size: int, channels: int) -> torch.Tensor:
+    """(N, L, p*p*C) -> (N, H, W, C), the inverse of :func:`patchify`."""
+    n, p = x.shape[0], patch_size
+    g = img_size // p
+    x = x.reshape(n, g, g, p, p, channels).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, img_size, img_size, channels)
+
+
 def _safe_mean(values, valid):
     num = torch.where(valid, values, torch.zeros_like(values)).sum()
     den = valid.float().sum()

@@ -22,14 +22,16 @@ The baselines are ``--model resnet18|resnet50`` (classification) and
 ``resnet18_unet|resnet50_unet`` (segmentation) from a foreign ``.pth`` whose
 path names its source (``seco``, ``gassl``, ``satlas``; else torchvision
 keys).  ``--device`` (default ``cuda``) is honoured; asking for CUDA without
-a card raises.  Flags whose non-default values select code this port does
-not have yet are accepted and refused with an error naming what is missing.
+a card raises.  ``--wandb True`` logs each epoch to Weights & Biases where
+the package is installed (training goes on without it).  ``--distributed
+True`` runs at world size 1, a no-op as in the JAX CLI; a ``WORLD_SIZE``
+above 1 is refused (multi-GPU training is not in the port yet).
 """
 from __future__ import annotations
 
 import argparse
 
-from .configs.config import FinetuneConfig, ModelConfig, OptimConfig, RunConfig
+from .configs.config import FinetuneConfig, ModelConfig, OptimConfig, RunConfig, check_world_size
 
 GEO_BENCH_DATASETS = [
     "m-eurosat", "m-so2sat", "m-bigearthnet", "m-brick-kiln",
@@ -140,18 +142,8 @@ def get_args_parser():
     return p
 
 
-# flag -> (value the port runs, what a different value would need)
-_NOT_PORTED = {
-    "wandb": (False, "wandb logging"),
-    "distributed": (False, "multi-GPU training"),
-}
-
-
 def config_from_args(args) -> FinetuneConfig:
-    for flag, (value, needs) in _NOT_PORTED.items():
-        if getattr(args, flag) != value:
-            raise NotImplementedError(f"--{flag} {getattr(args, flag)}: needs {needs}, "
-                                      "which the PyTorch port does not have yet")
+    check_world_size()
     return FinetuneConfig(
         model=ModelConfig(
             model=args.model, img_size=args.input_size, patch_size=args.patch_size,
@@ -170,7 +162,8 @@ def config_from_args(args) -> FinetuneConfig:
             auto_resume=args.auto_resume,
             save_ckpt=args.save_ckpt, save_ckpt_freq=args.save_ckpt_freq,
             save_ckpt_num=args.save_ckpt_num, loss_aggr="unweighted",
-            use_bf16=args.use_bf16,
+            use_bf16=args.use_bf16, wandb=args.wandb, wandb_project=args.wandb_project,
+            wandb_run_name=args.wandb_run_name,
         ),
         data_set=args.data_set, partition=args.partition,
         geobench_bands_type=args.geobench_bands_type, processed_dir=args.processed_dir,

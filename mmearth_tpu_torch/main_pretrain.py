@@ -6,15 +6,18 @@ JAX CLI (``main_pretrain.py``, itself the reference's, main_pretrain.py:30-162).
         --input_size 56 --patch_size 8 --batch_size 256 --processed_dir <mmpack dir>
 
 ``--device`` (default ``cuda``) is honoured; asking for CUDA without a card
-raises.  Flags whose non-default values select code this port does not have
-yet are accepted and refused with an error naming what is missing.
+raises.  ``--wandb True`` logs each epoch to Weights & Biases where the
+package is installed (training goes on without it).  ``--distributed True``
+runs at world size 1, as the JAX CLI runs it; a ``WORLD_SIZE`` above 1 is
+refused (multi-GPU training is not in the port yet).
 """
 from __future__ import annotations
 
 import argparse
 
 from .configs import modalities as M
-from .configs.config import DataConfig, ModelConfig, OptimConfig, PretrainConfig, RunConfig
+from .configs.config import (DataConfig, ModelConfig, OptimConfig, PretrainConfig, RunConfig,
+                             check_world_size)
 
 
 def str2bool(v):
@@ -105,18 +108,8 @@ def get_args_parser():
     return p
 
 
-# flag -> (value the port runs, what a different value would need)
-_NOT_PORTED = {
-    "wandb": (False, "wandb logging"),
-    "distributed": (False, "multi-GPU training"),
-}
-
-
 def config_from_args(args) -> PretrainConfig:
-    for flag, (value, needs) in _NOT_PORTED.items():
-        if getattr(args, flag) != value:
-            raise NotImplementedError(f"--{flag} {getattr(args, flag)}: needs {needs}, "
-                                      "which the PyTorch port does not have yet")
+    check_world_size()
     return PretrainConfig(
         model=ModelConfig(
             model=args.model, img_size=args.input_size, patch_size=args.patch_size,
@@ -142,7 +135,8 @@ def config_from_args(args) -> PretrainConfig:
             save_ckpt=args.save_ckpt, save_ckpt_freq=args.save_ckpt_freq,
             save_ckpt_num=args.save_ckpt_num, loss_aggr=args.loss_aggr,
             loss_full=args.loss_full, use_bf16=args.use_bf16,
-            steps_per_dispatch=args.steps_per_dispatch,
+            steps_per_dispatch=args.steps_per_dispatch, wandb=args.wandb,
+            wandb_project=args.wandb_project, wandb_run_name=args.wandb_run_name,
         ),
     )
 

@@ -32,7 +32,8 @@ run appends each epoch's record to ``log.txt``, saves
 ``checkpoint-best.pth``, and scores the final test on the newest checkpoint
 reloaded from disk; without one it scores the in-memory params, the JAX
 package's documented path (train/finetune.py:276-377).  With ``--log_dir``
-each epoch's record also goes to TensorBoard.  Each epoch's record
+each epoch's record also goes to TensorBoard, and with ``--wandb True`` to
+Weights & Biases (``utils/logging.py::maybe_wandb``).  Each epoch's record
 in the history also counts the kernel launches of its training steps.
 """
 from __future__ import annotations
@@ -57,7 +58,7 @@ from ..models.convnextv2 import ConvNeXtV2
 from ..models.resnet import ResNet, ResNetUnet, build_resnet
 from ..models.unet import ConvNeXtV2Unet
 from .ema import init_ema, update_ema
-from ..utils.logging import MetricLogger, TensorboardWriter
+from ..utils.logging import MetricLogger, TensorboardWriter, maybe_wandb
 from .optim import Optimizer, family, finetune_wd_mask, layer_lr_scales
 from .pretrain import PRINT_FREQ, _check_finite, resolve_device, resume
 from .schedule import warmup_cosine
@@ -252,6 +253,9 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
     metric_name, metric = metric_for(cfg.data_set, nb_classes)
     bgr_to_rgb = cfg.use_imnet_weights and cfg.geobench_bands_type == "bgr"
     n_trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    wandb = maybe_wandb(cfg.run.wandb, cfg.run.wandb_project, cfg.run.wandb_run_name,
+                        {"data_set": cfg.data_set, "model": cfg.model.model,
+                         "linear_probe": cfg.linear_probe, **vars(cfg.run)})
     print(f"device {dev}  number of params (trainable): {n_trainable}  "
           f"effective batch size: {eff_batch}  actual lr: {cfg.optim.absolute_lr(eff_batch):.2e}")
 
@@ -319,6 +323,8 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
         log_stats = {"train_loss": mean, "train_lr": opt.lr_schedule(opt.count),
                      f"test_{metric_name}": val_score, "epoch": epoch,
                      "n_parameters": n_trainable}
+        if wandb is not None:
+            wandb.log(log_stats)
         if tb is not None:
             tb.log(log_stats, epoch + 1)
             tb.flush()
@@ -352,6 +358,8 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
     if best is not None:
         pth_io.write(out_dir / "checkpoint-best.pth",
                      {"model": best[1], "epoch": best[0], "args": ckpt_args})
+    if wandb is not None:
+        wandb.finish()
     return {"history": history, f"best_val_{metric_name}": best_val,
             f"test_{metric_name}": test_score, "test_params_from": test_from, "model": model,
             "optimizer": opt}

@@ -16,7 +16,8 @@ step), and a non-finite loss stops the run (engine_pretrain.py:83-85).
 With an output directory the run saves ``checkpoint-<epoch>.pth`` files and
 resumes from the newest (``checkpoints/pth_io.py``; JAX
 train/pretrain.py:177-215,304-306).  With ``--log_dir`` each epoch's mean
-loss, lr and last per-modality losses go to TensorBoard (``utils/logging.py``).
+loss, lr and last per-modality losses go to TensorBoard (``utils/logging.py``),
+and with ``--wandb True`` to Weights & Biases with JAX's payload keys.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from ..data.loader import PackedDataset, PackedLoader
 from ..data.mmearth import MMEarthDataset
 from ..data.pack import pack_mmearth
 from ..models.fcmae import FCMAE
-from ..utils.logging import MetricLogger, TensorboardWriter
+from ..utils.logging import MetricLogger, TensorboardWriter, maybe_wandb
 from .optim import AdamW
 from .schedule import warmup_cosine
 from .step import ChainedStep, device_batches, pretrain_step
@@ -206,6 +207,9 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
     ckpt_args = dict(args or {})
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
     dispatcher = Dispatcher(model, opt, k, gen, cfg.data.random_crop)
+    # one process, so this is rank 0 (JAX pretrain.py:231)
+    wandb = maybe_wandb(cfg.run.wandb, cfg.run.wandb_project, cfg.run.wandb_run_name,
+                        vars(cfg.run))
     history = []
     step = start_epoch * len(loader)  # fold_in(gen, step) continues the run's draws
     for epoch in range(start_epoch, cfg.run.epochs):
@@ -241,13 +245,20 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
                         "seconds": seconds, "step_losses": losses})
         print(f"epoch {epoch} done  avg loss {mean:.4f}  "
               f"~{len(losses) * cfg.data.batch_size / max(seconds, 1e-9):.0f} samples/s")
+        # the exact epoch mean, the meters' lr, the last step's losses
+        stats = {**logger.averages(), "loss": mean}
+        last = dispatcher.last_metrics
+        loss_dict = {key[5:]: float(v) for key, v in last.items() if key.startswith("loss_")}
         if tb is not None:
-            # the exact epoch mean, the meters' lr, the last step's losses
-            stats = {**logger.averages(), "loss": mean}
-            stats.update({key: float(v) for key, v in dispatcher.last_metrics.items()
-                          if key.startswith("loss_")})
-            tb.log(stats, epoch + 1)
+            tb.log({**stats, **{f"loss_{key}": v for key, v in loss_dict.items()}}, epoch + 1)
             tb.flush()
+        if wandb is not None:  # JAX pretrain.py:298-303
+            payload = {**{f"train_{key}": v for key, v in stats.items()}, "epoch": epoch}
+            payload.update({f"train_loss_{key}": v for key, v in loss_dict.items()})
+            if "log_vars" in last:
+                payload.update({f"log_var_{i}": v
+                                for i, v in enumerate(last["log_vars"].float().tolist())})
+            wandb.log(payload)
         if ckpt_dir and ((epoch + 1) % cfg.run.save_ckpt_freq == 0 or epoch + 1 == cfg.run.epochs):
             pth_io.save_checkpoint(ckpt_dir, epoch, model, opt, ckpt_args,
                                    keep=cfg.run.save_ckpt_num,

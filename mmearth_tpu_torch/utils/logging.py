@@ -5,7 +5,7 @@ MetricLogger / TensorboardLogger, helpers.py:48-289).
 The drivers read values off the device only at their print cadence and at
 the end of an epoch, and hand the meters host floats.  ``tensorboardX`` is
 imported when a writer is made, so the port imports where it is missing;
-W&B is not ported (``--wandb`` is refused).
+``wandb`` when ``--wandb True`` asks for it (:func:`maybe_wandb`).
 """
 from __future__ import annotations
 
@@ -88,3 +88,20 @@ class TensorboardWriter:
 
     def close(self):
         self.writer.close()
+
+
+def maybe_wandb(enabled: bool, project: str, run_name: str | None, config: dict):
+    """The ``wandb`` module after ``wandb.init``, or None: when not
+    ``enabled``, or where the package is missing (then training goes on, as
+    in the JAX package; the reference calls wandb directly,
+    main_pretrain.py:183-197)."""
+    if not enabled:
+        return None
+    try:
+        import wandb
+
+        wandb.init(project=project, name=run_name, config=config)
+        return wandb
+    except ImportError:
+        print("wandb not installed; continuing without it")
+        return None

@@ -49,7 +49,8 @@ The pretraining and finetune configurations train on one synthetic batch
 (``data/synthetic.py::bench_batch``, the arrays ``bench.py`` trains on), put
 on the device once.  After a warm-up round, the time is the best of
 ``--rounds`` (4) rounds of ``--steps`` (30) steps, each round closed by one
-``torch.cuda.synchronize()`` (``bench.py:241,267-270``); every step draws a
+``torch.cuda.synchronize()`` (``bench.py:241,267-270``;
+``mmearth_tpu_torch/utils/profiling.py::time_steps``); every step draws a
 new crop and mask (``fold_in(gen, step)``, as ``bench.py:247``).  A
 pretraining round is one dispatch of ``train/step.py::ChainedStep`` over the
 round's steps: on a card one replay of a CUDA graph of 30 steps, as
@@ -65,11 +66,17 @@ metric name: ``value`` (samples/s), ``ms_per_step`` (the best round's;
 every round's in ``round_ms_per_step``), ``unit``, ``peak_mem_gib``
 (``torch.cuda.max_memory_allocated``), ``block_impl``, the eager rounds'
 ``eager_value``, ``eager_ms_per_step``, ``eager_round_ms_per_step`` and
-``eager_peak_mem_gib`` on the pretraining configurations, and ``card``
-(``nvidia-smi --query-gpu=name,power.limit``).  On an error it is
-``{"value": 0.0, "error": ...}`` and the exit code is 1.  MFU is not
-reported: it waits for the port of ``utils/flops.py``.  ``--record`` (on a
-GPU only) writes the line into ``H100_BENCH.json`` under its configuration.
+``eager_peak_mem_gib`` on the pretraining configurations, ``card``
+(``nvidia-smi --query-gpu=name,power.limit``), and on every configuration
+``mfu`` and ``step_gflops_per_sample`` (``bench.py:256-263,275,299-301``;
+``eager_`` and ``auto_`` beside their ms/step): the model's dot and conv
+FLOPs a step (``mmearth_tpu_torch/utils/flops.py``, counted on the CPU at
+batch ``FLOPS_BATCH`` and scaled by the bench's batch; a pretraining step's
+with the composed block tail, so the kernel tails' recomputed products do
+not count) over its ms/step at the card's 989 bf16 TFLOP/s.  On an error
+it is ``{"value": 0.0, "error": ...}`` and the exit code is 1.  ``--record``
+(on a GPU only) writes the line into ``H100_BENCH.json`` under its
+configuration.
 Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -91,6 +98,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from mmearth_tpu_torch.train.pretrain import resolve_device  # noqa: E402
+from mmearth_tpu_torch.utils.profiling import time_steps  # noqa: E402
 
 RECORD = ROOT / "H100_BENCH.json"
 # (model, img px, patch px, batch) of each pretraining configuration (bench.py:60-63)
@@ -99,6 +107,7 @@ PRETRAIN_CONFIGS = {
     "tiny112": ("convnextv2_tiny", 112, 16, 64),
 }
 MMPACK_STEPS_PER_DISPATCH = 8  # bench.py:339
+FLOPS_BATCH = 2  # the batch the FLOPs are counted at, on the CPU
 GATHER_THREADS = 10  # the drivers' --num_workers default: the native gather's threads
 # the finetune steps of bench.py:479-529: classification (m-eurosat) and
 # segmentation (m-cashew-plant)
@@ -154,21 +163,32 @@ def peak_gib(dev: torch.device) -> float | None:
     return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else None
 
 
-def round_ms_per_step(dispatch, rounds: int, steps: int, dev: torch.device,
-                      per_call: int = 1) -> list[float]:
-    """A warm-up round, then ``rounds`` rounds of ``steps`` steps, each closed
-    by one device sync; ``dispatch(i)`` runs ``per_call`` steps from step
-    ``i`` (``i`` counts every step, so each draws anew).  Returns each timed
-    round's ms/step (the result is their best)."""
-    i, out = 0, []
-    for r in range(rounds + 1):
-        t0 = time.perf_counter()
-        for _ in range(steps // per_call):
-            dispatch(i)
-            i += per_call
-        sync(dev)
-        if r > 0:  # round 0 is the warm-up
-            out.append(1e3 * (time.perf_counter() - t0) / steps)
+def flops_per_sample(config: str) -> float:
+    """The model's dot and conv FLOPs a sample of one step of ``config``
+    (``mmearth_tpu_torch/utils/flops.py``; the pretraining configurations'
+    with the composed block tail, whatever tail runs): counted on the CPU at
+    ``FLOPS_BATCH`` (the count is linear in the batch), where the plain
+    versions the counter sees run in place of the kernels."""
+    from mmearth_tpu_torch.utils import flops
+
+    if config in FINETUNE:
+        f = FINETUNE[config]
+        n = flops.finetune_step_flops(f["model"], f["img"], f["patch"], f["bands"],
+                                      f["classes"], FLOPS_BATCH, f["data_set"], f["smoothing"])
+    else:
+        name, img, patch, _ = PRETRAIN_CONFIGS[config]
+        n = flops.pretrain_step_flops(name, img, patch, FLOPS_BATCH)
+    return n / FLOPS_BATCH
+
+
+def with_mfu(out: dict, per_sample: float, prefix: str = "") -> dict:
+    """``out`` with ``<prefix>mfu`` (of its ``<prefix>ms_per_step`` at its
+    batch, against the bf16 peak) and ``<prefix>step_gflops_per_sample``
+    (``bench.py:256-263,275,299-301``)."""
+    from mmearth_tpu_torch.utils.flops import mfu
+
+    out[f"{prefix}mfu"] = mfu(per_sample * out["batch"], out[f"{prefix}ms_per_step"])
+    out[f"{prefix}step_gflops_per_sample"] = per_sample / 1e9
     return out
 
 
@@ -219,12 +239,12 @@ def bench_pretrain(config: str, dev: torch.device, block_impl: str = "wholeblock
     graph = None
     if chained:
         ch = ChainedStep(model, opt, {k: v.expand(steps, *v.shape) for k, v in data.items()})
-        ms = round_ms_per_step(lambda i: ch(i, gen), rounds, steps, dev, per_call=steps)
+        best, ms = time_steps(lambda i: ch(i, gen), dev, steps, rounds, per_call=steps)
         graph = ch.report()
     else:
-        ms = round_ms_per_step(lambda i: pretrain_step(model, opt, data, i, gen), rounds, steps,
-                               dev)
-    return {"ms_per_step": min(ms), "value": batch * 1e3 / min(ms), "round_ms_per_step": ms,
+        best, ms = time_steps(lambda i: pretrain_step(model, opt, data, i, gen), dev, steps,
+                              rounds)
+    return {"ms_per_step": best, "value": batch * 1e3 / best, "round_ms_per_step": ms,
             "peak_mem_gib": peak_gib(dev), "batch": batch, "block_impl": block_impl,
             "graph": graph}
 
@@ -263,9 +283,9 @@ def bench_finetune(config: str, dev: torch.device, batch: int | None = None, rou
         "label": rng.integers(0, f["classes"], size=labels).astype(np.int32)}, dev)
     criterion = criterion_fn(cfg.data_set, cfg.smoothing)
     gen = torch.Generator(device=dev).manual_seed(0)
-    ms = round_ms_per_step(
-        lambda i: finetune_step(model, opt, data, criterion, fold_in(gen, i)), rounds, steps, dev)
-    return {"ms_per_step": min(ms), "value": batch * 1e3 / min(ms), "round_ms_per_step": ms,
+    best, ms = time_steps(
+        lambda i: finetune_step(model, opt, data, criterion, fold_in(gen, i)), dev, steps, rounds)
+    return {"ms_per_step": best, "value": batch * 1e3 / best, "round_ms_per_step": ms,
             "peak_mem_gib": peak_gib(dev), "batch": batch}
 
 
@@ -399,9 +419,12 @@ def run(args) -> dict:
     timing = {"rounds": args.rounds, "steps": args.steps}
     if args.input == "mmpack":
         out, unit, timing = bench_mmpack(dev, args.batch_size), "samples/s/chip", {}
+        per_sample = flops_per_sample("atto56")
+        with_mfu(with_mfu(out, per_sample), per_sample, "eager_")
     elif args.config in FINETUNE:
         out = bench_finetune(args.config, dev, args.batch_size, args.rounds, args.steps)
         unit = "img/s/chip"
+        with_mfu(out, flops_per_sample(args.config))
     else:
         eager = bench_pretrain(args.config, dev, "wholeblock", args.batch_size, args.rounds,
                                args.steps, chained=False)
@@ -411,12 +434,15 @@ def run(args) -> dict:
         out.update({f"eager_{key}": eager[key] for key in
                     ("value", "ms_per_step", "round_ms_per_step", "peak_mem_gib")})
         out.update(capture_s=out.pop("graph")["capture_s"])
+        per_sample = flops_per_sample(args.config)
+        with_mfu(with_mfu(out, per_sample), per_sample, "eager_")
         if args.config == "atto56":
             auto = bench_pretrain(args.config, dev, "auto", args.batch_size, args.rounds,
                                   args.steps)
             out.update(auto_value=auto["value"], auto_ms_per_step=auto["ms_per_step"],
                        auto_round_ms_per_step=auto["round_ms_per_step"],
                        auto_peak_mem_gib=auto["peak_mem_gib"])
+            with_mfu(out, per_sample, "auto_")
     return {"metric": metric_name(args.config, args.input), "value": out.pop("value"),
             "unit": unit, **out, **timing, "device": dev.type, "card": card(dev)}
 

@@ -42,47 +42,9 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 
-# kernel-name fragments (a tuple: all of them) -> group, first match wins
-GROUPS = (
-    ("dw7_wgrad", "dense dwconv dW (port kernel)"),
-    (("fwd_stat_kernel", "SpillRows"), "spill-g fwd A (port kernel)"),  # row 7
-    ("spillg_fwd_a", "spill-g fwd A (port kernel)"),  # row 7's earlier kernel
-    ("spillg_fwd_b", "spill-g fwd B (port kernel)"),  # row 8
-    ("spillg_bwd", "spill-g bwd C/D row passes (port kernels)"),
-    ("SpillRows", "spill-g bwd C/D row passes (port kernels)"),  # D: bwd_dv_kernel<..., SpillRows>
-    ("fwd_stat_kernel", "masked-dense fwd stat/apply (port kernels)"),  # <..., KeptRows>
-    ("masked_fwd", "masked-dense fwd stat/apply (port kernels)"),
-    ("masked_bwd", "masked-dense bwd stat/dv row passes (port kernels)"),
-    ("KeptRows", "masked-dense bwd stat/dv row passes (port kernels)"),
-    ("spillg_atb", "dW1/dW2 X^T Y passes (port kernel)"),
-    ("dw7_fwd", "dwconv7_gathered fwd (port kernel)"),
-    ("dw7_bwd", "dwconv7_gathered bwd (port kernel)"),
-    ("patch_copy", "patch gather/scatter (port kernel)"),  # rows 1-2: patch_copy_bulk/_reg
-    ("gather_kernel", "patch gather/scatter (port kernel)"),  # their earlier kernels
-    ("scatter_kernel", "patch gather/scatter (port kernel)"),
-    ("multi_tensor_apply", "optimizer (foreach)"),
-    ("gemm", "matmul (cuBLAS)"),
-    ("xmma", "matmul (cuBLAS)"),
-    ("cutlass", "matmul (cuBLAS)"),
-    ("conv", "convolution (cuDNN)"),
-    ("cudnn", "convolution (cuDNN)"),
-    ("reduce", "reductions"),
-    ("Memcpy", "memcpy"),
-    ("Memset", "memset"),
-    ("elementwise", "elementwise"),
-    ("index", "indexing"),
-    ("gather", "indexing"),
-    ("scatter", "indexing"),
-)
-
-
-def group_of(name: str) -> str:
-    low = name.lower()
-    for frags, group in GROUPS:
-        if all(f.lower() in low for f in ((frags,) if isinstance(frags, str) else frags)):
-            return group
-    return "other"
+from mmearth_tpu_torch.utils.profiling import group_of  # noqa: E402
 
 
 def pretrain_stepper(args, data: Path, n_steps: int, dev):
@@ -160,7 +122,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_step: needs a CUDA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     from torch.profiler import ProfilerActivity, profile
 
     from mmearth_tpu_torch.train.step import to_device

@@ -21,7 +21,7 @@ import torch_convergence_gate as gate  # noqa: E402
 
 TOY = ["--device", "cpu", "--batch_size", "4", "--rounds", "1", "--steps", "2"]
 LINE_KEYS = {"metric", "value", "unit", "ms_per_step", "round_ms_per_step", "peak_mem_gib",
-             "batch", "rounds", "steps", "device", "card"}
+             "batch", "rounds", "steps", "device", "card", "mfu", "step_gflops_per_sample"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -52,7 +52,8 @@ def test_bench_batch_is_the_graft_entry_batch(n, tile, seed):
     ("atto56", "mpmae_atto_mmearth64_pretrain_samples_per_sec_per_chip",
      {"block_impl", "auto_value", "auto_ms_per_step", "auto_round_ms_per_step",
       "auto_peak_mem_gib", "eager_value", "eager_ms_per_step", "eager_round_ms_per_step",
-      "eager_peak_mem_gib", "capture_s"}),
+      "eager_peak_mem_gib", "capture_s", "eager_mfu", "eager_step_gflops_per_sample",
+      "auto_mfu", "auto_step_gflops_per_sample"}),
     ("finetune", "geobench_cls_finetune_atto112_img_per_sec_per_chip", set()),
     ("seg", "geobench_seg_finetune_unet_atto112_img_per_sec_per_chip", set()),
 ])
@@ -64,6 +65,10 @@ def test_bench_on_cpu_prints_one_json_line_last(capsys, config, metric, extra):
     assert line["value"] == pytest.approx(4e3 / line["ms_per_step"])
     assert [line["ms_per_step"]] == line["round_ms_per_step"]
     assert (line["device"], line["card"], line["peak_mem_gib"]) == ("cpu", "cpu", None)
+    # the model FLOPs counted at FLOPS_BATCH, over this run's ms/step at the bf16 peak
+    assert line["step_gflops_per_sample"] == pytest.approx(tb.flops_per_sample(config) / 1e9)
+    assert line["mfu"] == pytest.approx(
+        line["step_gflops_per_sample"] * 1e9 * 4 / (line["ms_per_step"] / 1e3) / 989e12)
     if config == "atto56":
         assert line["block_impl"] == "wholeblock" and line["auto_value"] > 0
         assert line["eager_value"] > 0 and len(line["eager_round_ms_per_step"]) == 1

@@ -466,12 +466,11 @@ def test_main_finetune_runs_seg_and_baselines_on_cpu(geobench_dir, model, data_s
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--wandb", "True"], NotImplementedError, "wandb"),
-    (["--distributed", "True"], NotImplementedError, "multi-GPU"),
     (["--opt", "adamp"], ValueError, "adamp")])
 def test_not_ported_options_raise(geobench_dir, extra, error, match):
-    """What the port refuses: wandb, multi-GPU, and the --opt names JAX's
-    optax build refuses too."""
+    """What the port refuses: the --opt names JAX's optax build refuses too
+    (``--wandb`` and ``--distributed`` run as JAX's do:
+    ``tests/test_torch_tools.py``)."""
     with pytest.raises(error, match=match):
         main_finetune.main(_args(geobench_dir, *extra))
 

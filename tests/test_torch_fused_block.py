@@ -57,18 +57,25 @@ def _jax(a, dy, dtype, fn):
                                           for g in vjp(jnp.asarray(dy, dtype))]
 
 
-def _port(a, dy, dtype, group_rows=None):
-    """The port's forward and grads, returned in JAX's layout."""
+def _port_inputs(a, dtype):
+    """The inputs in the port's layout (w1 (4C, C), w2 (C, 4C), gamma and
+    beta (1, 1, 1, 4C)), activations in ``dtype``."""
     tdt = getattr(torch, dtype)
     c4 = a["w1"].shape[1]
     ts = {k: torch.from_numpy(a[k]) for k in ORDER}
     ts["t"], ts["x_res"] = ts["t"].to(tdt), ts["x_res"].to(tdt)
     ts["w1"], ts["w2"] = ts["w1"].t().contiguous(), ts["w2"].t().contiguous()
     ts["gamma"], ts["beta"] = ts["gamma"].reshape(1, 1, 1, c4), ts["beta"].reshape(1, 1, 1, c4)
+    return ts
+
+
+def _port(a, dy, dtype, group_rows=None):
+    """The port's forward and grads, returned in JAX's layout."""
+    ts = _port_inputs(a, dtype)
     for v in ts.values():
         v.requires_grad_()
     y = fb.fused_block_mlp_spillg(*[ts[k] for k in ORDER], group_rows=group_rows)
-    y.backward(torch.from_numpy(dy).to(tdt))
+    y.backward(torch.from_numpy(dy).to(getattr(torch, dtype)))
     grads = []
     for k in ORDER:
         g = ts[k].grad.float()
@@ -92,12 +99,12 @@ def test_plain_matches_jax(dtype, against):
           else lambda *xs: jfb.fused_block_mlp_spillg(*xs, True))
     got = _port(a, dy, dtype)
     _assert_all_close(got, _jax(a, dy, getattr(jnp, dtype), fn), TOL[dtype])
-    # the composed plain forward is the forward the autograd function runs
-    tdt = getattr(torch, dtype)
-    args = [torch.from_numpy(a[k]) for k in ORDER]
-    args[0], args[1] = args[0].to(tdt), args[1].to(tdt)
-    args[4], args[8] = args[4].t(), args[8].t()
-    np.testing.assert_array_equal(fb.fused_block_mlp_spillg_plain(*args).float().numpy(), got[0])
+    # the composed plain forward is the forward the autograd function runs:
+    # bit for bit on the same tensors (the same layouts, so the same BLAS
+    # calls; w1 and w2 as transposed views would let BLAS take other kernels)
+    ts = _port_inputs(a, dtype)
+    np.testing.assert_array_equal(
+        fb.fused_block_mlp_spillg_plain(*[ts[k] for k in ORDER]).float().numpy(), got[0])
 
 
 # (C, rows): the atto stages (C = 40/80/160/320 at p = 8/4/2/1) on one GRN

@@ -1045,3 +1045,73 @@ def test_native_gather_into_pinned_memory_on_gpu(tmp_path):
         for k, arr in ds.arrays.items():
             assert batch[k].is_pinned()
             assert batch[k].numpy().tobytes() == np.take(arr, rows, axis=0).tobytes(), k
+
+
+@pytest.fixture
+def pretrain_pth(tmp_path):
+    """A pretraining .pth of convnextv2_atto at 56/8 (random weights)."""
+    from mmearth_tpu_torch.models.fcmae import FCMAE
+
+    fc = FCMAE(img_size=56, patch_size=8, depths=(2, 2, 6, 2), dims=(40, 80, 160, 320))
+    torch.save({"model": fc.init_weights(torch.Generator().manual_seed(4)).state_dict()},
+               tmp_path / "pt.pth")
+    return tmp_path / "pt.pth"
+
+
+@pytest.mark.gpu
+def test_hub_logits_and_finetune_launches_on_gpu(pretrain_pth):
+    """``hub.MPMAE`` on the card against the CPU port from the same file:
+    logits within 1e-4 of their scale in f32 (TF32 off); a finetune step of
+    the hub model launches row 11 once a block (12 at atto), a probe step
+    none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from mmearth_tpu_torch import hub, ops
+    from mmearth_tpu_torch.losses.finetune import smoothed_cross_entropy
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.randn(4, 56, 56, 12, generator=torch.Generator().manual_seed(5))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        model, _ = hub.MPMAE(ckpt_path=pretrain_pth, num_classes=10, device=dev)
+        with torch.no_grad():
+            logits[dev] = model(x.to(dev)).cpu()
+    scale = float(logits["cpu"].abs().max())
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4 * scale)
+    y = torch.randint(0, 10, (4,), device="cuda")
+    for probe, want in ((False, 12), (True, 0)):
+        model, _ = hub.MPMAE(ckpt_path=pretrain_pth, num_classes=10, linear_probe=probe)
+        before = ops.launch_counts()["dw_weight_grad"]
+        smoothed_cross_entropy(model(x.cuda()), y, 0.2).backward()
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["dw_weight_grad"] - before == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_impl", ["auto", "wholeblock"])
+def test_panel_maps_match_cpu_on_gpu(pretrain_pth, block_impl):
+    """``run_one_batch`` on the card (its mask drawn there), then on the CPU
+    with that mask: every pixel modality's map within 1e-4 of its scale in
+    f32 (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from mmearth_tpu_torch.configs import modalities as M
+    from mmearth_tpu_torch.data.synthetic import synthetic_batch
+    from mmearth_tpu_torch.eval import visualize
+    from mmearth_tpu_torch.models.fcmae import FCMAE
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = synthetic_batch(4, 56, seed=2)
+    out = {}
+    mask = None
+    for dev in ("cuda", "cpu"):
+        model = FCMAE(img_size=56, patch_size=8, depths=(2, 2, 6, 2), dims=(40, 80, 160, 320),
+                      loss_aggr="unweighted", block_impl=block_impl,
+                      inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES)
+        visualize.load_fcmae(model, pretrain_pth)
+        out[dev], mask = visualize.run_one_batch(model.to(dev), batch, mask=mask)
+    for k, ref in out["cpu"].items():
+        scale = float(np.abs(ref).max())
+        np.testing.assert_allclose(out["cuda"][k], ref, rtol=1e-4, atol=1e-4 * scale, err_msg=k)

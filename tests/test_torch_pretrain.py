@@ -83,19 +83,23 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
         main_pretrain.main(args)
 
 
-SCRIPTS = ("torch_bench", "torch_convergence_gate", "torch_gather_bench")
+SCRIPTS = ("torch_bench", "torch_convergence_gate", "torch_gather_bench", "torch_profile_step")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (the HDF5, ArrayRecord, native
-    gather and logging modules among them), chip_smoke.py and the port's
-    bench and gate scripts loads no jax, flax, optax, grain, mmearth_tpu or
-    __graft_entry__ module, nor h5py, array_record or tensorboardX (which
-    the card lacks: the port imports them where a path needs them); the
-    sources name none of the first."""
+    gather and logging modules and the tools among them), chip_smoke.py and
+    the port's bench, gate and profiling scripts loads no jax, flax, optax,
+    grain, mmearth_tpu or __graft_entry__ module, nor the optional h5py,
+    array_record, tensorboardX, matplotlib or wandb (the card lacks the
+    first three; the port imports each where a path needs it); the sources
+    name none of the first."""
     new = ("mmearth_tpu_torch.data.mmearth", "mmearth_tpu_torch.data.pack",
            "mmearth_tpu_torch.data.grain_pipeline", "mmearth_tpu_torch.data.native",
-           "mmearth_tpu_torch.utils.logging")
+           "mmearth_tpu_torch.utils.logging", "mmearth_tpu_torch.hub",
+           "mmearth_tpu_torch.hubconf", "mmearth_tpu_torch.eval.visualize",
+           "mmearth_tpu_torch.data.subsample", "mmearth_tpu_torch.utils.flops",
+           "mmearth_tpu_torch.utils.profiling", "mmearth_tpu_torch.utils.diagnostics")
     code = (
         "import importlib, pkgutil, sys, mmearth_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(mmearth_tpu_torch.__path__, 'mmearth_tpu_torch.'):\n"
@@ -105,7 +109,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m)\n"
         f"assert all(m in sys.modules for m in {new!r})\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
-        " 'grain', 'mmearth_tpu', '__graft_entry__', 'h5py', 'array_record', 'tensorboardX')]\n"
+        " 'grain', 'mmearth_tpu', '__graft_entry__', 'h5py', 'array_record', 'tensorboardX',"
+        " 'matplotlib', 'wandb')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
     for src in [ROOT / "chip_smoke.py", *(ROOT / "scripts" / f"{m}.py" for m in SCRIPTS),
