@@ -198,9 +198,24 @@ Phases, each of which exits non-zero on failure:
    ``wholeblock`` ``ChainedStep`` (every round printed); and
    ``main_pretrain.main`` with ``--wandb True --distributed True`` for one
    epoch with wandb hidden (it runs, and says wandb is missing) and, where
-   wandb is installed, with it disabled (``WANDB_MODE``, no network), then
-   with ``WORLD_SIZE=2`` (refused before any step, naming multi-GPU
-   training).
+   wandb is installed, with it disabled (``WANDB_MODE``, no network).
+   Then data parallelism (``parallel/mesh.py``): (a) ``torchrun
+   --standalone --nproc_per_node 1`` running ``main_pretrain.main`` with
+   ``--distributed True`` (this script's ``--dist-child`` mode, which
+   calls the CLI's ``main`` on its flags and writes the history) at
+   atto56 ``wholeblock`` batch 256 with ``--steps_per_dispatch 4``, so
+   that the NCCL all-reduces are recorded in the captured graph and
+   replayed, its step losses against the same run without a process
+   group, ms/step both ways and the gradient all-reduce's time a step,
+   then in this process, under a one-rank NCCL group made here, replays
+   of an 8-step graph on a resident batch with and without the group,
+   turn about (the group's cost with no host input in the step);
+   (b) ``main_finetune.main`` under torchrun at world size 1 for the
+   classifier and ``resnet18``; (c) two ranks on the one card over gloo,
+   f32, the global GRN scope, gathered ``wholeblock`` and masked-dense
+   ``fused`` at one block a stage: each rank's loss and averaged gradients
+   against one process on the concatenated batch, at the reference
+   phases' tolerances, the rows 5-10 launches counted in each rank.
 5. reference: a small f32 FCMAE step on the GPU against the same step on the
    CPU (plain versions), loss and grads, for dwg, wholeblock and
    masked_dense fused, wholeblock at pico widths 112/16 (one block a
@@ -2592,8 +2607,7 @@ def tools_wandb_distributed(data: Path) -> dict:
     ``--wandb True --distributed True``, with wandb hidden: it runs to its
     end on the card and says that wandb is missing; where wandb is
     installed, the same run with it, disabled (``WANDB_MODE``: no
-    network); then with ``WORLD_SIZE=2`` in the environment it refuses,
-    naming multi-GPU training, before any step."""
+    network)."""
     import contextlib
     import importlib.util
     import io
@@ -2630,18 +2644,6 @@ def tools_wandb_distributed(data: Path) -> dict:
                                  f"{history}, said missing {said}")
         out["hidden" if hidden else "disabled"] = {"said_missing": said, "steps": len(losses),
                                                    "losses": losses}
-    os.environ["WORLD_SIZE"] = "2"
-    reset_launches()
-    try:
-        main_pretrain.main(args)
-    except NotImplementedError as e:
-        if "multi-GPU training" not in str(e) or any(read_launches().values()):
-            raise
-        out["world_size_2"] = str(e)
-    else:
-        raise AssertionError("WORLD_SIZE=2 ran")
-    finally:
-        del os.environ["WORLD_SIZE"]
     return out
 
 
@@ -2673,6 +2675,324 @@ def phase_tools(card: str, data: Path, checkpoint: Path, bench_line: dict) -> di
     out["seconds"] = round(time.time() - t0, 2)
     emit(out)
     return out
+
+
+DIST_CHILD = "--dist-child"  # argv[1] of the processes phase_distributed starts
+DIST_STEPS_PER_DISPATCH = 4  # atto56 at batch 256: 4 steps an epoch, one dispatch
+DIST_REF_DIMS = (40, 80, 160, 320)  # (c): atto widths, one block a stage
+DIST_REF_N = 8  # (c): the global batch, 4 a rank
+
+
+def dist_child(kind: str, out_path: str, flags: list[str]) -> int:
+    """A process of :func:`phase_distributed`: ``main_pretrain.main`` or
+    ``main_finetune.main`` (``kind``) on the CLI ``flags``, as ``python -m``
+    runs it, under torchrun's variables or without them.  It makes the
+    process group first (so that it outlives the run), counts the
+    ``all_reduce`` calls and those issued while a CUDA graph was being
+    captured, times the gradient all-reduce of the trained model's params,
+    and writes the history and these to ``out_path`` as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from mmearth_tpu_torch import main_finetune, main_pretrain
+    from mmearth_tpu_torch.parallel import mesh
+
+    cli = main_pretrain if kind == "pretrain" else main_finetune
+    args = cli.get_args_parser().parse_args(flags)
+    d = mesh.init_distributed(args.device)
+    calls = {"all_reduce": 0, "captured": 0}
+    real = dist.all_reduce
+
+    def counted(tensor, *a, **kw):
+        calls["all_reduce"] += 1
+        calls["captured"] += int(torch.cuda.is_current_stream_capturing())
+        return real(tensor, *a, **kw)
+
+    dist.all_reduce = counted
+    out = cli.main(args)
+    dist.all_reduce = real
+    model, history = (out[0], out[1]) if kind == "pretrain" else (out["model"], out["history"])
+    res = {"world": mesh.world_size(d.group), "device": str(d.device),
+           "backend": dist.get_backend(d.group) if d.group is not None else None,
+           "calls": calls, "history": [{k: e[k] for k in ("epoch", "loss", "steps", "seconds",
+                                                           "step_losses")} for e in history]}
+    if kind == "finetune":
+        res["test"] = out["test_Accuracy"]
+    if d.group is not None:
+        grads = [torch.zeros_like(p) for p in model.parameters() if p.requires_grad]
+        res["grad_allreduce"] = {"params": sum(g.numel() for g in grads),
+                                 "ms": time_ms(lambda: mesh.all_reduce_grads(grads, d.group))}
+    mesh.close(d)
+    Path(out_path).write_text(json.dumps(res))
+    return 0
+
+
+def run_child(kind: str, flags: list[str], torchrun: bool, tag: str) -> dict:
+    """:func:`dist_child` in a process of its own (under ``torchrun
+    --standalone --nproc_per_node 1`` where ``torchrun``); its JSON."""
+    out = ROOT / "build" / f"smoke_dist_{tag}.json"
+    out.unlink(missing_ok=True)
+    import torch
+
+    launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "1"] if torchrun else [sys.executable])
+    # torchrun sets OMP_NUM_THREADS=1 where it is unset, which slows the
+    # host's tensor work (the chained batches' stack): both runs get this
+    # process's thread count, so that they differ by the group alone
+    env = {**os.environ, "OMP_NUM_THREADS": str(torch.get_num_threads())}
+    t0 = time.time()
+    r = subprocess.run([*launcher, str(ROOT / "chip_smoke.py"), DIST_CHILD, kind, str(out),
+                        *flags], cwd=ROOT, capture_output=True, text=True, timeout=600,
+                       env=env)
+    if r.returncode != 0:
+        raise AssertionError(f"{tag}: exit {r.returncode}\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-6000:]}")
+    res = json.loads(out.read_text())
+    res["process_seconds"] = round(time.time() - t0, 2)
+    return res
+
+
+def steady_ms(history: list[dict]) -> float:
+    """ms/step over the epochs after the first (which captures)."""
+    steady = history[1:]
+    return 1e3 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
+
+
+def dist_rank(rank: int, world: int, port: int, work: str) -> None:
+    """Rank ``rank`` of (c): gloo on ``cuda:0``, each FCMAE of
+    ``work/inputs.pt`` under the global GRN scope on the rank's rows of the
+    global batch and mask, one forward and backward, the gradients
+    averaged over the ranks; writes the loss, the gradients and the
+    launches of each to ``work/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from mmearth_tpu_torch.models.fcmae import FCMAE
+    from mmearth_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    d = mesh.init_distributed("cuda:0")
+    inp = torch.load(Path(work) / "inputs.pt", weights_only=False)
+    n = DIST_REF_N // world
+    rows = slice(rank * n, (rank + 1) * n)
+    out = {}
+    for sparse_impl, block_impl in (("gathered", "wholeblock"), ("masked_dense", "fused")):
+        model = FCMAE(**inp["kw"], sparse_impl=sparse_impl, block_impl=block_impl).cuda()
+        model.load_state_dict(inp["sd"])
+        mesh.set_process_group(model, d.group)
+        batch = {k: v[rows].cuda() for k, v in inp["batch"].items()}
+        reset_launches()
+        loss = model(batch, mask=inp["mask"][rows].cuda())[0]
+        loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        mesh.all_reduce_grads(grads, d.group)
+        torch.cuda.synchronize()
+        out[block_impl] = {"loss": float(loss.detach()), "launches": read_launches(),
+                           "grads": {k: p.grad.detach().cpu() for k, p in
+                                     model.named_parameters() if p.grad is not None}}
+    torch.save(out, Path(work) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_two_ranks() -> dict:
+    """(c): two gloo ranks on ``cuda:0`` (:func:`dist_rank`) against one
+    process on the concatenated batch, f32, TF32 off: each rank's loss
+    within 1e-4 of the one process's and its averaged gradients within
+    1e-3 of each tensor's largest magnitude, as the reference phases hold
+    the GPU against the CPU; the spill-g launches under ``wholeblock`` and
+    the masked-dense ones under ``fused`` counted in each rank."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from mmearth_tpu_torch.configs import modalities as M
+    from mmearth_tpu_torch.data.synthetic import synthetic_batch
+    from mmearth_tpu_torch.models.fcmae import FCMAE, gen_random_mask, zero_nan_inputs
+    from mmearth_tpu_torch.ops import fused_block as fb
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = ROOT / "build" / "smoke_dist_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    kw = dict(img_size=56, patch_size=8, depths=(1, 1, 1, 1), dims=DIST_REF_DIMS, grn_group=0,
+              inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES)
+    ref = FCMAE(**kw).init_weights(torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for name, p in ref.named_parameters():
+            if ".grn." in name:
+                p.normal_(0.0, 0.5, generator=gen)
+    batch = zero_nan_inputs({k: torch.from_numpy(v) for k, v in
+                             synthetic_batch(DIST_REF_N, 56, seed=1).items()})
+    mask = gen_random_mask(DIST_REF_N, 49, 0.6, torch.Generator().manual_seed(2))
+    torch.save({"kw": kw, "sd": ref.state_dict(), "batch": batch, "mask": mask},
+               work / "inputs.pt")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    mp.spawn(dist_rank, args=(2, port, str(work)), nprocs=2, join=True)
+    seconds = time.time() - t0
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    out = {"spawn_and_run_seconds": round(seconds, 2)}
+    for sparse_impl, block_impl in (("gathered", "wholeblock"), ("masked_dense", "fused")):
+        model = FCMAE(**kw, sparse_impl=sparse_impl, block_impl=block_impl).cuda()
+        model.load_state_dict(ref.state_dict())
+        loss = model({k: v.cuda() for k, v in batch.items()}, mask=mask.cuda())[0]
+        loss.backward()
+        want = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                if p.grad is not None}
+        own = ([k for k in fb.SPILLG_LAUNCHES if k != "spillg_bwd_c_dw2"]  # folds at atto
+               if block_impl == "wholeblock" else fb.MASKED_LAUNCHES)
+        res = {"loss_one_process": float(loss.detach()), "ranks": []}
+        for r, got in enumerate(ranks):
+            g = got[block_impl]
+            rel = abs(g["loss"] - res["loss_one_process"]) / abs(res["loss_one_process"])
+            worst = max(float((g["grads"][k] - want[k]).abs().max()
+                              / (want[k].abs().max() + 1e-12)) for k in want)
+            launched = {k: g["launches"][k] for k in own}
+            if not (rel < 1e-4 and worst < 1e-3) or not all(launched.values()):
+                raise AssertionError(f"two ranks, {block_impl}, rank {r}: loss rel {rel:.2e}, "
+                                     f"worst grad {worst:.2e}, launches {launched}")
+            res["ranks"].append({"loss": g["loss"], "loss_rel": rel, "worst_grad_rel": worst,
+                                 "launches": launched})
+        out[block_impl] = res
+    return out
+
+
+def dist_replay_ab(k: int = 8, replays: int = 5) -> dict:
+    """The group's cost in a replayed step, host input excluded: atto56
+    ``wholeblock`` at batch 256 on a resident batch, a ``ChainedStep`` of k
+    steps without a group and one under a one-rank NCCL group made here
+    (its loss sums and gradient average captured), replayed in turns
+    alone, group, group, alone, ``replays`` replays a turn, CUDA-event
+    ms/step; and the gradient average alone (``all_reduce_grads``: host
+    included, and its all-reduce of the flat buffer alone)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from mmearth_tpu_torch.configs import modalities as M
+    from mmearth_tpu_torch.data.synthetic import bench_batch
+    from mmearth_tpu_torch.models.fcmae import FCMAE
+    from mmearth_tpu_torch.parallel import mesh
+    from mmearth_tpu_torch.train.optim import AdamW
+    from mmearth_tpu_torch.train.step import ChainedStep, to_device
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    model_name, size, patch, batch_size = ATTO56
+    batch = to_device(bench_batch(batch_size, 64, seed=1), "cuda")
+    chains = {}
+    try:
+        for name, group in (("alone", None), ("group", dist.group.WORLD)):
+            model = FCMAE(img_size=size, patch_size=patch, depths=(2, 2, 6, 2),
+                          dims=(40, 80, 160, 320), grn_group=batch_size,
+                          block_impl="wholeblock", dtype=torch.bfloat16,
+                          inp_modalities=M.INP_MODALITIES, out_modalities=M.OUT_MODALITIES)
+            model = mesh.set_process_group(
+                model.init_weights(torch.Generator().manual_seed(0)).cuda(), group)
+            opt = AdamW(model.named_parameters(), lambda n: 1e-4, process_group=group)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            ch = ChainedStep(model, opt, {key: v.expand(k, *v.shape) for key, v in batch.items()})
+            ch(0, gen)  # warm-up and capture
+            chains[name] = ch, gen, model
+        ms = {"alone": [], "group": []}
+        for name in ("alone", "group", "group", "alone"):
+            ch, gen, _ = chains[name]
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(replays):
+                ch(k * (i + 1), gen)
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end) / (replays * k))
+        grads = [torch.zeros_like(p) for p in chains["group"][2].parameters()]
+        flat = torch.zeros(sum(g.numel() for g in grads), device="cuda")
+        out = {"k": k, "replays_a_turn": replays, "replay_ms_per_step": ms,
+               "group_minus_alone_ms": statistics.mean(ms["group"]) - statistics.mean(ms["alone"]),
+               "grad_params": flat.numel(),
+               "all_reduce_grads_ms": time_ms(lambda: mesh.all_reduce_grads(
+                   grads, dist.group.WORLD)),
+               "flat_all_reduce_ms": time_ms(lambda: dist.all_reduce(flat))}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_distributed(card: str, data: Path, geobench: Path, checkpoint: Path,
+                      foreign: Path) -> dict:
+    """Data parallelism on the card: (a) atto56 ``wholeblock`` pretraining
+    under torchrun (NCCL, world size 1) with the all-reduces captured into
+    the chained graph, against the same run without a group, and the
+    group's cost in a replay (:func:`dist_replay_ab`); (b) the finetune
+    driver under torchrun for the classifier and ``resnet18``; (c) two gloo
+    ranks on the one card (:func:`dist_two_ranks`)."""
+    import math
+
+    t0 = time.time()
+    model_name, size, patch, batch = ATTO56
+    flags = ["--model", model_name, "--input_size", str(size), "--patch_size", str(patch),
+             "--batch_size", str(batch), "--use_bf16", "True", "--device", "cuda",
+             "--processed_dir", str(data), "--epochs", "3", "--warmup_epochs", "1", "--seed",
+             "0", "--block_impl", "wholeblock", "--steps_per_dispatch",
+             str(DIST_STEPS_PER_DISPATCH), "--distributed", "True"]
+    group = run_child("pretrain", flags, True, "pretrain_nccl")
+    alone = run_child("pretrain", flags, False, "pretrain_alone")
+    mine = [x for e in group["history"] for x in e["step_losses"]]
+    theirs = [x for e in alone["history"] for x in e["step_losses"]]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(mine, theirs))
+    if (group["world"], group["backend"]) != (1, "nccl") or alone["backend"] is not None \
+            or len(mine) != len(theirs) or len(mine) < 12 or worst > 1e-3 \
+            or not group["calls"]["captured"] or alone["calls"]["all_reduce"]:
+        raise AssertionError(f"pretraining under torchrun: {group['world']} {group['backend']} "
+                             f"{group['calls']}, losses {mine} against {theirs} "
+                             f"(alone {alone['calls']})")
+    out = {"phase": "distributed", "card": card,
+           "pretrain": {"losses_group": mine, "losses_alone": theirs, "worst_loss_rel": worst,
+                        "ms_per_step_group": steady_ms(group["history"]),
+                        "ms_per_step_alone": steady_ms(alone["history"]),
+                        "all_reduce_calls": group["calls"],
+                        "grad_allreduce": group["grad_allreduce"],
+                        "process_seconds": [group["process_seconds"],
+                                            alone["process_seconds"]]}}
+    ft = {}
+    for name, data_set, path in (("convnextv2_atto", "m-eurosat", checkpoint),
+                                 ("resnet18", "m-eurosat", foreign / "seco_resnet18.pth")):
+        ft_flags = ["--model", name, "--input_size", str(size), "--patch_size", str(patch),
+                    "--data_set", data_set, "--finetune", str(path), "--processed_dir",
+                    str(geobench), "--batch_size", str(FT_BATCH), "--epochs", "1",
+                    "--use_bf16", "True", "--seed", "0", "--device", "cuda",
+                    "--distributed", "True"]
+        res = run_child("finetune", ft_flags, True, f"finetune_{name}")
+        losses = [x for e in res["history"] for x in e["step_losses"]]
+        if (res["world"], res["backend"]) != (1, "nccl") or not losses \
+                or not all(map(math.isfinite, losses)) or not 0.0 <= res["test"] <= 1.0 \
+                or not res["calls"]["all_reduce"]:
+            raise AssertionError(f"{name} finetune under torchrun: {res}")
+        ft[name] = {"steps": len(losses), "epoch_loss": [e["loss"] for e in res["history"]],
+                    "test_accuracy": res["test"], "all_reduce_calls": res["calls"],
+                    "grad_allreduce": res["grad_allreduce"],
+                    "process_seconds": res["process_seconds"]}
+    out["finetune"] = ft
+    out["replay"] = dist_replay_ab()
+    out["two_ranks"] = dist_two_ranks()
+    out["seconds"] = round(time.time() - t0, 2)
+    emit(out)
+    return out
+
+
 
 
 def main() -> int:
@@ -2729,6 +3049,8 @@ def main() -> int:
     phase_bench(card, "seg")
     phase_gate()
     phase_tools(card, data, pretrain_out / "checkpoint-2.pth", bench_line)
+    phase_distributed(card, data, geobench, pretrain_out / "checkpoint-2.pth",
+                      ROOT / "build" / "smoke_foreign")
     for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),
                                     ("masked_dense", "fused")):
         phase_reference(sparse_impl, block_impl)
@@ -2752,4 +3074,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == DIST_CHILD:
+        sys.path.insert(0, str(ROOT))
+        sys.exit(dist_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

@@ -6,7 +6,8 @@ A run's checkpoints are ``<output_dir>/checkpoint-<epoch>.pth``, each
 ``{"model": state_dict, "optimizer": Optimizer.state_dict(), "epoch": int,
 "args": dict}`` with ``"ema"`` where the finetune keeps an EMA and
 ``"loader_state"`` (the stream position of ``--loader grain``, its bytes as
-a uint8 tensor) where the pretraining stream keeps one: tensors and plain
+a uint8 tensor, or a list of them, one a rank, from a run of several
+ranks) where the pretraining stream keeps one: tensors and plain
 Python values only, so ``torch.load(..., weights_only=True)`` reads
 them.  A file is written to a temporary name and renamed into place, so a
 run killed mid-write leaves the previous checkpoints whole; only the newest
@@ -62,20 +63,28 @@ def write(path: str | Path, payload: Mapping) -> Path:
 
 def save_checkpoint(output_dir: str | Path, epoch: int, model: torch.nn.Module, optimizer,
                     args: Mapping, ema: Mapping[str, torch.Tensor] | None = None,
-                    keep: int = 3, loader_state: bytes | None = None) -> Path:
+                    keep: int = 3, loader_state: bytes | list[bytes] | None = None) -> Path:
     """Write ``checkpoint-<epoch>.pth`` and delete all but the newest
-    ``keep`` numbered checkpoints (``keep`` <= 0 keeps every one)."""
+    ``keep`` numbered checkpoints (``keep`` <= 0 keeps every one).  One
+    process writes it: under a process group, rank 0, with every rank's
+    ``loader_state`` in rank order."""
     payload = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
                "epoch": epoch, "args": dict(args)}
     if ema is not None:
         payload["ema"] = dict(ema)
     if loader_state is not None:
-        payload["loader_state"] = torch.frombuffer(bytearray(loader_state), dtype=torch.uint8)
+        payload["loader_state"] = ([_bytes_tensor(b) for b in loader_state]
+                                   if isinstance(loader_state, list)
+                                   else _bytes_tensor(loader_state))
     path = write(checkpoint_path(output_dir, epoch), payload)
     if keep > 0:
         for _, old in numbered_checkpoints(output_dir)[:-keep]:
             old.unlink(missing_ok=True)
     return path
+
+
+def _bytes_tensor(b: bytes) -> torch.Tensor:
+    return torch.frombuffer(bytearray(b), dtype=torch.uint8)
 
 
 def load(path: str | Path) -> dict:
@@ -125,9 +134,15 @@ def model_state(sd: Mapping, model: torch.nn.Module) -> dict[str, torch.Tensor]:
     return out
 
 
-def loader_state(path: str | Path) -> bytes | None:
-    """The loader position stored in the checkpoint at ``path``, if any."""
+def loader_state(path: str | Path, rank: int = 0) -> bytes | None:
+    """The loader position stored in the checkpoint at ``path``, if any:
+    ``rank``'s where it holds one a rank (a one-process file holds one,
+    rank 0's)."""
     state = load(path).get("loader_state")
+    if isinstance(state, list):
+        state = state[rank]
+    elif rank != 0 and state is not None:
+        raise ValueError(f"{path} holds one process's loader position; rank {rank} has none")
     return None if state is None else state.numpy().tobytes()
 
 

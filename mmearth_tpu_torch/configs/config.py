@@ -8,21 +8,9 @@ these dataclasses.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Mapping
 
 from . import modalities as M
-
-
-def check_world_size() -> None:
-    """The port trains in one process: ``--distributed True`` runs at world
-    size 1, as the JAX CLIs run it (its pretraining parses the flag and
-    never reads it, its finetuning keeps it as a no-op).  A ``WORLD_SIZE``
-    above 1, as ``torchrun`` sets it, is refused."""
-    n = int(os.environ.get("WORLD_SIZE") or 1)
-    if n > 1:
-        raise NotImplementedError(f"WORLD_SIZE={n}: multi-GPU training (DDP) is not in the "
-                                  "PyTorch port yet; run one process")
 
 
 # Model size table (reference models/fcmae.py:459-496, convnextv2.py:210-247).

@@ -211,11 +211,14 @@ def get_geobench_dataloaders(
     geobench_bands_type: str = "full",
     seed: int = 0,
     num_workers: int = 0,
+    shard: tuple[int, int] = (0, 1),
 ):
     """Pack (once) and load; returns (loaders, task_dict)
     (reference geobenchdataset.py:169-374).  Train shuffles and drops the
     last partial batch; val and test keep every sample in order.
-    ``num_workers``: the most threads of the native row gather."""
+    ``num_workers``: the most threads of the native row gather.
+    ``shard=(rank, world)``: each loader serves the rank's share of its
+    split (JAX ``finetune.py:192-202``)."""
     processed_dir = Path(processed_dir)
     processed_dir.mkdir(parents=True, exist_ok=True)
     bands_suffix = "" if geobench_bands_type == "full" else f"_{geobench_bands_type}"
@@ -236,5 +239,6 @@ def get_geobench_dataloaders(
             pack_split(src, dest, indices=None if indices is None else indices[i])
         is_train = split == "train"
         loaders.append(PackedLoader(PackedDataset(dest), batch_size, shuffle=is_train,
-                                    drop_last=is_train, seed=seed, num_workers=num_workers))
+                                    drop_last=is_train, seed=seed, num_workers=num_workers,
+                                    shard=shard))
     return loaders, make_task_dict(dataset_name, class_names)

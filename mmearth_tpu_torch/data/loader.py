@@ -102,7 +102,9 @@ class PackedLoader:
     bounding how far reads stray from sequential once the pack exceeds the
     page cache), ``sequential`` no shuffle.  ``shuffle`` is the boolean
     shorthand (True == random).  ``drop_last`` for training;
-    ``shard=(index, count)`` statically splits samples across hosts.
+    ``shard=(index, count)`` statically splits samples across hosts (with
+    ``drop_last`` each shard's batches are counted from the same number of
+    samples, so the ranks of a process group step together).
     ``prefetch`` batches are gathered ahead by a worker thread (0: gathered
     on the consumer's thread), with at most ``num_workers`` threads of the
     native core (:func:`.native.threads_for`).  ``pin_memory`` (for a loader
@@ -178,6 +180,8 @@ class PackedLoader:
             else:
                 idx = rng.permutation(idx)
         rank, world = self.shard
+        if self.drop_last:
+            idx = idx[:len(idx) // world * world]
         idx = idx[rank::world]
         n_batches = len(idx) // self.batch_size
         batches = [

@@ -9,10 +9,19 @@ main_finetune.py:40-57, custom_loss.py:33-63).
 
 Every loss is computed in f32 whatever the logits' dtype.  ``dice_loss`` is
 upstream's ``DiceLoss`` (custom_loss.py:54-63), which no main uses.
+
+Across ranks: each criterion is a mean over the batch (over its N*H*W
+pixels for segmentation) and every rank's training batch has the same
+size, so the mean of the ranks' losses is the global batch's, and the
+optimizer's average of their gradients is its gradient; the driver
+averages the losses it reports.  The Dice score is not a mean: its TP, FP
+and FN sums are summed over the ``process_group`` before the score.
 """
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import sum_
 
 
 def smoothed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -41,12 +50,14 @@ def segmentation_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> to
     return smoothed_cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), 0.0)
 
 
-def dice_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:
+def dice_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: int,
+              process_group=None) -> torch.Tensor:
     """1 - macro Dice over hard (argmax) predictions, upstream's ``DiceLoss``
     (custom_loss.py:54-63: softmax -> argmax -> torchmetrics ``Dice(average=
     "macro")``); no main uses it.  The argmax makes it an eval-style
     criterion with no gradient.  Per class c: 2 TP / (2 TP + FP + FN),
-    averaged over the classes with a nonzero denominator."""
+    averaged over the classes with a nonzero denominator; the counts are
+    the global batch's under a ``process_group``."""
     pred = logits.float().argmax(-1).reshape(-1)
     t = target.reshape(-1).long()
     classes = torch.arange(num_classes, device=logits.device)
@@ -55,6 +66,7 @@ def dice_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: int) -> t
     tp = (p1 & t1).sum(0).float()
     fp = (p1 & ~t1).sum(0).float()
     fn = (~p1 & t1).sum(0).float()
+    tp, fp, fn = sum_(torch.stack([tp, fp, fn]), process_group).unbind()
     denom = 2.0 * tp + fp + fn
     support = denom > 0
     score = torch.where(support, 2.0 * tp / torch.where(support, denom, torch.ones_like(denom)),

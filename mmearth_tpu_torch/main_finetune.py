@@ -23,15 +23,18 @@ The baselines are ``--model resnet18|resnet50`` (classification) and
 path names its source (``seco``, ``gassl``, ``satlas``; else torchvision
 keys).  ``--device`` (default ``cuda``) is honoured; asking for CUDA without
 a card raises.  ``--wandb True`` logs each epoch to Weights & Biases where
-the package is installed (training goes on without it).  ``--distributed
-True`` runs at world size 1, a no-op as in the JAX CLI; a ``WORLD_SIZE``
-above 1 is refused (multi-GPU training is not in the port yet).
+the package is installed (training goes on without it).
+
+Data parallel over W GPUs, one process each (``parallel/mesh.py``):
+``torchrun --standalone --nproc_per_node W -m mmearth_tpu_torch.main_finetune
+--distributed True ...``, ``--batch_size`` each rank's, as in
+``main_pretrain``.
 """
 from __future__ import annotations
 
 import argparse
 
-from .configs.config import FinetuneConfig, ModelConfig, OptimConfig, RunConfig, check_world_size
+from .configs.config import FinetuneConfig, ModelConfig, OptimConfig, RunConfig
 
 GEO_BENCH_DATASETS = [
     "m-eurosat", "m-so2sat", "m-bigearthnet", "m-brick-kiln",
@@ -143,7 +146,6 @@ def get_args_parser():
 
 
 def config_from_args(args) -> FinetuneConfig:
-    check_world_size()
     return FinetuneConfig(
         model=ModelConfig(
             model=args.model, img_size=args.input_size, patch_size=args.patch_size,

@@ -7,17 +7,26 @@ JAX CLI (``main_pretrain.py``, itself the reference's, main_pretrain.py:30-162).
 
 ``--device`` (default ``cuda``) is honoured; asking for CUDA without a card
 raises.  ``--wandb True`` logs each epoch to Weights & Biases where the
-package is installed (training goes on without it).  ``--distributed True``
-runs at world size 1, as the JAX CLI runs it; a ``WORLD_SIZE`` above 1 is
-refused (multi-GPU training is not in the port yet).
+package is installed (training goes on without it).
+
+Data parallel over W GPUs, one process each (``parallel/mesh.py``; NCCL):
+
+    torchrun --standalone --nproc_per_node W -m mmearth_tpu_torch.main_pretrain \
+        --distributed True --batch_size 64 ...
+
+``--batch_size`` is each rank's, so the effective batch (and the lr) is W
+times it, as on JAX's ``data`` mesh.  Under torchrun's variables the
+process group is made whatever ``--distributed`` says, as upstream's
+``init_distributed_mode`` does; ``--dist_url`` is its init method and
+``--local_rank`` the device where ``LOCAL_RANK`` is not set.  Without them
+one process runs.
 """
 from __future__ import annotations
 
 import argparse
 
 from .configs import modalities as M
-from .configs.config import (DataConfig, ModelConfig, OptimConfig, PretrainConfig, RunConfig,
-                             check_world_size)
+from .configs.config import DataConfig, ModelConfig, OptimConfig, PretrainConfig, RunConfig
 
 
 def str2bool(v):
@@ -109,7 +118,6 @@ def get_args_parser():
 
 
 def config_from_args(args) -> PretrainConfig:
-    check_world_size()
     return PretrainConfig(
         model=ModelConfig(
             model=args.model, img_size=args.input_size, patch_size=args.patch_size,

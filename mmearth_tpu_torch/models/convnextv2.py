@@ -68,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.dwconv import dwconv7x7
 from ..ops.fused_block import fused_block_mlp, fused_block_mlp_spillg
+from ..parallel.mesh import all_reduce_sum, shard_rows, world_size
 from ..ops.patch_select import gather_patches, scatter_patches
 from ..ops.wholeblock import dwconv7_gathered
 from .norm import GRN, LayerNorm, MaskedGRN, _safe_l2
@@ -160,18 +161,24 @@ def upsample_mask(mask: torch.Tensor, grid: int, size: int) -> torch.Tensor:
 class DropPath(nn.Module):
     """Per-sample stochastic depth (JAX ``DropPath``, :263-276): each sample's
     branch is kept with probability 1 - rate and scaled by 1 / (1 - rate).
-    The identity at rate 0 or without a ``generator`` (evaluation)."""
+    The identity at rate 0 or without a ``generator`` (evaluation).  Under
+    a ``process_group`` the draw is the global batch's (the ranks' batches
+    in rank order, from the same generator state on every rank), of which
+    the rank keeps its own rows, as JAX draws for the sharded batch."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.process_group = None
 
     def forward(self, x, generator: torch.Generator | None = None):
         if self.rate == 0.0 or generator is None:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        n = x.shape[0]
+        shape = (n * world_size(self.process_group),) + (1,) * (x.ndim - 1)
+        start, stop = shard_rows(n, self.process_group)
+        mask = torch.rand(shape, generator=generator, device=x.device)[start:stop] < keep
         return x * mask.to(x.dtype) / keep
 
 
@@ -192,7 +199,10 @@ class Block(nn.Module):
     ``torch.utils.checkpoint`` with ``remat``.  Under ``gelu_approx`` (the
     tanh GELU) neither kernel tail is taken, as the kernels compute the erf
     GELU.  The tail ends in :class:`DropPath` (``drop_path`` > 0 only in the
-    classifier, whose blocks take neither kernel tail)."""
+    classifier, whose blocks take neither kernel tail).  Under the global
+    GRN scope with a process group (``MaskedGRN.cross_rank``), every tail
+    takes the statistic over the ranks: the kernel tails are given the
+    group, the composed and folded ones sum through ``all_reduce_sum``."""
 
     def __init__(self, dim: int, sparse: bool = False, dw_init: str | None = None,
                  pw_init: str | None = None, grn_group: int = 0, dtype=torch.float32,
@@ -268,7 +278,7 @@ class Block(nn.Module):
         g = gelu((z.to(f32) - mu * w1p.sum(1)) * inv + bias1, self.gelu_approx).to(dt)
         grp = self.grn.group_size(n, stacklevel=4)
         gg = g.reshape(n // grp, -1, c4)
-        gx = _safe_l2(gg.to(f32).square().sum(1))  # (groups, 4C)
+        gx = _safe_l2(all_reduce_sum(gg.to(f32).square().sum(1), self.grn.cross_rank()))
         nx = gx / (gx.mean(-1, keepdim=True) + 1e-6)
         w2 = self.pwconv2.weight.float()
         a = self.grn.gamma.reshape(c4).float() * nx + 1.0
@@ -286,7 +296,8 @@ class Block(nn.Module):
         y = fused_block_mlp(
             t.reshape(rows, c), x.reshape(rows, c), keep.reshape(rows, 1), self.norm.weight,
             self.norm.bias, self.pwconv1.weight, self.pwconv1.bias, self.grn.gamma, self.grn.beta,
-            self.pwconv2.weight, self.pwconv2.bias, group_rows=g * h * w)
+            self.pwconv2.weight, self.pwconv2.bias, group_rows=g * h * w,
+            process_group=self.grn.cross_rank())
         return y.reshape(t.shape)
 
     def _spillg_tail(self, x, t):
@@ -298,7 +309,8 @@ class Block(nn.Module):
         y = fused_block_mlp_spillg(
             t.reshape(rows, c), x.reshape(rows, c), self.norm.weight, self.norm.bias,
             self.pwconv1.weight, self.pwconv1.bias, self.grn.gamma, self.grn.beta,
-            self.pwconv2.weight, self.pwconv2.bias, group_rows=g * (rows // n))
+            self.pwconv2.weight, self.pwconv2.bias, group_rows=g * (rows // n),
+            process_group=self.grn.cross_rank())
         return y.reshape(t.shape)
 
 

@@ -18,6 +18,12 @@
     Linear for image-level ones (fcmae.py:138-151, 256-265);
   * the multi-pretext loss with uncertainty weights (``loss_fn.log_vars``).
 
+Under a process group (``process_group``, given by
+``parallel/mesh.py::set_process_group`` to this module and its MaskedGRNs),
+the loss is the global batch's and, under the global GRN scope
+(``grn_group`` 0), so is every block's GRN statistic: each rank computes
+what JAX computes on the ranks' batches concatenated in rank order.
+
 Inputs and targets are NHWC dicts keyed by modality.
 """
 from __future__ import annotations
@@ -137,6 +143,7 @@ class FCMAE(nn.Module):
             self.layer_norm_tmp = LayerNorm(d, dtype=dtype)
         if loss_aggr == "uncertainty":
             self.loss_fn = _LossFn(len(self.out_modalities))
+        self.process_group = None
 
     @property
     def num_patches(self) -> int:
@@ -187,7 +194,8 @@ class FCMAE(nn.Module):
     def forward_loss(self, targets, preds, mask):
         loss_dict = multipretext_loss(preds, targets, mask, patch_size=self.patch_size,
                                       out_chans=self.out_chans,
-                                      norm_pix_loss=self.norm_pix_loss, loss_full=self.loss_full)
+                                      norm_pix_loss=self.norm_pix_loss, loss_full=self.loss_full,
+                                      process_group=self.process_group)
         if self.loss_aggr == "uncertainty":
             loss, weighted = uncertainty_weighted(loss_dict, self.loss_fn.log_vars)
             return loss, loss_dict, self.loss_fn.log_vars, weighted

@@ -4,7 +4,8 @@
   * ``GRN``: dense Global Response Normalization, per-sample L2 over the
     spatial axes, eps 1e-4.
   * ``MaskedGRN``: the MinkowskiGRN semantics, L2 over the active sites of
-    the batch (or of each group of ``group`` samples), eps 1e-6.
+    the batch (or of each group of ``group`` samples), eps 1e-6; with
+    ``group`` 0 and a process group, over the global batch of every rank.
 
 Statistics are f32 whatever the compute dtype.  As in flax's ``dtype``, the
 params stay f32 and every output is cast to the layer's compute ``dtype``.
@@ -16,6 +17,8 @@ import warnings
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import all_reduce_sum
 
 
 def _safe_l2(sum_sq: torch.Tensor) -> torch.Tensor:
@@ -65,7 +68,13 @@ class MaskedGRN(nn.Module):
 
     ``group``: 0 = one statistic over the whole batch; > 0 = one per
     consecutive group of ``group`` samples (the per-device scope).  A batch
-    that ``group`` does not divide warns and falls back to the whole batch."""
+    that ``group`` does not divide warns and falls back to the whole batch.
+
+    ``process_group`` (``parallel/mesh.py::set_process_group``): with
+    ``group`` 0 the sum of squares is summed over its ranks before the
+    square root, which is the global batch's statistic that JAX's sharded
+    reduction computes (the global scope); ``group`` > 0 stays local to
+    the rank, with no collective (the per-device scope)."""
 
     def __init__(self, dim: int, dtype=torch.float32, group: int = 0):
         super().__init__()
@@ -73,6 +82,12 @@ class MaskedGRN(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, 1, 1, dim))
         self.dtype = dtype
         self.group = group
+        self.process_group = None
+
+    def cross_rank(self):
+        """The process group the statistic is summed over, or None (one
+        process, or the per-device scope)."""
+        return self.process_group if self.group <= 0 else None
 
     def group_size(self, n: int, stacklevel: int = 3) -> int:
         """Samples per statistic for a batch of ``n``: ``group``, or ``n`` when
@@ -93,7 +108,7 @@ class MaskedGRN(nn.Module):
         xg = xf.reshape(n // g, g, *xf.shape[1:])
         mg = masked.reshape(n // g, g, *masked.shape[1:])
         axes = tuple(range(1, mg.ndim - 1))
-        gx = _safe_l2(mg.square().sum(axes, keepdim=True))
+        gx = _safe_l2(all_reduce_sum(mg.square().sum(axes, keepdim=True), self.cross_rank()))
         nx = gx / (gx.mean(-1, keepdim=True) + 1e-6)
         c = xf.shape[-1]
         gamma = self.gamma.reshape(c)

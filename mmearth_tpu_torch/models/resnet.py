@@ -19,7 +19,11 @@ one (E[x^2] - E[x]^2, clipped at 0) for the normalisation and for the
 running average alike (``ra = 0.9 ra + 0.1 batch``; torch's BatchNorm2d
 averages the unbiased variance).  Train mode (``model.train()``) normalises
 with the batch's statistics and updates the running ones; eval mode uses
-the running ones.
+the running ones.  Under a ``process_group`` (``parallel/mesh.py::
+set_process_group``) the batch is the global one, as flax computes it under
+the sharded jit: the sums of x and x^2 and the count go through one
+all-reduce (with its backward), so the statistics, and the running
+averages, are the same on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum
 from .convnextv2 import trunc_normal_
 
 
@@ -63,12 +68,26 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.process_group = None
+
+    def _batch_stats(self, xf):
+        """(mean, biased variance) of the batch, the global one under a
+        process group."""
+        if self.process_group is None:
+            mean = xf.mean((0, 2, 3))
+            return mean, (xf.square().mean((0, 2, 3)) - mean.square()).clamp(min=0)
+        s1 = xf.sum((0, 2, 3))
+        count = torch.full_like(s1[:1], xf.numel() // xf.shape[1])
+        sums = all_reduce_sum(torch.cat([s1, xf.square().sum((0, 2, 3)), count]),
+                              self.process_group)
+        c = s1.shape[0]
+        mean = sums[:c] / sums[-1]
+        return mean, (sums[c:2 * c] / sums[-1] - mean.square()).clamp(min=0)
 
     def forward(self, x):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = (xf.square().mean((0, 2, 3)) - mean.square()).clamp(min=0)
+            mean, var = self._batch_stats(xf)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)

@@ -67,6 +67,15 @@ instead of stored:
 The ``masked_*_dense`` functions are the same phases on every row, as the
 Pallas kernel's dense grid computes them: the reference of the tests.
 
+**Across ranks** (the global GRN scope under a process group, the
+``process_group`` argument of both ops): the statistic is the global
+batch's, so the (G, 4C) sum of squares is summed over the ranks between
+the statistic pass and the pass that applies it (A and B, stat and apply),
+and ``dnx`` between the backward's first pass and the dgx step (C or bstat,
+then D or dv).  The kernels run unchanged, each on its rank's rows, with
+one all-reduce between two launches; the param gradients stay the rank's
+own sums, for the optimizer's reduction.
+
 GELU is the exact erf form: ``erff`` on the card and ``torch.erf`` on the CPU,
 where the Pallas kernels use a polynomial with an absolute error of 1.5e-7.
 
@@ -83,6 +92,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import _build
+from ..parallel.mesh import sum_
 
 LN_EPS = 1e-6
 GRN_EPS = 1e-6
@@ -887,13 +897,15 @@ def phases(x, masked: bool = False):
 
 class _SpillG(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows):
+    def forward(ctx, t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows,
+                process_group):
         ph = phases(t)
         gm, bt = gamma.reshape(-1), beta.reshape(-1)
         g, gxsq = ph.fwd_a(t, ln_w, ln_b, w1, b1, group_rows)
+        gxsq = sum_(gxsq.contiguous(), process_group)
         y, gx, nx = ph.fwd_b(g, x_res, gxsq, gm, bt, w2, b2, group_rows)
         ctx.save_for_backward(t, g, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2)
-        ctx.group_rows = group_rows
+        ctx.group_rows, ctx.process_group = group_rows, process_group
         return y
 
     @staticmethod
@@ -904,11 +916,12 @@ class _SpillG(torch.autograd.Function):
         dy = dy.contiguous()
         wts = ph.bwd_weights(w1, w2, t.dtype)
         db2, dgamma, dbeta, dnx, dw2 = ph.bwd_c(dy, g, nx, gm, bt, wts, gr)
-        dgxg = dgx_step(dnx, gx)
+        dgxg = dgx_step(sum_(dnx.contiguous(), ctx.process_group), gx)
         dt, db1, dlnw, dlnb, dv, u = ph.bwd_d(t, dy, g, nx, dgxg, ln_w, ln_b, wts, b1, gm, gr)
         dw1 = ph.dw1(dv, u)
         return (dt, dy, *_param_grads((ln_w, ln_b, w1, b1, gamma, beta, w2, b2),
-                                      (dlnw, dlnb, dw1, db1, dgamma, dbeta, dw2, db2)), None)
+                                      (dlnw, dlnb, dw1, db1, dgamma, dbeta, dw2, db2)), None,
+                None)
 
 
 def _param_grads(params, grads):
@@ -924,15 +937,17 @@ def _group_rows(t, group_rows, op):
 
 class _Masked(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows):
+    def forward(ctx, t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows,
+                process_group):
         ph = phases(t, masked=True)
         gm, bt = gamma.reshape(-1), beta.reshape(-1)
         rows = ph.rows(keep, group_rows)
-        gxsq = ph.stat(t, keep, rows, ln_w, ln_b, w1, b1, group_rows)
+        gxsq = sum_(ph.stat(t, keep, rows, ln_w, ln_b, w1, b1, group_rows).contiguous(),
+                    process_group)
         y, gx, nx = ph.apply(t, x_res, keep, rows, gxsq, ln_w, ln_b, w1, b1, gm, bt, w2, b2,
                              group_rows)
         ctx.save_for_backward(t, keep, *rows, gx, nx, ln_w, ln_b, w1, b1, gamma, beta, w2, b2)
-        ctx.group_rows = group_rows
+        ctx.group_rows, ctx.process_group = group_rows, process_group
         return y
 
     @staticmethod
@@ -944,39 +959,45 @@ class _Masked(torch.autograd.Function):
         db2, dgamma, dbeta, dnx, do, h = ph.bstat(t, dy, keep, rows, nx, ln_w, ln_b, w1, b1, gm,
                                                   bt, w2, gr)
         dw2 = ph.dw2(do, h, rows, gr)
-        dgxg = dgx_step(dnx, gx)
+        dgxg = dgx_step(sum_(dnx.contiguous(), ctx.process_group), gx)
         dt, db1, dlnw, dlnb, dv, u = ph.dv(t, do, keep, rows, nx, dgxg, ln_w, ln_b, w1, b1, gm,
                                            w2, gr)
         dw1 = ph.dw1(dv, u, rows, gr)
         return (dt, dy, None, *_param_grads((ln_w, ln_b, w1, b1, gamma, beta, w2, b2),
                                             (dlnw, dlnb, dw1, db1, dgamma, dbeta, dw2, db2)),
-                None)
+                None, None)
 
 
-def fused_block_mlp(t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows=None):
+def fused_block_mlp(t, x_res, keep, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows=None,
+                    process_group=None):
     """``x_res + keep * (GRN_keep(gelu(LN(t) W1^T + b1)) W2^T + b2)`` with its
     full VJP, on the (M, C) sites of the masked dense grid.
 
     t, x_res: (M, C) in the activation dtype (bf16 or f32); keep: M values,
     1 = visible (its GRN statistic is over ``g * keep``; it takes no
     gradient); params as in :func:`fused_block_mlp_spillg`.  ``group_rows``:
-    rows per GRN group (it must divide M); None = one group of all rows.  On
-    the card C must be a multiple of 8."""
+    rows per GRN group (it must divide M); None = one group of all rows.
+    ``process_group``: the ranks whose rows share each group's statistic
+    (None: this process's rows alone).  On the card C must be a multiple
+    of 8."""
     gr = _group_rows(t, group_rows, "fused_block_mlp")
     keep = keep.detach().reshape(t.shape[0], 1).to(t.dtype).contiguous()
     return _Masked.apply(t.contiguous(), x_res.to(t.dtype).contiguous(), keep, ln_w, ln_b, w1,
-                         b1, gamma, beta, w2, b2, gr)
+                         b1, gamma, beta, w2, b2, gr, process_group)
 
 
-def fused_block_mlp_spillg(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows=None):
+def fused_block_mlp_spillg(t, x_res, ln_w, ln_b, w1, b1, gamma, beta, w2, b2, group_rows=None,
+                           process_group=None):
     """``x_res + GRN(gelu(LN(t) W1^T + b1)) W2^T + b2`` with its full VJP.
 
     t, x_res: (M, C) rows in the activation dtype (bf16 or f32); ln_w, ln_b
     (C,); w1 (4C, C) and b1 (4C,) of ``pwconv1``; gamma, beta (1, 1, 1, 4C);
     w2 (C, 4C) and b2 (C,) of ``pwconv2``; params f32.  ``group_rows``: rows
-    per GRN group (it must divide M); None = one group of all rows.  On the
-    card C must be a multiple of 8; rows too wide for a launch's resident
-    shared-memory layout take its wide plan (``csrc/fused_block.cu``)."""
+    per GRN group (it must divide M); None = one group of all rows.
+    ``process_group``: the ranks whose rows share each group's statistic
+    (None: this process's rows alone).  On the card C must be a multiple of
+    8; rows too wide for a launch's resident shared-memory layout take its
+    wide plan (``csrc/fused_block.cu``)."""
     gr = _group_rows(t, group_rows, "fused_block_mlp_spillg")
     return _SpillG.apply(t.contiguous(), x_res.to(t.dtype).contiguous(), ln_w, ln_b, w1, b1,
-                         gamma, beta, w2, b2, gr)
+                         gamma, beta, w2, b2, gr, process_group)

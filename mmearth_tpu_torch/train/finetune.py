@@ -1,6 +1,6 @@
 """GEO-Bench finetuning and linear probe (port of
 ``mmearth_tpu/train/finetune.py``; reference main_finetune.py:427-806 +
-engine_finetune.py:56-300) on one device.
+engine_finetune.py:56-300), one process a device.
 
 Models: the dense ConvNeXtV2 classifier and the ConvNeXtV2 U-Net, each
 bootstrapped from a pretraining ``.pth`` (encoder trunk overlaid, head
@@ -35,6 +35,18 @@ package's documented path (train/finetune.py:276-377).  With ``--log_dir``
 each epoch's record also goes to TensorBoard, and with ``--wandb True`` to
 Weights & Biases (``utils/logging.py::maybe_wandb``).  Each epoch's record
 in the history also counts the kernel launches of its training steps.
+
+Under ``torchrun`` (``parallel/mesh.py``) each of the W ranks trains on its
+GPU from its shard of every split: the effective batch and the lr take the
+factor W, the model's process group makes the ResNets' BatchNorm and the
+drop path draws the global batch's, the optimizer averages the gradients
+over the ranks, and the reported losses are the ranks' mean (the global
+batch's, every rank's batch being the same size).  ``evaluate`` sums its
+metric statistics over the ranks once after its loop, so the score is the
+whole split's and equals one process's (JAX's ``evaluate`` scores each
+process's shard alone: ``ROADMAP.md``, "Kept on purpose").  Rank 0 alone
+packs the splits (the others wait), prints, logs and writes; the others
+wait for its files.
 """
 from __future__ import annotations
 
@@ -57,6 +69,7 @@ from ..losses.finetune import criterion_fn
 from ..models.convnextv2 import ConvNeXtV2
 from ..models.resnet import ResNet, ResNetUnet, build_resnet
 from ..models.unet import ConvNeXtV2Unet
+from ..parallel import mesh
 from .ema import init_ema, update_ema
 from ..utils.logging import MetricLogger, TensorboardWriter, maybe_wandb
 from .optim import Optimizer, family, finetune_wd_mask, layer_lr_scales
@@ -129,14 +142,16 @@ def full_trainable(model: nn.Module):
     return lp.unet_trainable if isinstance(model, ConvNeXtV2Unet) else lp.all_trainable
 
 
-def make_optimizer(cfg: FinetuneConfig, model: nn.Module, trainable, n_train: int) -> Optimizer:
+def make_optimizer(cfg: FinetuneConfig, model: nn.Module, trainable, n_train: int,
+                   process_group=None) -> Optimizer:
     """Set ``requires_grad`` by ``trainable`` and return a fresh optimizer of
     the ``--opt`` family (layer-decayed lr scales, the finetune decay mask)
     over the trainable params, scheduled for ``n_train`` samples an epoch
-    (JAX ``make_finetune_optimizer``)."""
+    at the effective batch of every rank of ``process_group`` (JAX
+    ``make_finetune_optimizer``), averaging the gradients over them."""
     for name, prm in model.named_parameters():
         prm.requires_grad_(trainable(name))
-    eff_batch = cfg.batch_size * cfg.optim.update_freq
+    eff_batch = cfg.batch_size * cfg.optim.update_freq * mesh.world_size(process_group)
     updates_per_epoch = max(n_train // eff_batch, 1)
     schedule = warmup_cosine(cfg.optim.absolute_lr(eff_batch), cfg.optim.min_lr, cfg.run.epochs,
                              cfg.optim.warmup_epochs, updates_per_epoch)
@@ -147,14 +162,16 @@ def make_optimizer(cfg: FinetuneConfig, model: nn.Module, trainable, n_train: in
     return Optimizer(named, schedule, cfg.optim.weight_decay, cfg.optim.betas,
                      eps=cfg.optim.opt_eps, update_freq=cfg.optim.update_freq,
                      clip_grad=cfg.optim.clip_grad, wd_mask=finetune_wd_mask(named),
-                     lr_scales=scales, opt=cfg.optim.opt, momentum=cfg.optim.momentum)
+                     lr_scales=scales, opt=cfg.optim.opt, momentum=cfg.optim.momentum,
+                     process_group=process_group)
 
 
 def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_train: int,
-                    device: torch.device) -> tuple[nn.Module, Optimizer]:
-    """The model on ``device``, bootstrapped from ``cfg.finetune`` when set,
-    frozen as ``cfg.linear_probe`` says, and its optimizer over the
-    trainable params (:func:`make_optimizer`)."""
+                    device: torch.device, process_group=None) -> tuple[nn.Module, Optimizer]:
+    """The model on ``device`` with ``process_group`` given to the modules
+    that take one, bootstrapped from ``cfg.finetune`` when set, frozen as
+    ``cfg.linear_probe`` says, and its optimizer over the trainable params
+    (:func:`make_optimizer`)."""
     name = cfg.model.model
     if "unet" in name and not cfg.linear_probe:
         raise ValueError("U-Net runs use --linear_probe True (the staged unfreeze); see "
@@ -162,14 +179,14 @@ def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_tr
     model = build_finetune_model(cfg, in_channels, nb_classes)
     if cfg.finetune:
         if (isinstance(model, ConvNeXtV2) and cfg.model.padding_mode == "same"
-                and not cfg.model.use_orig_stem):
+                and not cfg.model.use_orig_stem and mesh.is_main(process_group)):
             print("note: finetuning a .pth with padding_mode='same'; upstream's dense model "
                   "pads as --padding_mode reference does (VALID initial conv, stride//2 "
                   "stem padding)")
         bootstrap(model, cfg.finetune, cfg.run.seed)
-    model.to(device)
+    mesh.set_process_group(model.to(device), process_group)
     trainable = probe_trainable(model) if cfg.linear_probe else full_trainable(model)
-    return model, make_optimizer(cfg, model, trainable, n_train)
+    return model, make_optimizer(cfg, model, trainable, n_train, process_group)
 
 
 def finetune_step(model: nn.Module, opt: Optimizer, batch, criterion, generator: torch.Generator,
@@ -194,9 +211,13 @@ def finetune_step(model: nn.Module, opt: Optimizer, batch, criterion, generator:
 
 
 @torch.no_grad()
-def evaluate(model: nn.Module, loader, stats_fn, metric, device, bgr_to_rgb: bool = False):
+def evaluate(model: nn.Module, loader, stats_fn, metric, device, bgr_to_rgb: bool = False,
+             process_group=None):
     """The split's metric, in eval mode (the ResNets' running statistics):
-    each batch's statistics summed on the device, read once at the end."""
+    each batch's statistics summed on the device, then summed over the
+    ranks of ``process_group`` (each loading its shard; the counts of
+    batches may differ) in one all-reduce a statistic, read once at the
+    end."""
     training = model.training
     model.eval()
     metric.reset()
@@ -207,6 +228,7 @@ def evaluate(model: nn.Module, loader, stats_fn, metric, device, bgr_to_rgb: boo
         for k, v in stats_fn(model(x).float(), batch["label"]).items():
             sums[k] = sums[k] + v if k in sums else v
     model.train(training)
+    sums = {k: mesh.sum_(sums[k].contiguous(), process_group) for k in sorted(sums)}
     metric.update_stats({k: v.cpu().numpy() for k, v in sums.items()})
     return metric.compute()
 
@@ -214,7 +236,9 @@ def evaluate(model: nn.Module, loader, stats_fn, metric, device, bgr_to_rgb: boo
 def _with_params(model: nn.Module, params: dict) -> nn.Module:
     """A copy of ``model`` holding ``params`` (the EMA weights; the buffers,
     the ResNets' running statistics, are the model's)."""
-    out = copy.deepcopy(model)
+    # the copy shares the model's process group (a group cannot be copied)
+    out = copy.deepcopy(model, {id(m.process_group): m.process_group for m in model.modules()
+                                if getattr(m, "process_group", None) is not None})
     out.load_state_dict({**out.state_dict(), **params})
     return out
 
@@ -226,38 +250,52 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
     of the epoch's steps), the best val score, the final test score, where
     its params came from, the model and the optimizer (after a staged
     unfreeze, the fresh one).  ``args`` (the CLI's flags) is stored in every
-    checkpoint."""
+    checkpoint; its ``dist_url`` and ``local_rank`` reach
+    ``init_distributed``.  Under a process group, ``loaders`` given by the
+    caller are the rank's shards."""
     family(cfg.optim.opt)  # an unsupported --opt raises before any work
-    dev = resolve_device(device)
+    args = dict(args or {})
+    d = mesh.init_distributed(resolve_device(device), args.get("dist_url", "env://"),
+                              int(args.get("local_rank", -1)))
+    dev, group = d.device, d.group
+    main, world = mesh.is_main(group), mesh.world_size(group)
     # made first: a missing tensorboardX stops the run before any work
-    tb = TensorboardWriter(cfg.run.log_dir) if cfg.run.log_dir else None
+    tb = TensorboardWriter(cfg.run.log_dir) if (cfg.run.log_dir and main) else None
     if loaders is None:
         processed = (Path(cfg.processed_dir) if cfg.processed_dir
                      else Path(cfg.finetune).parent / "geobench_proc")
-        loaders, task = get_geobench_dataloaders(
-            cfg.data_set, processed, cfg.batch_size, partition=cfg.partition,
-            geobench_bands_type=cfg.geobench_bands_type, seed=cfg.run.seed,
-            num_workers=cfg.num_workers)
+        with mesh.main_first(group):  # packed once
+            loaders, task = get_geobench_dataloaders(
+                cfg.data_set, processed, cfg.batch_size, partition=cfg.partition,
+                geobench_bands_type=cfg.geobench_bands_type, seed=cfg.run.seed,
+                num_workers=cfg.num_workers, shard=(mesh.rank(group), world))
     train_loader, val_loader, test_loader = loaders
+    for split in (val_loader, test_loader):
+        if split is not None and len(split.dataset) < world:
+            # every rank must take part in evaluate's all-reduce with a batch
+            raise ValueError(f"an eval split of {len(split.dataset)} samples cannot be "
+                             f"shared by {world} ranks")
     in_channels = next(iter(train_loader))["input"].shape[-1]
     nb_classes = task.num_classes if task is not None else NUM_CLASSES[cfg.data_set]
     n_train = len(train_loader.dataset)
     # the staged unfreeze (JAX :307-316): segmentation probes only
     staged = TASK_CLASS[cfg.data_set] == "segmentation" and cfg.linear_probe
 
-    model, opt = build_trainable(cfg, in_channels, nb_classes, n_train, dev)
-    eff_batch = cfg.batch_size * cfg.optim.update_freq
+    model, opt = build_trainable(cfg, in_channels, nb_classes, n_train, dev, group)
+    eff_batch = cfg.batch_size * cfg.optim.update_freq * world
     ema = init_ema(model) if cfg.model_ema else None
     criterion = criterion_fn(cfg.data_set, cfg.smoothing)
     stats_fn = batch_stats_fn(cfg.data_set, nb_classes)
     metric_name, metric = metric_for(cfg.data_set, nb_classes)
     bgr_to_rgb = cfg.use_imnet_weights and cfg.geobench_bands_type == "bgr"
     n_trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
-    wandb = maybe_wandb(cfg.run.wandb, cfg.run.wandb_project, cfg.run.wandb_run_name,
-                        {"data_set": cfg.data_set, "model": cfg.model.model,
-                         "linear_probe": cfg.linear_probe, **vars(cfg.run)})
-    print(f"device {dev}  number of params (trainable): {n_trainable}  "
-          f"effective batch size: {eff_batch}  actual lr: {cfg.optim.absolute_lr(eff_batch):.2e}")
+    wandb = (maybe_wandb(cfg.run.wandb, cfg.run.wandb_project, cfg.run.wandb_run_name,
+                         {"data_set": cfg.data_set, "model": cfg.model.model,
+                          "linear_probe": cfg.linear_probe, **vars(cfg.run)}) if main else None)
+    if main:
+        print(f"device {dev}  world size {world}  number of params (trainable): {n_trainable}  "
+              f"effective batch size: {eff_batch}  "
+              f"actual lr: {cfg.optim.absolute_lr(eff_batch):.2e}")
 
     def eval_model():
         return _with_params(model, ema) if (ema is not None and cfg.model_ema_eval) else model
@@ -270,13 +308,14 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
     # the epoch, then the optimizer of that phase.  (JAX restores the state
     # and then unfreezes again, a fresh optimizer at the first resumed
     # epoch; the port resumes where the run stopped.)
-    start_epoch = resume(cfg.run, model, None if staged else opt, ckpt_dir, ema)
+    rank = mesh.rank(group)
+    start_epoch = resume(cfg.run, model, None if staged else opt, ckpt_dir, ema, rank=rank)
     unfrozen = staged and start_epoch > cfg.unfreeze_epoch
     if unfrozen:
-        opt = make_optimizer(cfg, model, full_trainable(model), n_train)
+        opt = make_optimizer(cfg, model, full_trainable(model), n_train, group)
     if staged:
-        start_epoch = resume(cfg.run, model, opt, ckpt_dir, ema)
-    ckpt_args = dict(args or {})
+        start_epoch = resume(cfg.run, model, opt, ckpt_dir, ema, rank=rank)
+    mesh.broadcast_state(model, opt, group)
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
     history, best_val, best = [], -float("inf"), None
     # fold_in(gen, step) continues the run's draws; the unfreeze restarts
@@ -285,39 +324,44 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
     for epoch in range(start_epoch, cfg.run.epochs):
         if staged and not unfrozen and epoch >= cfg.unfreeze_epoch:
             unfrozen = True
-            opt = make_optimizer(cfg, model, full_trainable(model), n_train)
+            opt = make_optimizer(cfg, model, full_trainable(model), n_train, group)
             step = 0
-            print(f"epoch {epoch}: unfreezing the full model (main_finetune.py:598-619), "
-                  f"{sum(p.numel() for p in opt.params)} params now train")
+            if main:
+                print(f"epoch {epoch}: unfreezing the full model (main_finetune.py:598-619), "
+                      f"{sum(p.numel() for p in opt.params)} params now train")
         t0 = time.time()
         train_loader.set_epoch(epoch)
         launched = ops.launch_counts()
         step_losses = []
-        logger = MetricLogger(PRINT_FREQ, header=f"Epoch: [{epoch}]")
+        logger = MetricLogger(PRINT_FREQ, header=f"Epoch: [{epoch}]", verbose=main)
         for i, host_batch in logger.log_every(train_loader, total=len(train_loader)):
             loss = finetune_step(model, opt, to_device(host_batch, dev), criterion,
                                  fold_in(gen, step), bgr_to_rgb, ema, cfg.model_ema_decay)
             step_losses.append(loss)
             step += 1
             if i % PRINT_FREQ == 0:
-                value = float(loss)
+                value = float(mesh.mean(loss, group))
                 _check_finite(value)
                 logger.update(loss=value)
-        losses = torch.stack(step_losses).float().tolist() if step_losses else []
+        # the ranks' mean: the global batch's loss
+        losses = (mesh.mean(torch.stack(step_losses).float(), group).tolist()
+                  if step_losses else [])
         for v in losses:
             _check_finite(v)
         launched = {k: n - launched[k] for k, n in ops.launch_counts().items()}
         train_seconds = time.time() - t0
         t1 = time.time()
-        val_score = (evaluate(eval_model(), val_loader, stats_fn, metric, dev, bgr_to_rgb)
-                     if val_loader is not None else float("nan"))
+        val_score = (evaluate(eval_model(), val_loader, stats_fn, metric, dev, bgr_to_rgb,
+                              group) if val_loader is not None else float("nan"))
         mean = sum(losses) / max(len(losses), 1)
         history.append({"epoch": epoch, "loss": mean, "steps": len(losses),
                         "seconds": train_seconds, "eval_seconds": time.time() - t1,
                         "step_losses": losses, f"val_{metric_name}": val_score,
                         "lr": opt.lr_schedule(opt.count), "launches": launched})
-        print(f"epoch {epoch}  loss {mean:.4f}  val {metric_name} {val_score:.4f}  "
-              f"~{len(losses) * cfg.batch_size / max(train_seconds, 1e-9):.0f} samples/s")
+        if main:
+            print(f"epoch {epoch}  loss {mean:.4f}  val {metric_name} {val_score:.4f}  "
+                  f"~{len(losses) * cfg.batch_size * world / max(train_seconds, 1e-9):.0f} "
+                  "samples/s")
         # the reference's log_stats keys (main_finetune.py:680-704; its val
         # pass is "test_stats")
         log_stats = {"train_loss": mean, "train_lr": opt.lr_schedule(opt.count),
@@ -328,18 +372,20 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
         if tb is not None:
             tb.log(log_stats, epoch + 1)
             tb.flush()
-        if out_dir is not None:
+        if out_dir is not None and main:
             out_dir.mkdir(parents=True, exist_ok=True)
             with open(out_dir / "log.txt", "a", encoding="utf-8") as f:
                 f.write(json.dumps(log_stats) + "\n")
         if val_score >= best_val:
             best_val = val_score
-            if out_dir is not None:
+            if out_dir is not None and main:
                 best = (epoch, {k: v.detach().cpu().clone()
                                 for k, v in model.state_dict().items()})
         if ckpt_dir is not None:
-            pth_io.save_checkpoint(ckpt_dir, epoch, model, opt, ckpt_args, ema,
-                                   keep=cfg.run.save_ckpt_num)
+            if main:
+                pth_io.save_checkpoint(ckpt_dir, epoch, model, opt, args, ema,
+                                       keep=cfg.run.save_ckpt_num)
+            mesh.barrier(group)
 
     # the final test reloads the newest checkpoint from disk, as the
     # reference does (main_finetune.py:712-758), which also checks the file
@@ -349,17 +395,20 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
         saved = pth_io.load(latest)
         params = saved["ema"] if (ema is not None and cfg.model_ema_eval) else saved["model"]
         test_model, test_from = _with_params(model, params), f"disk (epoch {saved['epoch']})"
-    test_score = (evaluate(test_model, test_loader, stats_fn, metric, dev, bgr_to_rgb)
+    test_score = (evaluate(test_model, test_loader, stats_fn, metric, dev, bgr_to_rgb, group)
                   if test_loader is not None else None)
     if tb is not None:
         tb.close()
-    print(f"final test {metric_name}: {test_score}  (params from {test_from})")
-    print(f"best val {metric_name}: {best_val}")
+    if main:
+        print(f"final test {metric_name}: {test_score}  (params from {test_from})")
+        print(f"best val {metric_name}: {best_val}")
     if best is not None:
         pth_io.write(out_dir / "checkpoint-best.pth",
-                     {"model": best[1], "epoch": best[0], "args": ckpt_args})
+                     {"model": best[1], "epoch": best[0], "args": args})
     if wandb is not None:
         wandb.finish()
+    mesh.barrier(group)
+    mesh.close(d)
     return {"history": history, f"best_val_{metric_name}": best_val,
             f"test_{metric_name}": test_score, "test_params_from": test_from, "model": model,
             "optimizer": opt}

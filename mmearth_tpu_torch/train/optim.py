@@ -28,6 +28,8 @@ from typing import Callable, Iterable, Mapping, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_grads
+
 
 def pretrain_wd_mask(named_params: Iterable[tuple[str, torch.Tensor]]) -> dict[str, bool]:
     """Decay iff the param has more than one dim (timm
@@ -170,15 +172,22 @@ class Optimizer:
     (:meth:`plan`) gives each update's lr and the family's step-dependent
     factors (bias corrections, RAdam's rectification, Adafactor's decay
     rate, NovoGrad's first step) as one device tensor (``hyper``), so the
-    tensor work of a step runs unchanged from a CUDA graph."""
+    tensor work of a step runs unchanged from a CUDA graph.
+
+    ``process_group``: the gradients (the accumulated mean under
+    ``update_freq``) are averaged over its ranks once per applied update,
+    before the clip and the update, in one all-reduce
+    (``parallel/mesh.py::all_reduce_grads``), so every rank applies the
+    global batch's update, as optax does on JAX's replicated gradient."""
 
     def __init__(self, named_params, lr_schedule: Callable[[int], float],
                  weight_decay: float = 0.05, betas: tuple[float, float] = (0.9, 0.95),
                  eps: float = 1e-8, update_freq: int = 1, clip_grad: float | None = None,
                  wd_mask: Mapping[str, bool] | None = None,
                  lr_scales: Mapping[str, float] | None = None, opt: str = "adamw",
-                 momentum: float = 0.9):
+                 momentum: float = 0.9, process_group=None):
         self.opt = family(opt)
+        self.process_group = process_group
         named = [(n, p) for n, p in named_params if p.requires_grad]
         decay = pretrain_wd_mask(named) if wd_mask is None else wd_mask
         self.names = [n for n, _ in named]
@@ -329,6 +338,7 @@ class Optimizer:
             grads = [a.clone() for a in self.acc]
             for a in self.acc:
                 a.zero_()
+        all_reduce_grads(grads, self.process_group)
         if self.clip_grad is not None:
             norm = global_norm(grads)
             scale = torch.where(norm < self.clip_grad, torch.ones_like(norm),
@@ -465,9 +475,10 @@ class AdamW(Optimizer):
                  weight_decay: float = 0.05, betas: tuple[float, float] = (0.9, 0.95),
                  eps: float = 1e-8, update_freq: int = 1, clip_grad: float | None = None,
                  wd_mask: Mapping[str, bool] | None = None,
-                 lr_scales: Mapping[str, float] | None = None):
+                 lr_scales: Mapping[str, float] | None = None, process_group=None):
         super().__init__(named_params, lr_schedule, weight_decay, betas, eps, update_freq,
-                         clip_grad, wd_mask, lr_scales, opt="adamw")
+                         clip_grad, wd_mask, lr_scales, opt="adamw",
+                         process_group=process_group)
 
 
 def write_host_values(dst: torch.Tensor, values) -> None:

@@ -1,5 +1,5 @@
 """Pretraining loop (port of ``mmearth_tpu/train/pretrain.py``; reference
-main_pretrain.py:165-391 + engine_pretrain.py:21-122) on one device.
+main_pretrain.py:165-391 + engine_pretrain.py:21-122), one process a device.
 
 The loader (``--loader mmpack``, ``grain`` or ``hdf5``: :func:`get_dataloader`)
 feeds batches (pinned in its worker thread when it feeds a card, then copied
@@ -18,6 +18,16 @@ resumes from the newest (``checkpoints/pth_io.py``; JAX
 train/pretrain.py:177-215,304-306).  With ``--log_dir`` each epoch's mean
 loss, lr and last per-modality losses go to TensorBoard (``utils/logging.py``),
 and with ``--wandb True`` to Weights & Biases with JAX's payload keys.
+
+Under ``torchrun`` (``parallel/mesh.py::init_distributed``) each of the W
+ranks trains on its GPU (``cuda:LOCAL_RANK``) from its shard of every split
+(``shard=(rank, W)``), the effective batch and so the lr take the factor W,
+and the step computes the global batch's loss, GRN statistics and update
+(``train/step.py``): each rank's loss is the global one, so every rank
+reports the same epoch mean and stops on the same non-finite step.  Rank 0
+alone packs a missing split (the others wait), prints, logs to TensorBoard
+and wandb and writes the checkpoints, each holding every rank's grain
+stream position; the others wait for the file.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from ..data.loader import PackedDataset, PackedLoader
 from ..data.mmearth import MMEarthDataset
 from ..data.pack import pack_mmearth
 from ..models.fcmae import FCMAE
+from ..parallel import mesh
 from ..utils.logging import MetricLogger, TensorboardWriter, maybe_wandb
 from .optim import AdamW
 from .schedule import warmup_cosine
@@ -53,9 +64,10 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-def build_model(cfg: PretrainConfig, device="cuda") -> FCMAE:
+def build_model(cfg: PretrainConfig, device="cuda", process_group=None) -> FCMAE:
     """FCMAE for ``cfg``, initialised from ``cfg.run.seed`` (on the CPU, so
-    the weights do not depend on the device), then moved to ``device``."""
+    the weights do not depend on the device), then moved to ``device``,
+    with ``process_group`` given to the modules that take one."""
     dev = resolve_device(device)
     depths, dims = model_size(cfg.model.model)
     model = FCMAE(
@@ -71,7 +83,7 @@ def build_model(cfg: PretrainConfig, device="cuda") -> FCMAE:
         dtype=torch.bfloat16 if cfg.run.use_bf16 else torch.float32,
     )
     model.init_weights(torch.Generator().manual_seed(cfg.run.seed))
-    return model.to(dev)
+    return mesh.set_process_group(model.to(dev), process_group)
 
 
 def _chunked_batches(it, k: int):
@@ -99,19 +111,22 @@ class SampleCount:
         return self.n
 
 
-def get_dataloader(cfg: PretrainConfig, split: str = "train", pin_memory: bool = False):
+def get_dataloader(cfg: PretrainConfig, split: str = "train", pin_memory: bool = False,
+                   shard: tuple[int, int] = (0, 1)):
     """(samples, loader) of ``split`` for ``cfg.data.loader`` (JAX
     ``pretrain.py:70-133``): ``mmpack`` the packed split
     ``<processed_dir or data_dir>/<split>``, packed from the HDF5 at
     ``data_dir`` first where it is missing; ``grain`` the ArrayRecord pack
     ``<split>_arrayrecord`` (``_subset`` under ``--debug``), packed likewise;
     ``hdf5`` the HDF5 streamed.  ``--debug`` trains on the first 10 samples.
-    ``pin_memory``: batches of pinned tensors, for a card."""
+    ``pin_memory``: batches of pinned tensors, for a card.  ``shard=(rank,
+    world)``: the rank's share of the samples (JAX's ``(process_index,
+    process_count)``); the sample count stays the split's."""
     processed = Path(cfg.data.processed_dir or cfg.data.data_dir)
     debug = list(range(10)) if cfg.data.debug else None
     is_train = split == "train"
     common = dict(batch_size=cfg.data.batch_size, shuffle=is_train, drop_last=is_train,
-                  seed=cfg.run.seed, pin_memory=pin_memory)
+                  seed=cfg.run.seed, pin_memory=pin_memory, shard=shard)
     if cfg.data.loader == "grain":
         from ..data.grain_pipeline import GrainLoader, pack_arrayrecord, require_array_record
 
@@ -178,43 +193,53 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
     """Train; returns (model, history, optimizer), one history entry per epoch
     run with the exact mean ``loss``, ``steps`` (``chained_steps`` of them in
     chained dispatches), wall ``seconds`` and ``step_losses``.  ``args`` (the
-    CLI's flags) is stored in every checkpoint.  ``--loader grain`` trains
+    CLI's flags) is stored in every checkpoint; its ``dist_url`` and
+    ``local_rank`` reach ``init_distributed``.  ``--loader grain`` trains
     off the loader's continuous stream, whose position rides in every
     checkpoint and is restored on resume (JAX ``pretrain.py:174-220``)."""
-    dev = resolve_device(device)
+    args = dict(args or {})
+    d = mesh.init_distributed(resolve_device(device), args.get("dist_url", "env://"),
+                              int(args.get("local_rank", -1)))
+    dev, group = d.device, d.group
+    main = mesh.is_main(group)
+    world = mesh.world_size(group)
     # made first: a missing tensorboardX stops the run before any work
-    tb = TensorboardWriter(cfg.run.log_dir) if cfg.run.log_dir else None
-    ds, loader = get_dataloader(cfg, pin_memory=dev.type == "cuda")
-    model = build_model(cfg, dev)
+    tb = TensorboardWriter(cfg.run.log_dir) if (cfg.run.log_dir and main) else None
+    with mesh.main_first(group):  # a missing split is packed once
+        ds, loader = get_dataloader(cfg, pin_memory=dev.type == "cuda",
+                                    shard=(mesh.rank(group), world))
+    model = build_model(cfg, dev, group)
     n_samples = len(ds)
-    eff_batch = cfg.data.batch_size * cfg.optim.update_freq
+    eff_batch = cfg.data.batch_size * cfg.optim.update_freq * world
     updates_per_epoch = max(n_samples // eff_batch, 1)
     lr = cfg.optim.absolute_lr(eff_batch)
     schedule = warmup_cosine(lr, cfg.optim.min_lr, cfg.run.epochs, cfg.optim.warmup_epochs,
                              updates_per_epoch)
     opt = AdamW(model.named_parameters(), schedule, cfg.optim.weight_decay, cfg.optim.betas,
-                update_freq=cfg.optim.update_freq, clip_grad=cfg.optim.clip_grad)
+                update_freq=cfg.optim.update_freq, clip_grad=cfg.optim.clip_grad,
+                process_group=group)
     n_params = sum(p.numel() for p in model.parameters())
     n_enc = sum(p.numel() for p in model.encoder.parameters())
     k = max(cfg.run.steps_per_dispatch, 1)
-    print(f"device {dev}  loader {cfg.data.loader}  effective batch size: {eff_batch}  "
-          f"actual lr: {lr:.2e}  updates/epoch: {updates_per_epoch}  steps/dispatch: {k}  "
-          f"params: {n_params} (encoder: {n_enc})")
+    if main:
+        print(f"device {dev}  world size {world}  loader {cfg.data.loader}  effective batch "
+              f"size: {eff_batch}  actual lr: {lr:.2e}  updates/epoch: {updates_per_epoch}  "
+              f"steps/dispatch: {k}  params: {n_params} (encoder: {n_enc})")
 
     grain_stream = cfg.data.loader == "grain"
     ckpt_dir = cfg.run.output_dir if (cfg.run.output_dir and cfg.run.save_ckpt) else None
-    start_epoch = resume(cfg.run, model, opt, ckpt_dir, loader=loader if grain_stream else None)
-    ckpt_args = dict(args or {})
+    start_epoch = resume(cfg.run, model, opt, ckpt_dir, loader=loader if grain_stream else None,
+                         rank=mesh.rank(group))
+    mesh.broadcast_state(model, opt, group)
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
     dispatcher = Dispatcher(model, opt, k, gen, cfg.data.random_crop)
-    # one process, so this is rank 0 (JAX pretrain.py:231)
-    wandb = maybe_wandb(cfg.run.wandb, cfg.run.wandb_project, cfg.run.wandb_run_name,
-                        vars(cfg.run))
+    wandb = (maybe_wandb(cfg.run.wandb, cfg.run.wandb_project, cfg.run.wandb_run_name,
+                         vars(cfg.run)) if main else None)  # JAX pretrain.py:231
     history = []
     step = start_epoch * len(loader)  # fold_in(gen, step) continues the run's draws
     for epoch in range(start_epoch, cfg.run.epochs):
         t0 = time.time()
-        logger = MetricLogger(PRINT_FREQ, header=f"Epoch: [{epoch}]")
+        logger = MetricLogger(PRINT_FREQ, header=f"Epoch: [{epoch}]", verbose=main)
         niter = len(loader)
         if grain_stream:
             # the continuous stream: len(loader) batches an "epoch", reshuffled
@@ -243,8 +268,10 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
                         # a chained dispatch yields k >= 2 losses, a single step one
                         "chained_steps": sum(len(d) for d in step_losses if len(d) > 1),
                         "seconds": seconds, "step_losses": losses})
-        print(f"epoch {epoch} done  avg loss {mean:.4f}  "
-              f"~{len(losses) * cfg.data.batch_size / max(seconds, 1e-9):.0f} samples/s")
+        if main:
+            print(f"epoch {epoch} done  avg loss {mean:.4f}  ~"
+                  f"{len(losses) * cfg.data.batch_size * world / max(seconds, 1e-9):.0f} "
+                  "samples/s")
         # the exact epoch mean, the meters' lr, the last step's losses
         stats = {**logger.averages(), "loss": mean}
         last = dispatcher.last_metrics
@@ -260,20 +287,26 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
                                 for i, v in enumerate(last["log_vars"].float().tolist())})
             wandb.log(payload)
         if ckpt_dir and ((epoch + 1) % cfg.run.save_ckpt_freq == 0 or epoch + 1 == cfg.run.epochs):
-            pth_io.save_checkpoint(ckpt_dir, epoch, model, opt, ckpt_args,
-                                   keep=cfg.run.save_ckpt_num,
-                                   loader_state=loader.get_state() if grain_stream else None)
+            states = mesh.gather_objects(loader.get_state(), group) if grain_stream else None
+            if main:
+                pth_io.save_checkpoint(ckpt_dir, epoch, model, opt, args,
+                                       keep=cfg.run.save_ckpt_num,
+                                       loader_state=states if world > 1 or states is None
+                                       else states[0])
+            mesh.barrier(group)
     if tb is not None:
         tb.close()
+    mesh.close(d)
     return model, history, opt
 
 
-def resume(run: RunConfig, model, opt, ckpt_dir, ema=None, loader=None) -> int:
+def resume(run: RunConfig, model, opt, ckpt_dir, ema=None, loader=None, rank: int = 0) -> int:
     """Restore ``--resume`` (a ``.pth`` or an output directory), else with
     ``--auto_resume`` the newest checkpoint in ``ckpt_dir``; returns the
     epoch to start from: the checkpoint's epoch + 1, or ``--start_epoch``
     (nothing to resume, or a file that holds the model alone).  A
-    ``loader`` with a stream position takes the checkpoint's."""
+    ``loader`` with a stream position takes the checkpoint's (``rank``'s
+    own where it holds one a rank)."""
     path = (pth_io.resolve(run.resume) if run.resume
             else pth_io.latest_checkpoint(ckpt_dir) if (ckpt_dir and run.auto_resume)
             else None)
@@ -283,11 +316,13 @@ def resume(run: RunConfig, model, opt, ckpt_dir, ema=None, loader=None) -> int:
     if epoch is None:
         print(f"resumed the params from {path}; epoch {run.start_epoch} from --start_epoch")
         return run.start_epoch
-    print(f"resumed from {path} (epoch {epoch})")
-    state = pth_io.loader_state(path) if loader is not None else None
+    if rank == 0:
+        print(f"resumed from {path} (epoch {epoch})")
+    state = pth_io.loader_state(path, rank) if loader is not None else None
     if state is not None:
         loader.set_state(state)
-        print("restored the loader's stream position (mid-stream resume)")
+        if rank == 0:
+            print("restored the loader's stream position (mid-stream resume)")
     return epoch + 1
 
 

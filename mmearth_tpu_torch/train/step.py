@@ -8,6 +8,14 @@ Each step's random draws (crop offsets, then the mask's noise) come from
 ``fold_in(gen, step)`` outside the step itself (:func:`draw`), so the crops
 and masks are a function of (seed, step) alone, whether the step runs
 eagerly or from a graph, and ``--steps_per_dispatch k`` trains as k = 1 does.
+
+Under a process group (the model's ``process_group``, one rank a GPU), each
+rank draws the global batch's crops and noise from the same generator and
+keeps its own rows, as JAX draws with one key at the global batch's shapes;
+the model's loss (and the global scope's GRN statistic) is the global
+batch's; and the optimizer averages the gradients over the ranks, once per
+applied update (``train/optim.py``), in the step and in a captured chain
+alike.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch
 
 from .. import ops
 from ..models import fcmae as fcmae_lib
+from ..parallel.mesh import shard_rows, world_size
 from .optim import AdamW, global_norm, write_host_values
 
 
@@ -87,16 +96,21 @@ def draw(model: fcmae_lib.FCMAE, images: torch.Tensor, step: int, gen: torch.Gen
     """The draws of step ``step`` for an (N, H, W, C) batch of ``images``,
     from ``fold_in(gen, step)`` in the order the step consumes them: the
     crop's ``tops`` then ``lefts`` (``aligned_random_crop``), then the
-    mask's noise (``gen_random_mask``)."""
+    mask's noise (``gen_random_mask``).  Under the model's process group
+    each is drawn for the global batch of N * world rows, of which the
+    rank's own N are kept."""
     g = fold_in(gen, step)
     n, h, w = images.shape[:3]
     dev, size = images.device, model.img_size
+    group = model.process_group
+    n_all = n * world_size(group)
+    rows = slice(*shard_rows(n, group))
     tops = lefts = None
     if crop:
-        tops = torch.randint(0, h - size + 1, (n,), generator=g, device=dev)
-        lefts = torch.randint(0, w - size + 1, (n,), generator=g, device=dev)
-    return Draws(tops, lefts, torch.randn(n, model.num_patches, generator=g, device=dev)
-                 if noise else None)
+        tops = torch.randint(0, h - size + 1, (n_all,), generator=g, device=dev)[rows]
+        lefts = torch.randint(0, w - size + 1, (n_all,), generator=g, device=dev)[rows]
+    return Draws(tops, lefts, torch.randn(n_all, model.num_patches, generator=g,
+                                          device=dev)[rows] if noise else None)
 
 
 def _crops(model: fcmae_lib.FCMAE, images: torch.Tensor, random_crop: bool) -> bool:
@@ -115,6 +129,7 @@ def _step(model, opt: AdamW, batch: Mapping[str, torch.Tensor], draws: Draws,
     loss, _, _, loss_dict, log_vars, weighted = model(batch, mask=mask, noise=draws.noise)
     loss.backward()
     grads = [p.grad for p in opt.params if p.grad is not None]
+    # this rank's gradient: the optimizer averages them over the ranks
     metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads).detach()}
     update()
     if loss_sum is not None:
@@ -135,8 +150,10 @@ def pretrain_step(model: fcmae_lib.FCMAE, opt: AdamW, batch: Mapping[str, torch.
     device) draws the crop offsets and the mask; ``mask`` overrides the drawn
     mask.  Adds the loss
     to ``loss_sum`` in place when given.  Returns detached on-device metrics:
-    ``loss``, ``grad_norm``, ``loss_<modality>``, and with uncertainty
-    weighting ``log_vars`` and ``normalized_loss``."""
+    ``loss``, ``grad_norm`` (of this rank's gradient, before the optimizer
+    averages it over the ranks), ``loss_<modality>``, and with uncertainty
+    weighting ``log_vars`` and ``normalized_loss``.  Under a process group
+    ``batch`` and ``mask`` are this rank's rows of the global batch."""
     images = batch["sentinel2"]
     draws = draw(model, images, step, gen, _crops(model, images, random_crop), mask is None)
     return _step(model, opt, batch, draws, mask, loss_sum, opt.step)

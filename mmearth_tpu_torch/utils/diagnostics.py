@@ -4,7 +4,10 @@ reference diagnostics.py:19-66), in torch terms.
     python -m mmearth_tpu_torch.utils.diagnostics
 
 Prints Python and the platform, torch and the CUDA it was built for, each
-CUDA device's name, capability and memory, whether ``nvcc`` is on the path
+CUDA device's name, capability and memory, the process's rank and the
+world size (JAX's ``process_index`` / ``process_count``: the process
+group's where one is running, else torchrun's ``RANK`` / ``WORLD_SIZE``,
+else 0 of 1), whether ``nvcc`` is on the path
 (and its version), and which optional packages are installed, one
 ``name: version`` or ``name: not installed`` line each.  On a host without
 CUDA it says so and does not raise.
@@ -12,6 +15,7 @@ CUDA it says so and does not raise.
 from __future__ import annotations
 
 import importlib
+import os
 import platform
 import shutil
 import subprocess
@@ -31,6 +35,15 @@ def nvcc_version() -> str | None:
     return lines[-1].strip() if lines else "unknown"
 
 
+def rank_and_world() -> tuple[int, int]:
+    """(rank, world size) of this process."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+
+
 def print_diagnostics() -> None:
     print(f"python: {sys.version.split()[0]}  platform: {platform.platform()}")
     import torch
@@ -44,6 +57,8 @@ def print_diagnostics() -> None:
         print(f"devices: {torch.cuda.device_count()}")
     else:
         print("cuda: not available (no CUDA device)")
+    rank, world = rank_and_world()
+    print(f"rank: {rank}  world size: {world}")
     nvcc = nvcc_version()
     print(f"nvcc: {nvcc if nvcc is not None else 'not installed'}")
     for mod in OPTIONAL_PACKAGES:

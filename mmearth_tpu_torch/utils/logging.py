@@ -32,10 +32,14 @@ class Meter:
 
 
 class MetricLogger:
-    def __init__(self, print_freq: int = 20, header: str = ""):
+    """Meters printed every ``print_freq`` items (not at all without
+    ``verbose``: the ranks but the first of a process group)."""
+
+    def __init__(self, print_freq: int = 20, header: str = "", verbose: bool = True):
         self.meters = defaultdict(Meter)
         self.print_freq = print_freq
         self.header = header
+        self.verbose = verbose
 
     def update(self, n: int = 1, **kwargs):
         for k, v in kwargs.items():
@@ -48,7 +52,7 @@ class MetricLogger:
         t0 = time.time()
         for i, item in enumerate(iterable):
             yield i, item
-            if i % self.print_freq == 0 or i == total - 1:
+            if self.verbose and (i % self.print_freq == 0 or i == total - 1):
                 now = time.time()
                 it_time = (now - t0) / max(i % self.print_freq + 1, 1)
                 eta = datetime.timedelta(seconds=int(it_time * (total - i - 1)))

@@ -373,9 +373,10 @@ def test_spillg_tail_groups_rows_as_masked_grn(group, n, expect, monkeypatch):
     warns = group > 0 and n % group
     seen = []
     monkeypatch.setattr(convnextv2, "fused_block_mlp_spillg",
-                        lambda t, x, *params, group_rows: seen.append(group_rows) or x)
+                        lambda t, x, *params, group_rows, process_group:
+                        seen.append((group_rows, process_group)) or x)
     x = torch.zeros(n, 2, 2, 2, 8)
     with pytest.warns(UserWarning, match="not divisible") if warns else contextlib.nullcontext():
         assert blk.grn.group_size(n) == expect
         blk._spillg_tail(x, x)
-    assert seen == [expect * 2 * 2 * 2]
+    assert seen == [(expect * 2 * 2 * 2, None)]  # one process: no cross-rank sum

@@ -1115,3 +1115,71 @@ def test_panel_maps_match_cpu_on_gpu(pretrain_pth, block_impl):
     for k, ref in out["cpu"].items():
         scale = float(np.abs(ref).max())
         np.testing.assert_allclose(out["cuda"][k], ref, rtol=1e-4, atol=1e-4 * scale, err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sparse_impl,block_impl,grn_group", [
+    ("gathered", "wholeblock", 4), ("gathered", "wholeblock", 0), ("masked_dense", "fused", 0),
+    ("gathered", "auto", 0)])
+def test_chained_graph_under_nccl_group_matches_plain_replay(sparse_impl, block_impl,
+                                                             grn_group, monkeypatch):
+    """World size 1 with an NCCL process group: 2 replays of a 2-step
+    ChainedStep graph whose capture recorded the group's all-reduces (the
+    loss's sums, the gradients' and, under the global scope, each block's
+    GRN statistic) equal 2 replays of the same graph without a group.
+    Losses within 1e-5 relative and params within 1e-5, as the graph
+    against eager steps (atomics reorder f32 sums between runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import socket
+
+    import torch.distributed as dist
+
+    from mmearth_tpu_torch.configs import modalities as M
+    from mmearth_tpu_torch.data.synthetic import bench_batch
+    from mmearth_tpu_torch.models.fcmae import FCMAE
+    from mmearth_tpu_torch.parallel import mesh
+    from mmearth_tpu_torch.train.optim import AdamW
+    from mmearth_tpu_torch.train.step import ChainedStep, to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    captured = []
+    real = dist.all_reduce
+
+    def counted(tensor, *a, **kw):
+        captured.append(torch.cuda.is_current_stream_capturing())
+        return real(tensor, *a, **kw)
+
+    monkeypatch.setattr(dist, "all_reduce", counted)
+    try:
+        kw = dict(img_size=56, patch_size=8, depths=(1, 1, 1, 1), dims=(40, 80, 160, 320),
+                  decoder_embed_dim=64, grn_group=grn_group, block_impl=block_impl,
+                  sparse_impl=sparse_impl, inp_modalities=M.INP_MODALITIES,
+                  out_modalities=M.OUT_MODALITIES)
+        batch = to_device(bench_batch(4, 64, seed=1), "cuda")
+        runs = []
+        for group in (None, dist.group.WORLD):
+            model = FCMAE(**kw).init_weights(torch.Generator().manual_seed(0)).cuda()
+            mesh.set_process_group(model, group)
+            opt = AdamW(model.named_parameters(), lambda n: 1e-3, process_group=group)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            ch = ChainedStep(model, opt, {k: v.expand(2, *v.shape) for k, v in batch.items()})
+            losses = torch.cat([ch(0, gen)[1], ch(2, gen)[1]])
+            assert ch.steps == {"eager": 2, "recorded": 2, "replayed": 4}
+            runs.append((losses.float().cpu(), [p.detach().cpu() for p in model.parameters()]))
+        # a step: the loss's all-reduce and its backward, the gradients', and under the
+        # global scope one a block forward and one backward (4 blocks)
+        per_step = 3 + (8 if grn_group == 0 else 0)
+        assert sum(captured) == 2 * per_step and len(captured) == 4 * per_step
+    finally:
+        dist.destroy_process_group()
+    (l0, p0), (l1, p1) = runs
+    torch.testing.assert_close(l1, l0, rtol=1e-5, atol=0)
+    for a, b in zip(p1, p0):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)

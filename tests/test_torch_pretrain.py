@@ -83,12 +83,14 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
         main_pretrain.main(args)
 
 
-SCRIPTS = ("torch_bench", "torch_convergence_gate", "torch_gather_bench", "torch_profile_step")
+SCRIPTS = ("torch_bench", "torch_convergence_gate", "torch_gather_bench", "torch_profile_step",
+           "torch_dist_ab")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (the HDF5, ArrayRecord, native
-    gather and logging modules and the tools among them), chip_smoke.py and
+    gather and logging modules, the tools and ``parallel/`` among them),
+    chip_smoke.py and
     the port's bench, gate and profiling scripts loads no jax, flax, optax,
     grain, mmearth_tpu or __graft_entry__ module, nor the optional h5py,
     array_record, tensorboardX, matplotlib or wandb (the card lacks the
@@ -99,7 +101,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
            "mmearth_tpu_torch.utils.logging", "mmearth_tpu_torch.hub",
            "mmearth_tpu_torch.hubconf", "mmearth_tpu_torch.eval.visualize",
            "mmearth_tpu_torch.data.subsample", "mmearth_tpu_torch.utils.flops",
-           "mmearth_tpu_torch.utils.profiling", "mmearth_tpu_torch.utils.diagnostics")
+           "mmearth_tpu_torch.utils.profiling", "mmearth_tpu_torch.utils.diagnostics",
+           "mmearth_tpu_torch.parallel", "mmearth_tpu_torch.parallel.mesh")
     code = (
         "import importlib, pkgutil, sys, mmearth_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(mmearth_tpu_torch.__path__, 'mmearth_tpu_torch.'):\n"
