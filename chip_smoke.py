@@ -216,6 +216,17 @@ Phases, each of which exits non-zero on failure:
    ``fused`` at one block a stage: each rank's loss and averaged gradients
    against one process on the concatenated batch, at the reference
    phases' tolerances, the rows 5-10 launches counted in each rank.
+   Then the tensor-parallel ``model`` axis (``phase_model_axis``): two
+   gloo ranks on the card as a (1, 2) grid, every ``pwconv1``, ``proj``
+   and head split, atto56 at full width and batch 256 in f32 (TF32 off),
+   gathered ``wholeblock`` and masked-dense ``fused`` (the kernels fed the
+   gathered W1), two AdamW steps against this process at ``model`` 1: the
+   losses within 1e-4 relative, the gradients within 1e-3 of scale, the
+   params (split leaves concatenated) within 1e-4 of scale plus the gap
+   between Adam's steps on the two sides' own gradients, replicated
+   leaves bit-identical on the ranks, the path's kernel rows launched on
+   each rank, a bf16 step finite; eager ms/step of both and the
+   collectives' share of a step; then ``dryrun_multichip`` in the ranks.
 5. reference: a small f32 FCMAE step on the GPU against the same step on the
    CPU (plain versions), loss and grads, for dwg, wholeblock and
    masked_dense fused, wholeblock at pico widths 112/16 (one block a
@@ -2994,6 +3005,315 @@ def phase_distributed(card: str, data: Path, geobench: Path, checkpoint: Path,
 
 
 
+MA_PATHS = (("gathered", "wholeblock"), ("masked_dense", "fused"))
+MA_STEPS, MA_TIMED = 2, 3  # AdamW steps held against one process, then eager steps timed
+MA_LR = 1e-3
+# atto56 at full width (dims 40-320, decoder 512, all 12 output modalities)
+MA_CONFIG = dict(img_size=56, patch_size=8, depths=(2, 2, 6, 2), dims=(40, 80, 160, 320),
+                 decoder_embed_dim=512, batch=256)
+
+
+def ma_rows(block_impl: str) -> tuple:
+    """The launch keys of the kernel rows a path runs: 1-4 and 7-10 under
+    ``wholeblock`` (C's separate dW2 pass folds at atto widths), 5-6 and 11
+    under ``fused``."""
+    from mmearth_tpu_torch.ops import fused_block as fb
+
+    if block_impl == "wholeblock":
+        return GATHERED_KERNELS + tuple(k for k in fb.SPILLG_LAUNCHES if k != SPILLG_WIDE_DW2)
+    return fb.MASKED_LAUNCHES + ("dw_weight_grad",)
+
+
+def adam_moves(grads, lr: float, betas=(0.9, 0.95), eps: float = 1e-8):
+    """Each element's total Adam displacement over the steps of ``grads``
+    (numpy arrays), in f64, before weight decay."""
+    import numpy as np
+
+    b1, b2 = betas
+    mu = nu = move = 0.0
+    for t, g in enumerate(grads, 1):
+        g = np.asarray(g, np.float64)
+        mu, nu = b1 * mu + (1 - b1) * g, b2 * nu + (1 - b2) * g * g
+        move = move + lr * (mu / (1 - b1 ** t)) / (np.sqrt(nu / (1 - b2 ** t)) + eps)
+    return move
+
+
+def ma_whole_grads(model, grid) -> dict:
+    """Each param's gradient after a step, a split leaf's gathered over the
+    model group, on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from mmearth_tpu_torch.parallel import mesh
+
+    split, out = mesh.shard_keys(model), {}
+    for k, p in model.named_parameters():
+        g = torch.zeros_like(p) if p.grad is None else p.grad.detach().contiguous()
+        if k in split:
+            parts = [torch.empty_like(g) for _ in range(grid.model)]
+            dist.all_gather(parts, g, group=grid.model_group)
+            g = torch.cat(parts)
+        out[k] = g.cpu().clone()
+    return out
+
+
+def ma_steps(model, opt, batch, gen, grads_of=None) -> tuple[list, list]:
+    """MA_STEPS AdamW steps with drawn masks: their losses and gradients."""
+    from mmearth_tpu_torch.train.step import pretrain_step
+
+    losses, grads = [], []
+    for i in range(MA_STEPS):
+        losses.append(float(pretrain_step(model, opt, batch, i, gen, random_crop=False)["loss"]))
+        grads.append(grads_of(model))
+    return losses, grads
+
+
+def ma_timed_ms(model, opt, batch, gen) -> float:
+    """Eager ms/step of MA_TIMED more steps, host clock, synchronised."""
+    import torch
+
+    from mmearth_tpu_torch.train.step import pretrain_step
+
+    dev = next(model.parameters()).device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(MA_TIMED):
+        pretrain_step(model, opt, batch, MA_STEPS + i, gen, random_crop=False)
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / MA_TIMED
+
+
+def ma_collective_ms(model, opt, batch, gen) -> dict:
+    """One more step with every ``all_gather`` and ``all_reduce`` timed on
+    the host, the device synchronised around each: the step's ms and the
+    collectives' ms (synchronising costs the step its overlap, so the share
+    is an upper bound)."""
+    import torch
+    import torch.distributed as dist
+
+    from mmearth_tpu_torch.train.step import pretrain_step
+
+    dev = next(model.parameters()).device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    spent = {"all_gather": 0.0, "all_reduce": 0.0}
+    calls = dict.fromkeys(spent, 0)
+    real = {name: getattr(dist, name) for name in spent}
+
+    def timed(name):
+        def f(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = real[name](*a, **kw)
+            sync()
+            spent[name] += time.perf_counter() - t
+            calls[name] += 1
+            return out
+        return f
+
+    for name in spent:
+        setattr(dist, name, timed(name))
+    try:
+        sync()
+        t0 = time.perf_counter()
+        pretrain_step(model, opt, batch, MA_STEPS + MA_TIMED, gen, random_crop=False)
+        sync()
+        step = time.perf_counter() - t0
+    finally:
+        for name in spent:
+            setattr(dist, name, real[name])
+    return {"step_ms": 1e3 * step, **{f"{k}_ms": 1e3 * v for k, v in spent.items()},
+            "calls": calls, "share": sum(spent.values()) / step}
+
+
+def ma_rank(rank: int, world: int, port: int, work: str) -> None:
+    """Rank ``rank`` of :func:`phase_model_axis`: gloo, a (1, ``world``)
+    grid on the inputs' device; each path's MA_STEPS AdamW steps (f32, TF32
+    off) with its launches counted, its eager ms/step and the collectives'
+    time a step, one bf16 step, then ``dryrun_multichip``; writes them to
+    ``work/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from mmearth_tpu_torch.dryrun import dryrun_multichip
+    from mmearth_tpu_torch.models.fcmae import FCMAE
+    from mmearth_tpu_torch.parallel import mesh
+    from mmearth_tpu_torch.train.optim import AdamW
+    from mmearth_tpu_torch.train.step import to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    inp = torch.load(Path(work) / "inputs.pt", weights_only=False)
+    dev = torch.device(inp["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    grid = mesh.create_mesh(1, world, dist.group.WORLD)
+    batch = to_device(inp["batch"], dev)
+    out = {}
+    for sparse_impl, block_impl in MA_PATHS:
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            model = FCMAE(**inp["kw"], sparse_impl=sparse_impl, block_impl=block_impl,
+                          dtype=dtype)
+            model.load_state_dict(inp["sd"])
+            model = mesh.shard_params(model.to(dev), grid)
+            opt = AdamW(model.named_parameters(), lambda count: MA_LR, process_group=grid,
+                        shards=mesh.shard_keys(model))
+            gen = torch.Generator(device=dev).manual_seed(0)
+            if dtype == torch.bfloat16:
+                res["bf16_losses"] = ma_steps(model, opt, batch, gen, lambda m: None)[0][:1]
+                continue
+            reset_launches()
+            res["losses"], res["grads"] = ma_steps(model, opt, batch, gen,
+                                                   lambda m: ma_whole_grads(m, grid))
+            res["launches"] = read_launches()
+            res["own"] = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+            res["split"] = mesh.shard_keys(model)
+            res["ms_per_step"] = ma_timed_ms(model, opt, batch, gen)
+            res["collectives"] = ma_collective_ms(model, opt, batch, gen)
+            del model, opt
+        out[block_impl] = res
+    out["dryrun"] = dryrun_multichip(str(dev))
+    torch.save(out, Path(work) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_model_axis(card: str, device: str = "cuda:0", config: dict = MA_CONFIG,
+                     world: int = 2) -> dict:
+    """The tensor-parallel ``model`` axis (``parallel/mesh.py``): ``world``
+    gloo ranks on the one card as a (1, ``world``) grid (:func:`ma_rank`),
+    splitting every ``pwconv1``, ``proj`` and head, at the flagship's full
+    width (atto56, batch 256), gathered ``wholeblock`` and masked-dense
+    ``fused``, against this process at ``model`` 1 on the same weights,
+    batch and drawn masks, f32, TF32 off: each step's loss within 1e-4
+    relative; the gradients within 1e-3 of each tensor's scale; the params
+    after MA_STEPS steps (each split leaf its ranks' slices concatenated)
+    within 1e-4 of each tensor's scale plus how far apart Adam's steps on
+    the two sides' own gradients put them (Adam divides by a gradient's own
+    magnitude: near 0 a difference of ulps moves its step by up to the lr);
+    every replicated leaf bit-identical on the ranks; every launch key of
+    the path's kernel rows counted on each rank (the kernels fed gathered
+    weights); a bf16 step a path finite; and ``dryrun_multichip`` through
+    the same ranks.  Prints ms/step of each grid eagerly and the
+    collectives' share of a step."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from mmearth_tpu_torch.configs import modalities as M
+    from mmearth_tpu_torch.data.synthetic import synthetic_batch
+    from mmearth_tpu_torch.models.fcmae import FCMAE
+    from mmearth_tpu_torch.train.optim import AdamW
+    from mmearth_tpu_torch.train.step import to_device
+
+    t0 = time.time()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = ROOT / "build" / "smoke_model_axis"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = dict(config)
+    n = cfg.pop("batch")
+    kw = dict(**cfg, grn_group=0, inp_modalities=M.INP_MODALITIES,
+              out_modalities=M.OUT_MODALITIES)
+    ref = FCMAE(**kw).init_weights(torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for name, p in ref.named_parameters():
+            if ".grn." in name:
+                p.normal_(0.0, 0.5, generator=gen)
+    sd = ref.state_dict()
+    batch_np = synthetic_batch(n, cfg["img_size"], seed=1)
+    torch.save({"kw": kw, "sd": sd, "batch": batch_np, "device": device}, work / "inputs.pt")
+    dev = torch.device(device)
+    batch = to_device(batch_np, dev)
+    one = {}
+    for sparse_impl, block_impl in MA_PATHS:
+        model = FCMAE(**kw, sparse_impl=sparse_impl, block_impl=block_impl)
+        model.load_state_dict(sd)
+        model = model.to(dev)
+        opt = AdamW(model.named_parameters(), lambda count: MA_LR)
+        g = torch.Generator(device=dev).manual_seed(0)
+        losses, grads = ma_steps(model, opt, batch, g,
+                                 lambda m: {k: p.grad.detach().cpu().clone() if p.grad is not None
+                                            else torch.zeros_like(p).cpu()
+                                            for k, p in m.named_parameters()})
+        one[block_impl] = {"losses": losses, "grads": grads,
+                           "params": {k: p.detach().cpu().clone()
+                                      for k, p in model.named_parameters()},
+                           "ms_per_step": ma_timed_ms(model, opt, batch, g)}
+        del model, opt
+    del batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t1 = time.time()
+    mp.spawn(ma_rank, args=(world, port, str(work)), nprocs=world, join=True)
+    spawn_s = time.time() - t1
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    out = {"phase": "model_axis", "card": card, "grid": [1, world], "batch": n,
+           "spawn_and_run_seconds": round(spawn_s, 2)}
+    for _, block_impl in MA_PATHS:
+        o = one[block_impl]
+        got = [r[block_impl] for r in ranks]
+        split = got[0]["split"]
+        loss_rel = max(abs(a - b) / abs(b) for g in got for a, b in zip(g["losses"], o["losses"]))
+        grad_rel = max(float((got[0]["grads"][s][k] - o["grads"][s][k]).abs().max()
+                             / (o["grads"][s][k].abs().max() + 1e-12))
+                       for s in range(MA_STEPS) for k in o["grads"][s])
+        param_rel, param_excess, worst_key = 0.0, -float("inf"), None
+        for k, want in o["params"].items():
+            parts = [g["own"][k] for g in got]
+            if k in split:
+                whole = torch.cat(parts)
+            else:
+                whole = parts[0]
+                for i, other in enumerate(parts[1:], 1):
+                    if not torch.equal(other, whole):
+                        raise AssertionError(f"model axis, {block_impl}: replicated {k} differs "
+                                             f"on rank {i}")
+            scale = float(want.abs().max()) or 1.0
+            diff = (whole - want).abs().double().numpy()
+            spread = np.abs(adam_moves([g[k].numpy() for g in got[0]["grads"]], MA_LR)
+                            - adam_moves([g[k].numpy() for g in o["grads"]], MA_LR))
+            excess = float((diff - 1e-4 * scale - spread).max())
+            param_rel = max(param_rel, float(diff.max()) / scale)
+            if excess > param_excess:
+                param_excess, worst_key = excess, k
+        launched = [{k: g["launches"][k] for k in ma_rows(block_impl)} for g in got]
+        bf16 = [x for g in got for x in g["bf16_losses"]]
+        if not (loss_rel < 1e-4 and grad_rel < 1e-3 and param_excess <= 0.0
+                and all(all(v > 0 for v in lr.values()) for lr in launched)
+                and all(np.isfinite(bf16))):
+            raise AssertionError(
+                f"model axis, {block_impl}: loss rel {loss_rel:.2e}, worst grad {grad_rel:.2e}, "
+                f"param excess {param_excess:.2e} ({worst_key}), launches {launched}, "
+                f"bf16 losses {bf16}")
+        out[block_impl] = {
+            "losses_one_process": o["losses"], "losses_ranks": [g["losses"] for g in got],
+            "loss_rel": loss_rel, "worst_grad_rel": grad_rel, "worst_param_rel": param_rel,
+            "split_leaves": len(split), "launches_ranks": launched, "bf16_losses": bf16,
+            "ms_per_step_one_process": o["ms_per_step"],
+            "ms_per_step_ranks": [g["ms_per_step"] for g in got],
+            "collectives_ranks": [g["collectives"] for g in got]}
+    dry = [r["dryrun"] for r in ranks]
+    if not (all(abs(d["loss"] - dry[0]["loss"]) <= 1e-5 * abs(dry[0]["loss"]) for d in dry)
+            and np.isfinite(dry[0]["finetune_loss"]) and dry[0]["mesh"] == (world // 2, 2)):
+        raise AssertionError(f"model axis, dryrun_multichip: {dry}")
+    out["dryrun"] = dry[0]
+    out["seconds"] = round(time.time() - t0, 2)
+    emit(out)
+    return out
+
+
+
 
 def main() -> int:
     import torch
@@ -3051,6 +3371,7 @@ def main() -> int:
     phase_tools(card, data, pretrain_out / "checkpoint-2.pth", bench_line)
     phase_distributed(card, data, geobench, pretrain_out / "checkpoint-2.pth",
                       ROOT / "build" / "smoke_foreign")
+    phase_model_axis(card)
     for sparse_impl, block_impl in (("gathered", "dwg"), ("gathered", "wholeblock"),
                                     ("masked_dense", "fused")):
         phase_reference(sparse_impl, block_impl)

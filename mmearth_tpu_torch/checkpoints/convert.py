@@ -9,6 +9,10 @@ FCMAE state dict, the keys and shapes ``mmearth_tpu.checkpoints.torch_convert
 out)`` -> Linear ``(out, in)``; conv HWIO -> OIHW (so the depthwise ``(7, 7,
 1, C)`` -> ``(C, 1, 7, 7)``); GRN affines -> ``(1, 1, 1, C)``; the mask token
 -> ``(1, D, 1, 1)``; the shared decoder written under every modality name.
+
+The state dicts are whole.  A model split over a grid with a ``model`` axis
+takes one as a whole model does, then ``parallel/mesh.py::shard_params``;
+one already split takes it through ``mesh.place_state``.
 """
 from __future__ import annotations
 

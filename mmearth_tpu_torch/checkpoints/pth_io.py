@@ -9,7 +9,10 @@ A run's checkpoints are ``<output_dir>/checkpoint-<epoch>.pth``, each
 a uint8 tensor, or a list of them, one a rank, from a run of several
 ranks) where the pretraining stream keeps one: tensors and plain
 Python values only, so ``torch.load(..., weights_only=True)`` reads
-them.  A file is written to a temporary name and renamed into place, so a
+them.  A run whose ``model`` axis splits leaves saves them whole
+(``parallel/mesh.py::gather_state``), so its file is that of a run on one
+grid row, and any grid resumes from any file (``restore``'s ``mesh``).  A
+file is written to a temporary name and renamed into place, so a
 run killed mid-write leaves the previous checkpoints whole; only the newest
 ``keep`` numbered files are kept.  Loading maps every tensor to the CPU and
 copies it onto the model's device, so a file saved on the card resumes on
@@ -26,6 +29,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..parallel import mesh as mesh_lib
 from .load_pretrained import remap_minkowski_keys
 
 _NUMBERED = re.compile(r"checkpoint-(\d+)\.pth")
@@ -67,8 +71,11 @@ def save_checkpoint(output_dir: str | Path, epoch: int, model: torch.nn.Module, 
     """Write ``checkpoint-<epoch>.pth`` and delete all but the newest
     ``keep`` numbered checkpoints (``keep`` <= 0 keeps every one).  One
     process writes it: under a process group, rank 0, with every rank's
-    ``loader_state`` in rank order."""
-    payload = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+    ``loader_state`` in rank order.  ``model`` and ``optimizer`` are the
+    objects, or their whole state dicts (``mesh.gather_state`` of a
+    grid)."""
+    state = lambda x: x.state_dict() if hasattr(x, "state_dict") else dict(x)  # noqa: E731
+    payload = {"model": state(model), "optimizer": state(optimizer),
                "epoch": epoch, "args": dict(args)}
     if ema is not None:
         payload["ema"] = dict(ema)
@@ -151,20 +158,24 @@ def _numpy(v) -> np.ndarray:
 
 
 def restore(path: str | Path, model: torch.nn.Module, optimizer=None,
-            ema: dict[str, torch.Tensor] | None = None) -> int | None:
+            ema: dict[str, torch.Tensor] | None = None, mesh=None) -> int | None:
     """Load the checkpoint at ``path`` into ``model`` (strictly), and into
     ``optimizer`` and ``ema`` where it holds their state.  Returns its epoch,
     or None for a file that holds the model alone, or an optimizer state of
     another layout (upstream's ``torch.optim`` one): the caller then keeps
-    its ``--start_epoch``, as the JAX drivers' ``.pth`` resume does."""
+    its ``--start_epoch``, as the JAX drivers' ``.pth`` resume does.  On a
+    grid (``mesh``, a ``parallel/mesh.py::Mesh``) whose model axis splits
+    leaves, each rank loads its slices of the file's whole leaves
+    (``mesh.place_state``)."""
     ckpt = load(path)
-    model.load_state_dict(model_state(ckpt["model"], model))
+    sd = model_state(ckpt["model"], model)
     opt_state = ckpt.get("optimizer")
-    if not (isinstance(opt_state, Mapping) and "mini_step" in opt_state and "epoch" in ckpt):
+    resumable = isinstance(opt_state, Mapping) and "mini_step" in opt_state and "epoch" in ckpt
+    mesh_lib.place_state(model, optimizer if resumable else None, mesh, sd, opt_state)
+    if not resumable:
         return None
-    if optimizer is not None:
-        optimizer.load_state_dict(opt_state)
     if ema is not None and "ema" in ckpt:
+        theirs = mesh_lib.shard_state(ckpt["ema"], model, mesh)
         for name, t in ema.items():
-            t.copy_(ckpt["ema"][name])
+            t.copy_(theirs[name])
     return int(ckpt["epoch"])

@@ -68,7 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.dwconv import dwconv7x7
 from ..ops.fused_block import fused_block_mlp, fused_block_mlp_spillg
-from ..parallel.mesh import all_reduce_sum, shard_rows, world_size
+from ..parallel.mesh import all_reduce_sum, column_linear, gather_shards, shard_rows, world_size
 from ..ops.patch_select import gather_patches, scatter_patches
 from ..ops.wholeblock import dwconv7_gathered
 from .norm import GRN, LayerNorm, MaskedGRN, _safe_l2
@@ -126,6 +126,13 @@ def gelu(x, approximate: bool = False):
 def dense(x, weight, bias, dtype):
     """flax ``Dense`` with ``dtype``: x @ W^T + b, all cast to ``dtype``."""
     return F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
+
+
+def column_dense(x, weight, bias, dtype, width: int, group):
+    """:func:`dense` of a leaf of ``width`` output channels, of which this
+    rank may hold a shard (``parallel/mesh.py::shard_params``): then
+    column-parallel over the model ``group`` (``mesh.column_linear``)."""
+    return column_linear(x.to(dtype), weight.to(dtype), bias.to(dtype), width, group)
 
 
 def conv_nhwc(x, conv: nn.Conv2d, dtype):
@@ -202,7 +209,13 @@ class Block(nn.Module):
     classifier, whose blocks take neither kernel tail).  Under the global
     GRN scope with a process group (``MaskedGRN.cross_rank``), every tail
     takes the statistic over the ranks: the kernel tails are given the
-    group, the composed and folded ones sum through ``all_reduce_sum``."""
+    group, the composed and folded ones sum through ``all_reduce_sum``.
+
+    On a grid whose ``model`` axis splits ``pwconv1`` (``model_group``, from
+    ``parallel/mesh.py::set_process_group``), the composed tails run it
+    column-parallel (:func:`column_dense`) and the folded and kernel tails
+    take its weight and bias whole (``mesh.gather_shards``), giving back
+    the rank's slice of their gradients."""
 
     def __init__(self, dim: int, sparse: bool = False, dw_init: str | None = None,
                  pw_init: str | None = None, grn_group: int = 0, dtype=torch.float32,
@@ -221,6 +234,7 @@ class Block(nn.Module):
         self.fused = fused and sparse and not gelu_approx
         self.folded = folded and sparse
         self.remat = remat
+        self.model_group = None
         default = "trunc1" if sparse else "normal02"
         self.inits = {"dwconv.weight": dw_init or default, "pwconv1.weight": pw_init or default,
                       "pwconv2.weight": pw_init or default}
@@ -251,8 +265,8 @@ class Block(nn.Module):
     def _branch(self, t, keep=None):
         """The composed tail before drop path: LN -> pw1 -> GELU -> GRN ->
         pw2, re-masked with ``keep`` when given."""
-        u = gelu(dense(self.norm(t), self.pwconv1.weight, self.pwconv1.bias, self.dtype),
-                 self.gelu_approx)
+        u = gelu(column_dense(self.norm(t), self.pwconv1.weight, self.pwconv1.bias, self.dtype,
+                              self.pwconv1.out_features, self.model_group), self.gelu_approx)
         u = self.grn(u) if keep is None else self.grn(u, keep)  # gathered: every row visible
         out = dense(u, self.pwconv2.weight, self.pwconv2.bias, self.dtype)
         return out if keep is None else out * keep.to(out.dtype)
@@ -267,13 +281,14 @@ class Block(nn.Module):
         first product's output is in the compute dtype, upcast in the f32
         correction."""
         f32, dt = torch.float32, self.dtype
-        n, c4 = t.shape[0], self.pwconv1.weight.shape[0]
+        w1, b1 = self._pw1_whole()
+        n, c4 = t.shape[0], w1.shape[0]
         tf = t.float()
         mu = tf.mean(-1, keepdim=True)
         inv = torch.rsqrt((tf - mu).square().mean(-1, keepdim=True) + self.norm.eps)
-        w1 = self.pwconv1.weight.float()
+        w1 = w1.float()
         w1p = w1 * self.norm.weight.float()
-        bias1 = F.linear(self.norm.bias.float(), w1, self.pwconv1.bias.float())
+        bias1 = F.linear(self.norm.bias.float(), w1, b1.float())
         z = F.linear(t.to(dt), w1p.to(dt))
         g = gelu((z.to(f32) - mu * w1p.sum(1)) * inv + bias1, self.gelu_approx).to(dt)
         grp = self.grn.group_size(n, stacklevel=4)
@@ -287,15 +302,23 @@ class Block(nn.Module):
         out = torch.matmul(gg, w2p.transpose(1, 2)) + bias2.to(dt)
         return out.to(dt).reshape(t.shape)
 
+    def _pw1_whole(self):
+        """``pwconv1``'s weight and bias whole (gathered where this rank holds
+        a shard of them)."""
+        c4 = self.pwconv1.out_features
+        return (gather_shards(self.pwconv1.weight, c4, self.model_group),
+                gather_shards(self.pwconv1.bias, c4, self.model_group))
+
     def _fused_tail(self, x, t, keep):
         """The masked tail on the N*H*W sites, GRN grouped as ``MaskedGRN``
         groups them."""
         n, h, w, c = t.shape
         g = self.grn.group_size(n, stacklevel=4)
         rows = n * h * w
+        w1, b1 = self._pw1_whole()
         y = fused_block_mlp(
             t.reshape(rows, c), x.reshape(rows, c), keep.reshape(rows, 1), self.norm.weight,
-            self.norm.bias, self.pwconv1.weight, self.pwconv1.bias, self.grn.gamma, self.grn.beta,
+            self.norm.bias, w1, b1, self.grn.gamma, self.grn.beta,
             self.pwconv2.weight, self.pwconv2.bias, group_rows=g * h * w,
             process_group=self.grn.cross_rank())
         return y.reshape(t.shape)
@@ -306,9 +329,10 @@ class Block(nn.Module):
         n, c = t.shape[0], t.shape[-1]
         g = self.grn.group_size(n, stacklevel=4)
         rows = t.numel() // c
+        w1, b1 = self._pw1_whole()
         y = fused_block_mlp_spillg(
             t.reshape(rows, c), x.reshape(rows, c), self.norm.weight, self.norm.bias,
-            self.pwconv1.weight, self.pwconv1.bias, self.grn.gamma, self.grn.beta,
+            w1, b1, self.grn.gamma, self.grn.beta,
             self.pwconv2.weight, self.pwconv2.bias, group_rows=g * (rows // n),
             process_group=self.grn.cross_rank())
         return y.reshape(t.shape)

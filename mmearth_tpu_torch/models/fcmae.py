@@ -22,7 +22,11 @@ Under a process group (``process_group``, given by
 ``parallel/mesh.py::set_process_group`` to this module and its MaskedGRNs),
 the loss is the global batch's and, under the global GRN scope
 (``grn_group`` 0), so is every block's GRN statistic: each rank computes
-what JAX computes on the ranks' batches concatenated in rank order.
+what JAX computes on the ranks' batches concatenated in rank order.  On a
+grid with a ``model`` axis (``parallel/mesh.py::shard_params``) the process
+group is the data group, and ``proj`` and the heads whose output channels
+the axis splits run column-parallel over ``model_group``
+(``convnextv2.column_dense``), as the Blocks' ``pwconv1`` do.
 
 Inputs and targets are NHWC dicts keyed by modality.
 """
@@ -35,7 +39,7 @@ from torch import nn
 
 from ..configs import modalities as M
 from ..losses.multipretext import multipretext_loss, uncertainty_weighted, unweighted
-from .convnextv2 import Block, ConvNeXtV2, dense, init_param
+from .convnextv2 import Block, ConvNeXtV2, column_dense, init_param
 from .norm import LayerNorm
 
 PIXEL_HEAD_MODALITIES = (
@@ -144,6 +148,7 @@ class FCMAE(nn.Module):
         if loss_aggr == "uncertainty":
             self.loss_fn = _LossFn(len(self.out_modalities))
         self.process_group = None
+        self.model_group = None
 
     @property
     def num_patches(self) -> int:
@@ -172,8 +177,9 @@ class FCMAE(nn.Module):
 
     def forward_decoder(self, x, mask):
         """x: (N, g, g, dims[-1]) stage-4 map; mask: (N, L)."""
-        dt = self.dtype
-        x = dense(x, self.proj.weight.flatten(1), self.proj.bias, dt)
+        dt, group = self.dtype, self.model_group
+        x = column_dense(x, self.proj.weight.flatten(1), self.proj.bias, dt,
+                         self.proj.out_channels, group)
         n, h, w, d = x.shape
         m = mask.reshape(n, h, w, 1).to(x.dtype)
         x = x * (1.0 - m) + self.mask_token.reshape(1, 1, 1, d).to(dt) * m
@@ -183,12 +189,14 @@ class FCMAE(nn.Module):
         for name in self.out_modalities:
             head = self.pred_dict[name]
             if name in PIXEL_HEAD_MODALITIES:
-                p = dense(x, head.weight.flatten(1), head.bias, dt)
+                p = column_dense(x, head.weight.flatten(1), head.bias, dt, head.out_channels,
+                                 group)
                 preds[name] = p.reshape(n, h * w, p.shape[-1])
             else:
                 if pooled is None:
                     pooled = self.layer_norm_tmp(x).mean((1, 2))
-                preds[name] = dense(pooled, head.weight, head.bias, dt)
+                preds[name] = column_dense(pooled, head.weight, head.bias, dt, head.out_features,
+                                           group)
         return preds
 
     def forward_loss(self, targets, preds, mask):

@@ -148,10 +148,13 @@ def make_optimizer(cfg: FinetuneConfig, model: nn.Module, trainable, n_train: in
     the ``--opt`` family (layer-decayed lr scales, the finetune decay mask)
     over the trainable params, scheduled for ``n_train`` samples an epoch
     at the effective batch of every rank of ``process_group`` (JAX
-    ``make_finetune_optimizer``), averaging the gradients over them."""
+    ``make_finetune_optimizer``), averaging the gradients over them.  On a
+    grid (a ``mesh.Mesh``) the effective batch is that of its data ranks,
+    and the optimizer is told which of ``model``'s params hold a shard."""
     for name, prm in model.named_parameters():
         prm.requires_grad_(trainable(name))
-    eff_batch = cfg.batch_size * cfg.optim.update_freq * mesh.world_size(process_group)
+    grid = mesh.as_mesh(process_group)
+    eff_batch = cfg.batch_size * cfg.optim.update_freq * grid.data
     updates_per_epoch = max(n_train // eff_batch, 1)
     schedule = warmup_cosine(cfg.optim.absolute_lr(eff_batch), cfg.optim.min_lr, cfg.run.epochs,
                              cfg.optim.warmup_epochs, updates_per_epoch)
@@ -163,7 +166,7 @@ def make_optimizer(cfg: FinetuneConfig, model: nn.Module, trainable, n_train: in
                      eps=cfg.optim.opt_eps, update_freq=cfg.optim.update_freq,
                      clip_grad=cfg.optim.clip_grad, wd_mask=finetune_wd_mask(named),
                      lr_scales=scales, opt=cfg.optim.opt, momentum=cfg.optim.momentum,
-                     process_group=process_group)
+                     process_group=process_group, shards=mesh.shard_keys(model))
 
 
 def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_train: int,
@@ -171,7 +174,8 @@ def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_tr
     """The model on ``device`` with ``process_group`` given to the modules
     that take one, bootstrapped from ``cfg.finetune`` when set, frozen as
     ``cfg.linear_probe`` says, and its optimizer over the trainable params
-    (:func:`make_optimizer`)."""
+    (:func:`make_optimizer`).  On a grid (a ``mesh.Mesh``) the Blocks'
+    ``pwconv1`` are then split over its model axis (``mesh.shard_params``)."""
     name = cfg.model.model
     if "unet" in name and not cfg.linear_probe:
         raise ValueError("U-Net runs use --linear_probe True (the staged unfreeze); see "
@@ -184,7 +188,7 @@ def build_trainable(cfg: FinetuneConfig, in_channels: int, nb_classes: int, n_tr
                   "pads as --padding_mode reference does (VALID initial conv, stride//2 "
                   "stem padding)")
         bootstrap(model, cfg.finetune, cfg.run.seed)
-    mesh.set_process_group(model.to(device), process_group)
+    mesh.shard_params(model.to(device), process_group)
     trainable = probe_trainable(model) if cfg.linear_probe else full_trainable(model)
     return model, make_optimizer(cfg, model, trainable, n_train, process_group)
 
@@ -236,9 +240,10 @@ def evaluate(model: nn.Module, loader, stats_fn, metric, device, bgr_to_rgb: boo
 def _with_params(model: nn.Module, params: dict) -> nn.Module:
     """A copy of ``model`` holding ``params`` (the EMA weights; the buffers,
     the ResNets' running statistics, are the model's)."""
-    # the copy shares the model's process group (a group cannot be copied)
-    out = copy.deepcopy(model, {id(m.process_group): m.process_group for m in model.modules()
-                                if getattr(m, "process_group", None) is not None})
+    # the copy shares the model's process groups (a group cannot be copied)
+    groups = [getattr(m, attr, None) for m in model.modules()
+              for attr in ("process_group", "model_group")]
+    out = copy.deepcopy(model, {id(g): g for g in groups if g is not None})
     out.load_state_dict({**out.state_dict(), **params})
     return out
 

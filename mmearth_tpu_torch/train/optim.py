@@ -28,7 +28,7 @@ from typing import Callable, Iterable, Mapping, Sequence
 import numpy as np
 import torch
 
-from ..parallel.mesh import all_reduce_grads
+from ..parallel.mesh import all_reduce_grads, as_mesh, sum_
 
 
 def pretrain_wd_mask(named_params: Iterable[tuple[str, torch.Tensor]]) -> dict[str, bool]:
@@ -178,21 +178,36 @@ class Optimizer:
     ``update_freq``) are averaged over its ranks once per applied update,
     before the clip and the update, in one all-reduce
     (``parallel/mesh.py::all_reduce_grads``), so every rank applies the
-    global batch's update, as optax does on JAX's replicated gradient."""
+    global batch's update, as optax does on JAX's replicated gradient.  On
+    a grid (a ``parallel/mesh.py::Mesh``) ``shards`` names the params that
+    hold a shard of a split leaf (``mesh.shard_keys``): their gradients are
+    averaged over the data group and the rest over every rank; their state
+    slots are the shard's; and the clip's global norm and the per-tensor
+    norms of LAMB and NovoGrad sum their squares over the model group, so
+    each element counts once.  Adafactor, whose factored statistics would
+    need the same sums, is refused on a model axis."""
 
     def __init__(self, named_params, lr_schedule: Callable[[int], float],
                  weight_decay: float = 0.05, betas: tuple[float, float] = (0.9, 0.95),
                  eps: float = 1e-8, update_freq: int = 1, clip_grad: float | None = None,
                  wd_mask: Mapping[str, bool] | None = None,
                  lr_scales: Mapping[str, float] | None = None, opt: str = "adamw",
-                 momentum: float = 0.9, process_group=None):
+                 momentum: float = 0.9, process_group=None, shards=None):
         self.opt = family(opt)
-        self.process_group = process_group
+        self.mesh = as_mesh(process_group)
+        if self.mesh.model > 1 and shards is None:
+            raise ValueError("a model axis needs the names of the params that hold a shard "
+                             "(shards=mesh.shard_keys(model))")
+        if self.mesh.model > 1 and self.opt == "adafactor":
+            raise ValueError("--opt adafactor is not supported on a model axis of size > 1: its "
+                             "factored statistics of a split leaf are not summed over the model "
+                             "group")
         named = [(n, p) for n, p in named_params if p.requires_grad]
         decay = pretrain_wd_mask(named) if wd_mask is None else wd_mask
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.decay = [decay[n] for n, _ in named]
+        self.shards = [n in (shards or ()) for n, _ in named]
         self.scales = None if lr_scales is None else [lr_scales[n] for n, _ in named]
         self.lr_schedule = lr_schedule
         self.weight_decay, self.betas, self.eps = weight_decay, betas, eps
@@ -234,6 +249,22 @@ class Optimizer:
         """Every tensor a step changes besides the grads: params, state
         slots and the accumulated gradient."""
         return [*self.params, *(t for ts in self.slots.values() for t in ts), *(self.acc or [])]
+
+    def state_shards(self) -> list[bool]:
+        """For each of :meth:`state_tensors`, whether it is a shard: the
+        params that hold one, and their slots of the param's shape."""
+        slots = [s and t.shape == p.shape for ts in self.slots.values()
+                 for t, p, s in zip(ts, self.params, self.shards)]
+        return [*self.shards, *slots, *(self.shards if self.acc is not None else [])]
+
+    def _sum_sq(self, t: torch.Tensor, shard: bool) -> torch.Tensor:
+        """``t``'s sum of squares, over the whole leaf where ``t`` is a shard
+        of it."""
+        sq = t.square().sum()
+        return sum_(sq, self.mesh.model_group) if shard else sq
+
+    def _norm(self, t: torch.Tensor, shard: bool) -> torch.Tensor:
+        return self._sum_sq(t, True).sqrt() if shard else t.norm()
 
     def state_dict(self) -> dict:
         """Each state slot (``mu`` and ``nu`` for the Adam families) and the
@@ -338,9 +369,9 @@ class Optimizer:
             grads = [a.clone() for a in self.acc]
             for a in self.acc:
                 a.zero_()
-        all_reduce_grads(grads, self.process_group)
+        all_reduce_grads(grads, self.mesh, self.shards)
         if self.clip_grad is not None:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.shards, self.mesh.model_group)
             scale = torch.where(norm < self.clip_grad, torch.ones_like(norm),
                                 self.clip_grad / norm)
             torch._foreach_mul_(grads, scale)
@@ -397,8 +428,8 @@ class Optimizer:
     def _lamb(self, grads, hyper, dec):
         upd = self._adamw(grads, hyper, dec)
         out = []
-        for u, p in zip(upd, self.params):
-            pn, un = p.norm(), u.norm()
+        for u, p, s in zip(upd, self.params, self.shards):
+            pn, un = self._norm(p, s), self._norm(u, s)
             ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
             out.append(u * ratio)
         return out
@@ -457,7 +488,7 @@ class Optimizer:
         decayed, out = set(dec), []
         for i, (g, p, mu, nu) in enumerate(zip(grads, self.params, self.slots["mu"],
                                                self.slots["nu"])):
-            n2 = g.square().sum()
+            n2 = self._sum_sq(g, self.shards[i])
             # the first step takes the norm as it is (optax's init_nu)
             nu.copy_(torch.where(first > 0, n2, b2 * nu + (1 - b2) * n2))
             u = g / (nu.sqrt() + self.eps)
@@ -475,10 +506,11 @@ class AdamW(Optimizer):
                  weight_decay: float = 0.05, betas: tuple[float, float] = (0.9, 0.95),
                  eps: float = 1e-8, update_freq: int = 1, clip_grad: float | None = None,
                  wd_mask: Mapping[str, bool] | None = None,
-                 lr_scales: Mapping[str, float] | None = None, process_group=None):
+                 lr_scales: Mapping[str, float] | None = None, process_group=None,
+                 shards=None):
         super().__init__(named_params, lr_schedule, weight_decay, betas, eps, update_freq,
                          clip_grad, wd_mask, lr_scales, opt="adamw",
-                         process_group=process_group)
+                         process_group=process_group, shards=shards)
 
 
 def write_host_values(dst: torch.Tensor, values) -> None:
@@ -491,5 +523,14 @@ def write_host_values(dst: torch.Tensor, values) -> None:
     dst.copy_(src, non_blocking=True)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm(tensors, shards=None, model_group=None) -> torch.Tensor:
+    """The L2 norm of ``tensors`` together.  Those that ``shards`` flags are
+    this rank's slices of leaves split over ``model_group``: their squares
+    are summed over it, so that each element counts once."""
+    tensors = list(tensors)
+    flags = list(shards) if shards is not None else [False] * len(tensors)
+    total = sum(t.float().square().sum() for t, s in zip(tensors, flags) if not s)
+    if any(flags):
+        split = sum(t.float().square().sum() for t, s in zip(tensors, flags) if s)
+        total = total + sum_(split, model_group)
+    return torch.sqrt(total)

@@ -15,7 +15,11 @@ keeps its own rows, as JAX draws with one key at the global batch's shapes;
 the model's loss (and the global scope's GRN statistic) is the global
 batch's; and the optimizer averages the gradients over the ranks, once per
 applied update (``train/optim.py``), in the step and in a captured chain
-alike.
+alike.  On a grid with a ``model`` axis (``parallel/mesh.py::shard_params``)
+the model's process group is the data group: rows and draws follow the
+data index, so the ranks of one model group draw the same crops, mask and
+drop path for the same rows.  ``ChainedStep`` runs on a grid unchanged; on
+a card its capture needs collectives a CUDA graph can record (NCCL).
 """
 from __future__ import annotations
 
