@@ -3013,6 +3013,12 @@ MA_CONFIG = dict(img_size=56, patch_size=8, depths=(2, 2, 6, 2), dims=(40, 80, 1
                  decoder_embed_dim=512, batch=256)
 
 
+MA_FT_STEPS, MA_FT_LR = 3, 1e-3  # Adafactor classifier steps held against one process
+# the finetune recipe's classifier: dense atto at 112/16, 12 bands, 10 classes
+MA_FT_KW = dict(img_size=112, patch_size=16, in_chans=12, num_classes=10, depths=(2, 2, 6, 2),
+                dims=(40, 80, 160, 320))
+
+
 def ma_rows(block_impl: str) -> tuple:
     """The launch keys of the kernel rows a path runs: 1-4 and 7-10 under
     ``wholeblock`` (C's separate dW2 pass folds at atto widths), 5-6 and 11
@@ -3055,6 +3061,143 @@ def ma_whole_grads(model, grid) -> dict:
             g = torch.cat(parts)
         out[k] = g.cpu().clone()
     return out
+
+
+def adafactor_moves(grads, lr: float, dims, decay_rate: float = 0.8, eps: float = 1e-30):
+    """Each element's total Adafactor displacement over the steps of
+    ``grads`` (whole leaves, numpy arrays), in f64: the factored statistics
+    over ``dims`` (d1, d0), or the per-element ones where None, whose step
+    is ~ sign(g) * lr as Adam's first is."""
+    import numpy as np
+
+    v_row = v_col = v = move = 0.0
+    for t, g in enumerate(grads, 1):
+        g = np.asarray(g, np.float64)
+        decay = 1.0 - t ** -decay_rate
+        sq = g * g + eps
+        if dims is None:
+            v = decay * v + (1 - decay) * sq
+            move = move + lr * g / np.sqrt(v)
+            continue
+        d1, d0 = dims
+        v_row = decay * v_row + (1 - decay) * sq.mean(axis=d0)
+        v_col = decay * v_col + (1 - decay) * sq.mean(axis=d1)
+        row = v_row / v_row.mean(axis=d1 - 1 if d1 > d0 else d1, keepdims=True)
+        move = move + lr * g / np.sqrt(np.expand_dims(row, d0) * np.expand_dims(v_col, d1))
+    return move
+
+
+def ma_adafactor(inp, grid, dev) -> dict:
+    """MA_FT_STEPS Adafactor steps of the recipe's classifier (layer decay
+    0.9, weight decay 0.3, clip 1.0, drop path 0) on ``grid`` (a (1, W)
+    grid: every rank the whole batch; None: one process), then MA_TIMED
+    more timed: each held step's loss and whole gradients, row 11's
+    launches in them, the whole params and v_row/v_col/v after them
+    (``gather_state``), the rank's own params, the split and the factored
+    leaves, eager ms/step."""
+    import torch
+
+    from mmearth_tpu_torch.losses.finetune import criterion_fn
+    from mmearth_tpu_torch.models.convnextv2 import ConvNeXtV2
+    from mmearth_tpu_torch.parallel import mesh
+    from mmearth_tpu_torch.train.finetune import finetune_step
+    from mmearth_tpu_torch.train.optim import Optimizer, finetune_wd_mask, layer_lr_scales
+
+    model = ConvNeXtV2(**inp["ft_kw"], sparse=False)
+    model.load_state_dict(inp["ft_sd"])
+    model = mesh.shard_params(model.to(dev), grid)
+    named = list(model.named_parameters())
+    opt = Optimizer(named, lambda count: MA_FT_LR, 0.3, (0.9, 0.999), clip_grad=1.0,
+                    wd_mask=finetune_wd_mask(named),
+                    lr_scales=layer_lr_scales(named, 0.9, inp["ft_kw"]["depths"]),
+                    opt="adafactor", process_group=grid, shards=mesh.shard_keys(model))
+    batch = {"input": inp["ft_x"].to(dev), "label": inp["ft_y"].to(dev)}
+    criterion = criterion_fn("m-eurosat", 0.2)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    reset_launches()
+    losses, grads = [], []
+    for _ in range(MA_FT_STEPS):
+        losses.append(float(finetune_step(model, opt, batch, criterion, None)))
+        grads.append(ma_whole_grads(model, grid))
+    launches = read_launches()["dw_weight_grad"]
+    sd, opt_sd = mesh.gather_state(model, opt, grid)
+    cpu = lambda t: t.detach().cpu().clone()  # noqa: E731
+    out = {"losses": losses, "grads": grads, "launches": launches,
+           "whole": {k: cpu(v) for k, v in sd.items()},
+           "slots": {k: {n: cpu(t) for n, t in opt_sd[k].items()} for k in ("v_row", "v_col", "v")},
+           "own": {k: cpu(p) for k, p in model.named_parameters()},
+           "split": mesh.shard_keys(model),
+           "factored": {n for n, f in zip(opt.names, opt.factored) if f is not None}}
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(MA_TIMED):
+        finetune_step(model, opt, batch, criterion, None)
+    sync()
+    out["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / MA_TIMED
+    return out
+
+
+def ma_adafactor_check(card: str, inp, one: dict, got: list) -> dict:
+    """The ranks' Adafactor run (:func:`ma_adafactor`) against one
+    process's: every stage-2 and stage-3 ``pwconv1`` split and factored;
+    each step's loss within 1e-4 relative; the gradients within 1e-3 of
+    each tensor's scale; the gathered slots within 1e-4 of each tensor's
+    scale; the params within 1e-4 of scale plus the gap that Adafactor's
+    steps on the two sides' own gradients put between them (an unfactored
+    leaf's step is ~ sign(g) * lr); replicated leaves bit-identical on the
+    ranks; row 11 launched 12 times a step on each rank."""
+    import numpy as np
+    import torch
+
+    from mmearth_tpu_torch.train.optim import factored_dims, finetune_wd_mask
+
+    split = got[0]["split"]
+    pw = [k for k in one["whole"] if k.endswith("pwconv1.weight")
+          and k.startswith(("stages.2.", "stages.3."))]
+    unfit = [k for k in pw for g in got if k not in g["split"] or k not in g["factored"]]
+    loss_rel = max(abs(a - b) / abs(b) for g in got for a, b in zip(g["losses"], one["losses"]))
+    rel = lambda a, b: float((a - b).abs().max() / (b.abs().max() + 1e-12))  # noqa: E731
+    grad_rel = max(rel(g["grads"][s][k], one["grads"][s][k])
+                   for g in got for s in range(MA_FT_STEPS) for k in one["grads"][s])
+    slot_rel = max(rel(g["slots"][slot][k], w) for g in got
+                   for slot, per in one["slots"].items() for k, w in per.items())
+    decayed = finetune_wd_mask(one["whole"].items())
+    param_rel, param_excess, worst_key = 0.0, -float("inf"), None
+    for k, want in one["whole"].items():
+        start = inp["ft_sd"][k].double().numpy()
+
+        def moves(grads):
+            steps = [gr[k].double().numpy() + (0.3 * start if decayed[k] else 0.0)
+                     for gr in grads]
+            return adafactor_moves(steps, MA_FT_LR, factored_dims(want.shape))
+
+        diff = (got[0]["whole"][k] - want).abs().double().numpy()
+        scale = float(want.abs().max()) or 1.0
+        spread = np.abs(moves(got[0]["grads"]) - moves(one["grads"]))
+        excess = float((diff - 1e-4 * scale - spread).max())
+        param_rel = max(param_rel, float(diff.max()) / scale)
+        if excess > param_excess:
+            param_excess, worst_key = excess, k
+        if k not in split and not all(torch.equal(g["own"][k], got[0]["own"][k]) for g in got):
+            raise AssertionError(f"model axis, adafactor: replicated {k} differs on the ranks")
+    launched = [g["launches"] / MA_FT_STEPS for g in got]
+    row = {"phase": "model_axis_adafactor", "card": card, "grid": [1, len(got)],
+           "batch": FT_BATCH, "steps": MA_FT_STEPS, "losses_one_process": one["losses"],
+           "losses_ranks": [g["losses"] for g in got], "loss_rel": loss_rel,
+           "worst_grad_rel": grad_rel, "worst_slot_rel": slot_rel, "worst_param_rel": param_rel,
+           "param_excess": param_excess, "worst_param_key": worst_key,
+           "split_leaves": len(split), "factored_split_leaves": len(split & got[0]["factored"]),
+           "pwconv1_split_and_factored": len(pw) - len(set(unfit)),
+           "dw_weight_grad_per_step_ranks": launched,
+           "dw_weight_grad_per_step_one_process": one["launches"] / MA_FT_STEPS,
+           "ms_per_step_one_process": one["ms_per_step"],
+           "ms_per_step_ranks": [g["ms_per_step"] for g in got]}
+    emit(row)
+    if not (len(pw) == 8 and not unfit and loss_rel < 1e-4 and grad_rel < 1e-3
+            and slot_rel < 1e-4 and param_excess <= 0.0 and all(n == 12 for n in launched)
+            and all(np.isfinite(g["losses"]).all() for g in got)):
+        raise AssertionError(f"model axis, adafactor: {row}, not split and factored: {unfit}")
+    return row
 
 
 def ma_steps(model, opt, batch, gen, grads_of=None) -> tuple[list, list]:
@@ -3130,7 +3273,8 @@ def ma_rank(rank: int, world: int, port: int, work: str) -> None:
     """Rank ``rank`` of :func:`phase_model_axis`: gloo, a (1, ``world``)
     grid on the inputs' device; each path's MA_STEPS AdamW steps (f32, TF32
     off) with its launches counted, its eager ms/step and the collectives'
-    time a step, one bf16 step, then ``dryrun_multichip``; writes them to
+    time a step, one bf16 step, then the classifier's Adafactor steps
+    (:func:`ma_adafactor`) and ``dryrun_multichip``; writes them to
     ``work/rank<r>.pt``."""
     import torch
     import torch.distributed as dist
@@ -3175,6 +3319,7 @@ def ma_rank(rank: int, world: int, port: int, work: str) -> None:
             res["collectives"] = ma_collective_ms(model, opt, batch, gen)
             del model, opt
         out[block_impl] = res
+    out["adafactor"] = ma_adafactor(inp, grid, dev)
     out["dryrun"] = dryrun_multichip(str(dev))
     torch.save(out, Path(work) / f"rank{rank}.pt")
     dist.barrier()
@@ -3196,9 +3341,11 @@ def phase_model_axis(card: str, device: str = "cuda:0", config: dict = MA_CONFIG
     magnitude: near 0 a difference of ulps moves its step by up to the lr);
     every replicated leaf bit-identical on the ranks; every launch key of
     the path's kernel rows counted on each rank (the kernels fed gathered
-    weights); a bf16 step a path finite; and ``dryrun_multichip`` through
-    the same ranks.  Prints ms/step of each grid eagerly and the
-    collectives' share of a step."""
+    weights); a bf16 step a path finite; the recipe's classifier under
+    Adafactor, its stage-2 and stage-3 ``pwconv1`` split and factored
+    (:func:`ma_adafactor_check`); and ``dryrun_multichip`` through the same
+    ranks.  Prints ms/step of each grid eagerly and the collectives' share
+    of a step."""
     import socket
 
     import numpy as np
@@ -3207,6 +3354,7 @@ def phase_model_axis(card: str, device: str = "cuda:0", config: dict = MA_CONFIG
 
     from mmearth_tpu_torch.configs import modalities as M
     from mmearth_tpu_torch.data.synthetic import synthetic_batch
+    from mmearth_tpu_torch.models.convnextv2 import ConvNeXtV2
     from mmearth_tpu_torch.models.fcmae import FCMAE
     from mmearth_tpu_torch.train.optim import AdamW
     from mmearth_tpu_torch.train.step import to_device
@@ -3229,7 +3377,18 @@ def phase_model_axis(card: str, device: str = "cuda:0", config: dict = MA_CONFIG
                 p.normal_(0.0, 0.5, generator=gen)
     sd = ref.state_dict()
     batch_np = synthetic_batch(n, cfg["img_size"], seed=1)
-    torch.save({"kw": kw, "sd": sd, "batch": batch_np, "device": device}, work / "inputs.pt")
+    ft = ConvNeXtV2(**MA_FT_KW, sparse=False)
+    ft.init_weights(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for name, p in ft.named_parameters():
+            if ".grn." in name:
+                p.normal_(0.0, 0.5, generator=gen)
+    size = MA_FT_KW["img_size"]
+    ft_inp = {"ft_kw": MA_FT_KW, "ft_sd": ft.state_dict(),
+              "ft_x": torch.randn(FT_BATCH, size, size, MA_FT_KW["in_chans"], generator=gen),
+              "ft_y": torch.randint(0, MA_FT_KW["num_classes"], (FT_BATCH,), generator=gen)}
+    torch.save({"kw": kw, "sd": sd, "batch": batch_np, "device": device, **ft_inp},
+               work / "inputs.pt")
     dev = torch.device(device)
     batch = to_device(batch_np, dev)
     one = {}
@@ -3249,6 +3408,7 @@ def phase_model_axis(card: str, device: str = "cuda:0", config: dict = MA_CONFIG
                            "ms_per_step": ma_timed_ms(model, opt, batch, g)}
         del model, opt
     del batch
+    one_ada = ma_adafactor(ft_inp, None, dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     with socket.socket() as sock:
@@ -3303,6 +3463,7 @@ def phase_model_axis(card: str, device: str = "cuda:0", config: dict = MA_CONFIG
             "ms_per_step_one_process": o["ms_per_step"],
             "ms_per_step_ranks": [g["ms_per_step"] for g in got],
             "collectives_ranks": [g["collectives"] for g in got]}
+    out["adafactor"] = ma_adafactor_check(card, ft_inp, one_ada, [r["adafactor"] for r in ranks])
     dry = [r["dryrun"] for r in ranks]
     if not (all(abs(d["loss"] - dry[0]["loss"]) <= 1e-5 * abs(dry[0]["loss"]) for d in dry)
             and np.isfinite(dry[0]["finetune_loss"]) and dry[0]["mesh"] == (world // 2, 2)):

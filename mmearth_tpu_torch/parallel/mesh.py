@@ -46,10 +46,12 @@ index names (:func:`shard_params`); everything else is replicated.  Then:
     of replicated leaves over every rank (which keeps the copies of a
     replicated leaf on the ranks of a model group bit-identical);
   * a norm counts each element once: a split leaf's sum of squares is
-    summed over the model group (``train/optim.py``);
-  * a checkpoint holds the whole leaves (:func:`gather_state`), and a
-    whole state is cut to the rank's slices when it is loaded
-    (:func:`place_state`).
+    summed over the model group, and so is the sum behind each of
+    Adafactor's means over a split dim (``train/optim.py``);
+  * a checkpoint holds the whole leaves and optimizer slots
+    (:func:`gather_state`, each slot glued along the dim the optimizer
+    records), and a whole state is cut to the rank's slices when it is
+    loaded (:func:`place_state`).
 
 ``create_mesh(W, 1, group)`` is the data axis alone: its data group is
 ``group`` itself, and every helper makes the calls it makes without a grid.
@@ -265,9 +267,10 @@ def all_reduce_grads(grads: Iterable[torch.Tensor], group, shards=None) -> None:
 @torch.no_grad()
 def broadcast_state(model: torch.nn.Module, opt=None, group=None) -> None:
     """Rank 0's params, buffers and optimizer state on every rank.  On a
-    grid (``group`` a :class:`Mesh`) the split leaves and their optimizer
-    state go from data index 0 over each data group, so that each rank
-    keeps its own shard; the rest from global rank 0 over every rank."""
+    grid (``group`` a :class:`Mesh`) the split leaves and the optimizer
+    tensors that ``opt`` records as split (``Optimizer.state_shards``) go
+    from data index 0 over each data group, so that each rank keeps its own
+    shard; the rest from global rank 0 over every rank."""
     mesh = as_mesh(group)
     if mesh.world is None:
         return
@@ -421,8 +424,8 @@ def shard_keys(model: torch.nn.Module) -> set[str]:
             if k in full and v.shape[0] != full[k]}
 
 
-def _slice(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    return t.chunk(mesh.model)[mesh.model_index].clone()
+def _slice(t: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
+    return t.chunk(mesh.model, dim)[mesh.model_index].clone()
 
 
 @torch.no_grad()
@@ -440,26 +443,22 @@ def shard_params(model: torch.nn.Module, group) -> torch.nn.Module:
     return model
 
 
-def _gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _gather(t: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(mesh.model)]
     dist.all_gather(parts, t.contiguous(), group=mesh.model_group)
-    return torch.cat(parts, 0)
+    return torch.cat(parts, dim)
 
 
-def _opt_shards(opt) -> dict[str, tuple]:
-    """name -> the shard's shape, of the optimizer's params that hold one."""
-    return {n: tuple(p.shape) for n, p, s in zip(opt.names, opt.params, opt.shards) if s}
-
-
-def _map_opt_state(state: Mapping, names: Mapping[str, tuple], fn) -> dict:
-    """``state`` (``Optimizer.state_dict``) with ``fn`` applied to each slot
-    tensor of the params in ``names`` whose shape is ``names[param]``
-    (NovoGrad's per-tensor norm, a scalar, stays as it is)."""
+def _map_opt_state(state: Mapping, dims: Mapping[str, Mapping[str, int]], fn) -> dict:
+    """``state`` (``Optimizer.state_dict``) with ``fn(tensor, dim)`` applied
+    to each tensor that ``dims`` (``Optimizer.state_split_dims``) names a
+    split dim of; every other tensor (a replicated leaf's, a slot reduced
+    over the split dim, NovoGrad's per-tensor norm) stays as it is."""
     out = dict(state)
     for key, per_name in state.items():
         if isinstance(per_name, Mapping):
-            out[key] = {n: fn(t) if n in names and tuple(t.shape) == names[n] else t
-                        for n, t in per_name.items()}
+            split = dims.get(key, {})
+            out[key] = {n: fn(t, split[n]) if n in split else t for n, t in per_name.items()}
     return out
 
 
@@ -477,7 +476,8 @@ def gather_state(model: torch.nn.Module, opt, group) -> tuple[dict, Optional[dic
     sd = {k: _gather(v, mesh) if k in split else v for k, v in sd.items()}
     if opt is None:
         return sd, None
-    return sd, _map_opt_state(opt.state_dict(), _opt_shards(opt), lambda t: _gather(t, mesh))
+    return sd, _map_opt_state(opt.state_dict(), opt.state_split_dims(),
+                              lambda t, dim: _gather(t, mesh, dim))
 
 
 def shard_state(sd: Mapping[str, torch.Tensor], model: torch.nn.Module, group) -> dict:
@@ -493,10 +493,11 @@ def place_state(model: torch.nn.Module, opt, group, model_sd: Mapping,
                 opt_state: Optional[Mapping] = None) -> None:
     """Load a whole state (a checkpoint of any grid, :func:`gather_state`)
     into a model split over the grid and its optimizer: each split leaf,
-    and its optimizer state (Adam's mu and nu, each family's own slots, the
+    and each optimizer tensor that ``opt`` records as split (Adam's mu and
+    nu, each family's own slots, Adafactor's along the dim each keeps, the
     accumulated gradient), as this rank's slice (JAX ``place_state``)."""
     mesh = as_mesh(group)
     model.load_state_dict(shard_state(model_sd, model, mesh))
     if opt is not None and opt_state is not None:
-        whole = {n: (s[0] * mesh.model, *s[1:]) for n, s in _opt_shards(opt).items()}
-        opt.load_state_dict(_map_opt_state(opt_state, whole, lambda t: _slice(t, mesh)))
+        opt.load_state_dict(_map_opt_state(opt_state, opt.state_split_dims(),
+                                           lambda t, dim: _slice(t, mesh, dim)))

@@ -139,21 +139,24 @@ def family(opt: str) -> str:
     return FAMILIES[o]
 
 
-def flax_axes(p: torch.Tensor) -> tuple[int, ...]:
-    """The param's axes in the JAX package's layout order: a Linear's (out,
-    in) is flax's (in, out), a conv's OIHW flax's HWIO."""
-    return {2: (1, 0), 4: (2, 3, 1, 0)}.get(p.ndim, tuple(range(p.ndim)))
+def flax_axes(ndim: int) -> tuple[int, ...]:
+    """The port's axes of a param of ``ndim`` dims in the JAX package's
+    layout order: a Linear's (out, in) is flax's (in, out), a conv's OIHW
+    flax's HWIO."""
+    return {2: (1, 0), 4: (2, 3, 1, 0)}.get(ndim, tuple(range(ndim)))
 
 
-def factored_dims(p: torch.Tensor, min_dim: int = ADAFACTOR["min_dim_size_to_factor"]):
-    """optax ``_factored_dims`` on the flax layout, as the port's axes: (d1,
-    d0), the second largest and the largest dim (ties broken in flax's
-    order), or None where the second is under ``min_dim``."""
-    if p.ndim < 2:
+def factored_dims(shape: Sequence[int], min_dim: int = ADAFACTOR["min_dim_size_to_factor"]):
+    """optax ``_factored_dims`` of a leaf of the port's ``shape`` (the whole
+    leaf's, where a rank holds a shard) in the flax layout, as the port's
+    axes: (d1, d0), the second largest and the largest dim (ties broken in
+    flax's order), or None where the second is under ``min_dim``."""
+    shape = tuple(shape)
+    if len(shape) < 2:
         return None
-    axes = flax_axes(p)
-    order = np.argsort([p.shape[a] for a in axes])
-    if p.shape[axes[order[-2]]] < min_dim:
+    axes = flax_axes(len(shape))
+    order = np.argsort([shape[a] for a in axes])
+    if shape[axes[order[-2]]] < min_dim:
         return None
     return axes[order[-2]], axes[order[-1]]
 
@@ -184,8 +187,12 @@ class Optimizer:
     averaged over the data group and the rest over every rank; their state
     slots are the shard's; and the clip's global norm and the per-tensor
     norms of LAMB and NovoGrad sum their squares over the model group, so
-    each element counts once.  Adafactor, whose factored statistics would
-    need the same sums, is refused on a model axis."""
+    each element counts once.  Adafactor chooses its factored dims on the
+    whole leaf (dim 0 times the model size) and takes every mean over the
+    split dim as the shard's sum summed over the model group, so each rank
+    computes its slice of what optax computes on the whole leaf; each slot
+    records the dim it is split on (:attr:`split`), which
+    ``parallel/mesh.py`` cuts, glues and broadcasts along."""
 
     def __init__(self, named_params, lr_schedule: Callable[[int], float],
                  weight_decay: float = 0.05, betas: tuple[float, float] = (0.9, 0.95),
@@ -198,23 +205,30 @@ class Optimizer:
         if self.mesh.model > 1 and shards is None:
             raise ValueError("a model axis needs the names of the params that hold a shard "
                              "(shards=mesh.shard_keys(model))")
-        if self.mesh.model > 1 and self.opt == "adafactor":
-            raise ValueError("--opt adafactor is not supported on a model axis of size > 1: its "
-                             "factored statistics of a split leaf are not summed over the model "
-                             "group")
         named = [(n, p) for n, p in named_params if p.requires_grad]
         decay = pretrain_wd_mask(named) if wd_mask is None else wd_mask
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.decay = [decay[n] for n, _ in named]
         self.shards = [n in (shards or ()) for n, _ in named]
+        if any(self.shards) and self.mesh.model == 1:
+            raise ValueError("params flagged as shards without a model axis: their whole "
+                             "leaves are unknown")
+        # each param's factored dims (Adafactor), chosen on the whole leaf: a
+        # shard's dim 0 times the model size
+        self.factored = [factored_dims((p.shape[0] * self.mesh.model, *p.shape[1:]) if s
+                                       else p.shape) if self.opt == "adafactor" else None
+                         for p, s in zip(self.params, self.shards)]
         self.scales = None if lr_scales is None else [lr_scales[n] for n, _ in named]
         self.lr_schedule = lr_schedule
         self.weight_decay, self.betas, self.eps = weight_decay, betas, eps
         self.momentum = momentum
         self.update_freq, self.clip_grad = update_freq, clip_grad
-        self.slots = {key: [self._slot(key, p) for p in self.params]
+        self.slots = {key: [self._slot(key, p, f) for p, f in zip(self.params, self.factored)]
                       for key in SLOTS[self.opt]}
+        # each slot's split dim (None: whole on every rank)
+        self.split = {key: [self._slot_split(key, s, f) for s, f in zip(self.shards, self.factored)]
+                      for key in self.slots}
         self.acc = [torch.zeros_like(p) for p in self.params] if update_freq > 1 else None
         self.count = 0  # applied updates
         self.mini_step = 0
@@ -223,19 +237,31 @@ class Optimizer:
         self.hyper = torch.zeros(len(self._hyper(0)), dtype=torch.float32,
                                  device=self.params[0].device if self.params else None)
 
-    def _slot(self, key: str, p: torch.Tensor) -> torch.Tensor:
+    def _slot(self, key: str, p: torch.Tensor, dims) -> torch.Tensor:
         if self.opt == "novograd" and key == "nu":
             return torch.zeros((), dtype=p.dtype, device=p.device)  # a norm a tensor
         if self.opt == "adafactor":
-            dims = factored_dims(p)
             if dims is None:
                 return torch.zeros_like(p) if key == "v" else p.new_zeros(1)
             d1, d0 = dims
             drop = {"v_row": d0, "v_col": d1}.get(key)
             if drop is None:
                 return p.new_zeros(1)
+            # the shard's dims but the one reduced away: a split dim kept is the shard's
             return p.new_zeros([n for i, n in enumerate(p.shape) if i != drop])
         return torch.zeros_like(p)
+
+    def _slot_split(self, key: str, shard: bool, dims) -> int | None:
+        """The dim a slot of a split leaf is split on (the param's dim 0,
+        where the slot keeps it), else None."""
+        if not shard or (self.opt == "novograd" and key == "nu"):
+            return None
+        if self.opt == "adafactor":
+            if dims is None:
+                return 0 if key == "v" else None
+            kept = {"v_row": dims[1] != 0, "v_col": dims[0] != 0}.get(key, False)
+            return 0 if kept else None
+        return 0
 
     @property
     def mu(self):
@@ -252,10 +278,19 @@ class Optimizer:
 
     def state_shards(self) -> list[bool]:
         """For each of :meth:`state_tensors`, whether it is a shard: the
-        params that hold one, and their slots of the param's shape."""
-        slots = [s and t.shape == p.shape for ts in self.slots.values()
-                 for t, p, s in zip(ts, self.params, self.shards)]
+        params that hold one, the slots :attr:`split` records a dim of, and
+        their accumulated gradients."""
+        slots = [d is not None for ds in self.split.values() for d in ds]
         return [*self.shards, *slots, *(self.shards if self.acc is not None else [])]
+
+    def state_split_dims(self) -> dict[str, dict[str, int]]:
+        """For each key of :meth:`state_dict` that holds a tensor a param,
+        the params whose tensor there is a shard and the dim it is split on."""
+        out = {key: {n: d for n, d in zip(self.names, ds) if d is not None}
+               for key, ds in self.split.items()}
+        if self.acc is not None:
+            out["acc"] = {n: 0 for n, s in zip(self.names, self.shards) if s}
+        return out
 
     def _sum_sq(self, t: torch.Tensor, shard: bool) -> torch.Tensor:
         """``t``'s sum of squares, over the whole leaf where ``t`` is a shard
@@ -464,21 +499,32 @@ class Optimizer:
         scaled = [g / (v.sqrt() + self.eps) for g, v in zip(grads, nu)]
         return self._trace(scaled, nesterov=False)
 
+    def _mean(self, x: torch.Tensor, dim: int, split: int | None,
+              keepdim: bool = False) -> torch.Tensor:
+        """``x``'s mean over ``dim`` of the whole leaf: over the split dim,
+        the shard's sum (f32) summed over the model group over the whole
+        width."""
+        if dim != split:
+            return x.mean(dim=dim, keepdim=keepdim)
+        total = sum_(x.float().sum(dim=dim, keepdim=keepdim), self.mesh.model_group)
+        return (total / (x.shape[dim] * self.mesh.model)).to(x.dtype)
+
     def _adafactor(self, grads, hyper, dec):
         decay, eps, out = hyper[1], ADAFACTOR["epsilon"], []
-        for g, p, v_row, v_col, v in zip(grads, self.params, *(self.slots[k] for k in
-                                                               ("v_row", "v_col", "v"))):
+        for i, (g, dims) in enumerate(zip(grads, self.factored)):
+            v_row, v_col, v = (self.slots[k][i] for k in ("v_row", "v_col", "v"))
             sq = g * g + eps
-            dims = factored_dims(p)
             if dims is None:
                 v.mul_(decay).add_((1 - decay) * sq)
                 out.append(g * v.rsqrt())
                 continue
             d1, d0 = dims
-            v_row.mul_(decay).add_((1 - decay) * sq.mean(dim=d0))
-            v_col.mul_(decay).add_((1 - decay) * sq.mean(dim=d1))
+            split = 0 if self.shards[i] else None
+            v_row.mul_(decay).add_((1 - decay) * self._mean(sq, d0, split))
+            v_col.mul_(decay).add_((1 - decay) * self._mean(sq, d1, split))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+            row_mean = self._mean(v_row, reduced_d1, self.split["v_row"][i], keepdim=True)
+            row_factor = (v_row / row_mean).rsqrt()
             out.append(g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1))
         return out
 

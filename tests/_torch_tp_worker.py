@@ -23,7 +23,8 @@ from mmearth_tpu_torch.models.fcmae import FCMAE
 from mmearth_tpu_torch.models.unet import ConvNeXtV2Unet
 from mmearth_tpu_torch.parallel import mesh
 from mmearth_tpu_torch.train.finetune import finetune_step
-from mmearth_tpu_torch.train.optim import AdamW, Optimizer, finetune_wd_mask, layer_lr_scales
+from mmearth_tpu_torch.train.optim import (AdamW, Optimizer, factored_dims, finetune_wd_mask,
+                                           layer_lr_scales)
 from mmearth_tpu_torch.train.step import ChainedStep, fold_in, pretrain_step
 
 # (sparse_impl, block_impl) of the pretraining steps held against JAX
@@ -31,6 +32,10 @@ CASES = (("gathered", "auto"), ("gathered", "wholeblock"), ("masked_dense", "fus
          ("gathered", "remat"), ("gathered", "folded"))
 FAMILIES = ("adamw", "lamb", "novograd")  # the classifier step's; LAMB and NovoGrad take norms
 STEPS = (("batch", "mask"), ("batch2", "mask2"))
+# the Adafactor leaf cases: (grid, update_freq), three updates each
+LEAF_CASES = (("2x2", 1), ("1x4", 1), ("2x2", 2))
+ADA_BATCHES = (("cls_x", "cls_y"), ("ada_x2", "ada_y2"))  # the Adafactor classifier's steps
+ADA_SLOTS = ("v_row", "v_col", "v")
 
 
 def rows(x, grid: mesh.Mesh):
@@ -171,6 +176,94 @@ def classifier(inp, grid) -> dict:
     return out
 
 
+def leaf_module() -> torch.nn.Module:
+    """The leaves of the Adafactor cases, by the keys the sharding rule
+    reads: ``a.pwconv1`` (flax (128, 512): split on optax's d0), ``b.proj``
+    ((512, 256): split on d1), ``c.pred_x`` ((256, 384): factored whole, not
+    as a shard of four), ``d.pred_y`` (a 1x1 conv, HWIO (1, 1, 128, 256)),
+    their biases, and a replicated ``e.fc`` ((160, 160))."""
+    lin, mods = torch.nn.Linear, torch.nn.ModuleDict
+    return mods({"a": mods({"pwconv1": lin(128, 512)}), "b": mods({"proj": lin(512, 256)}),
+                 "c": mods({"pred_x": lin(256, 384)}),
+                 "d": mods({"pred_y": torch.nn.Conv2d(128, 256, 1)}),
+                 "e": mods({"fc": lin(160, 160)})})
+
+
+def adafactor_opt(model, grid, lr, update_freq=1, **kw) -> Optimizer:
+    named = list(model.named_parameters())
+    return Optimizer(named, lambda count: lr, 0.3, update_freq=update_freq,
+                     wd_mask=finetune_wd_mask(named), opt="adafactor", process_group=grid,
+                     shards=mesh.shard_keys(model), **kw)
+
+
+def leaves(inp, grid, update_freq: int) -> dict:
+    """Three Adafactor updates of the leaves (weight decay 0.3) on the
+    whole gradients of ``inp``, each rank taking its slices: the whole
+    params and optimizer state (``gather_state``), the split keys, and
+    whether each leaf is factored on the whole leaf and as its shard."""
+    model = leaf_module()
+    model.load_state_dict(inp["leaf_sd"])
+    model = mesh.shard_params(model, grid)
+    split = mesh.shard_keys(model)
+    opt = adafactor_opt(model, grid, inp["leaf_lr"], update_freq)
+    for g in inp["leaf_grads"][:3 * update_freq]:
+        for k, p in model.named_parameters():
+            whole = g[k]
+            p.grad = (whole.chunk(grid.model)[grid.model_index] if k in split else whole).clone()
+        opt.step()
+    sd, opt_sd = mesh.gather_state(model, opt, grid)
+    return {"sd": sd, "opt": opt_sd, "split": split,
+            "factored": {n: f is not None for n, f in zip(opt.names, opt.factored)},
+            "shard_factored": {n: factored_dims(p.shape) is not None
+                               for n, p in zip(opt.names, opt.params)},
+            "count": opt.count}
+
+
+def adafactor_classifier(inp, grid, steps=ADA_BATCHES, restore=None, save=None) -> dict:
+    """The classifier at ``inp["ada_kw"]``'s widths under Adafactor (layer
+    decay 0.9, weight decay 0.3, clip 1.0) on ``grid`` (None: one process on
+    the whole batch), from ``inp["ada_sd"]`` or restored from the ``.pth``
+    ``restore``: each step's loss, whole gradients, whole params and
+    optimizer state; rank 0 writes each step's checkpoint to ``save``."""
+    model = ConvNeXtV2(**inp["ada_kw"], sparse=False)
+    model.load_state_dict(inp["ada_sd"])
+    model = mesh.shard_params(model, grid)
+    named = list(model.named_parameters())
+    opt = adafactor_opt(model, grid, inp["cls_lr"], clip_grad=1.0,
+                        lr_scales=layer_lr_scales(named, 0.9, inp["ada_kw"]["depths"]))
+    if restore is not None:
+        pth_io.restore(restore, model, opt, mesh=grid)
+    g = mesh.as_mesh(grid)
+    out = {"losses": [], "grads": [], "whole": [], "opt": [], "split": mesh.shard_keys(model),
+           "factored": {n: f is not None for n, f in zip(opt.names, opt.factored)}}
+    for i, (x, y) in enumerate(steps):
+        loss = finetune_step(model, opt, {"input": rows(inp[x], g), "label": rows(inp[y], g)},
+                             criterion_fn("m-eurosat", 0.2), None)
+        out["losses"].append(float(mesh.mean(loss, g.data_group)))
+        out["grads"].append(whole_grads(model, g))
+        sd, opt_sd = mesh.gather_state(model, opt, grid)
+        sd = {k: v.clone() for k, v in sd.items()}  # one process's are the live tensors
+        opt_sd = {k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v
+                  for k, v in opt_sd.items()}
+        out["whole"].append(sd)
+        out["opt"].append(opt_sd)
+        if save is not None and mesh.rank(grid) == 0:
+            pth_io.save_checkpoint(save, i, sd, opt_sd, {}, keep=0)
+    out["count"] = opt.count
+    return out
+
+
+def adafactor(inp, grid22, grid14, root: Path) -> dict:
+    """The Adafactor cases: the leaves at each of LEAF_CASES; the
+    classifier's two steps at (2, 2), rank 0 saving them to ``ada22``; (1, 4)
+    resumed from the one-process run's file after its first step."""
+    grids = {"2x2": grid22, "1x4": grid14}
+    return {"leaves": {c: leaves(inp, grids[c[0]], c[1]) for c in LEAF_CASES},
+            "classifier": adafactor_classifier(inp, grid22, save=root / "ada22"),
+            "resume": adafactor_classifier(inp, grid14, ADA_BATCHES[1:],
+                                           restore=inp["ada_pth1"])}
+
+
 def unet(inp, grid) -> dict:
     """One U-Net step with drop path at (2, 2): its encoder Blocks' pwconv1 split."""
     model = ConvNeXtV2Unet(**inp["unet_kw"])
@@ -187,14 +280,20 @@ def unet(inp, grid) -> dict:
 
 def broadcast(inp, grid, r: int) -> dict:
     """Each rank's params and Adam mu moved by its rank, then
-    ``broadcast_state``: what each rank holds after it."""
+    ``broadcast_state``: what each rank holds after it; the same for the
+    Adafactor leaves' slots."""
     model = fcmae(inp, grid)
     opt = adamw(model, inp, grid)
+    leaf = mesh.shard_params(leaf_module(), grid)
+    ada = adafactor_opt(leaf, grid, inp["leaf_lr"])
     with torch.no_grad():
-        for t in opt.state_tensors():
+        for t in (*opt.state_tensors(), *ada.state_tensors()):
             t.add_(r)
     mesh.broadcast_state(model, opt, grid)
-    return {"own": own(model), "mu": dict(zip(opt.names, (t.clone() for t in opt.mu)))}
+    mesh.broadcast_state(leaf, ada, grid)
+    return {"own": own(model), "mu": dict(zip(opt.names, (t.clone() for t in opt.mu))),
+            "adafactor": {k: dict(zip(ada.names, (t.clone() for t in ada.slots[k])))
+                          for k in ADA_SLOTS}}
 
 
 def calls(inp, group) -> dict:
@@ -244,7 +343,8 @@ def run(rank: int, world: int, port: int, case_dir: str) -> None:
     out = {"grid22": grid22[3:], "grid14": grid14[3:],
            "pretrain": pretrain(inp, grid22, grid14, root), "resume": resume(inp, grid22),
            "chained": chained(inp, grid22), "classifier": classifier(inp, grid22),
-           "unet": unet(inp, grid22), "broadcast": broadcast(inp, grid22, rank),
+           "unet": unet(inp, grid22), "adafactor": adafactor(inp, grid22, grid14, root),
+           "broadcast": broadcast(inp, grid22, rank),
            "calls": calls(inp, group), "dryrun": dryrun_multichip("cpu")}
     torch.save(out, root / f"rank{rank}.pt")
     dist.barrier()

@@ -58,12 +58,13 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _classifier(padding_mode="same", patch_size=8, seed=0, use_orig_stem=False):
+def _classifier(padding_mode="same", patch_size=8, seed=0, use_orig_stem=False,
+                head_init_scale=0.5):
     """The port's classifier and the same weights as a JAX param tree (GRN
     affines randomized: they init to zero, which hides GRN bugs)."""
     kw = dict(patch_size=patch_size, img_size=56, in_chans=12, depths=DEPTHS, dims=DIMS,
               use_orig_stem=use_orig_stem)
-    tm = ConvNeXtV2(**kw, sparse=False, num_classes=NCLS, head_init_scale=0.5,
+    tm = ConvNeXtV2(**kw, sparse=False, num_classes=NCLS, head_init_scale=head_init_scale,
                     padding_mode=padding_mode)
     tm.init_weights(torch.Generator().manual_seed(seed))
     # copies: a JAX array made from a numpy view may alias the torch param's

@@ -9,6 +9,14 @@ depthwise conv kernel (see ``test_pretrain_steps_match_jax_mesh_2x2``), so
 gradients and updates are held against its (4, 1) mesh, losses against
 both.
 
+Adafactor on the grid (``tests/_torch_tp_worker.py::leaves`` and
+``adafactor_classifier``): leaves whose whole shape, not the shard's,
+decides the factoring (optax's ``scale_by_factored_rms`` on the whole
+leaves, one JAX device), the classifier at widths 16-128 (stage 3's
+``pwconv1`` split and factored; the loss against JAX's (4, 1) mesh, the
+rest against the port's one process), its ``.pth`` at (2, 2) and a (1, 4)
+resume of the one-process file, and ``broadcast_state`` of its slots.
+
 The model is ``tests/test_model_axis.py``'s mini FCMAE (32 px, patch 8,
 depths 1/1/1/1, dims 8-64, decoder 32, ``sentinel2`` + ``biome`` heads):
 at model 2 it splits every ``pwconv1``, ``proj`` and both heads; at model 4
@@ -33,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+from optax._src import factorized
 import torch
 import torch.multiprocessing as mp
 
@@ -76,6 +85,18 @@ UNET_LR = 1e-3
 NORM_FAMILIES = ("lamb", "novograd")  # the families whose update takes a norm a leaf
 UNET_KW = dict(patch_size=8, img_size=32, in_chans=12, num_classes=4, depths=DEPTHS,
                dims=DIMS, drop_path_rate=0.3)
+# the Adafactor classifier: stage 3's pwconv1 (flax (128, 512)) is factored
+ADA_KW = {**CLS_KW, "dims": (16, 32, 64, 128)}
+LEAF_LR, LEAF_RTOL = 1e-2, 1e-5
+# the Adafactor leaves (``worker.leaf_module``): flax name and kernel shape
+LEAF_SHAPES = {"a": ("pwconv1", (128, 512)), "b": ("proj", (512, 256)),
+               "c": ("pred_x", (256, 384)), "d": ("pred_y", (1, 1, 128, 256)),
+               "e": ("fc", (160, 160))}
+# which of their slots are a shard at (2, 2): v_col where the split dim
+# is optax's d0 (it keeps it), v_row where it is d1, v of an unfactored split leaf
+LEAF_SPLIT = {"v_row": {"b.proj.weight"},
+              "v_col": {"a.pwconv1.weight", "c.pred_x.weight", "d.pred_y.weight"},
+              "v": {f"{k}.bias" for k in ("a.pwconv1", "b.proj", "c.pred_x", "d.pred_y")}}
 
 
 def _free_port() -> int:
@@ -93,10 +114,29 @@ def _random_grn(model, rng):
     return model
 
 
+def _flax_leaves(rng) -> dict:
+    return {a: {m: {"kernel": (0.1 * rng.normal(size=shape)).astype(np.float32),
+                    "bias": (0.1 * rng.normal(size=shape[-1:])).astype(np.float32)}}
+            for a, (m, shape) in LEAF_SHAPES.items()}
+
+
+def _port_leaves(tree) -> dict:
+    """A flax tree of the leaves as the port's state dict: a Linear's kernel
+    transposed, a conv's HWIO as OIHW."""
+    out = {}
+    for a, (m, _) in LEAF_SHAPES.items():
+        k = np.asarray(tree[a][m]["kernel"])
+        k = k.T if k.ndim == 2 else k.transpose(3, 2, 0, 1)
+        out[f"{a}.{m}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
+        out[f"{a}.{m}.bias"] = torch.from_numpy(np.array(tree[a][m]["bias"]))
+    return out
+
+
 def _inputs(rng, root):
     """The port's weights (GRN affines and uncertainty weights made
-    non-trivial), the batches and masks, the classifier's and the U-Net's;
-    and JAX's classifier."""
+    non-trivial), the batches and masks, the classifier's and the U-Net's,
+    the Adafactor leaves and their gradients; and JAX's two classifiers and
+    the leaves and gradients as flax trees."""
     tm = _random_grn(tfc.FCMAE(**KW).init_weights(torch.Generator().manual_seed(0)), rng)
     with torch.no_grad():
         tm.loss_fn.log_vars.copy_(torch.linspace(-0.5, 0.5, 2))
@@ -109,6 +149,14 @@ def _inputs(rng, root):
     unet = ConvNeXtV2Unet(**UNET_KW)
     unet.init_weights(torch.Generator().manual_seed(2))
     _random_grn(unet, rng)
+    ada = ConvNeXtV2(**ADA_KW, sparse=False)
+    ada.init_weights(torch.Generator().manual_seed(6))
+    leaf_rng = np.random.default_rng(1)
+    _random_grn(ada, leaf_rng)
+    flax_leaves = _flax_leaves(leaf_rng)
+    flax_grads = [_flax_leaves(leaf_rng) for _ in range(6)]
+    jax_in = {"cls": cls, "ada": jcnx.ConvNeXtV2(**ADA_KW, sparse=False), "leaves": flax_leaves,
+              "leaf_grads": flax_grads}
     return dict(kw=KW, sd=tm.state_dict(), batch=pick(synthetic_batch(N, 32, seed=3)),
                 batch2=pick(synthetic_batch(N, 32, seed=4)),
                 mask=random_mask(rng, N, 16, keep), mask2=random_mask(rng, N, 16, keep),
@@ -119,7 +167,12 @@ def _inputs(rng, root):
                 unet_kw=UNET_KW, unet_sd=unet.state_dict(), unet_lr=UNET_LR,
                 seg_x=rng.normal(size=(N, 32, 32, 12)).astype(np.float32),
                 seg_y=rng.integers(0, 4, size=(N, 32, 32)).astype(np.int64),
-                pth1=str(root / "one" / "checkpoint-0.pth")), cls
+                pth1=str(root / "one" / "checkpoint-0.pth"),
+                leaf_sd=_port_leaves(flax_leaves), leaf_grads=[_port_leaves(g) for g in flax_grads],
+                leaf_lr=LEAF_LR, ada_kw=ADA_KW, ada_sd=ada.state_dict(),
+                ada_x2=leaf_rng.normal(size=(N, 32, 32, 12)).astype(np.float32),
+                ada_y2=leaf_rng.integers(0, 10, size=(N,)).astype(np.int64),
+                ada_pth1=str(root / "ada_one" / "checkpoint-0.pth")), jax_in
 
 
 def _grads(model) -> dict:
@@ -168,6 +221,7 @@ def _one_process(inp, root) -> dict:
         model, loss = worker.classifier_step(inp, None, family)
         out["classifier"][family] = {"loss": loss, "grads": [_grads(model)],
                                      "sd": model.state_dict()}
+    out["adafactor"] = worker.adafactor_classifier(inp, None, save=root / "ada_one")
     return out
 
 
@@ -177,12 +231,12 @@ def runs(tmp_path_factory):
     the four ranks, which run while JAX computes the references here."""
     rng = np.random.default_rng(0)
     root = tmp_path_factory.mktemp("torch_tp")
-    inp, jcls = _inputs(rng, root)
+    inp, jax_in = _inputs(rng, root)
     one = _one_process(inp, root)
     torch.save(inp, root / "inputs.pt")
     ctx = mp.spawn(worker.run, args=(WORLD, _free_port(), str(root)), nprocs=WORLD, join=False)
     try:
-        refs = _jax_refs(inp, jcls)
+        refs = _jax_refs(inp, jax_in)
     finally:
         while not ctx.join():
             pass
@@ -190,11 +244,63 @@ def runs(tmp_path_factory):
     return inp, refs, one, ranks, root
 
 
-def _jax_refs(inp, jcls) -> dict:
+def _factored_state(state):
+    """The ``scale_by_factored_rms`` state inside an optax chain's state."""
+    if hasattr(state, "v_row"):
+        return state
+    for s in state if isinstance(state, tuple) else ():
+        found = _factored_state(s)
+        if found is not None:
+            return found
+    return None
+
+
+def _port_slot(a: np.ndarray, flax_shape: tuple, slot: str) -> torch.Tensor:
+    """An optax Adafactor slot of a leaf of ``flax_shape`` in the port's
+    layout: v_row without optax's d0, v_col without its d1, a param-shaped
+    v, each remaining axis carried as the param's; a (1,) placeholder as
+    it is."""
+    dims = factorized._factored_dims(flax_shape, True, 128)
+    if (dims is None) != (slot == "v"):
+        return torch.from_numpy(np.array(a))
+    nd = len(flax_shape)
+    drop = None if dims is None else (dims[1] if slot == "v_row" else dims[0])
+    kept = [f for f in range(nd) if f != drop]
+    order = [f for f in {1: (0,), 2: (1, 0), 4: (3, 2, 0, 1)}[nd] if f != drop]
+    return torch.from_numpy(np.array(np.transpose(a, [kept.index(f) for f in order])))
+
+
+def _leaf_refs(jax_in) -> dict:
+    """optax's Adafactor (``make_finetune_optimizer``, weight decay 0.3) on
+    the whole leaves, by update_freq: three updates' params and slots, in
+    the port's layout."""
+    out = {}
+    for update_freq in (1, 2):
+        params = jax.tree_util.tree_map(jnp.asarray, jax_in["leaves"])
+        tx = joptim.make_finetune_optimizer(params, lambda c: LEAF_LR, 0.3, opt="adafactor",
+                                            update_freq=update_freq)
+        state, update = tx.init(params), jax.jit(tx.update)
+        for g in jax_in["leaf_grads"][:3 * update_freq]:
+            upd, state = update(jax.tree_util.tree_map(jnp.asarray, g), state, params)
+            params = optax.apply_updates(params, upd)
+        fs = _factored_state(state)
+        slots = {}
+        for slot in worker.ADA_SLOTS:
+            tree = np_tree(getattr(fs, slot))
+            slots[slot] = {f"{a}.{m}.{'weight' if leaf == 'kernel' else 'bias'}":
+                           _port_slot(tree[a][m][leaf], jax_in["leaves"][a][m][leaf].shape, slot)
+                           for a, (m, _) in LEAF_SHAPES.items() for leaf in ("kernel", "bias")}
+        out[update_freq] = {"sd": _port_leaves(np_tree(params)), "slots": slots}
+    return out
+
+
+def _jax_refs(inp, jax_in) -> dict:
     """JAX on its (2, 2) mesh and on the pure data mesh (4, 1) of the same
     four devices: the mini FCMAE's two AdamW steps (losses, each step's
-    gradients, params); and on the (4, 1) mesh the classifier's finetune
-    step (loss, gradients, params)."""
+    gradients, params); on the (4, 1) mesh the classifier's finetune step
+    (loss, gradients, params) and the Adafactor classifier's loss; and
+    optax's Adafactor on the whole leaves."""
+    jcls = jax_in["cls"]
     meshes = {"2x2": jmesh.create_mesh(data=2, model=2, devices=jax.devices()[:WORLD]),
               "4x1": jmesh.create_mesh(data=4, model=1, devices=jax.devices()[:WORLD])}
     params0 = jax.tree_util.tree_map(jnp.asarray, jtc.torch_fcmae_to_flax(
@@ -240,6 +346,14 @@ def _jax_refs(inp, jcls) -> dict:
     refs["classifier"] = {"loss": float(metrics["loss"]),
                           "grads": [from_jax_classifier(np_tree(g), DEPTHS)],
                           "sd": from_jax_classifier(np_tree(ft_state.params), DEPTHS)}
+    ap = jmesh.shard_params(jax.tree_util.tree_map(jnp.asarray, jtc.torch_encoder_to_flax(
+        {k: v.numpy() for k, v in inp["ada_sd"].items()}, DEPTHS, include_head=True)), mesh)
+    atx = joptim.make_finetune_optimizer(ap, lambda c: CLS_LR, 0.3, (0.9, 0.999), 0.9,
+                                         depths=DEPTHS, clip_grad=1.0, opt="adafactor")
+    _, metrics = jax.jit(make_finetune_step(jax_in["ada"], criterion, False))(
+        TrainState.create(ap, atx), xy, jax.random.PRNGKey(0))
+    refs["adafactor_classifier"] = {"loss": float(metrics["loss"])}
+    refs["leaves"] = _leaf_refs(jax_in)
     return refs
 
 
@@ -260,27 +374,65 @@ def _adam_moves(grads, lr, betas, eps=1e-8):
     return move
 
 
-def _close_updated(got, ref, got_grads, ref_grads, what, lr=LR, betas=BETAS, clip=None):
+def _jax_factored(shape):
+    """optax's factored dims (d1, d0) of a leaf of the port's ``shape``, as
+    the port's axes, or None."""
+    axes = {2: (1, 0), 4: (2, 3, 1, 0)}.get(len(shape), tuple(range(len(shape))))
+    dims = factorized._factored_dims(tuple(shape[a] for a in axes), True, 128)
+    return None if dims is None else (axes[dims[0]], axes[dims[1]])
+
+
+def _adafactor_moves(grads, lr, dims, decay_rate=0.8, eps=1e-30):
+    """Each element's total Adafactor displacement over the steps of
+    ``grads`` (whole leaves, the port's layout), in f64: optax's factored
+    statistics over ``dims`` (d1, d0), or the per-element ones where None,
+    whose step is ~ sign(g) * lr as Adam's first is."""
+    v_row = v_col = v = move = 0.0
+    for t, g in enumerate(grads, 1):
+        decay = 1.0 - t ** -decay_rate
+        sq = g * g + eps
+        if dims is None:
+            v = decay * v + (1 - decay) * sq
+            move = move + lr * g / np.sqrt(v)
+            continue
+        d1, d0 = dims
+        v_row = decay * v_row + (1 - decay) * sq.mean(axis=d0)
+        v_col = decay * v_col + (1 - decay) * sq.mean(axis=d1)
+        row = v_row / v_row.mean(axis=d1 - 1 if d1 > d0 else d1, keepdims=True)
+        move = move + lr * g / np.sqrt(np.expand_dims(row, d0) * np.expand_dims(v_col, d1))
+    return move
+
+
+def _close_updated(got, ref, got_grads, ref_grads, what, lr=LR, betas=BETAS, clip=None,
+                   start=None):
     """Params after AdamW steps against a reference's: each within 1e-4 of
     its tensor's scale plus how far apart Adam's steps on the two sides'
     own gradients (held to each other separately) put it.  Adam divides by
     the gradient's own magnitude, so where a gradient lies near its sums'
     f32 noise or near Adam's eps, a difference far inside the gradients'
     tolerance moves its step anywhere in [-lr, lr].  ``clip``: the steps'
-    gradients clipped by their global norm first."""
+    gradients clipped by their global norm first.  With ``start`` (the
+    params before the steps) the steps are Adafactor's, the finetune
+    weight decay 0.3 added to the gradients of the decayed params."""
     assert got, what
     # the port's own gradients are by param name: a state dict's other
     # names of FCMAE's shared decoder hold the same tensors
     got = {k: v for k, v in got.items()
            if k in got_grads[0] or not k.startswith("decoder_dict.")}
 
+    def scale(g):
+        if clip is None:
+            return 1.0
+        return min(1.0, clip / float(np.sqrt(sum(float((t.double() ** 2).sum())
+                                                 for t in g.values()))))
+
     def moves(grads, k, shape):
-        scale = 1.0
-        if clip is not None:
-            norm = float(np.sqrt(sum(float((g.double() ** 2).sum()) for g in grads[0].values())))
-            scale = min(1.0, clip / norm)
-        return _adam_moves([scale * g[k].reshape(shape).double().numpy() for g in grads], lr,
-                           betas)
+        steps = [scale(g) * g[k].reshape(shape).double().numpy() for g in grads]
+        if start is None:
+            return _adam_moves(steps, lr, betas)
+        if len(shape) > 1 and not k.endswith(("bias", "gamma", "beta")):
+            steps = [s + 0.3 * start[k].double().numpy() for s in steps]
+        return _adafactor_moves(steps, lr, _jax_factored(shape))
 
     for k, v in got.items():
         r = ref[k].reshape(v.shape).numpy()
@@ -540,14 +692,144 @@ def test_dryrun_multichip_on_four_ranks(runs):
         assert np.isfinite(d["finetune_loss"])
 
 
-def test_adafactor_is_refused_on_a_model_axis():
-    """Adafactor's factored statistics of a split leaf would need sums over
-    the model group: on a model axis above 1 it is refused before any step,
-    by name; so is a grid whose split params are not named."""
+@pytest.mark.parametrize("case", worker.LEAF_CASES, ids=lambda c: f"{c[0]}-update_freq{c[1]}")
+def test_adafactor_leaves_match_optax_on_the_whole_leaves(runs, case):
+    """Three Adafactor updates (weight decay 0.3; ``update_freq`` 2 averages
+    two micro-steps an update) of leaves split on optax's d0 (``pwconv1``)
+    and on its d1 (``proj``), a 1x1 conv, the biases and a replicated leaf,
+    at (2, 2) and (1, 4): the gathered params and v_row/v_col/v are optax's
+    on the whole leaves within 1e-5 of scale.  At (1, 4) the (256, 384) and
+    the conv leaf are factored as wholes though their shards alone are not."""
+    inp, refs, one, ranks, root = runs
+    ref = refs["leaves"][case[1]]
+    for r in ranks:
+        got = r["adafactor"]["leaves"][case]
+        assert got["count"] == 3
+        split = {k for k in got["split"] if k.endswith(".weight")}
+        assert split == {"a.pwconv1.weight", "b.proj.weight", "c.pred_x.weight",
+                         "d.pred_y.weight"}
+        assert all(got["factored"][k] for k in [*split, "e.fc.weight"])
+        if case[0] == "1x4":
+            assert not got["shard_factored"]["c.pred_x.weight"]
+            assert not got["shard_factored"]["d.pred_y.weight"]
+        for k, v in got["sd"].items():
+            close(v.numpy(), ref["sd"][k].numpy(), f"param {k}", LEAF_RTOL)
+        for slot in worker.ADA_SLOTS:
+            assert got["opt"][slot].keys() == ref["slots"][slot].keys()
+            for k, want in ref["slots"][slot].items():
+                v = got["opt"][slot][k]
+                assert v.shape == want.shape, (slot, k)
+                close(v.numpy(), want.numpy(), f"{slot} {k}", LEAF_RTOL)
+
+
+def test_adafactor_classifier_step_matches_one_process(runs):
+    """The classifier at widths 16-128 under Adafactor (layer decay 0.9,
+    weight decay 0.3, clip 1.0) at (2, 2), stage 3's ``pwconv1`` split and
+    factored: the first step's loss is JAX's on its (4, 1) mesh; each of two
+    steps' losses, gradients, params (within 1e-4 of scale plus the gap
+    that Adafactor's steps on the two sides' own gradients put between
+    them) and gathered slots are the port's one process's."""
+    inp, refs, one, ranks, root = runs
+    want = one["adafactor"]
+    for r in ranks:
+        got = r["adafactor"]["classifier"]
+        pw = "stages.3.0.pwconv1.weight"
+        assert pw in got["split"] and got["factored"][pw] and got["count"] == 2
+        close(got["losses"][0], refs["adafactor_classifier"]["loss"], "JAX loss", RTOL)
+        close(np.array(got["losses"]), np.array(want["losses"]), "losses", PORT_RTOL)
+        for step in range(2):
+            _close_sd(got["grads"][step], want["grads"][step], f"step {step} grad", GRAD_RTOL)
+            _close_updated(got["whole"][step], want["whole"][step], got["grads"][:step + 1],
+                           want["grads"][:step + 1], f"step {step} param", CLS_LR, clip=1.0,
+                           start=inp["ada_sd"])
+            for slot in worker.ADA_SLOTS:
+                _close_sd(got["opt"][step][slot], want["opt"][step][slot], f"{slot}", RTOL)
+
+
+def test_adafactor_pth_is_the_one_process_file_and_resumes_at_1x4(runs):
+    """The ``.pth`` rank 0 saved at (2, 2) after the first Adafactor step
+    holds the one-process file's keys and shapes, v_row/v_col/v included;
+    (1, 4) resumed from the one-process file after that step continues its
+    run."""
+    inp, refs, one, ranks, root = runs
+    grid = pth_io.load(root / "ada22" / "checkpoint-0.pth")
+    flat = pth_io.load(root / "ada_one" / "checkpoint-0.pth")
+    assert grid["model"].keys() == flat["model"].keys()
+    for k, v in flat["model"].items():
+        assert grid["model"][k].shape == v.shape, k
+    assert grid["optimizer"].keys() == flat["optimizer"].keys()
+    assert grid["optimizer"]["opt"] == "adafactor" and grid["optimizer"]["count"] == 1
+    for slot in worker.ADA_SLOTS:
+        assert grid["optimizer"][slot].keys() == flat["optimizer"][slot].keys()
+        for k, v in flat["optimizer"][slot].items():
+            assert grid["optimizer"][slot][k].shape == v.shape, (slot, k)
+        _close_sd(grid["optimizer"][slot], flat["optimizer"][slot], f"saved {slot}")
+    want = one["adafactor"]
+    for r in ranks:
+        res = r["adafactor"]["resume"]
+        assert res["count"] == 2
+        assert res["factored"]["stages.3.0.pwconv1.weight"]
+        close(res["losses"][0], want["losses"][1], "loss", PORT_RTOL)
+        _close_sd(res["grads"][0], want["grads"][1], "grad", GRAD_RTOL)
+        _close_updated(res["whole"][0], want["whole"][1], want["grads"][:1] + res["grads"],
+                       want["grads"], "resumed param", CLS_LR, clip=1.0, start=inp["ada_sd"])
+        for slot in worker.ADA_SLOTS:
+            _close_sd(res["opt"][0][slot], want["opt"][1][slot], f"resumed {slot}")
+
+
+def test_adafactor_broadcast_keeps_each_rank_its_slot_shards(runs):
+    """``broadcast_state`` of the Adafactor leaves at (2, 2), each rank's
+    slots moved by its rank first: a slot that keeps the split dim (v_col
+    of a leaf split on optax's d0, v_row of one split on d1, v of a split
+    bias) comes from data index 0 of its data group, so each rank keeps its
+    own shard; every other slot (reduced over the split dim, or of a
+    replicated leaf) from global rank 0."""
+    inp, refs, one, ranks, root = runs
+    for i, r in enumerate(ranks):
+        m = i % 2
+        got = r["broadcast"]["adafactor"]
+        for slot, per_name in got.items():
+            for k, v in per_name.items():
+                torch.testing.assert_close(v, torch.full_like(v, m if k in LEAF_SPLIT[slot] else 0),
+                                           rtol=0, atol=0, msg=f"{slot} {k}")
+        assert got["v_col"]["a.pwconv1.weight"].shape == (256,)
+        assert got["v_row"]["b.proj.weight"].shape == (128,)
+
+
+def test_adafactor_slots_follow_the_whole_leaf():
+    """On a model axis of 4 (no collective is made), Adafactor sizes and
+    places each slot from the whole leaf: the (256, 384) leaf's shard
+    (96, 256) is factored, v_row whole (256) and v_col the shard's (96);
+    ``state_split_dims`` names the split dims ``gather_state`` and
+    ``place_state`` use."""
+    grid = tmesh.Mesh(None, None, None, 0, 1, 1, 4)
+    leaf = tmesh.shard_params(worker.leaf_module(), grid)
+    opt = worker.adafactor_opt(leaf, grid, 1e-2)
+    at = dict(zip(opt.names, range(len(opt.names))))
+    i = at["c.pred_x.weight"]
+    assert tuple(opt.params[i].shape) == (96, 256) and opt.factored[i] == (1, 0)
+    assert opt.slots["v_row"][i].shape == (256,) and opt.slots["v_col"][i].shape == (96,)
+    assert tmesh.param_sharding_rules("c.pred_x.weight", (384, 256), 4) == 0
+    dims = opt.state_split_dims()
+    assert {k: set(v) for k, v in dims.items()} == LEAF_SPLIT
+    assert all(d == 0 for v in dims.values() for d in v.values())
+    assert sum(opt.state_shards()) == sum(opt.shards) + sum(map(len, LEAF_SPLIT.values())) == 16
+
+
+def test_a_grid_without_shards_is_refused():
+    """A grid whose split params are not named is refused before any step."""
     grid = tmesh.Mesh(None, None, None, 0, 0, 1, 2)
     named = list(ConvNeXtV2(**CLS_KW, sparse=False).named_parameters())
-    with pytest.raises(ValueError, match="adafactor"):
-        toptim.Optimizer(named, lambda c: 1e-3, opt="adafactor", process_group=grid,
-                            shards=set())
     with pytest.raises(ValueError, match="shard"):
         AdamW(named, lambda c: 1e-3, process_group=grid)
+
+
+def test_flagged_params_without_a_model_axis_are_refused():
+    """A param flagged as a shard without a model axis has no known whole
+    leaf (Adafactor's factoring and means, the norms need it): refused
+    before any step, whatever the family."""
+    named = list(ConvNeXtV2(**CLS_KW, sparse=False).named_parameters())
+    for opt in ("adafactor", "adamw"):
+        with pytest.raises(ValueError, match="model axis"):
+            toptim.Optimizer(named, lambda c: 1e-3, opt=opt,
+                             shards={"stages.0.0.pwconv1.weight"})

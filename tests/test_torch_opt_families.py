@@ -3,8 +3,9 @@ JAX package's ``make_finetune_optimizer`` (optax) on the CPU: 5 f32 steps of
 the same params and grads (carried across by the port's converter) under a
 weight-decay mask, layer decay 0.75, a clip at global norm 1, ``update_freq``
 2 and a frozen stem, for every name; Adafactor's factored statistics where a
-param's dims tie; the names JAX refuses; ``main_finetune --opt sgd`` on the
-CPU, whose resume restores the momentum."""
+param's dims tie; LAMB's small head at the finetune recipe against JAX's
+whole finetune step; the names JAX refuses; ``main_finetune --opt sgd`` on
+the CPU, whose resume restores the momentum."""
 import math
 
 import jax
@@ -14,14 +15,19 @@ import optax
 import pytest
 import torch
 
+from mmearth_tpu.losses import finetune as jloss
 from mmearth_tpu.train import optim as joptim
+from mmearth_tpu.train.finetune import make_finetune_step
 from mmearth_tpu.train.schedule import warmup_cosine as jax_warmup_cosine
+from mmearth_tpu.train.step import TrainState
 from mmearth_tpu_torch import main_finetune
 from mmearth_tpu_torch.checkpoints import pth_io
 from mmearth_tpu_torch.checkpoints.convert import from_jax_classifier
 from mmearth_tpu_torch.data import geobench as gb
+from mmearth_tpu_torch.losses.finetune import criterion_fn
 from mmearth_tpu_torch.models.fcmae import FCMAE
 from mmearth_tpu_torch.train import optim as toptim
+from mmearth_tpu_torch.train.finetune import finetune_step
 from mmearth_tpu_torch.train.schedule import warmup_cosine
 
 from _torch_parity import np_tree
@@ -131,10 +137,10 @@ def test_adafactor_factors_tied_dims_in_jaxs_order():
 
     params = {n: torch.nn.Parameter(port(flax, n)) for n in keys}
     opt = toptim.Optimizer(params.items(), lambda n: 0.1, 0.0, (0.9, 0.999), opt="adafactor")
-    assert toptim.factored_dims(params["lin.weight"]) == (1, 0)
-    assert toptim.factored_dims(params["conv.weight"]) == (1, 0)
-    assert toptim.factored_dims(params["wide.weight"]) == (1, 0)
-    assert toptim.factored_dims(params["bias.bias"]) is None
+    assert toptim.factored_dims(params["lin.weight"].shape) == (1, 0)
+    assert toptim.factored_dims(params["conv.weight"].shape) == (1, 0)
+    assert toptim.factored_dims(params["wide.weight"].shape) == (1, 0)
+    assert toptim.factored_dims(params["bias.bias"].shape) is None
     assert opt.slots["v_row"][0].shape == (128,) and opt.slots["v"][0].shape == (1,)
     for g in grads:
         for n, p in params.items():
@@ -143,6 +149,45 @@ def test_adafactor_factors_tied_dims_in_jaxs_order():
     for n, p in params.items():
         np.testing.assert_allclose(p.detach().numpy(), port(want, n).numpy(), rtol=1e-5,
                                    atol=1e-6, err_msg=n)
+
+
+def test_lamb_keeps_the_small_head_near_zero_as_jaxs_does():
+    """The finetune recipe's LAMB (head init scale 0.001, layer decay 0.9,
+    weight decay 0.3, smoothing 0.2) for 5 steps, the port's classifier
+    against JAX's ``make_finetune_step`` on the same weights and batches:
+    the losses and the head's norm agree within the file's tolerances, and
+    on both sides the head stays within 10% of its initial norm and the
+    loss near ln 10.  LAMB's trust ratio scales a leaf's step by its own
+    norm, so a head that starts near 0 moves by a small fraction of its
+    norm a step (not a fault of the port)."""
+    tm, jm, params = _classifier(seed=4, head_init_scale=0.001)
+    rng = np.random.default_rng(12)
+    batches = [{"input": rng.normal(size=(4, 56, 56, 12)).astype(np.float32),
+                "label": rng.integers(0, 10, size=(4,)).astype(np.int32)} for _ in range(STEPS)]
+    head0 = float(tm.head.weight.detach().norm())
+    tx = joptim.make_finetune_optimizer(params, jax_warmup_cosine(*SCHED), 0.3, (0.9, 0.999),
+                                        0.9, "single", DEPTHS, opt="lamb")
+    state = TrainState.create(params, tx)
+    step_fn = jax.jit(make_finetune_step(jm, jloss.criterion_fn("m-eurosat", 0.2), False))
+    want = []
+    for b in batches:
+        state, metrics = step_fn(state, {k: jnp.asarray(v) for k, v in b.items()},
+                                 jax.random.PRNGKey(0))
+        want.append(float(metrics["loss"]))
+    named = list(tm.named_parameters())
+    opt = toptim.Optimizer(named, warmup_cosine(*SCHED), 0.3, (0.9, 0.999),
+                           wd_mask=toptim.finetune_wd_mask(named),
+                           lr_scales=toptim.layer_lr_scales(named, 0.9, DEPTHS), opt="lamb")
+    gen = torch.Generator().manual_seed(0)
+    got = [float(finetune_step(tm, opt, {k: torch.from_numpy(v) for k, v in b.items()},
+                               criterion_fn("m-eurosat", 0.2), gen)) for b in batches]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    head = float(tm.head.weight.detach().norm())
+    jax_head = float(np.linalg.norm(np.asarray(state.params["head"]["kernel"])))
+    np.testing.assert_allclose(head, jax_head, rtol=1e-5)
+    for norm in (head, jax_head):
+        assert abs(norm / head0 - 1) < 0.1, (norm, head0)
+    np.testing.assert_allclose([*got, *want], math.log(10), atol=1e-3)
 
 
 @pytest.mark.parametrize("opt", ["adamp", "sgdp", "adahessian", "fusedadamp", "bogus"])
