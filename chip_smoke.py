@@ -237,6 +237,13 @@ Phases, each of which exits non-zero on failure:
    ResNet-18 U-Net (with their BN running statistics); and 3 f32 steps of
    that classifier under every ``--opt`` family, GPU against CPU at the
    classifier step's tolerances, with ms a step.
+   Then the JAX package's Orbax checkpoint (``phase_orbax``, the committed
+   fixture ``tests/fixtures/orbax_pretrain_tiny``): every leaf against its
+   checksum, the reader's host seconds and MB/s, the driver's resume on the
+   card (f32, TF32 off, ``wholeblock``) against JAX's encoder output and
+   next two losses (1e-4 relative), ``main_pretrain --resume`` for an epoch
+   and ``main_finetune --finetune`` for one, each with its launches, and
+   ``hub.MPMAE`` from the step.
 6. optional packages: ``--loader hdf5`` (h5py), ``--loader grain``
    (array_record) and ``--log_dir`` (tensorboardX) through
    ``main_pretrain.main``: refused before the first step, naming the
@@ -1325,7 +1332,8 @@ def expected_launches(sparse_impl: str, block_impl: str, config: tuple, sparse: 
                       gelu_approx: bool = False, use_orig_stem: bool = False
                       ) -> tuple[dict, tuple]:
     """Launches a step of every kernel on a pretraining slice of ``config``
-    (and its encoder options), and the kernels whose row of the kernels line
+    (and its encoder options; 12 Blocks at atto and pico, each launching
+    the block kernels once a step), and the kernels whose row of the kernels line
     takes its count from this slice (each from its own path: rows 1-4 from
     dwg, 7-10 from wholeblock, 5-6 from masked_dense fused; row 11 from the
     finetune slice).  Spill-g C's separate dW2 pass runs in the blocks of
@@ -1342,17 +1350,18 @@ def expected_launches(sparse_impl: str, block_impl: str, config: tuple, sparse: 
     from mmearth_tpu_torch.ops import fused_block as fb
 
     gathered = sparse and sparse_impl == "gathered"
-    per_step = dict(zip(GATHERED_KERNELS, (2, 2, 12, 12) if gathered else (0, 0, 0, 0)))
+    depths, dims = model_size(config[0])
+    blocks = sum(depths)
+    per_step = dict(zip(GATHERED_KERNELS, (2, 2, blocks, blocks) if gathered else (0, 0, 0, 0)))
     spillg = gathered and block_impl == "wholeblock" and not gelu_approx
     masked = sparse and not gathered and block_impl == "fused" and not gelu_approx
-    per_step.update(dict.fromkeys(fb.SPILLG_LAUNCHES, 12 if spillg else 0))
-    depths, dims = model_size(config[0])
+    per_step.update(dict.fromkeys(fb.SPILLG_LAUNCHES, blocks if spillg else 0))
     per_step[SPILLG_WIDE_DW2] = sum(
         d for d, c in zip(depths, dims)
         if spillg and not fb.tail_plan(torch.empty(64, c, dtype=torch.bfloat16, device="cuda"),
                                        "spillg_bwd_c", 64)[0].fold)
-    per_step.update(dict.fromkeys(fb.MASKED_LAUNCHES, 12 if masked else 0))
-    per_step["dw_weight_grad"] = 1 if gathered else 13
+    per_step.update(dict.fromkeys(fb.MASKED_LAUNCHES, blocks if masked else 0))
+    per_step["dw_weight_grad"] = 1 if gathered else 1 + blocks
     own = {"dwg": GATHERED_KERNELS, "wholeblock": tuple(key for key, _, _ in SPILLG),
            "fused": fb.MASKED_LAUNCHES}.get(block_impl, ())
     return per_step, own
@@ -2249,6 +2258,243 @@ def phase_finetune_lamb(card: str, checkpoint: Path) -> dict:
 
 # the packages the drivers import only on their paths, and the flags whose
 # paths need them
+ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "orbax_pretrain_tiny"
+
+
+def orbax_flags(cfg: dict, data: Path, device: str, *extra) -> list[str]:
+    """``main_pretrain`` flags of the Orbax fixture's model (its narrow size
+    registered as ``--model convnextv2_<model_size>``), f32, wholeblock."""
+    return ["--model", f"convnextv2_{cfg['model_size']}", "--input_size", str(cfg["img_size"]),
+            "--patch_size", str(cfg["patch_size"]),
+            "--decoder_embed_dim", str(cfg["decoder_embed_dim"]),
+            "--batch_size", str(cfg["batch_size"]), "--update_freq", str(cfg["update_freq"]),
+            "--use_bf16", "False", "--device", device, "--block_impl", "wholeblock",
+            "--sparse_impl", "gathered", "--seed", "0", "--processed_dir", str(data),
+            "--warmup_epochs", "1", *extra]
+
+
+def orbax_leaves(record: dict, tree) -> int:
+    """Every leaf the reader gives against the fixture's recorded dtype,
+    shape and sha256; returns the count."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from mmearth_tpu_torch.checkpoints.convert import tree_leaves
+
+    got = {".".join(map(str, p)): leaf for p, leaf in tree_leaves(tree) if leaf is not None}
+    if set(got) != set(record["leaves"]):
+        raise AssertionError(f"orbax: leaves {sorted(set(got) ^ set(record['leaves']))[:5]} "
+                             "differ from the fixture's record")
+    for name, (dtype, shape, digest) in record["leaves"].items():
+        leaf = got[name]
+        bits = leaf.view(torch.int16).numpy() if isinstance(leaf, torch.Tensor) else leaf
+        mine = ("bfloat16" if isinstance(leaf, torch.Tensor) else str(leaf.dtype),
+                list(np.shape(leaf)),
+                hashlib.sha256(np.ascontiguousarray(bits).tobytes()).hexdigest())
+        if mine != (dtype, shape, digest):
+            raise AssertionError(f"orbax: leaf {name} reads as {mine[:2]}, sha256 {mine[2][:12]}; "
+                                 f"the fixture holds {dtype} {shape}, {digest[:12]}")
+    return len(got)
+
+
+def orbax_resumed_steps(record: dict, args) -> dict:
+    """The driver's model and ``pretrain.resume`` on the fixture's step
+    (``--resume``), with JAX's AdamW settings (clip on), f32, TF32 off: the
+    encoder's output and the next two micro-steps' losses on the fixture's
+    batches and masks against JAX's, each Block's kernels launched."""
+    import base64
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from mmearth_tpu_torch.data.synthetic import bench_batch
+    from mmearth_tpu_torch.main_pretrain import config_from_args
+    from mmearth_tpu_torch.models.fcmae import zero_nan_inputs
+    from mmearth_tpu_torch.train import pretrain
+    from mmearth_tpu_torch.train.optim import AdamW
+    from mmearth_tpu_torch.train.schedule import warmup_cosine
+    from mmearth_tpu_torch.train.step import pretrain_step
+
+    cfg = record["config"]
+    conf = config_from_args(args)
+    dev = torch.device(args.device)
+    model = pretrain.build_model(conf, dev)
+    opt = AdamW(model.named_parameters(), warmup_cosine(*cfg["schedule"]), cfg["weight_decay"],
+                tuple(cfg["betas"]), update_freq=cfg["update_freq"], clip_grad=cfg["clip_grad"])
+    if pretrain.resume(conf.run, model, opt, None) != cfg["epoch"] + 1:
+        raise AssertionError("orbax: the resume did not continue after the fixture's epoch")
+    n, saved, after = cfg["batch_size"], cfg["micro_steps_saved"], cfg["micro_steps_after"]
+    data = bench_batch(n * (saved + after), cfg["img_size"], seed=cfg["batch_seed"])
+    out = {"losses": [], "losses_jax": record["losses_after"]}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches, masks = [], []
+    for i in range(saved, saved + after):
+        host = {k: v[i * n:(i + 1) * n] for k, v in data.items()}
+        h = hashlib.sha256()
+        for k in sorted(host):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(host[k]).tobytes())
+        if h.hexdigest() != record["batch_sha256"][i]:
+            raise AssertionError(f"orbax: batch {i} differs from the one JAX's losses are of "
+                                 "(numpy's bench_batch stream changed)")
+        batches.append({k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+        masks.append(torch.tensor([[float(c) for c in row] for row in record["masks"][i]],
+                                  device=dev))
+    enc = record["encoder_output"]
+    want = np.frombuffer(base64.b64decode(enc["f32_base64"]), "<f4").reshape(enc["shape"])
+    with torch.no_grad():
+        imgs = zero_nan_inputs(batches[0])["sentinel2"]
+        got = model.encoder.encode(imgs, masks[0], model.num_visible).float().cpu().numpy()
+    out["encoder_max_abs_err"] = float(np.abs(got - want).max())
+    out["encoder_scale"] = float(np.abs(want).max())
+    if not out["encoder_max_abs_err"] <= 1e-4 * out["encoder_scale"]:
+        raise AssertionError(f"orbax: encoder output {out['encoder_max_abs_err']:.3e} "
+                             f"from JAX's (scale {out['encoder_scale']:.3e})")
+    reset_launches()
+    for i, (batch, mask) in enumerate(zip(batches, masks), start=saved):
+        metrics = pretrain_step(model, opt, batch, i, gen, random_crop=False, mask=mask)
+        out["losses"].append(float(metrics["loss"]))
+    out["launches"] = read_launches()
+    out["loss_rel"] = [abs(a - b) / abs(b) for a, b in zip(out["losses"], out["losses_jax"])]
+    # f32 on both sides, the card's kernels against JAX's XLA on the CPU:
+    # summation order only, the existing f32 card-vs-CPU phases' 1e-4
+    if not max(out["loss_rel"]) < 1e-4:
+        raise AssertionError(f"orbax: resumed losses {out['losses']} against JAX's "
+                             f"{out['losses_jax']}")
+    if opt.count != 2 or opt.mini_step != 1:
+        raise AssertionError(f"orbax: AdamW at count {opt.count}, micro-step {opt.mini_step}")
+    return out
+
+
+def phase_orbax(card: str, geobench: Path) -> dict:
+    """The JAX package's Orbax checkpoint on the card (the committed fixture
+    ``tests/fixtures/orbax_pretrain_tiny``, written by
+    ``tests/_torch_orbax_fixture.py``: a narrow FCMAE saved by JAX's
+    ``CheckpointIO`` after 3 micro-steps at ``update_freq`` 2, clip on).
+    (1) Every leaf the reader gives matches its recorded checksum; the
+    reader's host seconds and rates.  (2) ``pretrain.resume`` (the driver's)
+    on the ``main_pretrain`` flags' model, f32, TF32 off, ``wholeblock``: the
+    encoder's output and the next two micro-steps' losses against JAX's.
+    (3) ``main_pretrain --resume <step>`` for one epoch, rows 1-4 and 7-11
+    launched as the slice's counts say, then ``checkpoint-1.pth`` written.
+    (4) ``main_finetune --finetune <step>`` for one epoch on the smoke
+    GEO-Bench pack, row 11 launched.  (5) ``hub.MPMAE(ckpt_path=<step>)`` on
+    ``cuda`` holds the reader's encoder and gives finite logits."""
+    import json
+    import math
+
+    import numpy as np
+    import torch
+
+    from mmearth_tpu_torch import hub, main_finetune, main_pretrain
+    from mmearth_tpu_torch.checkpoints import orbax_io, pth_io
+    from mmearth_tpu_torch.checkpoints import load_pretrained as lp
+    from mmearth_tpu_torch.configs import config as tconfig
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    record = json.loads((ORBAX_FIXTURE / "expected.json").read_text())
+    cfg = record["config"]
+    step_dir = ORBAX_FIXTURE / "checkpoints" / str(cfg["epoch"])
+    tconfig.MODEL_SIZES[cfg["model_size"]] = (tuple(cfg["depths"]), tuple(cfg["dims"]))
+    result = {"phase": "orbax", "card": card, "fixture": str(ORBAX_FIXTURE.relative_to(ROOT))}
+    # (1) the reader
+    reads = []
+    for _ in range(3):
+        orbax_io.ReadStats.reset()
+        tree = orbax_io.load_tree(step_dir)
+        reads.append((orbax_io.ReadStats.seconds, orbax_io.ReadStats.bytes_read,
+                      orbax_io.ReadStats.array_bytes))
+    result["leaves"] = orbax_leaves(record, tree)
+    sec, nbytes, abytes = reads[0]
+    best = min(r[0] for r in reads)
+    result["read"] = {"seconds_first": sec, "seconds_best_of_3": best, "store_bytes": nbytes,
+                      "array_bytes": abytes, "store_mb_per_s_first": nbytes / sec / 1e6,
+                      "store_mb_per_s_best": nbytes / best / 1e6,
+                      "array_mb_per_s_best": abytes / best / 1e6, "host": "the card's host CPU"}
+    # (2) the resumed steps against JAX's
+    data = phase_data("smoke_orbax_data", n=17, tile=64)
+    out_dir = ROOT / "build" / "smoke_orbax_out"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = main_pretrain.get_args_parser().parse_args(orbax_flags(
+        cfg, data, "cuda", "--resume", str(step_dir), "--epochs", str(cfg["epoch"] + 2),
+        "--output_dir", str(out_dir)))
+    t0 = time.perf_counter()
+    steps = orbax_resumed_steps(record, args)
+    per_step, _ = expected_launches("gathered", "wholeblock",
+                                    (args.model, args.input_size, args.patch_size,
+                                     args.batch_size))
+    check_launches("orbax resumed steps", steps["launches"], per_step,
+                   cfg["micro_steps_after"])
+    steps["seconds"] = time.perf_counter() - t0
+    result["resumed_steps"] = steps
+    # (3) main_pretrain --resume <step>
+    t0 = time.perf_counter()
+    reset_launches()
+    _, history, opt = main_pretrain.main(args)
+    launches = read_launches()
+    n_steps = sum(e["steps"] for e in history)
+    losses = [x for e in history for x in e["step_losses"]]
+    if [e["epoch"] for e in history] != [cfg["epoch"] + 1] or n_steps < 2 or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"orbax: main_pretrain resumed epochs {history}")
+    check_launches("orbax main_pretrain --resume", launches, per_step, n_steps)
+    if [e for e, _ in pth_io.numbered_checkpoints(out_dir)] != [cfg["epoch"] + 1]:
+        raise AssertionError(f"orbax: {out_dir} holds {pth_io.numbered_checkpoints(out_dir)}")
+    result["main_pretrain"] = {"steps": n_steps, "losses": losses, "launches": launches,
+                               "count": opt.count, "mini_step": opt.mini_step,
+                               "seconds": time.perf_counter() - t0}
+    # (4) main_finetune --finetune <step>
+    t0 = time.perf_counter()
+    ft = main_finetune.get_args_parser().parse_args([
+        "--model", f"convnextv2_{cfg['model_size']}", "--input_size", str(cfg["img_size"]),
+        "--patch_size", str(cfg["patch_size"]), "--data_set", "m-eurosat",
+        "--finetune", str(step_dir), "--processed_dir", str(geobench),
+        "--batch_size", str(FT_BATCH), "--epochs", "1", "--use_bf16", "False", "--seed", "0",
+        "--device", "cuda"])
+    reset_launches()
+    ftout = main_finetune.main(ft)
+    launches = read_launches()
+    ft_steps = sum(e["steps"] for e in ftout["history"])
+    ft_losses = [x for e in ftout["history"] for x in e["step_losses"]]
+    blocks = sum(cfg["depths"])
+    for name, n in launches.items():
+        want = blocks * ft_steps if name == "dw_weight_grad" else 0
+        if n != want:
+            raise AssertionError(f"orbax finetune, {name}: {n} launches in {ft_steps} steps, "
+                                 f"expected {want}")
+    if not (ft_steps > 0 and all(map(math.isfinite, ft_losses))
+            and 0.0 <= ftout["test_Accuracy"] <= 1.0):
+        raise AssertionError(f"orbax finetune: {ft_steps} steps, losses {ft_losses}")
+    result["finetune"] = {"steps": ft_steps, "epoch_loss": ftout["history"][0]["loss"],
+                          "test_accuracy": ftout["test_Accuracy"], "launches": launches,
+                          "seconds": time.perf_counter() - t0}
+    # (5) the hub
+    t0 = time.perf_counter()
+    cls, _ = hub.MPMAE(model_name=f"convnextv2_{cfg['model_size']}", ckpt_path=str(step_dir),
+                       device="cuda", img_size=cfg["img_size"], patch_size=cfg["patch_size"],
+                       num_classes=10)
+    enc = lp.encoder_state_from_checkpoint(step_dir, tuple(cfg["depths"]))
+    held = cls.state_dict()
+    if not all(torch.equal(held[k].cpu(), v) for k, v in enc.items()):
+        raise AssertionError("orbax: the hub's classifier does not hold the checkpoint's encoder")
+    x = torch.randn(2, cfg["img_size"], cfg["img_size"], 12, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        logits = cls.eval()(x)
+    if tuple(logits.shape) != (2, 10) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"orbax: hub logits {tuple(logits.shape)}")
+    result["hub"] = {"encoder_keys": len(enc), "logits_finite": True,
+                     "seconds": time.perf_counter() - t0}
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
+
+
 OPTIONAL_PACKAGES = (("h5py", ("--loader", "hdf5")), ("array_record", ("--loader", "grain")),
                      ("tensorboardX", ("--log_dir",)))
 
@@ -3547,6 +3793,7 @@ def main() -> int:
     phase_reference_classifier()
     phase_families(card)
     phase_reference_seg()
+    phase_orbax(card, geobench)
     phase_optional_packages(card)
     print(card, flush=True)
     emit({"kernels": list(rows_out.values())})

@@ -190,3 +190,228 @@ def from_jax_resnet(params: Mapping, batch_stats: Mapping, stage_sizes: Sequence
         _resnet(params, batch_stats, stage_sizes, bottleneck, "", sd)
     return {k: torch.zeros((), dtype=torch.long) if v is None
             else torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def params_converter(model: torch.nn.Module, batch_stats: Mapping | None = None):
+    """The function that turns a JAX param tree of ``model``'s kind (the
+    FCMAE, the classifier, the U-Net or a ResNet, whose BatchNorm
+    statistics come from ``batch_stats``: JAX's ``model_state
+    ["batch_stats"]``) into the port's state dict."""
+    from ..models.convnextv2 import ConvNeXtV2
+    from ..models.fcmae import FCMAE
+    from ..models.resnet import ResNet, ResNetUnet
+    from ..models.unet import ConvNeXtV2Unet
+
+    if isinstance(model, FCMAE):
+        depth = len(model.decoder_dict[model.out_modalities[0]])
+        return lambda t: from_jax_fcmae(t, model.encoder.depths, model.out_modalities, depth)
+    if isinstance(model, ConvNeXtV2Unet):
+        return lambda t: from_jax_unet(t, model.depths, "stem_orig_conv" in t)
+    if isinstance(model, ConvNeXtV2):
+        return lambda t: from_jax_classifier(t, model.depths)
+    if isinstance(model, (ResNet, ResNetUnet)):
+        if batch_stats is None:
+            raise ValueError("a ResNet's params need its batch_stats")
+        enc = model.encoder if isinstance(model, ResNetUnet) else model
+        return lambda t: from_jax_resnet(t, batch_stats, enc.stage_sizes, enc.bottleneck)
+    raise TypeError(f"no JAX param layout is known for {type(model).__name__}")
+
+
+def _plain(tree):
+    """``tree`` as :func:`orbax_io.load_tree` gives it: named tuples (optax's
+    states) as dicts of their fields, those with none (its empty and masked
+    nodes) as None, other tuples as lists."""
+    if hasattr(tree, "_asdict"):
+        fields = tree._asdict()
+        return {k: _plain(v) for k, v in fields.items()} if fields else None
+    if isinstance(tree, Mapping):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain(v) for v in tree]
+    return tree
+
+
+def tree_leaves(tree, path=()):
+    """(path, leaf) of every leaf of a nested dict/list tree, None kept."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from tree_leaves(v, (*path, k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, (*path, i))
+    else:
+        yield path, tree
+
+
+def _rebuild(tree, fn, path=()):
+    if isinstance(tree, Mapping):
+        return {k: _rebuild(v, fn, (*path, k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rebuild(v, fn, (*path, i)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def name_paths(params: Mapping, to_port) -> dict[str, tuple]:
+    """For each key of the port's state dict, the path of the JAX leaf it is
+    made from: ``to_port`` run on a tree whose every leaf holds its own
+    index (every layout change keeps a constant array constant)."""
+    paths = [p for p, _ in tree_leaves(params)]
+    index = {p: i for i, p in enumerate(paths)}
+    probe = _rebuild(params, lambda p, x: np.full(np.shape(x), index[p], np.float32))
+    out = {}
+    for name, t in to_port(probe).items():
+        values = torch.unique(torch.as_tensor(t)).tolist()
+        if len(values) == 1 and 0 <= values[0] < len(paths):
+            out[name] = paths[int(values[0])]
+    return out
+
+
+def _masked_merge(trees: list):
+    """One tree from the trees of ``multi_transform``'s groups (NovoGrad's
+    ``wd`` and ``nowd``), each holding a param's leaf where its group has
+    the param and None (optax's masked node) elsewhere."""
+    if len(trees) == 1:
+        return trees[0]
+
+    def pick(path, _):
+        got = [_get(t, path) for t in trees]
+        got = [g for g in got if g is not None]
+        if len(got) > 1:
+            raise ValueError(f"the leaf {path} is in {len(got)} optimizer groups")
+        return got[0] if got else None
+
+    return _rebuild(trees[0], pick)
+
+
+def _find_states(node, slots: Sequence[str], found: dict, counts: list) -> None:
+    """Collect each slot's trees (the optax states whose fields name them)
+    and the update counts of a chain's states."""
+    if isinstance(node, Mapping):
+        if set(node) == {"count"}:  # the schedule's ScaleByScheduleState
+            counts.insert(0, node["count"])
+        elif "count" in node:
+            counts.append(node["count"])
+        for k, v in node.items():
+            if k in slots:
+                found.setdefault(k, []).append(v)
+            elif k != "count":
+                _find_states(v, slots, found, counts)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            _find_states(v, slots, found, counts)
+
+
+def from_jax_opt_state(opt_state: Mapping, optimizer, params: Mapping, to_port) -> dict:
+    """A JAX optax state of ``make_pretrain_optimizer`` /
+    ``make_finetune_optimizer`` (nested dicts and lists of numpy arrays, as
+    :func:`orbax_io.load_tree` gives it) -> ``optimizer.state_dict()``'s
+    layout (``train/optim.py::Optimizer``), for the port's optimizer of the
+    same ``--opt`` family over the same trainable params.
+
+    ``params`` is the JAX param tree the state belongs to and ``to_port``
+    its converter (:func:`params_converter`); optax's own named tuples are
+    taken too (:func:`_plain`).  The family's states are found
+    by their fields, wherever the chain puts them (the clip, the probe's
+    ``mask_updates``, the layer decay's ``scale_by_pytree`` move the
+    indices): ``mu``/``nu`` (the Adam families, LAMB, NovoGrad, whose
+    ``multi_transform`` groups are merged), ``trace`` (and RMSprop's ``nu``),
+    ``e_g``/``e_x``, Adafactor's ``v_row``/``v_col``/``v``.  A slot the
+    size of its param takes the param's layout change; NovoGrad's per-param
+    norms are carried as they are; Adafactor's factored ``v_row`` and
+    ``v_col`` drop the param's d0 and d1 (``optim.py::factored_dims``) and
+    keep the other dims in the port's order.  ``count`` is the applied
+    updates, ``mini_step`` and ``acc`` those of ``MultiSteps``."""
+    from ..train.optim import SLOTS, flax_axes
+
+    opt_state, params = _plain(opt_state), _plain(params)
+    multi = "inner_opt_state" in opt_state
+    inner = opt_state["inner_opt_state"] if multi else opt_state
+    slots = SLOTS[optimizer.opt]
+    found: dict[str, list] = {}
+    counts: list = []
+    _find_states(inner, slots, found, counts)
+    paths = name_paths(params, to_port)
+    missing = [n for n in optimizer.names if n not in paths]
+    if missing:
+        raise ValueError(f"no JAX leaf for the params {missing[:5]}")
+    shapes = dict(tree_leaves(params))
+    jax_shape = {n: np.shape(shapes[paths[n]]) for n in optimizer.names}
+
+    def full(tree) -> dict[str, torch.Tensor]:
+        """The slots the size of their param, in the port's layout."""
+        filled = _rebuild(params, lambda p, x: (
+            np.asarray(_get(tree, p), np.float32)
+            if _get(tree, p) is not None and np.shape(_get(tree, p)) == np.shape(x)
+            else np.zeros(np.shape(x), np.float32)))
+        return to_port(filled)
+
+    def whole(t: torch.Tensor, split) -> tuple:
+        """The shape of the whole leaf of which ``t`` is this rank's shard
+        where the slot is split over a model axis."""
+        shape = list(t.shape)
+        if split is not None:
+            shape[split] *= optimizer.mesh.model
+        return tuple(shape)
+
+    state: dict = {"opt": optimizer.opt}
+    for key in slots:
+        if key not in found:
+            raise ValueError(f"the optax state holds no {key!r} for --opt {optimizer.opt}")
+        tree = _masked_merge(found[key])
+        conv = full(tree)
+        mine = {}
+        for name, t, dims, split in zip(optimizer.names, optimizer.slots[key],
+                                        optimizer.factored, optimizer.split[key]):
+            shape = whole(t, split)
+            leaf = _get(tree, paths[name])
+            if leaf is None:
+                raise ValueError(f"the optax state has no {key} for {name}")
+            leaf = np.asarray(leaf, np.float32)
+            # optax keeps a placeholder of shape (1,) where Adafactor does
+            # not use a slot (v of a factored leaf, v_row and v_col of
+            # another), and one norm a param for NovoGrad's nu
+            placeholder = ((optimizer.opt == "adafactor" and (key == "v") == (dims is not None))
+                           or (optimizer.opt == "novograd" and key == "nu"))
+            if dims is not None and key in ("v_row", "v_col"):
+                axes = flax_axes(t.dim() + 1)
+                drop = axes.index(dims[1] if key == "v_row" else dims[0])
+                kept = [axes[k] for k in range(len(axes)) if k != drop]
+                value = torch.from_numpy(np.array(leaf.transpose(np.argsort(kept))))
+            elif placeholder:
+                value = torch.from_numpy(leaf.copy()).reshape(shape)
+            elif leaf.shape == jax_shape[name]:
+                value = conv[name].reshape(shape)
+            else:
+                raise ValueError(f"{key} of {name}: {leaf.shape} for a param of "
+                                 f"{jax_shape[name]}")
+            if tuple(value.shape) != shape:
+                raise ValueError(f"{key} of {name}: {tuple(value.shape)}, the port holds "
+                                 f"{shape}")
+            mine[name] = value
+        state[key] = mine
+    if optimizer.acc is not None:
+        if not multi:
+            raise ValueError("the port accumulates (update_freq > 1), the optax state does not")
+        conv = full(opt_state["acc_grads"])
+        state["acc"] = {n: conv[n].reshape(whole(p, 0 if s else None)) for n, p, s
+                        in zip(optimizer.names, optimizer.params, optimizer.shards)}
+        state["mini_step"] = int(np.asarray(opt_state["mini_step"]))
+    elif multi:
+        raise ValueError("the optax state accumulates (MultiSteps), the port does not "
+                         "(update_freq 1)")
+    else:
+        state["acc"], state["mini_step"] = None, 0
+    if multi:
+        state["count"] = int(np.asarray(opt_state["gradient_step"]))
+    elif counts:
+        state["count"] = int(np.asarray(counts[0]))
+    else:
+        raise ValueError("the optax state holds no update count")
+    return state
+

@@ -16,7 +16,8 @@ model's state dict, re-init the head, and freeze per mode:
 
 Sources: a ``.pth``/``.pt`` holding ``{"model": state_dict}`` or a bare state
 dict, with the encoder under ``encoder.*`` (an FCMAE checkpoint, dense or raw
-Minkowski) or stripped (hub style).
+Minkowski) or stripped (hub style); or the JAX package's Orbax directory (a
+step or its payload, or a params directory: ``checkpoints/orbax_io.py``).
 """
 from __future__ import annotations
 
@@ -95,15 +96,15 @@ def encoder_state_from_checkpoint(path: str | Path,
     JAX ``encoder_tree_from_checkpoint`` + ``torch_encoder_to_flax`` read
     them."""
     path = Path(path)
-    if path.suffix not in (".pth", ".pt"):
-        raise NotImplementedError(f"--finetune {path}: only .pth/.pt checkpoints are read by "
-                                  "this port (Orbax checkpoints are the JAX package's)")
-    sd = load_pth(path)
-    enc = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
-    if not enc:  # an already stripped dense checkpoint (hub style)
-        enc = {k: v for k, v in sd.items() if not any(t in k for t in _DECODER_SIDE)}
-    if any(k.endswith("kernel") for k in enc):
-        enc = remap_minkowski_keys(enc)
+    if path.suffix not in (".pth", ".pt") and path.is_dir():
+        enc = _orbax_encoder(path, depths)
+    else:
+        sd = load_pth(path)
+        enc = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+        if not enc:  # an already stripped dense checkpoint (hub style)
+            enc = {k: v for k, v in sd.items() if not any(t in k for t in _DECODER_SIDE)}
+        if any(k.endswith("kernel") for k in enc):
+            enc = remap_minkowski_keys(enc)
     blocks = {f"stages.{i}.{j}." for i, d in enumerate(depths) for j in range(d)}
     out = {}
     for k, v in enc.items():
@@ -117,6 +118,22 @@ def encoder_state_from_checkpoint(path: str | Path,
             v = v.reshape(*v.shape, 1, 1)
         out[k] = torch.from_numpy(np.array(v, dtype=np.float32))
     return out
+
+
+def _orbax_encoder(path: Path, depths: Sequence[int]) -> dict[str, np.ndarray]:
+    """The encoder of the JAX package's Orbax checkpoint at ``path`` (a
+    step directory or its payload: ``{params: {encoder: ...}}``, or a raw
+    params directory), in the port's layout (JAX
+    ``encoder_tree_from_checkpoint``)."""
+    from .convert import from_jax_encoder
+    from .orbax_io import load_params, numpy_tree
+
+    tree = numpy_tree(load_params(path))
+    if "params" in tree:
+        tree = tree["params"]
+    if "encoder" in tree:
+        tree = tree["encoder"]
+    return from_jax_encoder(tree, depths)
 
 
 def load_encoder_into(state: dict[str, torch.Tensor], encoder: Mapping[str, torch.Tensor],

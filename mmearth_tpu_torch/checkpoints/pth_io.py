@@ -51,7 +51,16 @@ def numbered_checkpoints(output_dir: str | Path) -> list[tuple[int, Path]]:
 
 
 def latest_checkpoint(output_dir: str | Path) -> Path | None:
+    """The newest checkpoint of a run's output directory: its newest
+    ``checkpoint-<epoch>.pth``, or the JAX package's newest Orbax step
+    ``checkpoints/<epoch>/`` (``orbax_io.py``) where that epoch is later;
+    a ``.pth`` wins a tie."""
+    from . import orbax_io
+
     found = numbered_checkpoints(output_dir)
+    epoch = orbax_io.latest_epoch(Path(output_dir) / "checkpoints")
+    if epoch is not None and (not found or epoch > found[-1][0]):
+        return Path(output_dir) / "checkpoints" / str(epoch)
     return found[-1][1] if found else None
 
 
@@ -106,13 +115,24 @@ def load(path: str | Path) -> dict:
 
 
 def resolve(path: str | Path) -> Path:
-    """An explicit ``--resume``: a ``.pth`` file, or an output directory
-    (its newest numbered checkpoint)."""
+    """An explicit ``--resume``: a ``.pth`` file, or a directory: an output
+    directory (its newest checkpoint of either format,
+    :func:`latest_checkpoint`), or one of the JAX package's Orbax forms
+    (``orbax_io._resolve_ckpt_root``): a ``checkpoints`` root (its newest
+    step) or a step directory ``checkpoints/<epoch>``."""
+    from . import orbax_io
+
     path = Path(path)
     if path.is_dir():
+        root, epoch = orbax_io._resolve_ckpt_root(path)
+        if epoch is not None:
+            return path
         latest = latest_checkpoint(path)
+        if latest is None and orbax_io.latest_epoch(root) is not None:
+            return root / str(orbax_io.latest_epoch(root))
         if latest is None:
-            raise FileNotFoundError(f"--resume {path}: no checkpoint-<epoch>.pth in it")
+            raise FileNotFoundError(f"--resume {path}: no checkpoint-<epoch>.pth and no Orbax "
+                                    "checkpoint in it")
         return latest
     if not path.exists():
         raise FileNotFoundError(f"--resume {path}: no such file")

@@ -152,18 +152,24 @@ def load_batch(data_dir: str | None, img_size: int) -> dict[str, np.ndarray]:
 
 
 def load_fcmae(model: fcmae_lib.FCMAE, path: str | Path) -> None:
-    """Load a pretraining ``.pth`` (the port's, or upstream's Minkowski one)
-    into ``model``: encoder, decoder and heads.  (The JAX CLI overlays the
-    encoder alone, at the top of the FCMAE's tree, where its keys are not
-    found; the panels need the decoder the checkpoint trained.)"""
-    from ..checkpoints import pth_io
+    """Load a pretraining checkpoint into ``model``, encoder, decoder and
+    heads: a ``.pth`` (the port's, or upstream's Minkowski one), or the JAX
+    package's Orbax directory (a step or its payload, or a params
+    directory; the whole FCMAE's ``params`` through ``from_jax_fcmae``).
+    (The JAX CLI overlays the encoder alone, at the top of the FCMAE's
+    tree, where its keys are not found; the panels need the decoder the
+    checkpoint trained.)"""
+    from ..checkpoints import orbax_io, pth_io
+    from ..checkpoints.convert import params_converter
 
     path = Path(path)
-    if path.suffix not in (".pth", ".pt"):
-        raise NotImplementedError(f"--ckpt {path}: only .pth/.pt checkpoints are read by this "
-                                  "port (Orbax checkpoints are the JAX package's)")
     own = model.state_dict()
-    state = pth_io.model_state(pth_io.load(path)["model"], model)
+    if path.suffix not in (".pth", ".pt") and path.is_dir():
+        tree = orbax_io.numpy_tree(orbax_io.load_params(path))
+        sd = params_converter(model)(tree.get("params", tree))
+    else:
+        sd = pth_io.load(path)["model"]
+    state = pth_io.model_state(sd, model)
     missing = sorted(set(own) - set(state))
     if missing:
         raise ValueError(f"--ckpt {path}: no {missing[:5]} (not a pretraining checkpoint of "

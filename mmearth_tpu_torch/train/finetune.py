@@ -3,10 +3,11 @@
 engine_finetune.py:56-300), one process a device.
 
 Models: the dense ConvNeXtV2 classifier and the ConvNeXtV2 U-Net, each
-bootstrapped from a pretraining ``.pth`` (encoder trunk overlaid, head
-re-initialised), and the ResNet baselines (``resnet18/50`` and their U-Nets)
-from a foreign ``.pth`` (``checkpoints/foreign.py``: SeCo, GASSL, Satlas or
-ImageNet; ``fc`` re-initialised).  They train with the ``--opt`` family
+bootstrapped from a pretraining checkpoint (a ``.pth``, or the JAX
+package's Orbax directory: encoder trunk overlaid, head re-initialised),
+and the ResNet baselines (``resnet18/50`` and their U-Nets) from a foreign
+``.pth`` (``checkpoints/foreign.py``: SeCo, GASSL, Satlas or ImageNet;
+``fc`` re-initialised).  They train with the ``--opt`` family
 (``train/optim.py::Optimizer``, AdamW by default) under layer-wise lr
 decay (every ResNet param takes the top layer id, as in JAX).  The probe
 freezes all but the head (the ResNet-UNet: all but its encoder).  The
@@ -28,7 +29,8 @@ Eval metrics are dataset-overall, from per-batch sufficient statistics
 summed on the device and read once per split.  With an output directory the
 run appends each epoch's record to ``log.txt``, saves
 ``checkpoint-<epoch>.pth`` every epoch and resumes from the newest
-(``checkpoints/pth_io.py``), writes the best val epoch's params to
+(``checkpoints/pth_io.py``; or from the JAX package's Orbax step where it is
+newer, ``checkpoints/orbax_io.py``), writes the best val epoch's params to
 ``checkpoint-best.pth``, and scores the final test on the newest checkpoint
 reloaded from disk; without one it scores the in-memory params, the JAX
 package's documented path (train/finetune.py:276-377).  With ``--log_dir``
@@ -60,7 +62,7 @@ from torch import nn
 
 from .. import ops
 from ..checkpoints import load_pretrained as lp
-from ..checkpoints import pth_io
+from ..checkpoints import orbax_io, pth_io
 from ..checkpoints.foreign import load_foreign_resnet
 from ..configs.config import FinetuneConfig, model_size
 from ..data.geobench import NUM_CLASSES, TASK_CLASS, get_geobench_dataloaders
@@ -396,9 +398,14 @@ def run_finetune(cfg: FinetuneConfig, loaders=None, task=None, device="cuda",
     # reference does (main_finetune.py:712-758), which also checks the file
     test_model, test_from = eval_model(), "memory"
     latest = pth_io.latest_checkpoint(ckpt_dir) if ckpt_dir is not None else None
-    if latest is not None:
+    use_ema = ema is not None and cfg.model_ema_eval
+    if latest is not None and orbax_io.is_step(latest):  # a JAX run's newer Orbax step
+        tree = orbax_io.load_tree(latest)
+        params = orbax_io.port_state(tree, model, use_ema and tree.get("ema_params") is not None)
+        test_model, test_from = _with_params(model, params), f"disk (epoch {latest.name})"
+    elif latest is not None:
         saved = pth_io.load(latest)
-        params = saved["ema"] if (ema is not None and cfg.model_ema_eval) else saved["model"]
+        params = saved["ema"] if use_ema else saved["model"]
         test_model, test_from = _with_params(model, params), f"disk (epoch {saved['epoch']})"
     test_score = (evaluate(test_model, test_loader, stats_fn, metric, dev, bgr_to_rgb, group)
                   if test_loader is not None else None)

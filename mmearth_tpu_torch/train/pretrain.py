@@ -15,7 +15,9 @@ and the non-finite check every ``PRINT_FREQ`` dispatches (a dispatch's every
 step), and a non-finite loss stops the run (engine_pretrain.py:83-85).
 With an output directory the run saves ``checkpoint-<epoch>.pth`` files and
 resumes from the newest (``checkpoints/pth_io.py``; JAX
-train/pretrain.py:177-215,304-306).  With ``--log_dir`` each epoch's mean
+train/pretrain.py:177-215,304-306), or from the JAX package's Orbax
+checkpoints in the same directory where they are newer
+(``checkpoints/orbax_io.py``).  With ``--log_dir`` each epoch's mean
 loss, lr and last per-modality losses go to TensorBoard (``utils/logging.py``),
 and with ``--wandb True`` to Weights & Biases with JAX's payload keys.
 
@@ -40,7 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..checkpoints import pth_io
+from ..checkpoints import orbax_io, pth_io
 from ..configs.config import PretrainConfig, RunConfig, model_size
 from ..data.loader import PackedDataset, PackedLoader
 from ..data.mmearth import MMEarthDataset
@@ -301,24 +303,32 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
 
 
 def resume(run: RunConfig, model, opt, ckpt_dir, ema=None, loader=None, rank: int = 0) -> int:
-    """Restore ``--resume`` (a ``.pth`` or an output directory), else with
-    ``--auto_resume`` the newest checkpoint in ``ckpt_dir``; returns the
-    epoch to start from: the checkpoint's epoch + 1, or ``--start_epoch``
-    (nothing to resume, or a file that holds the model alone).  A
-    ``loader`` with a stream position takes the checkpoint's (``rank``'s
-    own where it holds one a rank)."""
+    """Restore ``--resume`` (a ``.pth``, an output directory, or one of the
+    JAX package's Orbax forms: ``pth_io.resolve``), else with
+    ``--auto_resume`` the newest checkpoint of either format in
+    ``ckpt_dir``; returns the epoch to start from: the checkpoint's epoch +
+    1, or ``--start_epoch`` (nothing to resume, or a file that holds the
+    model alone).  A ``loader`` with a stream position takes the
+    checkpoint's (``rank``'s own where it holds one a rank; from an Orbax
+    run, its grain position at the epoch's end, ``orbax_io.loader_position``)."""
     path = (pth_io.resolve(run.resume) if run.resume
             else pth_io.latest_checkpoint(ckpt_dir) if (ckpt_dir and run.auto_resume)
             else None)
     if path is None:
         return run.start_epoch
-    epoch = pth_io.restore(path, model, opt, ema)
+    orbax = orbax_io.is_step(path)
+    epoch = (orbax_io.restore if orbax else pth_io.restore)(path, model, opt, ema)
     if epoch is None:
         print(f"resumed the params from {path}; epoch {run.start_epoch} from --start_epoch")
         return run.start_epoch
     if rank == 0:
-        print(f"resumed from {path} (epoch {epoch})")
-    state = pth_io.loader_state(path, rank) if loader is not None else None
+        print(f"resumed from {path} (epoch {epoch}{', Orbax' if orbax else ''})")
+    state = None
+    if loader is not None and orbax:
+        raw = orbax_io.find_loader_state(path, epoch, rank)
+        state = None if raw is None else orbax_io.loader_position(raw, epoch, loader)
+    elif loader is not None:
+        state = pth_io.loader_state(path, rank)
     if state is not None:
         loader.set_state(state)
         if rank == 0:

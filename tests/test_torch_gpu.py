@@ -192,7 +192,9 @@ _WIDE = [(384, 70, 2), (768, 40, 2)]
 _SPILLG_CASES = ([(d, *case) for d in ("bfloat16", "float32") for case in _ATTO + _WIDE]
                  + [("bfloat16", 1536, 20, 2),
                     # groups of fewer rows than half a tile, 45 not a multiple of 16
-                    ("bfloat16", 320, 45, 3)])
+                    ("bfloat16", 320, 45, 3),
+                    # the Orbax fixture's narrow stages (tests/_torch_orbax_fixture.py)
+                    ("float32", 24, 196, 1), ("bfloat16", 24, 196, 2)])
 # past this bf16 width (huge's C = 2816) D's dLN sums are held against those
 # of its own stored dv
 _SPILLG_DLN_OWN_DV_C = 1616

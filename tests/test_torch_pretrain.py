@@ -90,9 +90,9 @@ SCRIPTS = ("torch_bench", "torch_convergence_gate", "torch_gather_bench", "torch
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (the HDF5, ArrayRecord, native
     gather and logging modules, the tools and ``parallel/`` among them),
-    chip_smoke.py and
-    the port's bench, gate and profiling scripts loads no jax, flax, optax,
-    grain, mmearth_tpu or __graft_entry__ module, nor the optional h5py,
+    the Orbax reader, chip_smoke.py and the port's bench, gate and profiling
+    scripts loads no jax, flax, optax, grain, orbax, tensorstore, mmearth_tpu
+    or __graft_entry__ module, nor the optional h5py,
     array_record, tensorboardX, matplotlib or wandb (the card lacks the
     first three; the port imports each where a path needs it); the sources
     name none of the first."""
@@ -102,7 +102,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
            "mmearth_tpu_torch.hubconf", "mmearth_tpu_torch.eval.visualize",
            "mmearth_tpu_torch.data.subsample", "mmearth_tpu_torch.utils.flops",
            "mmearth_tpu_torch.utils.profiling", "mmearth_tpu_torch.utils.diagnostics",
-           "mmearth_tpu_torch.parallel", "mmearth_tpu_torch.parallel.mesh")
+           "mmearth_tpu_torch.parallel", "mmearth_tpu_torch.parallel.mesh",
+           "mmearth_tpu_torch.checkpoints.orbax_io", "mmearth_tpu_torch.checkpoints.ocdbt",
+           "mmearth_tpu_torch.checkpoints.zarr", "mmearth_tpu_torch.checkpoints.zstd")
     code = (
         "import importlib, pkgutil, sys, mmearth_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(mmearth_tpu_torch.__path__, 'mmearth_tpu_torch.'):\n"
@@ -112,8 +114,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m)\n"
         f"assert all(m in sys.modules for m in {new!r})\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
-        " 'grain', 'mmearth_tpu', '__graft_entry__', 'h5py', 'array_record', 'tensorboardX',"
-        " 'matplotlib', 'wandb')]\n"
+        " 'grain', 'orbax', 'tensorstore', 'mmearth_tpu', '__graft_entry__', 'h5py',"
+        " 'array_record', 'tensorboardX', 'matplotlib', 'wandb')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
     for src in [ROOT / "chip_smoke.py", *(ROOT / "scripts" / f"{m}.py" for m in SCRIPTS),
@@ -121,8 +123,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for line in src.read_text().splitlines():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
-                assert words[1].split(".")[0] not in ("jax", "flax", "optax", "grain",
-                                                      "mmearth_tpu", "__graft_entry__"), \
+                assert words[1].split(".")[0] not in ("jax", "flax", "optax", "grain", "orbax",
+                                                      "tensorstore", "mmearth_tpu",
+                                                      "__graft_entry__"), \
                     f"{src}: {line}"
 
 
