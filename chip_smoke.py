@@ -243,7 +243,11 @@ Phases, each of which exits non-zero on failure:
    card (f32, TF32 off, ``wholeblock``) against JAX's encoder output and
    next two losses (1e-4 relative), ``main_pretrain --resume`` for an epoch
    and ``main_finetune --finetune`` for one, each with its launches, and
-   ``hub.MPMAE`` from the step.
+   ``hub.MPMAE`` from the step; then the port's Orbax writer: that run's
+   ``checkpoint-1.pth`` written as a step, read back and resumed on the
+   card, bit-equal to the ``.pth`` with the next micro-step's loss equal to
+   the ``.pth``'s resume, and the atto56 slice's ``checkpoint-2.pth``
+   written and read back at full width, each write and read timed.
 6. optional packages: ``--loader hdf5`` (h5py), ``--loader grain``
    (array_record) and ``--log_dir`` (tensorboardX) through
    ``main_pretrain.main``: refused before the first step, naming the
@@ -2369,7 +2373,137 @@ def orbax_resumed_steps(record: dict, args) -> dict:
     return out
 
 
-def phase_orbax(card: str, geobench: Path) -> dict:
+def orbax_writer():
+    """``scripts/torch_to_orbax.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_to_orbax",
+                                                  ROOT / "scripts" / "torch_to_orbax.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def orbax_write(pth: Path, out: Path) -> tuple[Path, dict]:
+    """The port's ``.pth`` at ``pth`` written as an Orbax step under
+    ``out`` (``torch_to_orbax.convert``): the step and the write's bytes,
+    seconds and rate on the card's host."""
+    shutil.rmtree(out, ignore_errors=True)
+    [rec] = orbax_writer().convert(pth, out)
+    return Path(rec["wrote"]), {
+        "bytes": rec["bytes"], "write_seconds": rec["write_seconds"],
+        "write_mb_per_s": rec["bytes"] / rec["write_seconds"] / 1e6,
+        "convert_seconds": rec["seconds"], "host": "the card's host CPU"}
+
+
+def orbax_same_state(what: str, model, opt, saved: dict) -> int:
+    """``model`` and ``opt`` hold the ``.pth``'s ``saved`` state bit for
+    bit; returns the tensors compared."""
+    import torch
+
+    held, mine = model.state_dict(), opt.state_dict()
+    pairs = [(k, held[k], v) for k, v in saved["model"].items()]
+    for key, theirs in saved["optimizer"].items():
+        if isinstance(theirs, dict):
+            pairs += [(f"{key}.{n}", mine[key][n], t) for n, t in theirs.items()]
+        elif theirs != mine[key]:
+            raise AssertionError(f"{what}: optimizer {key} {mine[key]}, the .pth holds {theirs}")
+    bad = [k for k, a, b in pairs if a.dtype != b.dtype or not torch.equal(a.cpu(), b)]
+    if bad:
+        raise AssertionError(f"{what}: {bad[:5]} differ from the .pth")
+    return len(pairs)
+
+
+def orbax_round_trip(record: dict, args, pth: Path) -> dict:
+    """(6) The ``.pth`` ``main_pretrain --resume <fixture>`` wrote, as an
+    Orbax step (the port's writer), read back by the port's reader and
+    ``pretrain.resume`` on ``cuda`` (f32, TF32 off, ``wholeblock``), and the
+    ``.pth`` itself resumed the same way: both states bit-equal to the
+    ``.pth``'s, then the next micro-step of each on the fixture's batch and
+    mask, its kernels launched at ``expected_launches``' counts and the
+    two losses equal."""
+    import numpy as np
+    import torch
+
+    from mmearth_tpu_torch.checkpoints import orbax_io, pth_io
+    from mmearth_tpu_torch.configs.config import RunConfig
+    from mmearth_tpu_torch.data.synthetic import bench_batch
+    from mmearth_tpu_torch.main_pretrain import config_from_args
+    from mmearth_tpu_torch.train import pretrain
+    from mmearth_tpu_torch.train.optim import AdamW
+    from mmearth_tpu_torch.train.schedule import warmup_cosine
+    from mmearth_tpu_torch.train.step import pretrain_step
+
+    cfg = record["config"]
+    step, out = orbax_write(pth, ROOT / "build" / "smoke_orbax_write")
+    saved = pth_io.load(pth)
+    conf = config_from_args(args)
+    dev = torch.device("cuda")
+    per_step, _ = expected_launches("gathered", "wholeblock", (args.model, args.input_size,
+                                                                args.patch_size, args.batch_size))
+    i = cfg["micro_steps_saved"]
+    n = cfg["batch_size"]
+    host = {k: v[i * n:(i + 1) * n] for k, v in bench_batch(
+        n * (i + 1), cfg["img_size"], seed=cfg["batch_seed"]).items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    mask = torch.tensor(np.array([[float(c) for c in row] for row in record["masks"][i]],
+                                 np.float32), device=dev)
+    for src in ("orbax", "pth"):
+        model = pretrain.build_model(conf, dev)
+        opt = AdamW(model.named_parameters(), warmup_cosine(*cfg["schedule"]),
+                    conf.optim.weight_decay, conf.optim.betas,
+                    update_freq=conf.optim.update_freq, clip_grad=conf.optim.clip_grad)
+        orbax_io.ReadStats.reset()
+        path = step if src == "orbax" else pth
+        if pretrain.resume(RunConfig(resume=str(path)), model, opt, None) != saved["epoch"] + 1:
+            raise AssertionError(f"orbax round trip: {path} did not resume after epoch "
+                                 f"{saved['epoch']}")
+        if src == "orbax":
+            sec = orbax_io.ReadStats.seconds
+            out.update(read_seconds=sec, read_bytes=orbax_io.ReadStats.bytes_read,
+                       read_mb_per_s=orbax_io.ReadStats.bytes_read / sec / 1e6)
+        out[f"{src}_tensors_equal"] = orbax_same_state(f"orbax round trip ({src})", model, opt,
+                                                       saved)
+        reset_launches()
+        loss = pretrain_step(model, opt, batch, int(saved["epoch"]) + 1, torch.Generator(
+            device=dev).manual_seed(0), random_crop=False, mask=mask)["loss"]
+        out[f"{src}_loss"] = float(loss)
+        check_launches(f"orbax round trip ({src})", read_launches(), per_step, 1)
+    out["loss_rel"] = abs(out["orbax_loss"] - out["pth_loss"]) / abs(out["pth_loss"])
+    # the same state and batch through the same kernels; the forward's
+    # column sums of squares (GRN) are atomicAdds across blocks, whose order
+    # may move the f32 loss by a few ulps
+    if not out["loss_rel"] <= 1e-6:
+        raise AssertionError(f"orbax round trip: the step's loss {out['orbax_loss']}, the "
+                             f".pth's {out['pth_loss']}")
+    return out
+
+
+def orbax_full_width(pth: Path) -> dict:
+    """(7) The atto56 ``wholeblock`` slice's ``checkpoint-2.pth`` (bf16 run,
+    f32 params and AdamW slots) written as an Orbax step and read back by
+    the port's reader: every tensor bit-equal to the ``.pth``'s, and the
+    write's and the read's seconds and rates on the card's host."""
+    from mmearth_tpu_torch.checkpoints import convert, orbax_io, pth_io
+
+    step, out = orbax_write(pth, ROOT / "build" / "smoke_orbax_full")
+    orbax_io.ReadStats.reset()
+    tree = orbax_io.load_tree(step)
+    sec = orbax_io.ReadStats.seconds
+    out.update(read_seconds=sec, read_bytes=orbax_io.ReadStats.bytes_read,
+               read_mb_per_s=orbax_io.ReadStats.bytes_read / sec / 1e6)
+    saved = pth_io.load(pth)
+    model, opt, _ = orbax_writer().rebuild(saved)
+    model.load_state_dict(orbax_io.port_state(tree, model))
+    params = orbax_io.numpy_tree(tree["params"])
+    opt.load_state_dict(convert.from_jax_opt_state(orbax_io.numpy_tree(tree["opt_state"]), opt,
+                                                   params, convert.params_converter(model)))
+    out["tensors_equal"] = orbax_same_state("orbax full width", model, opt, saved)
+    out["step"] = int(tree["step"])
+    return out
+
+
+def phase_orbax(card: str, geobench: Path, full_width_pth: Path) -> dict:
     """The JAX package's Orbax checkpoint on the card (the committed fixture
     ``tests/fixtures/orbax_pretrain_tiny``, written by
     ``tests/_torch_orbax_fixture.py``: a narrow FCMAE saved by JAX's
@@ -2382,7 +2516,10 @@ def phase_orbax(card: str, geobench: Path) -> dict:
     launched as the slice's counts say, then ``checkpoint-1.pth`` written.
     (4) ``main_finetune --finetune <step>`` for one epoch on the smoke
     GEO-Bench pack, row 11 launched.  (5) ``hub.MPMAE(ckpt_path=<step>)`` on
-    ``cuda`` holds the reader's encoder and gives finite logits."""
+    ``cuda`` holds the reader's encoder and gives finite logits.  (6) The
+    port's writer: (3)'s ``checkpoint-1.pth`` as an Orbax step, read back
+    and resumed (``orbax_round_trip``).  (7) The atto56 slice's
+    ``full_width_pth`` written and read back (``orbax_full_width``)."""
     import json
     import math
 
@@ -2490,6 +2627,14 @@ def phase_orbax(card: str, geobench: Path) -> dict:
         raise AssertionError(f"orbax: hub logits {tuple(logits.shape)}")
     result["hub"] = {"encoder_keys": len(enc), "logits_finite": True,
                      "seconds": time.perf_counter() - t0}
+    # (6) and (7) the writer
+    t0 = time.perf_counter()
+    result["round_trip"] = orbax_round_trip(
+        record, args, out_dir / f"checkpoint-{cfg['epoch'] + 1}.pth")
+    result["round_trip"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["full_width"] = orbax_full_width(full_width_pth)
+    result["full_width"]["seconds"] = time.perf_counter() - t0
     result["seconds"] = time.perf_counter() - t_phase
     emit(result)
     return result
@@ -3793,7 +3938,7 @@ def main() -> int:
     phase_reference_classifier()
     phase_families(card)
     phase_reference_seg()
-    phase_orbax(card, geobench)
+    phase_orbax(card, geobench, pretrain_out / "checkpoint-2.pth")
     phase_optional_packages(card)
     print(card, flush=True)
     emit({"kernels": list(rows_out.values())})

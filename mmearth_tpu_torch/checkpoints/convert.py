@@ -260,15 +260,20 @@ def _get(tree, path):
 def name_paths(params: Mapping, to_port) -> dict[str, tuple]:
     """For each key of the port's state dict, the path of the JAX leaf it is
     made from: ``to_port`` run on a tree whose every leaf holds its own
-    index (every layout change keeps a constant array constant)."""
+    index plus a quarter (every layout change keeps a constant array
+    constant, and no default the converter fills in, such as the U-Net's
+    unused LayerNorm at 1 and 0, passes for one)."""
     paths = [p for p, _ in tree_leaves(params)]
     index = {p: i for i, p in enumerate(paths)}
-    probe = _rebuild(params, lambda p, x: np.full(np.shape(x), index[p], np.float32))
+    probe = _rebuild(params, lambda p, x: np.full(np.shape(x), index[p] + 0.25, np.float32))
     out = {}
     for name, t in to_port(probe).items():
-        values = torch.unique(torch.as_tensor(t)).tolist()
-        if len(values) == 1 and 0 <= values[0] < len(paths):
-            out[name] = paths[int(values[0])]
+        t = torch.as_tensor(t).reshape(-1)
+        if not t.numel() or not bool((t == t[0]).all()):
+            continue
+        i = float(t[0]) - 0.25
+        if i == int(i) and 0 <= i < len(paths):
+            out[name] = paths[int(i)]
     return out
 
 
@@ -415,3 +420,178 @@ def from_jax_opt_state(opt_state: Mapping, optimizer, params: Mapping, to_port) 
         raise ValueError("the optax state holds no update count")
     return state
 
+
+
+# ---------------------------------------------------------------------------
+# the other way: the port's state -> the JAX package's trees
+# ---------------------------------------------------------------------------
+class Fields(dict):
+    """An optax state (a named tuple) in a tree written for JAX: its fields
+    in their declared order, where a plain dict's keys are flattened in
+    sorted order, as JAX flattens them."""
+
+
+def _np(v) -> np.ndarray:
+    """A numpy copy of ``v`` (bfloat16 as f32): a tree written later does
+    not follow the live tensors."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy().copy()
+    return np.array(v)
+
+
+def flax_converter(model: torch.nn.Module):
+    """The function that turns a state dict of ``model``'s kind (the FCMAE,
+    the classifier, the U-Net, a ResNet or the ResNet-UNet) into the JAX
+    param tree and its ``batch_stats`` (None for a model without
+    BatchNorm): the inverse of :func:`params_converter`, through the copies
+    of the JAX package's torch -> flax converters (:mod:`.to_flax`)."""
+    from ..models.convnextv2 import ConvNeXtV2
+    from ..models.fcmae import FCMAE
+    from ..models.resnet import ResNet, ResNetUnet
+    from ..models.unet import ConvNeXtV2Unet
+    from . import to_flax
+
+    def numpy_sd(sd):
+        return {k: _np(v) for k, v in sd.items()}
+
+    if isinstance(model, FCMAE):
+        depth = len(model.decoder_dict[model.out_modalities[0]])
+        return lambda sd: (to_flax.torch_fcmae_to_flax(
+            numpy_sd(sd), model.encoder.depths, model.out_modalities, depth,
+            "encoder.stem_orig.0.weight" in sd), None)
+    if isinstance(model, ConvNeXtV2Unet):
+        return lambda sd: (to_flax.torch_unet_to_flax(numpy_sd(sd), model.depths,
+                                                      "stem_orig.0.weight" in sd), None)
+    if isinstance(model, ConvNeXtV2):
+        return lambda sd: (to_flax.torch_encoder_to_flax(numpy_sd(sd), model.depths,
+                                                         "stem_orig.0.weight" in sd), None)
+    if isinstance(model, ResNetUnet):
+        enc = model.encoder
+        return lambda sd: to_flax.torch_resnet_unet_to_flax(numpy_sd(sd), enc.stage_sizes,
+                                                            enc.bottleneck)
+    if isinstance(model, ResNet):
+        return lambda sd: to_flax.torch_resnet_to_flax(numpy_sd(sd), model.stage_sizes,
+                                                       model.bottleneck)
+    raise TypeError(f"no JAX param layout is known for {type(model).__name__}")
+
+
+def jax_step(state: Mapping, update_freq: int) -> int:
+    """JAX's ``TrainState.step`` of an optimizer state: one a micro-step
+    (``apply_gradients`` runs every micro-step, ``MultiSteps`` inside)."""
+    return int(state["count"]) * max(update_freq, 1) + int(state["mini_step"])
+
+
+def to_jax_opt_state(state: Mapping, optimizer, model: torch.nn.Module,
+                     sd: Mapping | None = None):
+    """``optimizer.state_dict()`` (``state``; whole leaves, as
+    ``parallel/mesh.py::gather_state`` gives them on a grid) -> the optax
+    state of the JAX chain of the same flags, the inverse of
+    :func:`from_jax_opt_state`: :class:`Fields` for optax's named tuples,
+    lists for its tuples, None for its empty and masked nodes, ``()`` for
+    ``MultiSteps``' ``skip_state``, numpy leaves (f32 slots, int32 counts).
+
+    The chain is ``make_pretrain_optimizer``'s for the FCMAE, else
+    ``make_finetune_optimizer``'s (with its ``mask_updates``, which the JAX
+    finetune driver always builds): the clip where ``optimizer.clip_grad``
+    is set, the family's states (coupled L2 before the scaler, decoupled
+    after it, LAMB's trust ratio, NovoGrad's ``multi_transform`` of its
+    ``wd``/``nowd`` groups, RMSprop's inner chain), the schedule's count,
+    ``scale_by_pytree`` under layer decay (``optimizer.scales``) and
+    ``MultiSteps`` under ``update_freq`` > 1.  A slot the size of its param
+    takes the param's layout change (``sd``, the model's whole state dict,
+    gives the frozen params' shapes); Adafactor's factored ``v_row`` and
+    ``v_col`` take back the param dim they drop; its ``(1,)`` placeholders
+    and NovoGrad's per-param norms are carried as they are.  The params the
+    optimizer does not train (a probe's frozen ones) hold zero slots and a
+    zero accumulated gradient: JAX masks their updates whatever those hold."""
+    from ..models.fcmae import FCMAE
+    from ..train.optim import factored_dims, flax_axes
+
+    sd = dict(model.state_dict() if sd is None else sd)
+    masked = not isinstance(model, FCMAE)
+    to_flax = flax_converter(model)
+    params, stats = to_flax(sd)
+    paths = name_paths(params, params_converter(model, stats))
+    trained = set(optimizer.names)
+    owner: dict = {}  # JAX leaf path -> the port's param (a trained name first)
+    for name, _ in model.named_parameters(remove_duplicate=False):
+        if name in paths and (paths[name] not in owner or name in trained):
+            owner[paths[name]] = name
+    index = {n: i for i, n in enumerate(optimizer.names)}
+    count = np.asarray(int(state["count"]), np.int32)
+    fam = optimizer.opt
+
+    def factored(name):
+        return (optimizer.factored[index[name]] if name in index
+                else factored_dims(sd[name].shape) if fam == "adafactor" else None)
+
+    def slot(key: str):
+        """The JAX tree of slot ``key`` (or ``acc``, the accumulated
+        gradient) over every param."""
+        values = {n: _np(t) for n, t in state[key].items()}
+        shaped = to_flax({k: values[k] if k in values and values[k].shape == tuple(v.shape)
+                          else np.zeros(tuple(v.shape), np.float32) for k, v in sd.items()})[0]
+
+        def leaf(path, x):
+            name = owner.get(path)
+            if name is None:
+                raise ValueError(f"no param of the port for the JAX leaf {path}")
+            dims = factored(name) if key in ("v_row", "v_col", "v") else None
+            if fam == "novograd" and key == "nu":
+                return values[name].reshape(()) if name in values else np.zeros((), np.float32)
+            if dims is not None and key in ("v_row", "v_col"):
+                # the JAX leaf's axes are the param's flax axes but the one dropped
+                drop = dims[1] if key == "v_row" else dims[0]
+                kept = [a for a in flax_axes(len(sd[name].shape)) if a != drop]
+                if name not in values:
+                    return np.zeros([sd[name].shape[a] for a in kept], np.float32)
+                return np.ascontiguousarray(values[name].transpose(np.argsort(np.argsort(kept))))
+            if key in ("v_row", "v_col", "v") and (key == "v") == (dims is not None):
+                return values[name].copy() if name in values else np.zeros(1, np.float32)
+            return np.asarray(x, np.float32)
+
+        return _rebuild(shaped, leaf)
+
+    def group(tree, decayed: bool):
+        """NovoGrad's group: the leaves of the params it holds, None elsewhere."""
+        def keep(path, x):
+            name = owner[path]
+            wd = name in index and optimizer.decay[index[name]]
+            return x if wd == decayed else None
+        return _rebuild(tree, keep)
+
+    adam = lambda: Fields(count=count, mu=slot("mu"), nu=slot("nu"))  # noqa: E731
+    wd = Fields(inner_state=None)  # add_decayed_weights(mask=...)'s MaskedState
+    chain: list = []
+    if masked:
+        chain.append(None)  # mask_updates
+    if optimizer.clip_grad is not None:
+        chain.append(None)  # clip_by_global_norm
+    if not masked and fam != "adamw":
+        raise ValueError(f"the pretraining chain is AdamW's, not {fam}'s")
+    if fam == "adamw":
+        chain += [adam(), wd]
+    elif fam == "lamb":
+        chain += [adam(), wd, None]  # scale_by_trust_ratio
+    elif fam == "novograd":
+        mu, nu = slot("mu"), slot("nu")
+        chain.append(Fields(inner_states={
+            g: Fields(inner_state=Fields(count=count, mu=group(mu, g == "wd"),
+                                         nu=group(nu, g == "wd")))
+            for g in ("wd", "nowd")}))
+    else:
+        scaler = {"sgd": lambda: Fields(trace=slot("trace")),
+                  "momentum": lambda: Fields(trace=slot("trace")),
+                  "adadelta": lambda: Fields(e_g=slot("e_g"), e_x=slot("e_x")),
+                  "adafactor": lambda: Fields(count=count, v_row=slot("v_row"),
+                                              v_col=slot("v_col"), v=slot("v")),
+                  "rmsprop": lambda: [Fields(nu=slot("nu")), Fields(trace=slot("trace"))]}
+        chain += [wd, scaler.get(fam, adam)()]
+    chain.append(Fields(count=count))  # the schedule's ScaleByScheduleState
+    if optimizer.scales is not None:
+        chain.append(None)  # scale_by_pytree (layer decay)
+    if optimizer.update_freq <= 1:
+        return chain
+    return Fields(mini_step=np.asarray(int(state["mini_step"]), np.int32), gradient_step=count,
+                  inner_opt_state=chain, acc_grads=slot("acc"), skip_state=())

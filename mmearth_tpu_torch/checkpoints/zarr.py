@@ -1,4 +1,5 @@
-"""zarr v2 arrays read from a key-value store (:mod:`.ocdbt`).
+"""zarr v2 arrays read from a key-value store (an OCDBT store, :mod:`.ocdbt`,
+or a directory, :class:`DirectoryStore`) and written into a directory.
 
 An array ``name`` is the key ``name/.zarray`` (its JSON metadata: shape,
 chunk shape, dtype, compressor, fill value, order) and one key a chunk,
@@ -11,11 +12,16 @@ The compressors are ``zstd`` and none; any other is refused by name.  The
 dtypes are numpy's, plus ``bfloat16``, which numpy lacks: it is read as
 ``uint16`` and given to torch as ``torch.bfloat16``
 (:func:`to_torch`).
+
+:func:`write_array` writes what Orbax writes for an array under
+``use_ocdbt=False`` (one directory an array, beside ``_METADATA``), but
+uncompressed: the whole array as one chunk in C order.
 """
 from __future__ import annotations
 
 import itertools
 import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,6 +38,30 @@ def _numpy_dtype(name: str) -> np.dtype:
         return np.dtype(name)
     except TypeError as e:
         raise ValueError(f"zarr dtype {name!r} is not read here") from e
+
+
+class DirectoryStore:
+    """The key-value store of a directory: key ``a/b`` is the file
+    ``<root>/a/b`` (Orbax's per-array layout, ``use_ocdbt=False``)."""
+
+    def __init__(self, root: str | Path):
+        self.root = Path(root)
+        self.bytes_read = 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def read(self, key: bytes | str) -> bytes | None:
+        key = key.decode() if isinstance(key, bytes) else key
+        path = self.root / key
+        if not path.is_file():
+            return None
+        data = path.read_bytes()
+        self.bytes_read += len(data)
+        return data
 
 
 def read_meta(store, name: str) -> dict:
@@ -107,3 +137,36 @@ def to_torch(array: np.ndarray, dtype_name: str) -> torch.Tensor:
     if dtype_name == BFLOAT16:
         return torch.from_numpy(np.ascontiguousarray(array).view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(np.ascontiguousarray(array))
+
+
+def _write_dtype(array) -> tuple[np.ndarray, str]:
+    """``array`` (numpy, or a torch tensor: bfloat16 as its bits) as
+    little-endian numpy and its zarr dtype name (``<f4``, ``<i4``,
+    ``bfloat16``, ...)."""
+    if isinstance(array, torch.Tensor):
+        t = array.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("<u2"), BFLOAT16
+        array = t.numpy()
+    array = np.asarray(array)
+    array = array.astype(array.dtype.newbyteorder("<"), copy=False)
+    return array, array.dtype.str
+
+
+def write_array(root: str | Path, name: str, array) -> int:
+    """Write ``array`` as the zarr v2 array ``<root>/<name>``: its
+    ``.zarray`` (the fields and order Orbax writes, with ``"compressor":
+    null``) and one chunk holding the whole array in C order (``0.0...``,
+    or ``0`` for a 0-d or 1-d array).  Returns the bytes written."""
+    data, dtype_name = _write_dtype(array)
+    shape = list(data.shape)
+    meta = {"chunks": shape, "compressor": None, "dimension_separator": ".",
+            "dtype": dtype_name, "fill_value": None, "filters": None, "order": "C",
+            "shape": shape, "zarr_format": 2}
+    d = Path(root) / name
+    d.mkdir(parents=True, exist_ok=True)
+    text = json.dumps(meta, separators=(",", ":"))
+    (d / ".zarray").write_text(text)
+    raw = np.ascontiguousarray(data).tobytes()
+    (d / (".".join("0" * len(shape)) or "0")).write_bytes(raw)
+    return len(text) + len(raw)

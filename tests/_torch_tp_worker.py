@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mmearth_tpu_torch.checkpoints import pth_io
+from mmearth_tpu_torch.checkpoints import orbax_io, pth_io
 from mmearth_tpu_torch.dryrun import dryrun_multichip
 from mmearth_tpu_torch.losses.finetune import criterion_fn
 from mmearth_tpu_torch.models.convnextv2 import ConvNeXtV2
@@ -124,6 +124,25 @@ def resume(inp, grid) -> dict:
     losses = steps(model, opt, inp, grid, STEPS[1:], first=1, grads=grads)
     return {"epoch": epoch, "count": opt.count, "losses": losses, "grads": grads,
             "whole": mesh.gather_state(model, None, grid)[0]}
+
+
+def orbax(inp, grid, root: Path) -> dict:
+    """(2, 2) from the one-process run's Orbax step after its first step
+    (``orbax_io.restore`` with the grid): the whole state as restored, rank
+    0 writing it back to ``orbax22`` from the grid, then the second step's
+    loss."""
+    model = fcmae(inp, grid)
+    opt = adamw(model, inp, grid)
+    epoch = orbax_io.restore(inp["orbax1"], model, opt, mesh=grid)
+    sd, opt_sd = mesh.gather_state(model, opt, grid)
+    out = {"epoch": epoch, "count": opt.count, "mini_step": opt.mini_step,
+           "whole": {k: v.clone() for k, v in sd.items()},
+           "opt": {k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v
+                   for k, v in opt_sd.items()}}
+    if mesh.rank(grid) == 0:
+        orbax_io.save(root / "orbax22", epoch, model, opt, {}, whole=(sd, opt_sd))
+    out["losses"] = steps(model, opt, inp, grid, STEPS[1:], first=1)
+    return out
 
 
 def chained(inp, grid) -> dict:
@@ -342,6 +361,7 @@ def run(rank: int, world: int, port: int, case_dir: str) -> None:
     grid14 = mesh.create_mesh(1, 4, group)
     out = {"grid22": grid22[3:], "grid14": grid14[3:],
            "pretrain": pretrain(inp, grid22, grid14, root), "resume": resume(inp, grid22),
+           "orbax": orbax(inp, grid22, root),
            "chained": chained(inp, grid22), "classifier": classifier(inp, grid22),
            "unet": unet(inp, grid22), "adafactor": adafactor(inp, grid22, grid14, root),
            "broadcast": broadcast(inp, grid22, rank),

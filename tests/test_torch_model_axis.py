@@ -54,7 +54,8 @@ from mmearth_tpu.parallel import mesh as jmesh
 from mmearth_tpu.train import optim as joptim
 from mmearth_tpu.train.finetune import make_finetune_step
 from mmearth_tpu.train.step import TrainState
-from mmearth_tpu_torch.checkpoints import pth_io
+from mmearth_tpu_torch.checkpoints import orbax_io, pth_io
+from mmearth_tpu_torch.checkpoints.convert import tree_leaves
 from mmearth_tpu_torch.checkpoints.convert import from_jax_classifier, from_jax_fcmae
 from mmearth_tpu_torch.configs import modalities as M
 from mmearth_tpu_torch.data.synthetic import bench_batch, synthetic_batch
@@ -168,6 +169,7 @@ def _inputs(rng, root):
                 seg_x=rng.normal(size=(N, 32, 32, 12)).astype(np.float32),
                 seg_y=rng.integers(0, 4, size=(N, 32, 32)).astype(np.int64),
                 pth1=str(root / "one" / "checkpoint-0.pth"),
+                orbax1=str(root / "one" / "checkpoints" / "0"),
                 leaf_sd=_port_leaves(flax_leaves), leaf_grads=[_port_leaves(g) for g in flax_grads],
                 leaf_lr=LEAF_LR, ada_kw=ADA_KW, ada_sd=ada.state_dict(),
                 ada_x2=leaf_rng.normal(size=(N, 32, 32, 12)).astype(np.float32),
@@ -197,6 +199,7 @@ def _one_process(inp, root) -> dict:
                                           mask=torch.from_numpy(inp[m]))["loss"]))
         grads.append(_grads(model))
         pth_io.save_checkpoint(root / "one", i, model, opt, {}, keep=0)
+        orbax_io.save(root / "one", i, model, opt, {}, keep=0)
     out = {"losses": losses, "grads": grads,
            "sd": {k: v.clone() for k, v in model.state_dict().items()}}
     model = tfc.FCMAE(**KW, block_impl="wholeblock")
@@ -635,6 +638,34 @@ def test_checkpoint_at_2x2_is_the_one_process_file_and_resumes_it(runs):
         close(res["losses"][0], one["losses"][1], "loss", PORT_RTOL)
         _close_updated(res["whole"], one["sd"], one["grads"][:1] + res["grads"], one["grads"],
                        "resumed param")
+
+
+def test_orbax_step_restores_onto_2x2_and_rank_0_writes_it_back(runs):
+    """The one-process run's Orbax step after its first step
+    (``orbax_io.save``) restored onto the (2, 2) grid (``orbax_io.restore``
+    with the grid): every rank's whole state, model and optimizer, is the
+    one-process state bit for bit, and its next step's loss is the one the
+    ``.pth`` resume gives; what rank 0 writes back from the grid
+    (``gather_state``, ``save(whole=...)``) is the one-process write leaf
+    for leaf, bit for bit."""
+    inp, refs, one, ranks, root = runs
+    flat = pth_io.load(inp["pth1"])
+    for r in ranks:
+        got = r["orbax"]
+        assert (got["epoch"], got["count"], got["mini_step"]) == (0, 1, 0)
+        assert got["whole"].keys() == flat["model"].keys()
+        assert all(torch.equal(got["whole"][k], v) for k, v in flat["model"].items())
+        for slot in ("mu", "nu"):
+            assert all(torch.equal(got["opt"][slot][k], v)
+                       for k, v in flat["optimizer"][slot].items())
+        assert got["losses"] == r["resume"]["losses"]
+    mine = dict(tree_leaves(orbax_io.load_tree(root / "orbax22" / "checkpoints" / "0")))
+    theirs = dict(tree_leaves(orbax_io.load_tree(inp["orbax1"])))
+    assert mine.keys() == theirs.keys()
+    for k, v in theirs.items():
+        assert (v is None and mine[k] is None) or (
+            np.asarray(v).dtype == np.asarray(mine[k]).dtype
+            and np.asarray(v).tobytes() == np.asarray(mine[k]).tobytes()), k
 
 
 def test_replicated_leaves_agree_and_broadcast_keeps_each_shard(runs):

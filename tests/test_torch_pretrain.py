@@ -84,13 +84,13 @@ def test_cuda_without_a_card_raises(data, monkeypatch):
 
 
 SCRIPTS = ("torch_bench", "torch_convergence_gate", "torch_gather_bench", "torch_profile_step",
-           "torch_dist_ab")
+           "torch_dist_ab", "torch_to_orbax")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (the HDF5, ArrayRecord, native
     gather and logging modules, the tools and ``parallel/`` among them),
-    the Orbax reader, chip_smoke.py and the port's bench, gate and profiling
+    the Orbax reader and writer, chip_smoke.py and the port's bench, gate, profiling and Orbax
     scripts loads no jax, flax, optax, grain, orbax, tensorstore, mmearth_tpu
     or __graft_entry__ module, nor the optional h5py,
     array_record, tensorboardX, matplotlib or wandb (the card lacks the
@@ -104,7 +104,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
            "mmearth_tpu_torch.utils.profiling", "mmearth_tpu_torch.utils.diagnostics",
            "mmearth_tpu_torch.parallel", "mmearth_tpu_torch.parallel.mesh",
            "mmearth_tpu_torch.checkpoints.orbax_io", "mmearth_tpu_torch.checkpoints.ocdbt",
-           "mmearth_tpu_torch.checkpoints.zarr", "mmearth_tpu_torch.checkpoints.zstd")
+           "mmearth_tpu_torch.checkpoints.zarr", "mmearth_tpu_torch.checkpoints.zstd",
+           "mmearth_tpu_torch.checkpoints.to_flax")
     code = (
         "import importlib, pkgutil, sys, mmearth_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(mmearth_tpu_torch.__path__, 'mmearth_tpu_torch.'):\n"
