@@ -10,6 +10,7 @@ applied offline by the packer, :mod:`.pack`).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -19,6 +20,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from ..utils import profiling
 from . import native
 
 
@@ -204,11 +206,23 @@ class PackedLoader:
         if self.dataset.readahead:
             self.dataset.prefetch(np.sort(rows))
 
+    def _gathered(self, epoch: int, batch: int, rows: np.ndarray) -> dict:
+        """Batch ``batch`` of ``epoch`` gathered, in a ``loader.gather``
+        span, counted in ``loader.batches`` and ``loader.bytes``."""
+        with profiling.span("loader.gather", epoch=epoch, batch=batch, rows=len(rows)) as sp:
+            out = self._gather_batch(rows)
+            nbytes = sum(v.nbytes for v in out.values())
+            sp.note(bytes=nbytes)
+        profiling.count("loader.batches")
+        profiling.count("loader.bytes", nbytes)
+        return out
+
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         batches = self._epoch_batches()
+        epoch = self.epoch
         if self.prefetch <= 0:
-            for rows in batches:
-                yield self._gather_batch(rows)
+            for bi, rows in enumerate(batches):
+                yield self._gathered(epoch, bi, rows)
             return
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -231,7 +245,7 @@ class PackedLoader:
                         return
                     if bi + 1 < len(batches):
                         self._prefetch_hint(batches[bi + 1])
-                    if not put(self._gather_batch(rows)):
+                    if not put(self._gathered(epoch, bi, rows)):
                         return
                 put(None)
             except BaseException as e:  # propagate IO/decode errors instead
@@ -240,8 +254,12 @@ class PackedLoader:
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
+            for bi in itertools.count():
+                # the first wait holds the worker's start; the last, for the
+                # end of the epoch, has batch == len(batches)
+                with profiling.span("loader.wait" if bi else "loader.first_wait",
+                                    epoch=epoch, batch=bi):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):

@@ -19,7 +19,11 @@ train/pretrain.py:177-215,304-306), or from the JAX package's Orbax
 checkpoints in the same directory where they are newer
 (``checkpoints/orbax_io.py``).  With ``--log_dir`` each epoch's mean
 loss, lr and last per-modality losses go to TensorBoard (``utils/logging.py``),
-and with ``--wandb True`` to Weights & Biases with JAX's payload keys.
+and with ``--wandb True`` to Weights & Biases with JAX's payload keys;
+``--log_dir`` also turns on the recorder of ``utils/profiling.py``: each
+epoch's line and TensorBoard get the loader's wait and gather, the
+dispatch's host work and replay launch in ms a step, and the graphs
+captured, and the run's spans go to ``<log_dir>/spans.json``.
 
 Under ``torchrun`` (``parallel/mesh.py::init_distributed``) each of the W
 ranks trains on its GPU (``cuda:LOCAL_RANK``) from its shard of every split
@@ -49,6 +53,7 @@ from ..data.mmearth import MMEarthDataset
 from ..data.pack import pack_mmearth
 from ..models.fcmae import FCMAE
 from ..parallel import mesh
+from ..utils import profiling
 from ..utils.logging import MetricLogger, TensorboardWriter, maybe_wandb
 from .optim import AdamW
 from .schedule import warmup_cosine
@@ -88,18 +93,28 @@ def build_model(cfg: PretrainConfig, device="cuda", process_group=None) -> FCMAE
     return mesh.set_process_group(model.to(dev), process_group)
 
 
+def _groups(it, k: int):
+    """Batches in groups for chained dispatch: lists of k, then the tail of
+    fewer than k one batch a list (JAX ``pretrain.py:32-43``)."""
+    it = iter(it)
+    while group := list(itertools.islice(it, k)):
+        if len(group) == k:
+            yield group
+        else:
+            yield from ([b] for b in group)
+
+
+def _stack(group: list) -> dict:
+    """Batches stacked into one dict (leading axis ``len(group)``): numpy
+    batches with numpy, tensors with torch (on their device)."""
+    return {key: (torch.stack if isinstance(group[0][key], torch.Tensor) else np.stack)(
+        [b[key] for b in group]) for key in group[0]}
+
+
 def _chunked_batches(it, k: int):
     """Group k batches into one stacked dict (leading axis k) for chained
-    dispatch; tail batches are yielded unstacked (JAX ``pretrain.py:32-43``).
-    numpy batches stack with numpy, tensors with torch (on their device)."""
-    buf = []
-    for b in it:
-        buf.append(b)
-        if len(buf) == k:
-            yield {key: (torch.stack if isinstance(buf[0][key], torch.Tensor) else np.stack)(
-                [bb[key] for bb in buf]) for key in buf[0]}
-            buf = []
-    yield from buf
+    dispatch; tail batches are yielded unstacked (JAX ``pretrain.py:32-43``)."""
+    return (_stack(g) if len(g) == k else g[0] for g in _groups(it, k))
 
 
 class SampleCount:
@@ -162,11 +177,18 @@ def get_dataloader(cfg: PretrainConfig, split: str = "train", pin_memory: bool =
 class Dispatcher:
     """Pretraining steps on device batches, ``k`` a dispatch: each group of k
     through one ``ChainedStep`` (made on the first group, so its graphs live
-    across epochs), fewer than k (an epoch's tail) as single steps."""
+    across epochs), fewer than k (an epoch's tail) as single steps.
+
+    Each dispatch is a ``dispatch.input`` span (``utils/profiling.py``:
+    pulling its batches) and then a ``dispatch`` span holding
+    ``dispatch.stack`` (stacking them into the ``ChainedStep``'s slots),
+    both closed before it yields.  Each dispatch turns the recorder on or
+    off: on where a profiler runs on this thread, or always with ``spans``."""
 
     def __init__(self, model: FCMAE, opt: AdamW, k: int, gen: torch.Generator,
-                 random_crop: bool = True):
+                 random_crop: bool = True, spans: bool = False):
         self.model, self.opt, self.k, self.gen, self.random_crop = model, opt, k, gen, random_crop
+        self.spans = spans
         self.chained: ChainedStep | None = None
         self.last_metrics: dict[str, torch.Tensor] = {}
 
@@ -174,21 +196,34 @@ class Dispatcher:
         """Yields each dispatch's step losses (n,); ``step`` is the first
         step's index for ``fold_in``.  ``last_metrics`` holds the last step's
         on-device metrics (``loss_<modality>`` among them)."""
-        for b in batches if self.k == 1 else _chunked_batches(batches, self.k):
-            if b["sentinel2"].ndim == 5:
-                if self.chained is None:
-                    self.chained = ChainedStep(self.model, self.opt,
-                                               {key: torch.empty_like(v) for key, v in b.items()},
-                                               self.random_crop)
-                self.chained.load(b)
-                self.last_metrics, losses = self.chained(step, self.gen, loss_sum)
-            else:
-                self.last_metrics = pretrain_step(self.model, self.opt, b, step, self.gen,
-                                                  random_crop=self.random_crop,
-                                                  loss_sum=loss_sum)
-                losses = self.last_metrics["loss"].float().reshape(1)
+        groups = _groups(batches, self.k)
+        while True:
+            profiling.set_recording(self.spans or torch.autograd._profiler_enabled())
+            with profiling.span("dispatch.input", step=step):
+                group = next(groups, None)
+            if group is None:
+                return
+            with profiling.span("dispatch", step=step):
+                if len(group) > 1:
+                    losses = self._chained(group, step, loss_sum)
+                else:  # k = 1, or the tail of fewer than k: one step a dispatch
+                    self.last_metrics = pretrain_step(self.model, self.opt, group[0], step,
+                                                      self.gen, random_crop=self.random_crop,
+                                                      loss_sum=loss_sum)
+                    losses = self.last_metrics["loss"].float().reshape(1)
             step += len(losses)
             yield losses
+
+    def _chained(self, group: list, step: int, loss_sum) -> torch.Tensor:
+        with profiling.span("dispatch.stack", step=step):
+            b = _stack(group)
+            if self.chained is None:
+                self.chained = ChainedStep(self.model, self.opt,
+                                           {key: torch.empty_like(v) for key, v in b.items()},
+                                           self.random_crop)
+            self.chained.load(b)
+        self.last_metrics, losses = self.chained(step, self.gen, loss_sum)
+        return losses
 
 
 def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
@@ -234,13 +269,16 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
                          rank=mesh.rank(group))
     mesh.broadcast_state(model, opt, group)
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
-    dispatcher = Dispatcher(model, opt, k, gen, cfg.data.random_crop)
+    # --log_dir: the recorder's spans for each epoch's line and <log_dir>/spans.json
+    spans, t_run = tb is not None, time.time_ns()
+    dispatcher = Dispatcher(model, opt, k, gen, cfg.data.random_crop, spans=spans)
     wandb = (maybe_wandb(cfg.run.wandb, cfg.run.wandb_project, cfg.run.wandb_run_name,
                          vars(cfg.run)) if main else None)  # JAX pretrain.py:231
     history = []
     step = start_epoch * len(loader)  # fold_in(gen, step) continues the run's draws
     for epoch in range(start_epoch, cfg.run.epochs):
         t0 = time.time()
+        totals, counts = profiling.RECORDER.totals(), profiling.RECORDER.counters()
         logger = MetricLogger(PRINT_FREQ, header=f"Epoch: [{epoch}]", verbose=main)
         niter = len(loader)
         if grain_stream:
@@ -270,16 +308,23 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
                         # a chained dispatch yields k >= 2 losses, a single step one
                         "chained_steps": sum(len(d) for d in step_losses if len(d) > 1),
                         "seconds": seconds, "step_losses": losses})
+        timing = {}
+        if spans:  # ms a step by span; the epoch's counts (graphs captured, batches, bytes)
+            timing = profiling.per_step_ms(
+                profiling.since(profiling.RECORDER.totals(), totals), len(losses))
+            timing.update(sorted(profiling.since(
+                {"graph.captures": 0, **profiling.RECORDER.counters()}, counts).items()))
         if main:
             print(f"epoch {epoch} done  avg loss {mean:.4f}  ~"
                   f"{len(losses) * cfg.data.batch_size * world / max(seconds, 1e-9):.0f} "
-                  "samples/s")
+                  "samples/s" + "".join(f"  {key} {v:.4g}" for key, v in timing.items()))
         # the exact epoch mean, the meters' lr, the last step's losses
         stats = {**logger.averages(), "loss": mean}
         last = dispatcher.last_metrics
         loss_dict = {key[5:]: float(v) for key, v in last.items() if key.startswith("loss_")}
         if tb is not None:
-            tb.log({**stats, **{f"loss_{key}": v for key, v in loss_dict.items()}}, epoch + 1)
+            tb.log({**stats, **timing, **{f"loss_{key}": v for key, v in loss_dict.items()}},
+                   epoch + 1)
             tb.flush()
         if wandb is not None:  # JAX pretrain.py:298-303
             payload = {**{f"train_{key}": v for key, v in stats.items()}, "epoch": epoch}
@@ -298,6 +343,9 @@ def run_pretrain(cfg: PretrainConfig, device="cuda", args: dict | None = None):
             mesh.barrier(group)
     if tb is not None:
         tb.close()
+    if spans:
+        profiling.set_recording(False)
+        profiling.RECORDER.write(Path(cfg.run.log_dir) / "spans.json", since_ns=t_run)
     mesh.close(d)
     return model, history, opt
 

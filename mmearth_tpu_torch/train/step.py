@@ -23,7 +23,9 @@ a card its capture needs collectives a CUDA graph can record (NCCL).
 """
 from __future__ import annotations
 
-import time
+import collections
+import itertools
+import sys
 from typing import Iterable, Iterator, Mapping, NamedTuple, Optional
 
 import torch
@@ -31,6 +33,7 @@ import torch
 from .. import ops
 from ..models import fcmae as fcmae_lib
 from ..parallel.mesh import shard_rows, world_size
+from ..utils import profiling
 from .optim import AdamW, global_norm, write_host_values
 
 
@@ -183,7 +186,11 @@ class ChainedStep:
 
     The wrappers' launch counters count what a capture records and not its
     replays: ``recorded`` holds each graph's launches by kernel, and
-    ``replayed`` sums them over the replays."""
+    ``replayed`` sums them over the replays.  A call's host work before the
+    replay is the span ``dispatch.prepare``, the replay ``dispatch.replay``,
+    each capture ``graph.capture`` (``utils/profiling.py``)."""
+
+    _serials = itertools.count()  # tells apart the captures of two objects
 
     def __init__(self, model: fcmae_lib.FCMAE, opt: AdamW, inputs: Mapping[str, torch.Tensor],
                  random_crop: bool = True):
@@ -201,8 +208,18 @@ class ChainedStep:
         self.graphs: dict[tuple, tuple] = {}  # pattern -> (graph, static metrics)
         self.recorded: dict[tuple, dict[str, int]] = {}
         self.replayed = dict.fromkeys(ops.launch_counts(), 0)
-        self.capture_seconds: dict[tuple, dict[str, float]] = {}
+        self.serial = next(self._serials)
         self.steps = {"eager": 0, "recorded": 0, "replayed": 0}
+
+    @property
+    def capture_seconds(self) -> dict[tuple, dict[str, float]]:
+        """Each graph's ``warmup``, ``record`` and ``instantiate`` seconds by
+        its pattern, read from the recorder's ``graph.capture`` spans."""
+        parts = collections.defaultdict(dict)
+        for s in profiling.RECORDER.spans():
+            if s.name.startswith("graph.capture.") and s.ids.get("chain") == self.serial:
+                parts[s.ids["graph"]][s.name.rsplit(".", 1)[1]] = (s.end_ns - s.start_ns) / 1e9
+        return {pattern: parts[i] for i, pattern in enumerate(self.graphs) if i in parts}
 
     def report(self) -> dict:
         """The first graph's warm-up, record and instantiate seconds, the
@@ -218,25 +235,27 @@ class ChainedStep:
 
     def __call__(self, step: int, gen: torch.Generator,
                  loss_sum: Optional[torch.Tensor] = None):
-        plan = self.opt.plan(self.k)
-        pattern = tuple((mini, applies) for mini, applies, _ in plan)
-        write_host_values(self.hyper, [hyper for _, _, hyper in plan])
-        images = self.inputs["sentinel2"][0]
-        for i in range(self.k):
-            d = draw(self.model, images, step + i, gen, self.crop)
-            if self.crop:
-                self.tops[i].copy_(d.tops)
-                self.lefts[i].copy_(d.lefts)
-            self.noise[i].copy_(d.noise)
-        if loss_sum is None:
-            self.loss_sum.zero_()
-        else:
-            self.loss_sum.copy_(loss_sum)
+        with profiling.span("dispatch.prepare", step=step):
+            plan = self.opt.plan(self.k)
+            pattern = tuple((mini, applies) for mini, applies, _ in plan)
+            write_host_values(self.hyper, [hyper for _, _, hyper in plan])
+            images = self.inputs["sentinel2"][0]
+            for i in range(self.k):
+                d = draw(self.model, images, step + i, gen, self.crop)
+                if self.crop:
+                    self.tops[i].copy_(d.tops)
+                    self.lefts[i].copy_(d.lefts)
+                self.noise[i].copy_(d.noise)
+            if loss_sum is None:
+                self.loss_sum.zero_()
+            else:
+                self.loss_sum.copy_(loss_sum)
         if self.device.type == "cuda":
             if pattern not in self.graphs:
                 self._capture(pattern)
             graph, metrics = self.graphs[pattern]
-            graph.replay()
+            with profiling.span("dispatch.replay", step=step):
+                graph.replay()
             self.steps["replayed"] += self.k
             for key, n in self.recorded[pattern].items():
                 self.replayed[key] += n
@@ -266,10 +285,36 @@ class ChainedStep:
         """Warm up (the chain's steps on a side stream: plan caches, the
         kernels' shared-memory attributes, cuBLAS workspaces, the autograd
         threads), restore the params, AdamW's state and the loss sum, then
-        capture the chain into a graph with its own memory pool."""
+        capture the chain into a graph with its own memory pool.  Spans
+        ``graph.capture`` and its parts ``.warmup``, ``.record`` and
+        ``.instantiate``, recorded whether the recorder is on or not."""
+        ids = {"chain": self.serial, "graph": len(self.graphs)}
+        with profiling.span("graph.capture", setup=True, **ids):
+            profiling.RECORDER.count("graph.captures")  # on or off, as the spans
+            with profiling.span("graph.capture.warmup", setup=True, **ids):
+                self._warm_up(pattern)
+            graph = torch.cuda.CUDAGraph()
+            before = ops.launch_counts()
+            # thread_local: the loader's worker may pin host memory meanwhile
+            capture = torch.cuda.graph(graph, capture_error_mode="thread_local")
+            with profiling.span("graph.capture.record", setup=True, **ids):
+                capture.__enter__()
+                try:
+                    metrics = self._steps(pattern, "recorded")
+                except BaseException:
+                    capture.__exit__(*sys.exc_info())
+                    raise
+            with profiling.span("graph.capture.instantiate", setup=True, **ids):
+                capture.__exit__(None, None, None)  # ends the capture, instantiates
+            after = ops.launch_counts()
+            self.recorded[pattern] = {key: after[key] - before[key] for key in after}
+            self.graphs[pattern] = graph, metrics
+
+    def _warm_up(self, pattern: tuple) -> None:
+        """The chain's steps on a side stream, then the params, AdamW's state
+        and the loss sum as they were."""
         opt = self.opt
         state = [*opt.state_tensors(), self.loss_sum]
-        t0 = time.perf_counter()
         with torch.no_grad():
             saved = [t.clone() for t in state]
         current = torch.cuda.current_stream(self.device)
@@ -284,15 +329,3 @@ class ChainedStep:
         opt.zero_grad()
         del saved
         torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        before = ops.launch_counts()
-        # thread_local: the loader's worker may pin host memory meanwhile
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            metrics = self._steps(pattern, "recorded")
-            t2 = time.perf_counter()
-        after = ops.launch_counts()
-        self.recorded[pattern] = {key: after[key] - before[key] for key in after}
-        self.graphs[pattern] = graph, metrics
-        self.capture_seconds[pattern] = {"warmup": t1 - t0, "record": t2 - t1,
-                                         "instantiate": time.perf_counter() - t2}

@@ -11,14 +11,49 @@
 - :func:`time_steps` is the port's one step timer: best of ``rounds`` rounds
   of ``k`` steps, each round closed by one sync (a pretraining round is one
   ``ChainedStep`` dispatch: on a card one replay of a k-step graph).
+- :func:`span` and :func:`count` record the port's own spans and counters
+  into :data:`RECORDER` (:class:`Recorder`), on the profiler's clock
+  (``time.time_ns()``), from any thread: the loader's worker as well as the
+  training thread, whose spans a ``torch.profiler`` trace also shows as
+  ``record_function`` ranges.  :func:`per_step_ms` reduces the spans'
+  totals by name (:meth:`Recorder.totals`, exact however many spans the
+  buffer dropped) to the epoch line's numbers; :meth:`Recorder.write` writes
+  the spans as a Chrome trace to load beside the profiler's.
+
+The spans, where they open, and what reads them:
+
+- ``loader.gather`` (ids ``epoch``, ``batch``, ``rows``, ``bytes``): the
+  loader's worker gathering (and pinning) a batch (``data/loader.py``);
+  counters ``loader.batches`` and ``loader.bytes`` beside it.
+- ``loader.first_wait``, ``loader.wait`` (``epoch``, ``batch``): the
+  training thread waiting for an epoch's first batch (the worker's start
+  and a gather with nothing ahead) and for each later one.
+- ``dispatch.input`` (``step``: the dispatch's first step): pulling a
+  dispatch's batches (the loader's waits), just before its ``dispatch``
+  (``step``), which holds ``dispatch.stack`` (stacking and ``ChainedStep.load``),
+  ``dispatch.prepare`` (the draws and the optimizer's host values) and
+  ``dispatch.replay`` (``graph.replay()``) (``train/pretrain.py::
+  Dispatcher``, ``train/step.py::ChainedStep``).
+- ``graph.capture`` and its children ``graph.capture.warmup``, ``.record``
+  and ``.instantiate`` (ids ``chain``, ``graph``), counter
+  ``graph.captures``: ``ChainedStep``'s capture of each graph, recorded
+  whether the recorder is on or not (``ChainedStep.capture_seconds``).
+
+The recorder is on while :func:`set_recording` says so: ``Dispatcher.run``
+sets it at each dispatch, on where a profiler runs on its thread or where
+it was made with ``spans=True`` (``run_pretrain`` with ``--log_dir``).
+Off, a span costs one read of a module flag.
 """
 from __future__ import annotations
 
 import collections
 import json
+import os
+import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -151,3 +186,176 @@ def time_steps(dispatch, device: str | torch.device, k: int = 30, rounds: int = 
         if r > 0:  # round 0 is the warm-up
             out.append(1e3 * (time.perf_counter() - t0) / k)
     return min(out), out
+
+
+# -- the port's own spans and counters -----------------------------------------
+
+SPAN_CAP = 1 << 16  # spans kept; older ones are dropped and counted
+
+
+class Span(NamedTuple):
+    """One closed span; times are ``time.time_ns()``."""
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int
+    ids: dict
+
+
+class _NoSpan:
+    """What :func:`span` returns while the recorder is off."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def note(self, **ids) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _OpenSpan:
+    """A span being recorded: closed by its ``with`` block, on the thread
+    that opened it."""
+
+    __slots__ = ("rec", "name", "ids", "setup", "start", "fn")
+
+    def __init__(self, rec: "Recorder", name: str, ids: dict, setup: bool):
+        self.rec, self.name, self.ids, self.setup, self.fn = rec, name, ids, setup, None
+
+    def __enter__(self):
+        self.start = time.time_ns()
+        if torch.autograd._profiler_enabled():  # this thread's profiler, if any
+            self.fn = torch.profiler.record_function(self.name)
+            self.fn.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.fn is not None:
+            self.fn.__exit__(*exc)
+        self.rec.add(Span(self.name, threading.get_native_id(), self.start, time.time_ns(),
+                          self.ids), self.setup)
+        return False
+
+    def note(self, **ids) -> None:
+        """Add ids known only inside the span."""
+        self.ids.update(ids)
+
+
+class Recorder:
+    """Closed spans, the last :data:`SPAN_CAP` of them (``dropped`` counts
+    the older ones let go), set-up spans (``setup``: a graph's capture,
+    once a pattern) kept whole beside them, each name's total nanoseconds
+    over every span (none dropped), and counters.  Safe to use from several
+    threads."""
+
+    def __init__(self, cap: int = SPAN_CAP):
+        self._lock = threading.Lock()
+        self._spans: collections.deque[Span] = collections.deque(maxlen=cap)
+        self._setup: list[Span] = []
+        self._ns: collections.Counter = collections.Counter()
+        self._counts: collections.Counter = collections.Counter()
+        self.dropped = 0
+
+    def add(self, s: Span, setup: bool = False) -> None:
+        with self._lock:
+            self._ns[s.name] += s.end_ns - s.start_ns
+            if setup:
+                self._setup.append(s)
+                return
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped += 1
+            self._spans.append(s)
+
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[name] += n
+
+    def spans(self, since_ns: int = 0) -> list[Span]:
+        """The spans kept that started at ``since_ns`` or later, by start."""
+        with self._lock:
+            out = [s for s in (*self._setup, *self._spans) if s.start_ns >= since_ns]
+        return sorted(out, key=lambda s: s.start_ns)
+
+    def totals(self) -> dict[str, int]:
+        """Nanoseconds by span name, summed over every span recorded."""
+        with self._lock:
+            return dict(self._ns)
+
+    def counters(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def write(self, path: str | Path, since_ns: int = 0) -> Path:
+        """The spans since ``since_ns`` as a Chrome trace (``ph: "X"``, µs
+        since the Unix epoch, the clock of a ``torch.profiler`` trace's
+        ``ts`` plus its ``baseTimeNanoseconds``), with the counters and the
+        dropped count under ``otherData``."""
+        pid = os.getpid()
+        events = [{"name": s.name, "ph": "X", "cat": "span", "pid": pid, "tid": s.thread,
+                   "ts": s.start_ns / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3, "args": s.ids}
+                  for s in self.spans(since_ns)]
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({
+            "traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": {"counters": self.counters(), "dropped": self.dropped}}))
+        return path
+
+
+RECORDER = Recorder()
+_recording = False  # span() and count() record; the one read they make while off
+
+
+def set_recording(on: bool) -> None:
+    global _recording
+    _recording = bool(on)
+
+
+def span(name: str, setup: bool = False, **ids):
+    """A context manager that records ``name`` with ``ids`` into
+    :data:`RECORDER` while the recorder is on (``setup``: whether or not),
+    and opens a ``record_function`` range of the same name where a profiler
+    runs on this thread.  Never keep one open across a ``yield``."""
+    if not (_recording or setup):
+        return _NO_SPAN
+    return _OpenSpan(RECORDER, name, ids, setup)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while the recorder is on."""
+    if _recording:
+        RECORDER.count(name, n)
+
+
+def since(now: dict[str, int], before: dict[str, int]) -> dict[str, int]:
+    """What :meth:`Recorder.totals` or :meth:`Recorder.counters` added
+    between the reading ``before`` and the reading ``now``."""
+    return {name: v - before.get(name, 0) for name, v in now.items()}
+
+
+def per_step_ms(totals: dict[str, int], steps: int) -> dict[str, float]:
+    """Milliseconds a step over ``steps`` steps of span ``totals`` (ns by
+    name: :meth:`Recorder.totals`, or a run's or an epoch's part of them by
+    :func:`since`): ``loader_wait_ms`` (``loader.first_wait`` and
+    ``loader.wait``), ``gather_ms`` (``loader.gather``: the worker's busy
+    time), ``dispatch_host_ms`` (``dispatch`` less its replay and any
+    capture: stacking, the draws and host values, launching eager steps)
+    and ``replay_launch_ms`` (``dispatch.replay``), each where its spans
+    occurred."""
+    ms = {name: ns / 1e6 / max(steps, 1) for name, ns in totals.items()}
+    out = {}
+    if "loader.wait" in ms or "loader.first_wait" in ms:
+        out["loader_wait_ms"] = ms.get("loader.wait", 0.0) + ms.get("loader.first_wait", 0.0)
+    if "loader.gather" in ms:
+        out["gather_ms"] = ms["loader.gather"]
+    if "dispatch" in ms:
+        out["dispatch_host_ms"] = ms["dispatch"] - ms.get("dispatch.replay", 0.0) - ms.get(
+            "graph.capture", 0.0)
+    if "dispatch.replay" in ms:
+        out["replay_launch_ms"] = ms["dispatch.replay"]
+    return out

@@ -3,6 +3,7 @@ against the JAX package's: the meters' averages and the print cadence, the
 TensorBoard tags and epoch x 1000 steps of a ``--log_dir`` run of both
 drivers (JAX's ``train/<key>``), and ``--log_dir`` refused, naming
 tensorboardX, where it is missing."""
+import json
 import struct
 
 import numpy as np
@@ -92,6 +93,15 @@ def test_main_pretrain_log_dir_writes_jaxs_tags(tmp_path):
     assert {"train/loss", "train/lr", "train/loss_sentinel2", "train/loss_biome"} <= tags
     losses = [v for tag, _, v in events if tag == "train/loss"]
     np.testing.assert_allclose(losses, [e["loss"] for e in history], rtol=1e-6)
+    # the recorder's timings a step (no graph on the CPU: nothing replayed or captured)
+    assert {"train/loader_wait_ms", "train/gather_ms", "train/dispatch_host_ms",
+            "train/graph.captures"} <= tags and "train/replay_launch_ms" not in tags
+    spans = json.loads((tmp_path / "tb" / "spans.json").read_text())
+    names = [e["name"] for e in spans["traceEvents"]]
+    assert names.count("dispatch") == sum(e["steps"] for e in history)  # k = 1
+    assert spans["otherData"]["counters"]["loader.batches"] == names.count("loader.gather")
+    batches = [v for tag, _, v in events if tag == "train/loader.batches"]
+    assert sum(batches) == names.count("loader.gather") == sum(e["steps"] for e in history)
 
 
 def test_main_finetune_log_dir_writes_the_log_stats(tmp_path):
