@@ -84,7 +84,12 @@ Phases, each of which exits non-zero on failure:
    (``aten.convolution_backward``), its bound takes the bf16 rate for bf16
    inputs, and each shape also gives the whole conv's cost per call, port
    against PyTorch's autograd conv, on the card and on the host, and the
-   kernel's launch plan.
+   kernel's launch plan.  The stem pair (``stem_rows_fwd``,
+   ``stem_rows_bwd``) against its plain version at both benchmark
+   configurations' stems, batch 512 (atto56: s = 1, C = 40; tiny112: s = 2,
+   C = 96; the row's ``tiny112``), with the tolerances of ``stem_shape``;
+   its yardstick is the composed stem on the dense grid and the gather,
+   which the gathered path ran before the pair.
 3. slices: 1,170 samples of synthetic 64-px mmpack data; the native row
    gather (``data/native``, built with g++ into ``build/native``) gathers
    its shuffled epoch (batches of 256) into pinned memory byte-identical to
@@ -95,9 +100,10 @@ Phases, each of which exits non-zero on failure:
    ``--block_impl dwg`` and with ``wholeblock``, and ``--sparse_impl
    masked_dense`` with ``--block_impl auto`` (composed tail) and with
    ``fused``.  Every step's loss must be finite and the launch counters, set
-   to 0 before each run, must rise by exactly 2/2/12/12 (gather/scatter/
-   dwconv fwd/bwd) per step on the gathered slices and 0 on the masked-dense
-   ones, 12 of each spill-g launch a step under wholeblock (C's separate
+   to 0 before each run, must rise by exactly 1/1/12/12 (gather/scatter/
+   dwconv fwd/bwd) and 1/1 (the stem pair) per step on the gathered slices
+   (2/2/12/12 and no stem pair where the stem is composed: the original stem,
+   the tanh GELU) and 0 on the masked-dense ones, 12 of each spill-g launch a step under wholeblock (C's separate
    dW2 pass none: every atto width folds it) and none elsewhere, 12 of each
    masked-dense launch a step under masked_dense
    fused (the kept-row list included) and none elsewhere, and the dense
@@ -1244,6 +1250,136 @@ def phase_dwconv_kernel() -> dict:
     return {"dw_weight_grad": row}
 
 
+# the stem kernel pair's shapes: the benchmark's configurations at its batch
+# (name, batch, image side, patch side, stem width)
+STEM_SHAPES = (("atto56", 512, 56, 8, 40), ("tiny112", 512, 112, 16, 96))
+
+
+def stem_composed(y, kept, inv, s, leaves):
+    """The composed stem after the initial conv on the dense grid, then the
+    gather: ``ConvNeXtV2._stem``'s LN -> mask -> GELU -> depthwise conv ->
+    LN -> mask and ``gather_patches``, as the gathered encoder ran it before
+    the kernel pair (the pair's yardstick; the port no longer calls it on
+    this path)."""
+    import torch.nn.functional as F
+
+    from mmearth_tpu_torch.models.convnextv2 import upsample_mask
+    from mmearth_tpu_torch.ops.patch_select import gather_patches
+    from mmearth_tpu_torch.ops.stem import _layer_norm
+
+    n, h, _, c = y.shape
+    dt = y.dtype
+    keep = 1.0 - (inv == kept.shape[1]).float()
+    u = _layer_norm(y, leaves[0], leaves[1], 1e-6, dt) * upsample_mask(keep, GRID, h).to(dt)
+    z = F.conv2d(F.gelu(u).permute(0, 3, 1, 2), leaves[2].to(dt), leaves[3].to(dt), s,
+                 groups=c).permute(0, 2, 3, 1)
+    z = _layer_norm(z, leaves[4], leaves[5], 1e-6, dt) * upsample_mask(keep, GRID, h // s).to(dt)
+    return gather_patches(z.contiguous(), kept, inv, h // s // GRID, GRID)
+
+
+def stem_shape(gen, n, img, patch, c) -> tuple[dict, dict]:
+    """The kernel pair at one configuration's stem, bf16 with TF32 off: the
+    rows within one bf16 ulp plus 1e-4 of their scale of the plain
+    version's but for at most 1e-5 of them, and all within 2^-6 of their
+    scale (where an LN1 output or the conv output, rounded to bf16 from f32
+    statistics summed in another order, lands on the other side of a
+    rounding boundary, z moves by one ulp and LN2 carries that to the row as
+    |LN2 weight| ulp(z) / std(z), many ulps of a row near 0), d(y) within 2^-6 of its scale and exactly 0 at removed
+    patches, each leaf's f32 sum within 2^-7 of each value plus 2^-6 of the
+    leaf's scale (the plain version rounds the taps' gradients to bf16 as
+    autograd does); each direction timed beside the plain version and the
+    composed stem and gather (forward; autograd backward), its bound the
+    bytes it must move once."""
+    import torch
+
+    from mmearth_tpu_torch.models.convnextv2 import visible_ids
+    from mmearth_tpu_torch.models.fcmae import gen_random_mask
+    from mmearth_tpu_torch.ops import stem as st
+
+    dev, bf, s = gen.device, torch.bfloat16, patch // 8
+    kept, inv = visible_ids(gen_random_mask(n, GRID * GRID, 0.6, gen, dev), K)
+    y = (torch.randn(n, img, img, c, generator=gen, device=dev)
+         + torch.randn(c, generator=gen, device=dev)).to(bf)
+    leaves = [1 + 0.5 * torch.randn(c, generator=gen, device=dev),
+              0.5 * torch.randn(c, generator=gen, device=dev),
+              torch.randn(c, 1, s, s, generator=gen, device=dev),
+              0.5 * torch.randn(c, generator=gen, device=dev),
+              1 + 0.5 * torch.randn(c, generator=gen, device=dev),
+              0.5 * torch.randn(c, generator=gen, device=dev)]
+    prm = st.param_rows(*leaves, bf)
+    q = img // GRID // s
+    dr = torch.randn(n, K, q, q, c, generator=gen, device=dev).to(bf)
+    rows = st._fwd_cuda(y, kept, prm, GRID, s, 1e-6, 1e-6)
+    dy, g = st._bwd_cuda(y, dr, kept, inv, prm, GRID, s, 1e-6, 1e-6)
+    torch.cuda.synchronize()
+    yp = y.detach().requires_grad_()
+    lp = [t.detach().requires_grad_() for t in leaves]
+    ref = st.stem_rows_plain(yp, kept, GRID, s, *lp)
+    ref.backward(dr, retain_graph=True)
+    over = int(((rows.float() - ref.float()).abs() > ulp_bound(ref)).sum())
+    if over > 1e-5 * ref.numel():
+        raise AssertionError(f"stem_rows {img}/{patch} rows: {over} of {ref.numel()} past one ulp")
+    err_rows = check_close(f"stem_rows {img}/{patch} rows", rows, ref,
+                           2 ** -6 * float(ref.float().abs().max()))
+    err_dy = check_close(f"stem_rows {img}/{patch} dy", dy, yp.grad,
+                         2 ** -6 * float(yp.grad.float().abs().max()))
+    removed = (inv == K).reshape(n, GRID, 1, GRID, 1).expand(n, GRID, img // GRID, GRID,
+                                                             img // GRID)
+    if bool(dy.reshape(n, GRID, img // GRID, GRID, img // GRID, c)[removed].any()):
+        raise AssertionError(f"stem_rows {img}/{patch}: d(y) not 0 at removed patches")
+    err_leaf = 0.0
+    for name, got, want in zip(("ln1_w", "ln1_b", "tap_w", "tap_b", "ln2_w", "ln2_b"),
+                               st.leaf_grads(g, s), (t.grad for t in lp)):
+        err = check_close(f"stem_rows {img}/{patch} {name}", got, want,
+                          2 ** -7 * want.abs() + 2 ** -6 * float(want.abs().max()))
+        err_leaf = max(err_leaf, err / float(want.abs().max()))
+    lib = stem_composed(yp, kept, inv, s, lp)
+    ids = kept.numel() * 4
+    in_vis, out_rows = n * K * (q * s) ** 2 * c * 2, n * K * q * q * c * 2
+    plan = {"fwd_blocks": st._config(y, K, GRID, s, False)[1],
+            "bwd_blocks": st._config(y, K, GRID, s, True)[1]}
+    fwd = launch_summary(
+        [n, img, img, c], err_rows, lambda: st._fwd_cuda(y, kept, prm, GRID, s, 1e-6, 1e-6),
+        lambda: st.stem_rows_plain(y, kept, GRID, s, *leaves),
+        lambda: stem_composed(y, kept, inv, s, leaves), in_vis + out_rows + ids, 0)
+    part = (plan["bwd_blocks"] + -(-plan["bwd_blocks"] // st.BLOCK_GROUP)) * prm.numel() * 4
+    bwd = launch_summary(
+        [n, img, img, c], err_dy,
+        lambda: st._bwd_cuda(y, dr, kept, inv, prm, GRID, s, 1e-6, 1e-6),
+        lambda: ref.backward(dr, retain_graph=True), lambda: lib.backward(dr, retain_graph=True),
+        in_vis + out_rows + n * img * img * c * 2 + inv.numel() * 4 + 2 * part, 0)
+    group, pairs = st.lane_plan(c, s * s)
+    fwd["plan"] = bwd["plan"] = {**plan, "lanes_a_site": group, "pairs_a_lane": pairs,
+                                 "taps": s * s}
+    bwd["leaf_err_over_scale"] = err_leaf
+    del y, yp, dy, ref, lib
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_stem_kernel() -> dict:
+    """The stem kernel pair (``stem_rows_fwd``, ``stem_rows_bwd``) at both
+    benchmark configurations' stems, batch 512 (``stem_shape``); the rows'
+    numbers are atto56's, ``tiny112`` gives tiny112's."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(4)
+    rows = {key: {"name": key, "route": "cuda", "source": "mmearth_tpu_torch/csrc/stem.cu",
+                  "replaces": "none (the composed stem and gather_patches)", "launches": 0,
+                  "library": "the composed stem after the initial conv, then gather_patches"}
+            for key in ("stem_rows_fwd", "stem_rows_bwd")}
+    for name, n, img, patch, c in STEM_SHAPES:
+        for key, summary in zip(rows, stem_shape(gen, n, img, patch, c)):
+            emit({"kernel_shape": {"kernel": key, "path": name, "per_step": 1, **summary}})
+            if name == "atto56":
+                rows[key].update(summary)
+            else:
+                rows[key][name] = summary
+    return rows
+
+
 def phase_data(name: str = "smoke_data", n: int = 1170, tile: int = 64) -> Path:
     """Synthetic packed data for the slices, written anew on every run: 1,170
     64-px samples (1,024 train + 146 val) for the atto slices, 292 128-px
@@ -1322,6 +1458,7 @@ def phase_native_gather(card: str, data: Path) -> dict:
 
 GATHERED_KERNELS = ("gather_patches", "scatter_patches", "dwconv7_gathered_fwd",
                     "dwconv7_gathered_bwd")
+STEM_KERNELS = ("stem_rows_fwd", "stem_rows_bwd")
 SLICES = (("gathered", "dwg"), ("gathered", "wholeblock"), ("masked_dense", "auto"),
           ("masked_dense", "fused"))
 # the encoder options' atto slices: the leaky encoder, the tanh GELU on both
@@ -1347,16 +1484,24 @@ def expected_launches(sparse_impl: str, block_impl: str, config: tuple, sparse: 
     encoder blocks too.  The kernel tails compute
     the erf GELU, so under ``gelu_approx`` no tail kernel runs; ``remat``
     and ``folded`` compose their tails around the gathered dwconv.  The
-    original stem changes no count (its output is gathered as the stem's)."""
+    gathered stem is the stem pair, one launch each a step, in place of the
+    stem's gather and its VJP's scatter, except where the stem composes:
+    the original stem (its output gathered as the stem's) and the tanh GELU."""
     import torch
 
     from mmearth_tpu_torch.configs.config import model_size
     from mmearth_tpu_torch.ops import fused_block as fb
+    from mmearth_tpu_torch.ops.stem import supported as stem_supported
 
     gathered = sparse and sparse_impl == "gathered"
     depths, dims = model_size(config[0])
     blocks = sum(depths)
-    per_step = dict(zip(GATHERED_KERNELS, (2, 2, blocks, blocks) if gathered else (0, 0, 0, 0)))
+    stem = (gathered and not gelu_approx and not use_orig_stem
+            and stem_supported(dims[0], config[2] // 8))
+    patches = 2 - stem  # the stem's gather and its VJP's scatter go into the stem pair
+    per_step = dict(zip(GATHERED_KERNELS,
+                        (patches, patches, blocks, blocks) if gathered else (0, 0, 0, 0)))
+    per_step.update(dict.fromkeys(STEM_KERNELS, int(stem)))
     spillg = gathered and block_impl == "wholeblock" and not gelu_approx
     masked = sparse and not gathered and block_impl == "fused" and not gelu_approx
     per_step.update(dict.fromkeys(fb.SPILLG_LAUNCHES, blocks if spillg else 0))
@@ -1366,7 +1511,7 @@ def expected_launches(sparse_impl: str, block_impl: str, config: tuple, sparse: 
                                        "spillg_bwd_c", 64)[0].fold)
     per_step.update(dict.fromkeys(fb.MASKED_LAUNCHES, blocks if masked else 0))
     per_step["dw_weight_grad"] = 1 if gathered else 1 + blocks
-    own = {"dwg": GATHERED_KERNELS, "wholeblock": tuple(key for key, _, _ in SPILLG),
+    own = {"dwg": GATHERED_KERNELS + STEM_KERNELS, "wholeblock": tuple(key for key, _, _ in SPILLG),
            "fused": fb.MASKED_LAUNCHES}.get(block_impl, ())
     return per_step, own
 
@@ -1375,9 +1520,10 @@ def launch_counters() -> tuple:
     from mmearth_tpu_torch.ops import dwconv
     from mmearth_tpu_torch.ops import fused_block as fb
     from mmearth_tpu_torch.ops import patch_select as ps
+    from mmearth_tpu_torch.ops import stem
     from mmearth_tpu_torch.ops import wholeblock as wb
 
-    return ps.LAUNCHES, wb.LAUNCHES, fb.LAUNCHES, dwconv.LAUNCHES
+    return ps.LAUNCHES, wb.LAUNCHES, fb.LAUNCHES, dwconv.LAUNCHES, stem.LAUNCHES
 
 
 def reset_launches() -> None:
@@ -1522,6 +1668,8 @@ KERNEL_SYMBOLS = (
     (r"\bdw7_fwd_kernel<", ("dwconv7_gathered_fwd",)),
     (r"\bdw7_bwd_kernel<", ("dwconv7_gathered_bwd",)),
     (r"\bdw7_wgrad_kernel<", ("dw_weight_grad",)),
+    (r"\bstem_rows_fwd_kernel<", ("stem_rows_fwd",)),
+    (r"\bstem_rows_bwd_kernel<", ("stem_rows_bwd",)),
     (r"\bfwd_stat_kernel<.*SpillRows", ("spillg_fwd_a",)),
     (r"\bspillg_fwd_b_kernel<", ("spillg_fwd_b",)),
     (r"\bspillg_bwd_c_kernel<", ("spillg_bwd_c",)),
@@ -2855,11 +3003,10 @@ def phase_reference_classifier() -> None:
 
 
 # the forward's launches a pretraining step makes (the rest run in the
-# backward): half the patch gathers and scatters (the stem's gather and the
-# final scatter; their transposes run in the backward), every forward launch
-FORWARD_HALVES = ("gather_patches", "scatter_patches")
+# backward): the final scatter and, where the stem is composed, its gather
+# (their transposes run in the backward), every forward launch
 FORWARD_KERNELS = ("dwconv7_gathered_fwd", "spillg_fwd_a", "spillg_fwd_b", "masked_rows",
-                   "masked_fwd_stat", "masked_fwd_apply")
+                   "masked_fwd_stat", "masked_fwd_apply", "stem_rows_fwd")
 TOOLS_FT_STEPS = 4
 
 
@@ -2867,7 +3014,8 @@ def forward_launches(block_impl: str) -> dict:
     """The forward share of ``expected_launches``: the launches of one
     forward pass of the gathered atto56 FCMAE."""
     per_step, _ = expected_launches("gathered", block_impl, ATTO56)
-    return {key: (n // 2 if key in FORWARD_HALVES else n if key in FORWARD_KERNELS else 0)
+    patches = {"gather_patches": per_step["gather_patches"] - 1, "scatter_patches": 1}
+    return {key: patches.get(key, n if key in FORWARD_KERNELS else 0)
             for key, n in per_step.items()}
 
 
@@ -3417,7 +3565,8 @@ def ma_rows(block_impl: str) -> tuple:
     from mmearth_tpu_torch.ops import fused_block as fb
 
     if block_impl == "wholeblock":
-        return GATHERED_KERNELS + tuple(k for k in fb.SPILLG_LAUNCHES if k != SPILLG_WIDE_DW2)
+        return GATHERED_KERNELS + STEM_KERNELS + tuple(k for k in fb.SPILLG_LAUNCHES
+                                                       if k != SPILLG_WIDE_DW2)
     return fb.MASKED_LAUNCHES + ("dw_weight_grad",)
 
 
@@ -3882,6 +4031,7 @@ def main() -> int:
     rows_out.update(phase_spillg_kernels())
     rows_out.update(phase_masked_kernels())
     rows_out.update(phase_dwconv_kernel())
+    rows_out.update(phase_stem_kernel())
     data = phase_data()
     phase_native_gather(card, data)
     # wiped first: auto-resume would otherwise continue a previous run's checkpoints

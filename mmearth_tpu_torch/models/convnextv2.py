@@ -23,7 +23,11 @@ ways (``sparse_impl``), which compute the same function:
   ``stem_gathered`` the stem's site-local part runs on the gathered rows
   too (JAX :751-766): the initial conv's output is gathered (the original
   stem, patch-local, gathers the raw input) and the rest of the stem runs
-  on the rows.
+  on the rows.  Whichever of the two, the 3x3-conv stem with the erf GELU
+  (not ``use_orig_stem``, not ``gelu_approx``) runs its site-local part as
+  :func:`stem_rows` on the visible patches of the initial conv's output:
+  the same rows, with the stem and the gather after it one kernel pair on a
+  card.
 * ``masked_dense``: every op on the full grid, re-masked with the upsampled
   keep mask after the stem, each downsample and each block's tail (JAX
   ``_stages``, :679-696); the MaskedGRN statistic is over the kept sites.
@@ -70,6 +74,8 @@ from ..ops.dwconv import dwconv7x7
 from ..ops.fused_block import fused_block_mlp, fused_block_mlp_spillg
 from ..parallel.mesh import all_reduce_sum, column_linear, gather_shards, shard_rows, world_size
 from ..ops.patch_select import gather_patches, scatter_patches
+from ..ops.stem import stem_rows
+from ..ops.stem import supported as stem_rows_supported
 from ..ops.wholeblock import dwconv7_gathered
 from .norm import GRN, LayerNorm, MaskedGRN, _safe_l2
 
@@ -459,6 +465,24 @@ class ConvNeXtV2(nn.Module):
         y = norm(conv_nhwc(xg.reshape(n * k, p_in, p_in, xg.shape[-1]), conv, self.dtype))
         return y.reshape(n, k, p_in // s, p_in // s, y.shape[-1])
 
+    @property
+    def stem_kernel(self) -> bool:
+        """Whether the gathered encoder's stem goes through
+        :func:`stem_rows` (:meth:`_stem_kernel_rows`): the 3x3-conv stem with
+        the erf GELU, at a width and stride the kernels take."""
+        return (not self.use_orig_stem and not self.gelu_approx
+                and stem_rows_supported(self.dims[0], self.stem_stride))
+
+    def _stem_kernel_rows(self, x, kept_ids, inv_ids, grid: int):
+        """The initial conv on the dense grid, then LN -> GELU -> depthwise
+        stem -> LN on its visible patches as :func:`stem_rows`: the rows of
+        :meth:`_stem_rows` and of :meth:`_stem` gathered."""
+        conv, norm1 = self.initial_conv
+        taps, norm2 = self.stem
+        y = conv_nhwc(x, conv, self.dtype).contiguous()
+        return stem_rows(y, kept_ids, inv_ids, grid, self.stem_stride, norm1.weight, norm1.bias,
+                         taps.weight, taps.bias, norm2.weight, norm2.bias, norm1.eps, norm2.eps)
+
     def _downsample(self, xg, i: int):
         """LN then the 2x2 stride-2 conv on (N, K, p, p, C) rows, as a Linear
         over each 2x2 window."""
@@ -506,7 +530,9 @@ class ConvNeXtV2(nn.Module):
             return self._stages(self._stem(x, keep_pixel, keeps[0]), keeps)
         kept_ids, inv_ids = visible_ids(mask, num_visible)
         ctx = (kept_ids, inv_ids, grid)
-        if self.stem_gathered:
+        if self.stem_kernel:
+            xg = self._stem_kernel_rows(x, kept_ids, inv_ids, grid)
+        elif self.stem_gathered:
             xg = self._stem_rows(x, kept_ids, inv_ids, grid)
         else:
             y = self._stem(x, keep_pixel, upsample_mask(keep_flat, grid, h)).contiguous()

@@ -4,8 +4,8 @@
 
 def launch_counts() -> dict[str, int]:
     """Every wrapper's launch count, by key."""
-    from . import dwconv, fused_block, patch_select, wholeblock
+    from . import dwconv, fused_block, patch_select, stem, wholeblock
 
     return {key: n for counts in (patch_select.LAUNCHES, wholeblock.LAUNCHES,
-                                  fused_block.LAUNCHES, dwconv.LAUNCHES)
+                                  fused_block.LAUNCHES, dwconv.LAUNCHES, stem.LAUNCHES)
             for key, n in counts.items()}

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("patch_select", "wholeblock", "fused_block", "dwconv")
+SOURCES = ("patch_select", "wholeblock", "fused_block", "dwconv", "stem")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -61,6 +61,7 @@ TRACE_FILE = "trace.json"
 
 # kernel-name fragments (a tuple: all of them) -> group, first match wins
 GROUPS = (
+    ("stem_rows", "stem rows fwd/bwd (port kernel)"),
     ("dw7_wgrad", "dense dwconv dW (port kernel)"),
     (("fwd_stat_kernel", "SpillRows"), "spill-g fwd A (port kernel)"),  # row 7
     ("spillg_fwd_a", "spill-g fwd A (port kernel)"),  # row 7's earlier kernel
